@@ -1,0 +1,27 @@
+"""The best-match join kernel (replaces ``stjoin_pallas``,
+``repro/kernels/stjoin/stjoin.py``).
+
+Numerics of K1, which the CUDA kernel, its plain version (``ref.py``) and
+the Pallas kernel share:
+
+* **The cylinder test squares the radius.**  A pair matches when
+  ``d2 <= eps_sp * eps_sp`` (both sides rounded to float32) and
+  ``|dt| <= eps_t``; the square root is taken only for the weight
+  ``w = 1 - sqrt(d2) / eps_sp``.  The plain join of ``core.geometry``
+  tests ``sqrt(d2) <= eps_sp`` instead: the two can disagree on a point
+  that lies on the boundary to within an ulp, so each port matches its
+  own counterpart and neither is swapped for the other.
+* **The first index wins a tie.**  Candidate points are walked in index
+  order with a strict ``>`` on the running maximum, which is argmax's
+  first-index rule.  Non-matching pairs weigh -1, so a boundary match
+  whose weight rounds to 0 (or just below) still yields ``best_w = 0``
+  and ``best_idx = -1``, as in the reference.  A redesign that compares
+  ``d2`` and takes one square root per (p, c) must still take the
+  argmax over the *rounded* ``w``: two different ``d2`` can round to the
+  same ``w``, and the first index must win that tie.
+* **No FMA contraction.**  ``d2 = dx*dx + dy*dy`` is rounded after each
+  product and after the sum (``__fmul_rn`` / ``__fadd_rn`` and
+  ``-fmad=false``), square root and division are IEEE-rounded
+  (``__fsqrt_rn`` / ``__fdiv_rn``, no ``--use_fast_math``), so the kernel
+  matches the plain PyTorch version bit for bit on the card.
+"""
