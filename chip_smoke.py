@@ -8,19 +8,28 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
 
 1. Build the CUDA kernels with nvcc for sm_90a; print the card and the
    build time.
-2. End-to-end parity at T = 512: the kernel plan twice (bitwise equal
-   outputs: no non-deterministic scatter) and the plain plan (equal
-   labels).
-3. The main path: ``run_dsc`` on the repo's per-device configuration
-   ``dsc_brest`` (4096 AIS-like vessels x 128 points, 8 lanes, TSA2,
-   w = 20) with the kernel plan.  Launch counts are zeroed just before and
-   read just after; every kernel of the path must have run.  Prints stage
-   times (CUDA events), clustering rounds, peak device memory and the
-   cluster / member / outlier counts.
-4. Each kernel against its plain PyTorch version on the card, on the
-   main path's full-size inputs: integer / boolean outputs equal, float
-   outputs bitwise equal.  Times the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call.
+2. End-to-end parity at T = 512, materialize mode: the kernel plan twice
+   (bitwise equal outputs: no non-deterministic scatter) and the plain
+   plan (equal labels).
+3. The same at T = 512 in fused mode: the fused kernel plan twice
+   (bitwise), the fused plan with plain segmentation and clustering
+   (equal labels), the materialize kernel plan (equal labels, the max
+   difference of ``sim`` printed); once more with ``delta_t > 0``.
+4. The two main paths: ``run_dsc`` on the repo's per-device
+   configuration ``dsc_brest`` (4096 AIS-like vessels x 128 points, 8
+   lanes, w = 20, TSA2) with the kernel plan, first in materialize mode,
+   then in fused mode.  Launch counts are zeroed just before each run and
+   read just after; each run must launch exactly its path's kernels.
+   Prints stage times (CUDA events), clustering rounds, peak device memory
+   and the cluster / member / outlier counts; the fused labels must equal
+   the materialize labels.
+5. Each kernel against its plain PyTorch version on the card, on its main
+   path's full-size inputs: integer / boolean outputs equal, float outputs
+   bitwise equal.  Times the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call.
+6. The fused path at ``dsc_sis`` (8192 vessels x 128 points, S = 65,536;
+   the same generator and parameters): launch counts, sanity checks,
+   stage times and peak memory.
 
 Prints one JSON ``kernels`` line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any mismatch or
@@ -50,9 +59,18 @@ F32_OPS_PER_S = 67e12 / 2
 K1_OPS_PER_PAIR = 8
 REPLACES = {
     "stjoin_best_match": "src/repro/kernels/stjoin/stjoin.py:893",
+    "stjoin_vote_fused": "src/repro/kernels/stjoin/stjoin.py:583",
     "jaccard_window": "src/repro/kernels/jaccard/jaccard.py:72",
+    "stjoin_sim_fused": "src/repro/kernels/stjoin/stjoin.py:711",
     "round_scan": "src/repro/kernels/cluster/cluster.py:99",
     "claim_max": "src/repro/kernels/cluster/cluster.py:120",
+}
+# the kernels each main path launches, and no other
+PATH_KERNELS = {
+    "materialize": {"stjoin_best_match", "jaccard_window", "round_scan",
+                    "claim_max"},
+    "fused": {"stjoin_vote_fused", "jaccard_window", "stjoin_sim_fused",
+              "round_scan", "claim_max"},
 }
 
 
@@ -114,27 +132,32 @@ def k1_window_pairs(batch, eps_t: float) -> int:
     return int((every - own)[batch.valid].sum())
 
 
-def brest_batch(n_vessels: int, dev):
+def brest_batch(n_vessels: int, dev, delta_t: float = 0.0):
     """The launcher's ``dsc_brest`` data and parameters
     (``repro.launch.run_dsc``: eps_sp = 0.15 * diameter, eps_t = mean
     sampling interval, delta_t = 0, w = 20, tau = 0.4, -1 sigma
-    thresholds, 8 subtrajectories per trajectory, TSA2)."""
+    thresholds, 8 subtrajectories per trajectory) with TSA2.  The
+    launcher's own default for dsc_brest is TSA1 (the registry's
+    ``segmentation="tsa1"``); TSA2 is chosen here so that the Jaccard
+    kernel runs: the launcher equivalent is ``--config dsc_brest
+    --n-trajs 4096 --segmentation tsa2``.  ``dsc_sis`` has the same
+    generator and parameters at 8192 vessels."""
     from repro_torch.core.types import DSCParams
     from repro_torch.data.synthetic import ais_like, default_dsc_params_for
     batch, _ = ais_like(n_vessels=n_vessels, max_points=128, n_lanes=8,
                         seed=0, device=dev)
     diam, mean_dt = default_dsc_params_for(batch)
-    params = DSCParams(eps_sp=0.15 * diam, eps_t=mean_dt, delta_t=0.0,
+    params = DSCParams(eps_sp=0.15 * diam, eps_t=mean_dt, delta_t=delta_t,
                        w=20, tau=0.4, alpha_sigma=-1.0, k_sigma=-1.0,
                        max_subtrajs_per_traj=8, segmentation="tsa2")
     return batch, params
 
 
-def kernel_plan():
+def kernel_plan(mode: str = "materialize"):
     from repro_torch.core.plan import EnginePlan
-    return EnginePlan(mode="materialize", use_kernel=True,
-                      seg_use_kernel=True, cluster_use_kernel=True,
-                      sim_mode="dense", cluster_engine="rounds")
+    return EnginePlan(mode=mode, use_kernel=True, seg_use_kernel=True,
+                      cluster_use_kernel=True, sim_mode="dense",
+                      cluster_engine="rounds")
 
 
 def check_output(out, batch, params):
@@ -194,48 +217,112 @@ def phase_parity(dev):
         f"{int(k1.result.is_outlier.sum())} outliers, rounds {k1.rounds}")
 
 
-def phase_main(dev, report):
-    """The main path at full size; launch counts read around it."""
+def phase_parity_fused(dev):
+    """T = 512, fused mode, with delta_t = 0 and > 0: the fused kernel plan
+    twice (bitwise), the fused plan with plain segmentation and clustering
+    (equal labels; K2 and K4 run on the card in any fused plan), and the
+    materialize kernel plan (equal labels, the sim difference printed)."""
+    from repro_torch.core.dsc import run_dsc
+    from repro_torch.core.plan import EnginePlan
+    batch, params = brest_batch(512, dev)
+    for k in (0.0, 3.0):
+        p = params.replace(delta_t=k * params.eps_t)
+        f1 = run_dsc(batch, p, plan=kernel_plan("fused"), device=dev)
+        f2 = run_dsc(batch, p, plan=kernel_plan("fused"), device=dev)
+        diffs = same_output(f1, f2)
+        check(not diffs, f"fused kernel plan not deterministic: {diffs}")
+        others = {"fused plain": run_dsc(batch, p, device=dev,
+                                         plan=EnginePlan(mode="fused")),
+                  "materialize kernel": run_dsc(batch, p, device=dev,
+                                                plan=kernel_plan())}
+        for name, o in others.items():
+            for f in ("member_of", "is_rep", "is_outlier"):
+                check(torch.equal(getattr(f1.result, f),
+                                  getattr(o.result, f)),
+                      f"T=512 delta_t={p.delta_t:.6g}: fused kernel vs "
+                      f"{name} plan: {f} differs")
+        check_output(f1, batch, p)
+        sim_diff = float((f1.sim - others["materialize kernel"].sim)
+                         .abs().max())
+        log(f"phase parity fused (T=512, delta_t={p.delta_t:.6g}): "
+            f"deterministic; labels equal to the fused plain and the "
+            f"materialize kernel plans; max |sim fused - sim materialize| "
+            f"= {sim_diff}; {int(f1.result.is_rep.sum())} clusters, "
+            f"{int(f1.result.is_outlier.sum())} outliers, "
+            f"rounds {f1.rounds}")
+
+
+def phase_main(dev, report, mode: str, n_vessels: int = 4096,
+               name: str = "dsc_brest"):
+    """One main path at full size; launch counts read around it.  Peak
+    memory is the run's own: the peak allocation above what was
+    allocated just before it."""
     from repro_torch import kernels
     from repro_torch.core.dsc import run_dsc
-    batch, params = brest_batch(4096, dev)
+    batch, params = brest_batch(n_vessels, dev)
     T, M = batch.x.shape
-    log(f"main path: dsc_brest T={T} M={M} S={T * 8} "
+    log(f"main path ({mode}): {name} T={T} M={M} "
+        f"S={T * params.max_subtrajs_per_traj} "
         f"eps_sp={params.eps_sp:.6g} eps_t={params.eps_t:.6g}")
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     times = {}
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = run_dsc(batch, params, plan=kernel_plan(), device=dev,
+    out = run_dsc(batch, params, plan=kernel_plan(mode), device=dev,
                   stage_times=times)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    peak = torch.cuda.max_memory_allocated() - base
+    ran = {k for k, n in launches.items() if n > 0}
+    check(ran == PATH_KERNELS[mode],
+          f"{mode} path launched {sorted(ran)}, expected "
+          f"{sorted(PATH_KERNELS[mode])}")
     check(launches["round_scan"] == out.rounds,
           "round_scan launches != clustering rounds")
+    once = PATH_KERNELS[mode] - {"round_scan"}
+    check(all(launches[k] == 1 for k in once),
+          f"{mode} path: a kernel other than round_scan ran more than once")
     check_output(out, batch, params)
     r = out.result
     members = int((~r.is_rep & (r.member_of >= 0)).sum())
     log("stage ms (CUDA events): " + ", ".join(
         f"{k}={v:.3f}" for k, v in times.items()))
-    log(f"main path wall s={wall:.3f} rounds={out.rounds} "
+    log(f"main path ({mode}, {name}) wall s={wall:.3f} rounds={out.rounds} "
         f"peak_alloc_GB={peak / 1e9:.3f} clusters={int(r.is_rep.sum())} "
         f"members={members} outliers={int(r.is_outlier.sum())} "
         f"alpha={float(r.alpha_used):.6g} k={float(r.k_used):.6g}")
     log(f"launches: {launches}")
-    report.update(stage_ms=times, wall_s=wall, rounds=out.rounds,
-                  peak_alloc_bytes=peak, clusters=int(r.is_rep.sum()),
-                  members=members, outliers=int(r.is_outlier.sum()),
-                  launches=launches)
+    report[f"{name}_{mode}"] = dict(
+        stage_ms=times, wall_s=wall, rounds=out.rounds,
+        peak_alloc_bytes=peak, clusters=int(r.is_rep.sum()),
+        members=members, outliers=int(r.is_outlier.sum()),
+        launches=launches)
     return batch, params, out, launches
 
 
-def phase_kernels(batch, params, out, launches):
-    """Each kernel against its plain version on the main path's inputs."""
+def kernel_row(rows, name, launches, err, ms, plain, bound, lib=None):
+    b, by = bound
+    rows.append({"name": name, "route": "cuda", "source": CSRC,
+                 "replaces": REPLACES[name], "launches": launches[name],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b, "bound_by": by, "library_ms": lib})
+    log(f"  {name}: err={err} ms={ms:.4f} plain_ms={plain:.4f} "
+        f"bound_ms={b:.4f} ({by}) library_ms={lib}")
+
+
+def join_input_bytes(P: int, C: int, Mc: int) -> int:
+    """Reference x, y, t, id (f32 / i32) and ok (bool) per point;
+    candidate x, y, t, ok per point and one id per trajectory."""
+    return P * (4 * 4 + 1) + C * Mc * (3 * 4 + 1) + C * 4
+
+
+def phase_kernels(batch, params, out, launches, rows):
+    """K1, K3, K5 and K6 against their plain versions on the materialize
+    path's inputs.  Returns K1's plain output and time for the fused
+    kernels' plain versions."""
     from repro_torch.core import voting
     from repro_torch.core.clustering import visit_order
     from repro_torch.core.segmentation import tsa2_signal
@@ -246,19 +333,9 @@ def phase_kernels(batch, params, out, launches):
     from repro_torch.kernels.jaccard.ops import window_jaccard
     from repro_torch.kernels.stjoin.ops import stjoin_best_match
     from repro_torch.kernels.stjoin.ref import stjoin_ref
-    rows = []
     T, M = batch.x.shape
     C, Mc = T, M
     P = T * M
-
-    def row(name, err, ms, plain, bound, lib=None):
-        b, by = bound
-        rows.append({"name": name, "route": "cuda", "source": CSRC,
-                     "replaces": REPLACES[name], "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib})
-        log(f"  {name}: err={err} ms={ms:.4f} plain_ms={plain:.4f} "
-            f"bound_ms={b:.4f} ({by}) library_ms={lib}")
 
     # ---- K1: the full [P, C] join, kernel and plain ----------------------
     ref_ops = (batch.x.reshape(-1), batch.y.reshape(-1), batch.t.reshape(-1),
@@ -269,22 +346,21 @@ def phase_kernels(batch, params, out, launches):
     ms = time_ms(lambda: stjoin_best_match(*ref_ops, out_w=kw, out_idx=ki),
                  reps=3)
     plain_out = []
-    plain = time_ms(lambda: plain_out.append(stjoin_ref(*ref_ops)), reps=1,
-                    warmup=0)
+    k1_plain = time_ms(lambda: plain_out.append(stjoin_ref(*ref_ops)),
+                       reps=1, warmup=0)
     pw, pi = plain_out.pop()
     check(torch.equal(ki, pi), "K1 best_idx differs from the plain version")
     err = float((kw - pw).abs().max())
     check(torch.equal(kw, pw), f"K1 best_w not bitwise (max err {err})")
     matched = int((ki >= 0).sum())
     needed = k1_window_pairs(batch, params.eps_t)
-    nbytes = P * (4 * 4 + 1) + C * Mc * (3 * 4 + 1) + C * 4 + 8 * P * C
-    row("stjoin_best_match", err, ms, plain,
-        bound_ms(nbytes, K1_OPS_PER_PAIR * needed))
+    kernel_row(rows, "stjoin_best_match", launches, err, ms, k1_plain,
+               bound_ms(join_input_bytes(P, C, Mc) + 8 * P * C,
+                        K1_OPS_PER_PAIR * needed))
     sweep_ms = K1_OPS_PER_PAIR * P * C * Mc / F32_OPS_PER_S * 1e3
     log(f"  K1 pairs swept={P * C * Mc} needed (|dt| <= eps_t)={needed} "
         f"matched (p, c)={matched}; the full sweep's f32 floor "
         f"{sweep_ms:.4f} ms")
-    del pw, pi
 
     # ---- K3: the packed TSA2 words of that join --------------------------
     from repro_torch.core.types import JoinResult
@@ -300,7 +376,8 @@ def phase_kernels(batch, params, out, launches):
                  reps=10)
     plain = time_ms(lambda: tsa2_signal(masked, params.w), reps=3)
     W = words.shape[-1]
-    row("jaccard_window", err, ms, plain, bound_ms(T * M * W * 4 + T * M * 5))
+    kernel_row(rows, "jaccard_window", launches, err, ms, plain,
+               bound_ms(T * M * W * 4 + T * M * 5))
     del words, masked
 
     # ---- K5 / K6: the main path's [S, S] matrix and round states ---------
@@ -328,8 +405,8 @@ def phase_kernels(batch, params, out, launches):
     uf = unres.to(torch.float32)
     lib = time_ms(lambda: uf @ predf)
     del predf
-    row("round_scan", 0.0, ms, plain,
-        bound_ms(active * S * 4.0 + S * 6 + S * 2), lib)
+    kernel_row(rows, "round_scan", launches, 0.0, ms, plain,
+               bound_ms(active * S * 4.0 + S * 6 + S * 2), lib)
     log(f"  K5 timed at round 0: {active} active rows of {S}")
 
     rep = out.result.is_rep
@@ -342,10 +419,73 @@ def phase_kernels(batch, params, out, launches):
     ms = time_ms(lambda: cluster_assign(sim, rank, rep, table.valid, alpha))
     plain = time_ms(lambda: claim_max_ref(sim, order, rank, rep, table.valid,
                                           alpha), reps=3)
-    row("claim_max", err, ms, plain,
-        bound_ms(n_rep * S * 4.0 + S * 6 + S * 8))
+    kernel_row(rows, "claim_max", launches, err, ms, plain,
+               bound_ms(n_rep * S * 4.0 + S * 6 + S * 8))
     log(f"  K6 timed on the final {n_rep} representative rows")
-    return rows
+    return pw, pi, k1_plain
+
+
+def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
+                        rows):
+    """K2 and K4 against their plain versions on the fused path's inputs.
+    The plain versions start from K1's plain output (the same join), so
+    their time is K1's plain time plus that of the refine and the
+    consumer.  No single PyTorch call computes either function (a best
+    match, a run refine and a sum or a keyed scatter in one), so neither
+    has a library time."""
+    from repro_torch.kernels.stjoin import ops as sj
+    from repro_torch.core.similarity import scatter_raw, slot_ids
+    from repro_torch.kernels.stjoin.ref import run_refine, vote_words_ref
+    T, M = batch.x.shape
+    C, Mc = T, M
+    P = T * M
+    ms_ = params.max_subtrajs_per_traj
+    S = T * ms_
+    arrs = (batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2
+    eps = (params.eps_sp, params.eps_t, params.delta_t)
+    ref_t = batch.t.reshape(-1)
+    ops = K1_OPS_PER_PAIR * k1_window_pairs(batch, params.eps_t)
+    sweep_ms = K1_OPS_PER_PAIR * P * C * Mc / F32_OPS_PER_S * 1e3
+
+    # ---- K2: vote sums and packed words ----------------------------------
+    kv, kw = sj.stjoin_vote_fused_arrays(*arrs, *eps)
+    ms = time_ms(lambda: sj.stjoin_vote_fused_arrays(*arrs, *eps), reps=3)
+    plain_out = []
+    tail = time_ms(lambda: plain_out.append(vote_words_ref(
+        run_refine(pw, None, ref_t, M, params.delta_t)[0])), reps=1,
+        warmup=0)
+    pv, pwords = plain_out.pop()
+    check(torch.equal(kw.view(P, -1), pwords),
+          "K2 words differ from the plain version")
+    err = float((kv.view(-1) - pv).abs().max())
+    check(torch.equal(kv.view(-1), pv), f"K2 vote not bitwise (max err {err})")
+    W = pwords.shape[1]
+    kernel_row(rows, "stjoin_vote_fused", launches, err, ms, k1_plain + tail,
+               bound_ms(join_input_bytes(P, C, Mc) + P * 4 + P * W * 4, ops))
+    log(f"  K2 plain = K1 plain {k1_plain:.1f} ms + refine, vote and words "
+        f"{tail:.1f} ms; full-sweep floor {sweep_ms:.4f} ms; library none")
+    del kv, kw, pv, pwords
+
+    # ---- K4: the raw similarity scatter ----------------------------------
+    sub = fout.seg.sub_local
+    raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps)
+    ms = time_ms(lambda: sj.stjoin_sim_fused(batch, batch, sub, sub, ms_,
+                                             *eps), reps=3)
+    w_r, i_r = run_refine(pw, pi, ref_t, M, params.delta_t)
+    gid = slot_ids(sub, ms_, S)
+    plain_out = []
+    tail = time_ms(lambda: plain_out.append(scatter_raw(
+        w_r.view(T, M, C), i_r.view(T, M, C), gid, gid, S, S)), reps=1,
+        warmup=0)
+    praw = plain_out.pop()
+    err = float((raw - praw).abs().max())
+    check(torch.equal(raw, praw), f"K4 raw not bitwise (max err {err})")
+    kernel_row(rows, "stjoin_sim_fused", launches, err, ms, k1_plain + tail,
+               bound_ms(join_input_bytes(P, C, Mc) + P * 4 + C * Mc * 4
+                        + S * S * 4, ops))
+    log(f"  K4 plain = K1 plain {k1_plain:.1f} ms + refine and scatter "
+        f"{tail:.1f} ms; {int((praw > 0).sum())} nonzero cells of {S * S}; "
+        f"full-sweep floor {sweep_ms:.4f} ms; library none")
 
 
 def main(argv=None) -> int:
@@ -377,8 +517,24 @@ def main(argv=None) -> int:
     report = {"card": card, "build_s": build_s}
 
     phase_parity(dev)
-    batch, params, out, launches = phase_main(dev, report)
-    rows = phase_kernels(batch, params, out, launches)
+    phase_parity_fused(dev)
+    batch, params, out, launches = phase_main(dev, report, "materialize")
+    _, _, fout, flaunches = phase_main(dev, report, "fused")
+    for f in ("member_of", "is_rep", "is_outlier"):
+        check(torch.equal(getattr(out.result, f), getattr(fout.result, f)),
+              f"dsc_brest: fused vs materialize path: {f} differs")
+    sim_diff = float((out.sim - fout.sim).abs().max())
+    log(f"dsc_brest: fused labels equal the materialize labels; "
+        f"max |sim fused - sim materialize| = {sim_diff}")
+    rows = []
+    pw, pi, k1_plain = phase_kernels(batch, params, out, launches, rows)
+    phase_fused_kernels(batch, params, fout, flaunches, pw, pi, k1_plain,
+                        rows)
+    order = list(REPLACES)
+    rows.sort(key=lambda r: order.index(r["name"]))
+    del out, fout, pw, pi
+    torch.cuda.empty_cache()
+    phase_main(dev, report, "fused", n_vessels=8192, name="dsc_sis")
     report["kernels"] = rows
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -1,18 +1,26 @@
 """Single-host end-to-end DSC pipeline (Algorithm 1, P = 1) — counterpart
-of ``repro.core.dsc`` for ``mode="materialize"`` with a dense similarity
-matrix:
+of ``repro.core.dsc`` with a dense similarity matrix:
 
     subtrajectory join (Problem 1)  ->  voting  ->  segmentation (Problem 2)
     ->  ST / SP relations  ->  clustering + outliers (Problem 3)
 
-The join cube ``[T, M, C]`` is built on the device and read by voting,
-the TSA2 words and the similarity scatter; the port drops it right after
-the similarity stage (at full size it is 17 GB), so ``DSCOutput`` carries
-no ``join``; for the same reason the reference's ``_finish``
-(segmentation onward) is folded into ``_run_dsc_materialize``, which
-holds the cube's only reference.  ``mode="fused"``, ``sim_mode="topk"``
-and ``use_index`` are later slices of the port and raise
-``NotImplementedError``.
+Execution modes (``EnginePlan.mode``):
+
+* ``"materialize"`` — the join cube ``[T, M, C]`` is built on the device
+  and read by voting, the TSA2 words and the similarity scatter; the port
+  drops it right after the similarity stage (at full size it is 17 GB).
+* ``"fused"`` — the cube never exists: the join stage is the fused pass 1
+  (K2: vote sums and packed TSA2 words), the similarity stage re-sweeps
+  the join after segmentation with the fused pass 2 (K4: the raw
+  ``[S, S]`` scatter).  On CUDA tensors both always run their kernels
+  (``use_kernel`` is a materialize-mode choice, as in the reference); on
+  the CPU their plain versions.
+
+Both modes run the same stage bodies under the same ``STAGES`` names, in
+``_run_stages`` (the reference's ``_finish`` is folded in so the cube's
+only reference can be dropped after the similarity stage), and
+``DSCOutput`` carries no ``join``.  ``sim_mode="topk"`` and ``use_index``
+are later slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.core.plan import EnginePlan, resolve_plan
 from repro_torch.core.types import (ClusteringResult, DSCParams,
                                     SubtrajSegmentation, SubtrajTable,
                                     TrajectoryBatch)
+from repro_torch.kernels.stjoin import ops as stjoin_ops
 
 STAGES = ("join_vote", "segment", "similarity", "cluster", "score")
 
@@ -92,8 +101,15 @@ def _segment_body(batch, params, vote, masks, plan: EnginePlan):
     return seg, table
 
 
-def _similarity_body(params, join, seg, table):
-    """SP relation, dense: the ``[S, S]`` matrix."""
+def _similarity_body(batch, params, join, seg, table):
+    """SP relation, dense: the ``[S, S]`` matrix, from the cube or (fused
+    mode, ``join is None``) from the fused pass 2."""
+    if join is None:
+        raw = stjoin_ops.stjoin_sim_fused(
+            batch, batch, seg.sub_local, seg.sub_local,
+            params.max_subtrajs_per_traj, params.eps_sp, params.eps_t,
+            params.delta_t)
+        return similarity.finalize_sim(raw, table)
     return similarity.similarity_matrix(
         join, seg, seg.sub_local, table, params.max_subtrajs_per_traj)
 
@@ -117,7 +133,6 @@ def _vote_from_join_body(params, join):
 
 def _join_vote_materialize_body(batch, params, plan: EnginePlan):
     if plan.use_kernel:
-        from repro_torch.kernels.stjoin import ops as stjoin_ops
         join = stjoin_ops.subtrajectory_join(
             batch, batch, params.eps_sp, params.eps_t, params.delta_t)
     else:
@@ -127,17 +142,31 @@ def _join_vote_materialize_body(batch, params, plan: EnginePlan):
     return join, vote, masks
 
 
-def _run_dsc_materialize(batch, params, plan: EnginePlan,
-                         timer: StageTimer) -> DSCOutput:
-    """The stages in order; the cube's only reference is dropped after
-    the similarity stage, before clustering."""
+def _join_vote_fused_body(batch, params, plan: EnginePlan):
+    """Fused pass 1: ``(None, vote, masks)`` — no cube."""
+    vote, masks = stjoin_ops.stjoin_vote_fused_arrays(
+        batch.x, batch.y, batch.t, batch.valid, batch.traj_id,
+        batch.x, batch.y, batch.t, batch.valid, batch.traj_id,
+        params.eps_sp, params.eps_t, params.delta_t,
+        with_masks=params.segmentation == "tsa2")
+    return None, vote, masks
+
+
+_JOIN_VOTE = {"materialize": _join_vote_materialize_body,
+              "fused": _join_vote_fused_body}
+
+
+def _run_stages(batch, params, plan: EnginePlan,
+                timer: StageTimer) -> DSCOutput:
+    """The stages in order; the cube's only reference (materialize mode)
+    is dropped after the similarity stage, before clustering."""
     with timer.stage("join_vote"):
-        join, vote, masks = _join_vote_materialize_body(batch, params, plan)
+        join, vote, masks = _JOIN_VOTE[plan.mode](batch, params, plan)
     with timer.stage("segment"):
         seg, table = _segment_body(batch, params, vote, masks, plan)
     del masks
     with timer.stage("similarity"):
-        sim = _similarity_body(params, join, seg, table)
+        sim = _similarity_body(batch, params, join, seg, table)
     del join
     with timer.stage("cluster"):
         result, rounds = _cluster_body(sim, table, params, plan)
@@ -160,9 +189,6 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
     """
     from repro_torch.kernels import resolve_device
     plan = resolve_plan(plan)
-    if plan.mode != "materialize":
-        raise NotImplementedError(
-            "mode='fused' (kernels K2 and K4) is ROADMAP queue 1 item 6")
     if plan.sim_mode != "dense":
         raise NotImplementedError(
             "sim_mode='topk' (kernels K7-K9) is ROADMAP queue 1 item 7")
@@ -173,7 +199,7 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
     if batch.device != dev:
         batch = batch.to(dev)
     timer = StageTimer(dev)
-    out = _run_dsc_materialize(batch, params, plan, timer)
+    out = _run_stages(batch, params, plan, timer)
     if stage_times is not None:
         stage_times.update(timer.times)
     return out

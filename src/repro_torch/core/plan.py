@@ -12,10 +12,14 @@ similarity (SP)       ``sim_mode``
 clustering (P3)       ``cluster_engine``, ``cluster_use_kernel``
 ====================  =====================================================
 
-The port runs ``mode="materialize"`` with ``sim_mode="dense"`` and no
-index; the other values validate here and ``run_dsc`` rejects them until
-they are ported.  The reference's tile, top-K and distributed fields come
-with the code that reads them.
+The port runs both modes (``"materialize"``, ``"fused"``) with
+``sim_mode="dense"`` and no index; the other values validate here and
+``run_dsc`` rejects them until they are ported.  ``use_kernel`` picks the
+join kernel of materialize mode only: fused mode on the card always runs
+its two kernels.  The reference's tile, top-K and distributed fields come
+with the code that reads them; the fused tile geometry
+(``fused_rows/bc/bm``) has no counterpart, since the CUDA kernels take no
+tile geometry.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ class EnginePlan:
     """One per-stage engine configuration for the whole DSC pipeline."""
 
     mode: str = "materialize"          # "materialize" | "fused"
-    use_kernel: bool = False           # CUDA join kernel (materialize mode)
+    use_kernel: bool = False           # CUDA join kernel (materialize only)
     use_index: bool = False            # grid candidate-tile pruning
     seg_use_kernel: bool = False       # CUDA TSA2 Jaccard kernel
     sim_mode: str = "dense"            # "dense" | "topk"

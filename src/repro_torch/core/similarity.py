@@ -8,9 +8,13 @@ cell of the ``[S, S]`` matrix; Eq. 2 divides by ``min(|r'|, |s'|)`` and
 the matrix is max-symmetrized (DESIGN.md §2.4).
 
 The order of the float additions into a cell is the reference's flat
-(t, m, c) order: the scatter uses ``index_put_(accumulate=True)``, which
-is serial on the CPU and sort-based (deterministic) on the card, never a
-float atomic.
+(t, m, c) order on every backend, never a float atomic: ``scatter_raw``
+runs one ``index_put_(accumulate=True)`` per point position m, and no
+index repeats within one call.  (The card's ``index_put_`` sorts its
+indices and does not keep repeated ones in their original order, so one
+call over several m would sum a cell in another order there.)  The fused
+pass 2 (``kernels.stjoin``, K4) adds in the same order, so both modes
+give the same ``[S, S]`` matrix bit for bit.
 """
 from __future__ import annotations
 
@@ -19,8 +23,6 @@ import torch
 from repro_torch.core.types import (JoinResult, SubtrajSegmentation,
                                     SubtrajTable, TrajectoryBatch)
 
-# contributions per scatter chunk (bounds the int64 index temporaries)
-SCATTER_ELEMENTS = 1 << 25
 # rows per chunk of the [S, S] row passes
 ROW_CHUNK = 4096
 
@@ -79,49 +81,54 @@ def finalize_sim(raw: torch.Tensor, table: SubtrajTable) -> torch.Tensor:
     return sim
 
 
-def scatter_operands(join: JoinResult, ref_seg: SubtrajSegmentation,
-                     cand_seg_sub_local: torch.Tensor, S: int,
-                     max_subs: int, rows: slice = slice(None)):
-    """Flat SP-scatter contributions ``(src [N], dst [N], w [N])`` of the
-    reference rows ``rows``, in (t, m, c) order; ``S`` is the sentinel for
-    unmatched / unsegmented points."""
-    T, M, C = join.best_w.shape
-    dev = join.best_w.device
-    t_ids = torch.arange(T, device=dev)[rows]
-    sub = ref_seg.sub_local[rows]
-    src = torch.where(sub >= 0, t_ids[:, None] * max_subs + sub, S)
-    best_idx = join.best_idx[rows]
-    src = src[:, :, None].expand(best_idx.shape)
-    idx = best_idx.clamp(0, cand_seg_sub_local.shape[1] - 1).long()
-    c_ids = torch.arange(C, device=dev)
-    cand_sub = cand_seg_sub_local[c_ids[None, None, :], idx]
-    dst = torch.where((best_idx >= 0) & (cand_sub >= 0),
-                      c_ids * max_subs + cand_sub, S)
-    return src.reshape(-1), dst.reshape(-1), join.best_w[rows].reshape(-1)
+def slot_ids(sub_local: torch.Tensor, max_subs: int,
+             sentinel: int) -> torch.Tensor:
+    """Global subtrajectory slot of each point ``[R, M]``:
+    ``row * max_subs + sub_local``, ``sentinel`` where unsegmented."""
+    rows = torch.arange(sub_local.shape[0], dtype=torch.int32,
+                        device=sub_local.device)[:, None]
+    return torch.where(sub_local >= 0, rows * max_subs + sub_local, sentinel)
+
+
+def scatter_raw(best_w: torch.Tensor, best_idx: torch.Tensor,
+                ref_gid: torch.Tensor, cand_gid: torch.Tensor, n_src: int,
+                n_dst: int) -> torch.Tensor:
+    """The un-normalized SP scatter ``raw [n_src, n_dst]``:
+    ``raw[ref_gid[t, m], cand_gid[c, best_idx[t, m, c]]] += best_w[t, m, c]``
+    over every match of the join ``[T, M, C]``.
+
+    ``ref_gid [T, M]`` (``n_src`` = sentinel), ``cand_gid [C, Mc]``
+    (``n_dst`` = sentinel).  One ``index_put_`` per m, in ascending m:
+    with the DSC slot maps a cell belongs to one (t, c) pair, so no index
+    repeats within one call and each cell adds in (t, m, c) order.
+    Sentinel and zero-weight contributions are dropped (adding +0.0 to a
+    non-negative sum changes no bit).
+    """
+    T, M, C = best_w.shape
+    dev = best_w.device
+    raw = torch.zeros((n_src, n_dst), dtype=torch.float32, device=dev)
+    flat = raw.view(-1)
+    c_ids = torch.arange(C, device=dev)[None, :]
+    for m in range(M):
+        wm, im = best_w[:, m], best_idx[:, m]
+        src = ref_gid[:, m, None].long().expand(T, C)
+        dst = cand_gid[c_ids, im.clamp_min(0).long()].long()
+        keep = (wm > 0.0) & (im >= 0) & (src < n_src) & (dst < n_dst)
+        flat.index_put_((src[keep] * n_dst + dst[keep],), wm[keep],
+                        accumulate=True)
+    return raw
 
 
 def similarity_matrix(join: JoinResult, ref_seg: SubtrajSegmentation,
                       cand_seg_sub_local: torch.Tensor, table: SubtrajTable,
                       max_subs: int) -> torch.Tensor:
-    """Densified SP relation: Sim[S, S] per Eq. 2, symmetrized.
-
-    The scatter runs in chunks of reference trajectories, in the flat
-    (t, m, c) order.  Contributions that land on the sentinel row or
-    column, or weigh 0, are dropped before the scatter: the sentinel
-    cells are discarded, and adding +0.0 to a non-negative sum changes no
-    bit, so every kept cell sees the same additions in the same order.
-    """
+    """Densified SP relation: Sim[S, S] per Eq. 2, symmetrized."""
     S = table.num_slots
-    T, M, C = join.best_w.shape
-    raw = torch.zeros((S, S), dtype=torch.float32, device=join.best_w.device)
-    flat = raw.view(-1)
-    rows = max(1, SCATTER_ELEMENTS // max(M * C, 1))
-    for t0 in range(0, T, rows):
-        src, dst, w = scatter_operands(join, ref_seg, cand_seg_sub_local, S,
-                                       max_subs, slice(t0, t0 + rows))
-        keep = (src < S) & (dst < S) & (w != 0.0)
-        lin = src[keep] * S + dst[keep]
-        flat.index_put_((lin,), w[keep], accumulate=True)
+    n_dst = cand_seg_sub_local.shape[0] * max_subs
+    raw = scatter_raw(join.best_w, join.best_idx,
+                      slot_ids(ref_seg.sub_local, max_subs, S),
+                      slot_ids(cand_seg_sub_local, max_subs, n_dst), S,
+                      n_dst)
     return finalize_sim(raw, table)
 
 

@@ -37,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
 
-LAUNCHES = {"stjoin_best_match": 0, "jaccard_window": 0, "round_scan": 0,
+LAUNCHES = {"stjoin_best_match": 0, "stjoin_vote_fused": 0,
+            "jaccard_window": 0, "stjoin_sim_fused": 0, "round_scan": 0,
             "claim_max": 0}
 
 _P = ctypes.c_void_p
@@ -48,6 +49,14 @@ _SIGNATURES = {
     "stjoin_best_match": [_P] * 10 + [ctypes.c_longlong, _I, _I,
                                       ctypes.c_float, ctypes.c_float,
                                       _P, _P, _P],
+    # ref x, y, t, id, ok; cand x, y, t, id, ok; T, M, C, Mc; eps_sp,
+    # eps_t, delta_t; vote, words (NULL for TSA1), W; stream
+    "stjoin_vote_fused": [_P] * 10 + [_I] * 4 + [ctypes.c_float] * 3
+                         + [_P, _P, _I, _P],
+    # the K2 operands, ref_gid, cand_gid; T, M, C, Mc, ms; eps_sp, eps_t,
+    # delta_t; raw; stream
+    "stjoin_sim_fused": [_P] * 12 + [_I] * 5 + [ctypes.c_float] * 3
+                        + [_P, _P],
     # masks, T, M, W, w, d, stream
     "jaccard_window": [_P, _I, _I, _I, _I, _P, _P],
     # sim, rank, unresolved, is_rep, alpha, S, n_split, blocked, claimed,

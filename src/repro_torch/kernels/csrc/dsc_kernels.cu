@@ -5,6 +5,8 @@
 // (repro_torch/kernels/<name>/ref.py) is the oracle it is held against.
 //
 //   stjoin_best_match  <- repro/kernels/stjoin/stjoin.py  stjoin_pallas
+//   stjoin_vote_fused  <- repro/kernels/stjoin/stjoin.py  stjoin_vote_fused_flat
+//   stjoin_sim_fused   <- repro/kernels/stjoin/stjoin.py  stjoin_sim_fused_flat
 //   jaccard_window     <- repro/kernels/jaccard/jaccard.py jaccard_pallas
 //   round_scan         <- repro/kernels/cluster/cluster.py round_scan_pallas
 //   claim_max          <- repro/kernels/cluster/cluster.py assign_pallas
@@ -25,94 +27,107 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// K1: dense best-match join.
+// The best-match sweep shared by K1, K2 and K4.
 //
 // For every (reference point p, candidate trajectory c): the best weight
 // 1 - sqrt(d2)/eps_sp over c's points inside the (eps_sp, eps_t) cylinder,
 // same-trajectory pairs skipped, the first point index winning a tie.
 //
-// Bound: operations (P*C*Mc pair evaluations of about seven f32 ops each,
-// against 8*P*C bytes of output).  Design: a block owns 64 reference
-// points x 32 candidates.  threadIdx.x walks candidates, so each warp
-// writes 32 consecutive outputs of one row; each thread keeps 8 reference
-// points in registers and the block stages 32 candidate points of its 32
-// candidates at a time in shared memory ([point][candidate], padded, so
-// both the staging stores and the per-point reads are conflict-free).
-// The candidate points are walked in index order with a strict '>', so
-// the first index wins ties exactly as argmax does in the reference.
+// Bound: operations (about seven f32 instructions per (point, candidate
+// point) pair).  Design: a block of 32 x 8 threads owns 64 reference
+// points x 32 candidates.  threadIdx.x walks candidates; each thread keeps
+// 8 reference points (p0 + threadIdx.y + 8k) in registers, and the block
+// stages 32 candidate points of its 32 candidates at a time in shared
+// memory ([point][candidate], padded, so both the staging stores and the
+// per-point reads are conflict-free).  The candidate points are walked in
+// index order with a strict '>', so the first index wins ties exactly as
+// argmax does in the reference.  K1, K2 and K4 all call this one function,
+// so their matches, weights and indices cannot drift apart.
 // ---------------------------------------------------------------------------
 constexpr int K1_TC = 32;    // candidates per block (threadIdx.x)
 constexpr int K1_TY = 8;     // thread rows per block (threadIdx.y)
 constexpr int K1_NP = 8;     // reference points per thread
 constexpr int K1_MCH = 32;   // candidate points staged per chunk
+constexpr int K1_PTS = K1_TY * K1_NP;   // reference points per sweep
+constexpr int kThreads = K1_TC * K1_TY;
 
-__global__ void __launch_bounds__(K1_TC * K1_TY)
-stjoin_best_match_kernel(const float* __restrict__ rx,
-                         const float* __restrict__ ry,
-                         const float* __restrict__ rt,
-                         const int* __restrict__ rid,
-                         const uint8_t* __restrict__ rok,
-                         const float* __restrict__ cx,
-                         const float* __restrict__ cy,
-                         const float* __restrict__ ct,
-                         const int* __restrict__ cid,
-                         const uint8_t* __restrict__ cok,
-                         long long P, int C, int Mc, float eps_sp,
-                         float eps_t, float* __restrict__ out_w,
-                         int* __restrict__ out_idx) {
-  __shared__ float sx[K1_MCH][K1_TC + 1];
-  __shared__ float sy[K1_MCH][K1_TC + 1];
-  __shared__ float st[K1_MCH][K1_TC + 1];
-  __shared__ uint8_t sok[K1_MCH][K1_TC + 1];
+struct SweepSmem {
+  float x[K1_MCH][K1_TC + 1];
+  float y[K1_MCH][K1_TC + 1];
+  float t[K1_MCH][K1_TC + 1];
+  uint8_t ok[K1_MCH][K1_TC + 1];
+};
 
+struct JoinOperands {
+  const float* rx;
+  const float* ry;
+  const float* rt;
+  const int* rid;
+  const uint8_t* rok;
+  const float* cx;
+  const float* cy;
+  const float* ct;
+  const int* cid;
+  const uint8_t* cok;
+  int C, Mc;
+  float eps_sp, eps_t;
+};
+
+// Every thread of the block must call it: it synchronizes.  Reference
+// points p0 + threadIdx.y + 8k below p_end, candidates c0 + threadIdx.x
+// below C.  Returns the running (max, argmax) per point; best = -1 where
+// nothing matched.
+__device__ __forceinline__ void sweep_best(SweepSmem& sm,
+                                           const JoinOperands& op,
+                                           long long p0, long long p_end,
+                                           int c0, float (&best)[K1_NP],
+                                           int (&arg)[K1_NP]) {
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c0 = blockIdx.y * K1_TC;
   const int c = c0 + tx;
-  const bool c_in = c < C;
-  const int my_cid = c_in ? cid[c] : 0;
-  const long long p0 = (long long)blockIdx.x * (K1_TY * K1_NP) + ty;
-  const float eps2 = __fmul_rn(eps_sp, eps_sp);
+  const bool c_in = c < op.C;
+  const int my_cid = c_in ? op.cid[c] : 0;
+  const float eps2 = __fmul_rn(op.eps_sp, op.eps_sp);
 
-  float px[K1_NP], py[K1_NP], pt[K1_NP], best[K1_NP];
-  int arg[K1_NP];
+  float px[K1_NP], py[K1_NP], pt[K1_NP];
   bool live[K1_NP];
 #pragma unroll
   for (int k = 0; k < K1_NP; ++k) {
-    const long long p = p0 + (long long)k * K1_TY;
-    const bool in = p < P;
-    px[k] = in ? rx[p] : 0.f;
-    py[k] = in ? ry[p] : 0.f;
-    pt[k] = in ? rt[p] : 0.f;
-    live[k] = in && c_in && rok[p] && rid[p] != my_cid;
+    const long long p = p0 + ty + (long long)k * K1_TY;
+    const bool in = p < p_end;
+    px[k] = in ? op.rx[p] : 0.f;
+    py[k] = in ? op.ry[p] : 0.f;
+    pt[k] = in ? op.rt[p] : 0.f;
+    live[k] = in && c_in && op.rok[p] && op.rid[p] != my_cid;
     best[k] = -1.f;
     arg[k] = 0;
   }
 
-  for (int m0 = 0; m0 < Mc; m0 += K1_MCH) {
+  for (int m0 = 0; m0 < op.Mc; m0 += K1_MCH) {
     // stage: consecutive threads read consecutive points of one candidate
-    for (int e = ty * K1_TC + tx; e < K1_MCH * K1_TC; e += K1_TC * K1_TY) {
+    for (int e = ty * K1_TC + tx; e < K1_MCH * K1_TC; e += kThreads) {
       const int cl = e / K1_MCH, mm = e % K1_MCH;
       const int cc = c0 + cl, m = m0 + mm;
-      const bool ld = cc < C && m < Mc;
-      const size_t g = (size_t)cc * Mc + m;
-      sx[mm][cl] = ld ? cx[g] : 0.f;
-      sy[mm][cl] = ld ? cy[g] : 0.f;
-      st[mm][cl] = ld ? ct[g] : 0.f;
-      sok[mm][cl] = ld ? cok[g] : 0;
+      const bool ld = cc < op.C && m < op.Mc;
+      const size_t g = (size_t)cc * op.Mc + m;
+      sm.x[mm][cl] = ld ? op.cx[g] : 0.f;
+      sm.y[mm][cl] = ld ? op.cy[g] : 0.f;
+      sm.t[mm][cl] = ld ? op.ct[g] : 0.f;
+      sm.ok[mm][cl] = ld ? op.cok[g] : 0;
     }
     __syncthreads();
-    const int mend = min(K1_MCH, Mc - m0);
+    const int mend = min(K1_MCH, op.Mc - m0);
     for (int mm = 0; mm < mend; ++mm) {
-      const float qx = sx[mm][tx], qy = sy[mm][tx], qt = st[mm][tx];
-      const bool qok = sok[mm][tx] != 0;
+      const float qx = sm.x[mm][tx], qy = sm.y[mm][tx], qt = sm.t[mm][tx];
+      const bool qok = sm.ok[mm][tx] != 0;
 #pragma unroll
       for (int k = 0; k < K1_NP; ++k) {
         const float dx = __fsub_rn(px[k], qx);
         const float dy = __fsub_rn(py[k], qy);
         const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
         const float dt = fabsf(__fsub_rn(pt[k], qt));
-        if (live[k] && qok && d2 <= eps2 && dt <= eps_t) {
-          const float w = __fsub_rn(1.f, __fdiv_rn(__fsqrt_rn(d2), eps_sp));
+        if (live[k] && qok && d2 <= eps2 && dt <= op.eps_t) {
+          const float w =
+              __fsub_rn(1.f, __fdiv_rn(__fsqrt_rn(d2), op.eps_sp));
           if (w > best[k]) {
             best[k] = w;
             arg[k] = m0 + mm;
@@ -122,16 +137,211 @@ stjoin_best_match_kernel(const float* __restrict__ rx,
     }
     __syncthreads();
   }
+}
 
-  if (!c_in) return;
+// ---------------------------------------------------------------------------
+// K1: dense best-match join -> best_w / best_idx [P, C].
+//
+// Bound: operations of the sweep against 8*P*C bytes of output.  Design:
+// one sweep per block (64 points x 32 candidates); each warp writes 32
+// consecutive outputs of one row.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+stjoin_best_match_kernel(JoinOperands op, long long P,
+                         float* __restrict__ out_w,
+                         int* __restrict__ out_idx) {
+  __shared__ SweepSmem sm;
+  const long long p0 = (long long)blockIdx.x * K1_PTS;
+  const int c0 = blockIdx.y * K1_TC;
+  float best[K1_NP];
+  int arg[K1_NP];
+  sweep_best(sm, op, p0, P, c0, best, arg);
+
+  const int c = c0 + threadIdx.x;
+  if (c >= op.C) return;
 #pragma unroll
   for (int k = 0; k < K1_NP; ++k) {
-    const long long p = p0 + (long long)k * K1_TY;
+    const long long p = p0 + threadIdx.y + (long long)k * K1_TY;
     if (p < P) {
-      const size_t o = (size_t)p * C + c;
+      const size_t o = (size_t)p * op.C + c;
       out_w[o] = best[k] > 0.f ? best[k] : 0.f;
       out_idx[o] = best[k] > 0.f ? arg[k] : -1;
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fused passes K2 and K4 work on one reference trajectory row (its M
+// points are consecutive in the flat operands) against one tile of 32
+// candidates at a time.  sweep_row_tile runs the sweep over the row in
+// chunks of 64 points and leaves the tile's weights (0 = no match) and
+// winning indices (-1 = none) in shared memory, [m][32] padded to 33.
+// refine_tile is the delta_t run refine (DTJ's Refine step): for one
+// candidate, a run is a maximal streak of consecutive matched m; it
+// survives iff max(t) - min(t) over the run is >= delta_t, exactly the
+// test of repro_torch.core.geometry.filter_delta_t.  One thread per
+// candidate walks the row in order.  delta_t <= 0 keeps every run.
+// ---------------------------------------------------------------------------
+constexpr int kTileStride = K1_TC + 1;
+
+__device__ __forceinline__ void sweep_row_tile(SweepSmem& sm,
+                                               const JoinOperands& op,
+                                               long long row0, int M, int c0,
+                                               float* tw, int* tidx) {
+  for (int m0 = 0; m0 < M; m0 += K1_PTS) {
+    float best[K1_NP];
+    int arg[K1_NP];
+    sweep_best(sm, op, row0 + m0, row0 + M, c0, best, arg);
+#pragma unroll
+    for (int k = 0; k < K1_NP; ++k) {
+      const int m = m0 + threadIdx.y + k * K1_TY;
+      if (m < M) {
+        const int e = m * kTileStride + threadIdx.x;
+        tw[e] = best[k] > 0.f ? best[k] : 0.f;
+        if (tidx != nullptr) tidx[e] = best[k] > 0.f ? arg[k] : -1;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Called by the 32 threads of threadIdx.y == 0 (lane j owns candidate
+// c0 + j); the caller synchronizes afterwards.
+__device__ __forceinline__ void refine_tile(float* tw, int* tidx,
+                                            const float* __restrict__ rt_row,
+                                            int M, float delta_t) {
+  if (!(delta_t > 0.f)) return;
+  const int j = threadIdx.x;
+  int m = 0;
+  while (m < M) {
+    if (!(tw[m * kTileStride + j] > 0.f)) {
+      ++m;
+      continue;
+    }
+    const int first = m;
+    float lo = rt_row[m], hi = lo;
+    while (m + 1 < M && tw[(m + 1) * kTileStride + j] > 0.f) {
+      ++m;
+      lo = fminf(lo, rt_row[m]);
+      hi = fmaxf(hi, rt_row[m]);
+    }
+    if (!(__fsub_rn(hi, lo) >= delta_t)) {
+      for (int k = first; k <= m; ++k) {
+        tw[k * kTileStride + j] = 0.f;
+        if (tidx != nullptr) tidx[k * kTileStride + j] = -1;
+      }
+    }
+    ++m;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: fused pass 1 -> vote [P] f32 and, for TSA2, the packed neighbor
+// words [P, W] (W = ceil(C/32), bit j of word c0/32 = candidate c0 + j
+// matched after the refine).
+//
+// Bound: operations (the sweep); it writes 4*P*(1 + W) bytes instead of
+// K1's 8*P*C.  Design: one block per reference row walks every candidate
+// tile in ascending order: sweep, refine, then one thread per point adds
+// the tile's 32 refined weights to its running vote and builds the tile's
+// word.  So vote[p] is the sum over c in ascending order, one rounded add
+// at a time, starting from +0.0 (the plain version's order), with no
+// atomics; each word is written whole by one thread.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+stjoin_vote_fused_kernel(JoinOperands op, int M, float delta_t,
+                         float* __restrict__ vote, int* __restrict__ words,
+                         int W) {
+  __shared__ SweepSmem sm;
+  extern __shared__ float dyn[];
+  float* tw = dyn;                        // [M][33]
+  float* acc = dyn + M * kTileStride;     // [M]
+  const int tid = threadIdx.y * K1_TC + threadIdx.x;
+  const long long row0 = (long long)blockIdx.x * M;
+  for (int m = tid; m < M; m += kThreads) acc[m] = 0.f;
+
+  for (int c0 = 0; c0 < op.C; c0 += K1_TC) {
+    sweep_row_tile(sm, op, row0, M, c0, tw, nullptr);
+    if (threadIdx.y == 0) refine_tile(tw, nullptr, op.rt + row0, M, delta_t);
+    __syncthreads();
+    const int nc = min(K1_TC, op.C - c0);
+    for (int m = tid; m < M; m += kThreads) {
+      float a = acc[m];
+      uint32_t word = 0u;
+      for (int j = 0; j < nc; ++j) {
+        const float w = tw[m * kTileStride + j];
+        a = __fadd_rn(a, w);
+        word |= (w > 0.f ? 1u : 0u) << j;
+      }
+      acc[m] = a;
+      if (words != nullptr)
+        words[(size_t)(row0 + m) * W + c0 / K1_TC] = (int)word;
+    }
+    __syncthreads();
+  }
+  for (int m = tid; m < M; m += kThreads) vote[row0 + m] = acc[m];
+}
+
+// ---------------------------------------------------------------------------
+// K4: fused pass 2 -> raw [T*ms, C*ms] f32, the un-normalized similarity
+// scatter: raw[ref_gid[p], cand_gid[c, idx]] += w for every refined match.
+//
+// The slot maps are block-structured: ref_gid of row t lies in
+// [t*ms, (t+1)*ms) or is the sentinel T*ms, cand_gid of candidate c in
+// [c*ms, (c+1)*ms) or the sentinel C*ms (the wrapper checks this).  So
+// the work of one (row t, candidate c) pair writes one ms x ms block of
+// raw and nothing else.
+//
+// Bound: bytes (every cell of raw written once).  Design: one block per
+// (row t, tile of 32 candidates): sweep with argmax, refine, then lane j
+// owns candidate c0 + j and walks m in ascending order, adding each
+// weight into its ms x ms block in shared memory -- each cell sums in the
+// reference's flat (t, m, c) order, one rounded add at a time from +0.0,
+// without atomics.  Finally the block writes its [ms, 32*ms] slab of raw
+// whole (zeros included), so raw needs no zero fill.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+stjoin_sim_fused_kernel(JoinOperands op, int M, float delta_t,
+                        const int* __restrict__ ref_gid,
+                        const int* __restrict__ cand_gid, int ms,
+                        long long n_dst, float* __restrict__ raw) {
+  __shared__ SweepSmem sm;
+  extern __shared__ float dyn[];
+  const int bs = ms * ms + 1;                             // padded block
+  float* tw = dyn;                                        // [M][33]
+  int* tidx = reinterpret_cast<int*>(dyn + M * kTileStride);  // [M][33]
+  float* blk = dyn + 2 * M * kTileStride;                 // [32][bs]
+  const int tid = threadIdx.y * K1_TC + threadIdx.x;
+  const long long t = blockIdx.x;
+  const long long row0 = t * M;
+  const int c0 = blockIdx.y * K1_TC;
+  for (int e = tid; e < K1_TC * bs; e += kThreads) blk[e] = 0.f;
+
+  sweep_row_tile(sm, op, row0, M, c0, tw, tidx);
+  if (threadIdx.y == 0) {
+    refine_tile(tw, tidx, op.rt + row0, M, delta_t);
+    const int j = threadIdx.x, c = c0 + j;
+    if (c < op.C) {
+      float* b = blk + j * bs;
+      for (int m = 0; m < M; ++m) {
+        const float w = tw[m * kTileStride + j];
+        if (!(w > 0.f)) continue;
+        const int src = ref_gid[row0 + m];
+        const int dst = cand_gid[(size_t)c * op.Mc + tidx[m * kTileStride + j]];
+        const long long i = (long long)src - t * ms;      // sentinels fall
+        const long long k = (long long)dst - (long long)c * ms;  // outside
+        if (i < 0 || i >= ms || k < 0 || k >= ms) continue;
+        b[i * ms + k] = __fadd_rn(b[i * ms + k], w);
+      }
+    }
+  }
+  __syncthreads();
+  const int ncols = min(K1_TC, op.C - c0) * ms;
+  for (int e = tid; e < ms * ncols; e += kThreads) {
+    const int i = e / ncols, col = e % ncols;
+    const int cl = col / ms, k = col % ms;
+    raw[(size_t)(t * ms + i) * n_dst + (size_t)c0 * ms + col] =
+        blk[cl * bs + i * ms + k];
   }
 }
 
@@ -309,12 +519,56 @@ int stjoin_best_match(const float* rx, const float* ry, const float* rt,
                       float eps_sp, float eps_t, float* out_w, int* out_idx,
                       cudaStream_t stream) {
   if (P > 0 && C > 0) {
+    const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
+                          C, Mc, eps_sp, eps_t};
     const dim3 block(K1_TC, K1_TY);
-    const dim3 grid((unsigned)((P + K1_TY * K1_NP - 1) / (K1_TY * K1_NP)),
+    const dim3 grid((unsigned)((P + K1_PTS - 1) / K1_PTS),
                     (unsigned)((C + K1_TC - 1) / K1_TC));
-    stjoin_best_match_kernel<<<grid, block, 0, stream>>>(
-        rx, ry, rt, rid, rok, cx, cy, ct, cid, cok, P, C, Mc, eps_sp, eps_t,
-        out_w, out_idx);
+    stjoin_best_match_kernel<<<grid, block, 0, stream>>>(op, P, out_w,
+                                                         out_idx);
+  }
+  return (int)cudaGetLastError();
+}
+
+int stjoin_vote_fused(const float* rx, const float* ry, const float* rt,
+                      const int* rid, const uint8_t* rok, const float* cx,
+                      const float* cy, const float* ct, const int* cid,
+                      const uint8_t* cok, int T, int M, int C, int Mc,
+                      float eps_sp, float eps_t, float delta_t, float* vote,
+                      int* words, int W, cudaStream_t stream) {
+  if (T > 0) {
+    const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
+                          C, Mc, eps_sp, eps_t};
+    const int smem = M * (kTileStride + 1) * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        stjoin_vote_fused_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    stjoin_vote_fused_kernel<<<T, dim3(K1_TC, K1_TY), smem, stream>>>(
+        op, M, delta_t, vote, words, W);
+  }
+  return (int)cudaGetLastError();
+}
+
+int stjoin_sim_fused(const float* rx, const float* ry, const float* rt,
+                     const int* rid, const uint8_t* rok, const float* cx,
+                     const float* cy, const float* ct, const int* cid,
+                     const uint8_t* cok, const int* ref_gid,
+                     const int* cand_gid, int T, int M, int C, int Mc, int ms,
+                     float eps_sp, float eps_t, float delta_t, float* raw,
+                     cudaStream_t stream) {
+  if (T > 0 && C > 0 && ms > 0) {
+    const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
+                          C, Mc, eps_sp, eps_t};
+    const int smem =
+        (2 * M * kTileStride + K1_TC * (ms * ms + 1)) * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        stjoin_sim_fused_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((unsigned)T, (unsigned)((C + K1_TC - 1) / K1_TC));
+    stjoin_sim_fused_kernel<<<grid, dim3(K1_TC, K1_TY), smem, stream>>>(
+        op, M, delta_t, ref_gid, cand_gid, ms, (long long)C * ms, raw);
   }
   return (int)cudaGetLastError();
 }

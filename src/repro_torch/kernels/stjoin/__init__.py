@@ -1,8 +1,11 @@
-"""The best-match join kernel (replaces ``stjoin_pallas``,
-``repro/kernels/stjoin/stjoin.py``).
+"""The join kernels (``repro/kernels/stjoin/stjoin.py``): K1, the dense
+best-match join (replaces ``stjoin_pallas``), and the fused streaming
+passes of ``mode="fused"``, K2 (votes and packed TSA2 words, replaces
+``stjoin_vote_fused_flat``) and K4 (the raw similarity scatter, replaces
+``stjoin_sim_fused_flat``).  All three run one best-match sweep.
 
-Numerics of K1, which the CUDA kernel, its plain version (``ref.py``) and
-the Pallas kernel share:
+Numerics of the sweep, which the CUDA kernels, their plain versions
+(``ref.py``) and the Pallas kernels share:
 
 * **The cylinder test squares the radius.**  A pair matches when
   ``d2 <= eps_sp * eps_sp`` (both sides rounded to float32) and
@@ -24,4 +27,18 @@ the Pallas kernel share:
   ``-fmad=false``), square root and division are IEEE-rounded
   (``__fsqrt_rn`` / ``__fdiv_rn``, no ``--use_fast_math``), so the kernel
   matches the plain PyTorch version bit for bit on the card.
+
+Numerics of the fused consumers, which fix an order the Pallas kernels do
+not (so the port matches them to 1e-5, and its kernels match their plain
+versions bit for bit):
+
+* **The delta_t refine** drops a run of consecutive matched points of a
+  (row, candidate) pair when ``max(t) - min(t) < delta_t`` over the run,
+  the test of ``core.geometry.filter_delta_t``; ``delta_t <= 0`` keeps
+  every run.
+* **A vote is summed over the candidates in ascending order**, one
+  rounded add at a time from +0.0 (the Pallas kernel sums blocks of
+  candidates, then the blocks).
+* **A similarity cell adds its weights in (t, m, c) order**, as the
+  materialize path's scatter does, so both modes give the same matrix.
 """

@@ -1,13 +1,32 @@
-"""Plain PyTorch version of the join kernel (same flattened contract as
-``repro.kernels.stjoin.ref.stjoin_ref``)."""
+"""Plain PyTorch versions of the join kernels (same flattened contracts as
+``repro.kernels.stjoin.ref.stjoin_ref`` and the fused passes
+``stjoin_vote_fused_flat`` / ``stjoin_sim_fused_flat`` of
+``repro.kernels.stjoin.stjoin``).
+
+The fused passes are composed from the K1 plain version, the delta_t
+refine (``run_refine``) and the two consumers (``vote_words_ref`` and the
+materialize path's own scatter, ``core.similarity.scatter_raw``), each of
+which fixes the float summation order the CUDA kernels use, so kernel and
+plain version agree bit for bit on the card.
+"""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.types import f32, sqrt_rn
+from repro_torch.core.geometry import filter_delta_t
+from repro_torch.core.similarity import scatter_raw
+from repro_torch.core.types import JoinResult, f32, sqrt_rn
+from repro_torch.core.windows import pack_bits
 
 # elements of one [rows, C, Mc] broadcast temporary
 CHUNK_ELEMENTS = 1 << 27
+# elements of one [rows, M, C] block of the refine (its temporaries are
+# several int64 copies)
+REFINE_ELEMENTS = 1 << 22
+# candidate columns transposed at a time by the ordered vote sum
+VOTE_COLUMNS = 256
+# reference points packed into words at a time
+PACK_ROWS = 8192
 
 
 def stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
@@ -41,3 +60,82 @@ def stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
         best_w[p] = bw.clamp_min(0.0)
         best_idx[p] = torch.where(bw > 0.0, arg.to(torch.int32), -1)
     return best_w, best_idx
+
+
+def run_refine(w, idx, ref_t, M: int, delta_t, *,
+               chunk_elements: int = REFINE_ELEMENTS):
+    """DTJ Refine on the flat contract (counterpart of ``_run_refine``).
+
+    ``w [P, C]`` (0 = no match) and ``idx [P, C]`` (or ``None``) hold
+    ``P = T * M`` reference points, whole rows of ``M`` points each;
+    ``ref_t [P]``.  For each (row, candidate), a run is a maximal streak
+    of consecutive matched points; a run whose time extent
+    ``max(t) - min(t)`` is below ``delta_t`` is dropped (weight 0, index
+    -1).  Equal to ``core.geometry.filter_delta_t`` on the ``[T, M, C]``
+    view, which it runs in blocks of rows.  ``delta_t <= 0`` keeps every
+    run and returns the inputs themselves.
+    """
+    if not float(delta_t) > 0.0:
+        return w, idx
+    P, C = w.shape
+    T = P // M
+    out_w = torch.empty_like(w)
+    out_idx = None if idx is None else torch.empty_like(idx)
+    rows = max(1, chunk_elements // max(M * C, 1))
+    for t0 in range(0, T, rows):
+        n = min(T, t0 + rows) - t0
+        r = slice(t0 * M, (t0 + n) * M)
+        bi = (torch.where(w[r] > 0.0, 0, -1).to(torch.int32) if idx is None
+              else idx[r])
+        j = filter_delta_t(JoinResult(best_w=w[r].view(n, M, C),
+                                      best_idx=bi.view(n, M, C)),
+                           ref_t[r].view(n, M), delta_t)
+        out_w[r] = j.best_w.reshape(n * M, C)
+        if out_idx is not None:
+            out_idx[r] = j.best_idx.reshape(n * M, C)
+    return out_w, out_idx
+
+
+def vote_words_ref(w, with_words: bool = True):
+    """The fused pass 1 consumers of refined weights ``w [P, C]``.
+
+    ``vote [P]``: the sum over candidates in ascending order, one rounded
+    add at a time from +0.0 (the order of the CUDA kernel; the Pallas
+    kernel sums blocks of candidates first, so the two agree to ulps).
+    ``words [P, ceil(C/32)]`` int32: bit c of word c // 32 set iff
+    ``w[p, c] > 0`` (``None`` when ``with_words`` is false).
+    """
+    P, C = w.shape
+    vote = torch.zeros((P,), dtype=torch.float32, device=w.device)
+    for c0 in range(0, C, VOTE_COLUMNS):
+        for col in w[:, c0:c0 + VOTE_COLUMNS].t().contiguous():
+            vote.add_(col)
+    words = pack_bits(w > 0.0, rows_per_chunk=PACK_ROWS) if with_words else None
+    return vote, words
+
+
+def stjoin_vote_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
+                          cand_x, cand_y, cand_t, cand_id, cand_ok,
+                          eps_sp, eps_t, delta_t, *, M: int,
+                          with_words: bool = True):
+    """Fused pass 1: ``(vote [P] f32, words [P, ceil(C/32)] i32 | None)``
+    for ``P = T * M`` reference points in whole rows of ``M``."""
+    w, _ = stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, cand_x, cand_y,
+                      cand_t, cand_id, cand_ok, eps_sp, eps_t)
+    w, _ = run_refine(w, None, ref_t, M, delta_t)
+    return vote_words_ref(w, with_words)
+
+
+def stjoin_sim_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, ref_gid,
+                         cand_x, cand_y, cand_t, cand_id, cand_ok, cand_gid,
+                         eps_sp, eps_t, delta_t, *, M: int, n_src: int,
+                         n_dst: int):
+    """Fused pass 2: the raw similarity scatter ``[n_src, n_dst]``
+    (``ref_gid [P]``, ``cand_gid [C, Mc]``; the sentinels are ``n_src``
+    and ``n_dst``)."""
+    w, idx = stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, cand_x, cand_y,
+                        cand_t, cand_id, cand_ok, eps_sp, eps_t)
+    w, idx = run_refine(w, idx, ref_t, M, delta_t)
+    T, C = ref_x.shape[0] // M, cand_x.shape[0]
+    return scatter_raw(w.view(T, M, C), idx.view(T, M, C),
+                       ref_gid.view(T, M), cand_gid, n_src, n_dst)

@@ -14,15 +14,26 @@ from repro_torch import kernels
 from repro_torch.core import segmentation as tseg
 from repro_torch.core.dsc import run_dsc
 from repro_torch.core.plan import EnginePlan
+from repro_torch.core.similarity import slot_ids
 from repro_torch.core.types import DSCParams
 from repro_torch.core.windows import pack_bits
 from repro_torch.data.synthetic import ais_like, figure1_scenario
 from repro_torch.kernels.cluster.ops import cluster_assign, cluster_round_scan
 from repro_torch.kernels.jaccard.ops import window_jaccard
+from repro_torch.kernels.stjoin import ops as stjoin_ops
 from repro_torch.kernels.stjoin.ops import best_match_join_kernel
-from repro_torch.kernels.stjoin.ref import stjoin_ref
+from repro_torch.kernels.stjoin.ref import (stjoin_ref, stjoin_sim_fused_ref,
+                                            stjoin_vote_fused_ref)
 
 pytestmark = pytest.mark.gpu
+
+# the kernels each path of the kernel plan launches, and no other
+PATH_KERNELS = {
+    "materialize": {"stjoin_best_match", "jaccard_window", "round_scan",
+                    "claim_max"},
+    "fused": {"stjoin_vote_fused", "jaccard_window", "stjoin_sim_fused",
+              "round_scan", "claim_max"},
+}
 
 
 @pytest.fixture
@@ -80,18 +91,74 @@ def test_k5_k6_match_plain(cuda, S):
     assert torch.equal(kw.cpu(), pw) and torch.equal(ks.cpu(), ps)
 
 
-def test_run_dsc_kernel_plan_matches_cpu(cuda):
-    """The kernel plan on the card and the plain versions on the CPU."""
+@pytest.mark.parametrize("mode", sorted(PATH_KERNELS))
+def test_run_dsc_kernel_plan_matches_cpu(cuda, mode):
+    """The kernel plan on the card and the plain versions on the CPU; the
+    card run launches exactly its path's kernels."""
     tb, _ = figure1_scenario(n_per_route=4, points_per_leg=24, seed=0,
                              device="cpu")
     p = DSCParams(eps_sp=0.42, eps_t=1.0, w=6, tau=0.15, alpha_sigma=-1.0,
                   k_sigma=-1.0, segmentation="tsa2")
-    plan = EnginePlan(use_kernel=True, seg_use_kernel=True,
+    plan = EnginePlan(mode=mode, use_kernel=True, seg_use_kernel=True,
                       cluster_use_kernel=True)
     kernels.reset_launch_counts()
     g = run_dsc(tb, p, plan=plan, device=cuda)
-    assert all(n > 0 for n in kernels.LAUNCHES.values())
+    assert {k for k, n in kernels.LAUNCHES.items() if n > 0} \
+        == PATH_KERNELS[mode]
     c = run_dsc(tb, p, plan=plan, device="cpu")
     for f in ("member_of", "is_rep", "is_outlier"):
         assert torch.equal(getattr(g.result, f).cpu(), getattr(c.result, f))
     assert torch.equal(g.seg.sub_local.cpu(), c.seg.sub_local)
+
+
+def _fused_case(cuda, n, M, C, Mc, eps_sp):
+    """A reference batch and (for C != n) a separate candidate batch."""
+    ref, _ = ais_like(n_vessels=n, max_points=M, seed=n, device=cuda)
+    cand = ref if C == n else ais_like(n_vessels=C, max_points=Mc,
+                                       seed=C, device=cuda)[0]
+    arrays = lambda b: (b.x, b.y, b.t, b.valid, b.traj_id)
+    return ref, cand, arrays(ref) + arrays(cand)
+
+
+@pytest.mark.parametrize("n,M,C,Mc,eps_sp,delta_t", [
+    (10, 40, 10, 40, 15.0, 0.0), (37, 70, 37, 70, 8.0, 300.0),
+    (9, 130, 45, 20, 20.0, 200.0)])
+def test_k2_matches_plain(cuda, n, M, C, Mc, eps_sp, delta_t):
+    ref, cand, arrs = _fused_case(cuda, n, M, C, Mc, eps_sp)
+    ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
+    for with_masks in (True, False):
+        before = kernels.LAUNCHES["stjoin_vote_fused"]
+        kv, kw = stjoin_ops.stjoin_vote_fused_arrays(
+            *arrs, eps_sp, 120.0, delta_t, with_masks=with_masks)
+        assert kernels.LAUNCHES["stjoin_vote_fused"] == before + 1
+        pv, pw = stjoin_vote_fused_ref(*ref_ops, *cand_ops, eps_sp, 120.0,
+                                       delta_t, M=M, with_words=with_masks)
+        assert torch.equal(kv.view(-1), pv)
+        if with_masks:
+            assert torch.equal(kw.view(pw.shape), pw)
+            assert bool((pw != 0).any())
+        else:
+            assert kw is None
+
+
+@pytest.mark.parametrize("n,M,C,Mc,eps_sp,delta_t", [
+    (10, 40, 10, 40, 15.0, 0.0), (37, 70, 37, 70, 8.0, 300.0),
+    (9, 130, 45, 20, 20.0, 200.0)])
+def test_k4_matches_plain(cuda, n, M, C, Mc, eps_sp, delta_t):
+    ref, cand, arrs = _fused_case(cuda, n, M, C, Mc, eps_sp)
+    rng = np.random.default_rng(n)
+    ms = 4
+    rsub = torch.from_numpy(rng.integers(-1, ms, (n, M)).astype(np.int32))
+    csub = torch.from_numpy(rng.integers(-1, ms, (C, Mc)).astype(np.int32))
+    before = kernels.LAUNCHES["stjoin_sim_fused"]
+    raw = stjoin_ops.stjoin_sim_fused(ref, cand, rsub.to(cuda),
+                                      csub.to(cuda), ms, eps_sp, 120.0,
+                                      delta_t)
+    assert kernels.LAUNCHES["stjoin_sim_fused"] == before + 1
+    ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
+    plain = stjoin_sim_fused_ref(
+        *ref_ops, slot_ids(rsub, ms, n * ms).view(-1).to(cuda), *cand_ops,
+        slot_ids(csub, ms, C * ms).to(cuda), eps_sp, 120.0, delta_t, M=M,
+        n_src=n * ms, n_dst=C * ms)
+    assert torch.equal(raw, plain)
+    assert bool((plain > 0).any())
