@@ -31,6 +31,21 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
    the same generator and parameters): launch counts, sanity checks,
    stage times and peak memory.
 
+Top-K similarity (``sim_mode="topk"``, the default K = 32 and widening):
+
+* T = 512, both modes with the kernel plan: labels equal to the dense
+  runs, the ``TopKSim`` bitwise ``topk_from_dense`` of the dense matrix
+  at the final K (after step 3);
+* the fused top-K path at ``dsc_brest`` (after step 4): launch counts
+  (K7 = dispatches x S/Sb, K8 = rounds summed over the dispatches, K9 =
+  dispatches), labels equal to the dense fused run, the same bitwise list
+  check, stage times, final K, dispatches and a peak below one ``[S, S]``
+  float32 matrix;
+* K7 (one panel, bitwise against its plain version and against K4's
+  ``raw``), K8 and K9 against their plain versions (in step 5);
+* the fused top-K path at ``dsc_sis``: labels equal to the dense dsc_sis
+  run's (after step 6).
+
 Prints one JSON ``kernels`` line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any mismatch or
 error exits non-zero without the result line; so does a machine without a
@@ -62,8 +77,11 @@ REPLACES = {
     "stjoin_vote_fused": "src/repro/kernels/stjoin/stjoin.py:583",
     "jaccard_window": "src/repro/kernels/jaccard/jaccard.py:72",
     "stjoin_sim_fused": "src/repro/kernels/stjoin/stjoin.py:711",
+    "stjoin_sim_panel_fused": "src/repro/kernels/stjoin/stjoin.py:444",
     "round_scan": "src/repro/kernels/cluster/cluster.py:99",
     "claim_max": "src/repro/kernels/cluster/cluster.py:120",
+    "topk_round_scan": "src/repro/kernels/cluster/cluster.py:195",
+    "topk_claim_max": "src/repro/kernels/cluster/cluster.py:216",
 }
 # the kernels each main path launches, and no other
 PATH_KERNELS = {
@@ -71,7 +89,13 @@ PATH_KERNELS = {
                     "claim_max"},
     "fused": {"stjoin_vote_fused", "jaccard_window", "stjoin_sim_fused",
               "round_scan", "claim_max"},
+    "materialize_topk": {"stjoin_best_match", "jaccard_window",
+                         "topk_round_scan", "topk_claim_max"},
+    "fused_topk": {"stjoin_vote_fused", "jaccard_window",
+                   "stjoin_sim_panel_fused", "topk_round_scan",
+                   "topk_claim_max"},
 }
+LABELS = ("member_of", "is_rep", "is_outlier")
 
 
 class Failed(RuntimeError):
@@ -115,11 +139,11 @@ def bound_ms(nbytes: float, ops: float = 0.0):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def k1_window_pairs(batch, eps_t: float) -> int:
-    """(ref point, candidate point) pairs of two different trajectories,
-    both valid, with |dt| <= eps_t: the pairs whose distance the join
-    needs.  A kernel that uses the time order of each trajectory's points
-    evaluates only these; K1 as built evaluates all P * C * Mc."""
+def window_partners(batch, eps_t: float):
+    """Per valid point ``[T, M]`` (0 elsewhere): the valid points of the
+    other trajectories with |dt| <= eps_t, the pairs whose distance the
+    join needs.  A kernel that uses the time order of each trajectory's
+    points evaluates only these; K1 as built evaluates all P * C * Mc."""
     t = batch.t.double()
     tv = torch.where(batch.valid, t, torch.inf)
     lo, hi = t - eps_t, t + eps_t
@@ -129,7 +153,13 @@ def k1_window_pairs(batch, eps_t: float) -> int:
     rows = tv.sort(dim=1).values
     own = (torch.searchsorted(rows, hi, right=True)
            - torch.searchsorted(rows, lo))
-    return int((every - own)[batch.valid].sum())
+    return torch.where(batch.valid, every - own, 0)
+
+
+def k1_window_pairs(batch, eps_t: float) -> int:
+    """(ref point, candidate point) pairs of the self-join that the join
+    needs (``window_partners`` summed)."""
+    return int(window_partners(batch, eps_t).sum())
 
 
 def brest_batch(n_vessels: int, dev, delta_t: float = 0.0):
@@ -153,10 +183,13 @@ def brest_batch(n_vessels: int, dev, delta_t: float = 0.0):
     return batch, params
 
 
-def kernel_plan(mode: str = "materialize"):
+def kernel_plan(path: str = "materialize"):
+    """The kernel plan of a path: ``"materialize"``, ``"fused"``,
+    ``"materialize_topk"`` or ``"fused_topk"`` (the default K and panel)."""
     from repro_torch.core.plan import EnginePlan
+    mode, _, sim = path.partition("_")
     return EnginePlan(mode=mode, use_kernel=True, seg_use_kernel=True,
-                      cluster_use_kernel=True, sim_mode="dense",
+                      cluster_use_kernel=True, sim_mode=sim or "dense",
                       cluster_engine="rounds")
 
 
@@ -167,10 +200,22 @@ def check_output(out, batch, params):
     r = out.result
     check(out.vote.shape == (T, M) and torch.isfinite(out.vote).all(),
           "vote: shape or non-finite values")
-    check(out.sim.shape == (S, S) and torch.isfinite(out.sim).all(),
-          "sim: shape or non-finite values")
-    # Eq. 2 divides by min(|r'|, |s'|), so entries may exceed 1
-    check(bool((out.sim >= 0).all()), "negative similarity")
+    if out.sim is None:
+        tk = out.sim_topk
+        check(tk.ids.shape == tk.sims.shape == (S, tk.k)
+              and torch.isfinite(tk.sims).all(),
+              "top-K lists: shape or non-finite values")
+        check(bool(((tk.ids >= -1) & (tk.ids < S)).all())
+              and bool((tk.sims >= 0).all())
+              and bool((tk.sims[:, :-1] >= tk.sims[:, 1:]).all())
+              and bool(((tk.ids >= 0) == (tk.sims > 0)).all()),
+              "top-K lists: ids out of range or sims not descending")
+        check(int(out.sim_overflow) == 0, "top-K certificate fails")
+    else:
+        check(out.sim.shape == (S, S) and torch.isfinite(out.sim).all(),
+              "sim: shape or non-finite values")
+        # Eq. 2 divides by min(|r'|, |s'|), so entries may exceed 1
+        check(bool((out.sim >= 0).all()), "negative similarity")
     check(torch.isfinite(r.alpha_used) and torch.isfinite(r.k_used),
           "alpha / k not finite")
     members = ~r.is_rep & (r.member_of >= 0)
@@ -183,6 +228,22 @@ def check_output(out, batch, params):
     check(int(r.is_rep.sum()) > 0, "no cluster found")
     check(0.0 < float(out.sscr) and float(out.rmse) <= params.eps_sp,
           "sscr / rmse out of range")
+
+
+def same_labels(a, b, what: str):
+    for f in LABELS:
+        check(torch.equal(getattr(a.result, f), getattr(b.result, f)),
+              f"{what}: {f} differs")
+
+
+def same_topk(out, dense, what: str):
+    """``out``'s lists bitwise ``topk_from_dense`` of ``dense``'s matrix at
+    the final K, field by field."""
+    from repro_torch.core.similarity import topk_from_dense
+    want = topk_from_dense(dense.sim, dense.table, out.sim_topk.k)
+    for f in ("ids", "sims", "spill", "degree", "row_sum", "row_sumsq"):
+        check(torch.equal(getattr(out.sim_topk, f), getattr(want, f)),
+              f"{what}: TopKSim.{f} not bitwise topk_from_dense")
 
 
 def same_output(a, b) -> list[str]:
@@ -252,6 +313,26 @@ def phase_parity_fused(dev):
             f"rounds {f1.rounds}")
 
 
+def phase_parity_topk(dev):
+    """T = 512, top-K with the kernel plan in both modes: labels equal to
+    the dense kernel runs and the lists bitwise ``topk_from_dense`` of
+    the dense matrix at the final K."""
+    from repro_torch.core.dsc import run_dsc
+    batch, params = brest_batch(512, dev)
+    for mode in ("materialize", "fused"):
+        dense = run_dsc(batch, params, plan=kernel_plan(mode), device=dev)
+        out = run_dsc(batch, params, plan=kernel_plan(mode + "_topk"),
+                      device=dev)
+        check(out.sim is None, f"T=512 {mode} top-K: a dense matrix")
+        same_labels(out, dense, f"T=512 {mode} top-K vs dense")
+        same_topk(out, dense, f"T=512 {mode} top-K")
+        check(torch.equal(out.sscr, dense.sscr), f"T=512 {mode}: sscr")
+        check_output(out, batch, params)
+        log(f"phase parity top-K (T=512, {mode}): labels equal to the dense "
+            f"run, lists bitwise topk_from_dense; final K={out.sim_topk.k} "
+            f"after {out.dispatches} dispatches, rounds {out.rounds}")
+
+
 def phase_main(dev, report, mode: str, n_vessels: int = 4096,
                name: str = "dsc_brest"):
     """One main path at full size; launch counts read around it.  Peak
@@ -280,23 +361,37 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
     check(ran == PATH_KERNELS[mode],
           f"{mode} path launched {sorted(ran)}, expected "
           f"{sorted(PATH_KERNELS[mode])}")
-    check(launches["round_scan"] == out.rounds,
-          "round_scan launches != clustering rounds")
-    once = PATH_KERNELS[mode] - {"round_scan"}
-    check(all(launches[k] == 1 for k in once),
-          f"{mode} path: a kernel other than round_scan ran more than once")
+    if mode.endswith("_topk"):
+        from repro_torch.core.similarity import plan_panel
+        S = out.table.num_slots
+        want = {"topk_round_scan": out.rounds,
+                "topk_claim_max": out.dispatches}
+        if "stjoin_sim_panel_fused" in ran:
+            want["stjoin_sim_panel_fused"] = (out.dispatches * S
+                                              // plan_panel(S))
+        check(out.sim is None and peak < S * S * 4,
+              f"{mode}: a [S, S] matrix was built (peak {peak} B)")
+    else:
+        want = {"round_scan": out.rounds}
+    for k in ran - set(want):
+        want[k] = 1
+    check(all(launches[k] == n for k, n in want.items()),
+          f"{mode} path: launches {launches}, expected {want}")
     check_output(out, batch, params)
     r = out.result
     members = int((~r.is_rep & (r.member_of >= 0)).sum())
     log("stage ms (CUDA events): " + ", ".join(
         f"{k}={v:.3f}" for k, v in times.items()))
+    topk_k = None if out.sim_topk is None else out.sim_topk.k
     log(f"main path ({mode}, {name}) wall s={wall:.3f} rounds={out.rounds} "
+        f"dispatches={out.dispatches} final_K={topk_k} "
         f"peak_alloc_GB={peak / 1e9:.3f} clusters={int(r.is_rep.sum())} "
         f"members={members} outliers={int(r.is_outlier.sum())} "
         f"alpha={float(r.alpha_used):.6g} k={float(r.k_used):.6g}")
     log(f"launches: {launches}")
     report[f"{name}_{mode}"] = dict(
         stage_ms=times, wall_s=wall, rounds=out.rounds,
+        dispatches=out.dispatches, final_k=topk_k,
         peak_alloc_bytes=peak, clusters=int(r.is_rep.sum()),
         members=members, outliers=int(r.is_outlier.sum()),
         launches=launches)
@@ -486,6 +581,117 @@ def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
     log(f"  K4 plain = K1 plain {k1_plain:.1f} ms + refine and scatter "
         f"{tail:.1f} ms; {int((praw > 0).sum())} nonzero cells of {S * S}; "
         f"full-sweep floor {sweep_ms:.4f} ms; library none")
+    return raw
+
+
+def phase_topk_kernels(batch, params, tout, launches, raw, rows):
+    """K7, K8 and K9 against their plain versions on the fused top-K
+    path's inputs: K7 on one panel (also bitwise against K4's ``raw``), K8
+    and K9 on the final lists.  No single PyTorch call computes any of
+    them: K7 is a best match, a run refine and a keyed scatter in two
+    orientations; K8 and K9 gather rank and state at the list ids and
+    reduce each row by a predicate or a two-key (weight, rank) order."""
+    from repro_torch.core.clustering import visit_order
+    from repro_torch.core.similarity import (finalize_sim_panel, plan_panel,
+                                             sim_row_moments, slot_ids,
+                                             topk_reduce_rows)
+    from repro_torch.kernels.cluster.ops import (topk_cluster_assign,
+                                                 topk_cluster_round_scan)
+    from repro_torch.kernels.cluster.ref import (topk_claim_max_ref,
+                                                 topk_round_scan_ref)
+    from repro_torch.kernels.stjoin import ops as sj
+    from repro_torch.kernels.stjoin.ref import stjoin_sim_panel_fused_ref
+    T, M = batch.x.shape
+    ms_ = params.max_subtrajs_per_traj
+    S = T * ms_
+    Sb = plan_panel(S)
+    eps = (params.eps_sp, params.eps_t, params.delta_t)
+
+    # ---- K7: one panel in the middle, both slabs -------------------------
+    sub = tout.seg.sub_local
+    p0 = (S // Sb // 2) * Sb
+    fwd, rev = sj.stjoin_sim_panel_fused(batch, batch, sub, sub, ms_, *eps,
+                                         p0=p0, panel=Sb)
+    ms = time_ms(lambda: sj.stjoin_sim_panel_fused(
+        batch, batch, sub, sub, ms_, *eps, p0=p0, panel=Sb), reps=10)
+    ref_ops, cand_ops = sj._flat_operands(
+        *(batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2)
+    gid = slot_ids(sub, ms_, S)
+    plain_out = []
+    plain = time_ms(lambda: plain_out.append(stjoin_sim_panel_fused_ref(
+        *ref_ops, gid.view(-1), *cand_ops, gid, *eps, M=M, n_src=S,
+        n_dst=S, p0=p0, panel=Sb)), reps=1, warmup=0)
+    pf, pr = plain_out.pop()
+    err = max(float((fwd - pf).abs().max()), float((rev - pr).abs().max()))
+    check(torch.equal(fwd, pf) and torch.equal(rev, pr),
+          f"K7 slabs not bitwise the plain version (max err {err})")
+    check(torch.equal(fwd, raw[p0:p0 + Sb])
+          and torch.equal(rev, raw.T[p0:p0 + Sb]),
+          "K7 slabs not bitwise K4's raw rows / transposed columns")
+    partners = window_partners(batch, params.eps_t)
+    t_lo, t_hi = p0 // ms_, (p0 + Sb - 1) // ms_
+    pairs = 2 * int(partners[t_lo:t_hi + 1].sum())
+    P, C, Mc = T * M, T, M
+    kernel_row(rows, "stjoin_sim_panel_fused", launches, err, ms, plain,
+               bound_ms(join_input_bytes(P, C, Mc) + P * 4 + C * Mc * 4
+                        + 2 * Sb * S * 4, K1_OPS_PER_PAIR * pairs))
+    log(f"  K7 panel [{p0}, {p0 + Sb}): rows {t_lo}..{t_hi}, "
+        f"{pairs} needed pairs, {int((pf > 0).sum())} + "
+        f"{int((pr > 0).sum())} nonzero cells; library none")
+    tk, table = tout.sim_topk, tout.table
+
+    def panel_tail():
+        sim_rows = finalize_sim_panel(fwd, rev, p0, table)
+        sim_row_moments(sim_rows, table.valid[p0:p0 + Sb], table.valid)
+        return topk_reduce_rows(sim_rows, tk.k)
+
+    log(f"  the rest of one panel at the final K={tk.k} (finalize, row "
+        f"moments, stable sort): {time_ms(panel_tail, reps=10):.4f} ms")
+    del fwd, rev, pf, pr
+
+    # ---- K8 / K9: the final [S, K] lists and round states ----------------
+    alpha = tout.result.alpha_used
+    K = tk.k
+    _, rank = visit_order(table)
+    potential = table.valid & (table.voting >= tout.result.k_used)
+    states = [(potential.clone(), torch.zeros_like(potential))]
+    b, c = topk_cluster_round_scan(tk.ids, tk.sims, rank, *states[0], alpha)
+    frontier = states[0][0] & (~b | c)
+    states.append((states[0][0] & ~frontier, frontier & ~c))
+    states.append((torch.zeros_like(potential), tout.result.is_rep.clone()))
+    for unres, rep in states:
+        kb, kc = topk_cluster_round_scan(tk.ids, tk.sims, rank, unres, rep,
+                                         alpha)
+        pb, pc = topk_round_scan_ref(tk.ids, tk.sims, rank, unres, rep,
+                                     alpha)
+        check(torch.equal(kb, pb) and torch.equal(kc, pc),
+              "K8 differs from the plain version")
+    unres, rep = states[0]
+    ms = time_ms(lambda: topk_cluster_round_scan(tk.ids, tk.sims, rank,
+                                                 unres, rep, alpha))
+    plain = time_ms(lambda: topk_round_scan_ref(tk.ids, tk.sims, rank,
+                                                unres, rep, alpha), reps=3)
+    kernel_row(rows, "topk_round_scan", launches, 0.0, ms, plain,
+               bound_ms(S * K * 8.0 + S * 6 + S * 2))
+    log(f"  K8 timed at round 0 on the final lists, K={K}")
+
+    rep = tout.result.is_rep
+    kw, ks = topk_cluster_assign(tk.ids, tk.sims, rank, rep, table.valid,
+                                 alpha)
+    pw, ps = topk_claim_max_ref(tk.ids, tk.sims, rank, rep, table.valid,
+                                alpha)
+    err = float((kw - pw).abs().max())
+    check(torch.equal(ks, ps), "K9 best_slot differs")
+    check(torch.equal(kw, pw), f"K9 best_w not bitwise (max err {err})")
+    ms = time_ms(lambda: topk_cluster_assign(tk.ids, tk.sims, rank, rep,
+                                             table.valid, alpha))
+    plain = time_ms(lambda: topk_claim_max_ref(tk.ids, tk.sims, rank, rep,
+                                               table.valid, alpha), reps=3)
+    n_valid = int(table.valid.sum())   # K9 reads only valid rows' lists
+    kernel_row(rows, "topk_claim_max", launches, err, ms, plain,
+               bound_ms(n_valid * K * 8.0 + S * 6 + S * 8))
+    log(f"  K9 timed on the final {int(rep.sum())} representatives, K={K}, "
+        f"{n_valid} valid rows of {S}")
 
 
 def main(argv=None) -> int:
@@ -518,23 +724,40 @@ def main(argv=None) -> int:
 
     phase_parity(dev)
     phase_parity_fused(dev)
+    phase_parity_topk(dev)
     batch, params, out, launches = phase_main(dev, report, "materialize")
     _, _, fout, flaunches = phase_main(dev, report, "fused")
-    for f in ("member_of", "is_rep", "is_outlier"):
-        check(torch.equal(getattr(out.result, f), getattr(fout.result, f)),
-              f"dsc_brest: fused vs materialize path: {f} differs")
+    same_labels(fout, out, "dsc_brest: fused vs materialize path")
     sim_diff = float((out.sim - fout.sim).abs().max())
     log(f"dsc_brest: fused labels equal the materialize labels; "
         f"max |sim fused - sim materialize| = {sim_diff}")
+    _, _, tout, tlaunches = phase_main(dev, report, "fused_topk")
+    same_labels(tout, fout, "dsc_brest: fused top-K vs fused dense path")
+    same_topk(tout, fout, "dsc_brest: fused top-K")
+    check(torch.equal(tout.sscr, fout.sscr), "dsc_brest: top-K sscr")
+    log("dsc_brest: fused top-K labels equal the dense fused labels; lists "
+        "bitwise topk_from_dense of the dense matrix")
     rows = []
     pw, pi, k1_plain = phase_kernels(batch, params, out, launches, rows)
-    phase_fused_kernels(batch, params, fout, flaunches, pw, pi, k1_plain,
-                        rows)
+    raw = phase_fused_kernels(batch, params, fout, flaunches, pw, pi,
+                              k1_plain, rows)
+    phase_topk_kernels(batch, params, tout, tlaunches, raw, rows)
     order = list(REPLACES)
     rows.sort(key=lambda r: order.index(r["name"]))
-    del out, fout, pw, pi
+    del out, fout, tout, pw, pi, raw
     torch.cuda.empty_cache()
-    phase_main(dev, report, "fused", n_vessels=8192, name="dsc_sis")
+    _, _, sout, _ = phase_main(dev, report, "fused", n_vessels=8192,
+                               name="dsc_sis")
+    dense_labels = [getattr(sout.result, f).cpu() for f in LABELS]
+    del sout
+    torch.cuda.empty_cache()
+    _, _, stout, _ = phase_main(dev, report, "fused_topk", n_vessels=8192,
+                                name="dsc_sis")
+    for f, want in zip(LABELS, dense_labels):
+        check(torch.equal(getattr(stout.result, f).cpu(), want),
+              f"dsc_sis: fused top-K vs fused dense path: {f} differs")
+    log("dsc_sis: fused top-K labels equal the dense fused labels")
+    del stout
     report["kernels"] = rows
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -174,3 +174,40 @@ class ClusteringResult:
     is_outlier: torch.Tensor  # [S] bool
     alpha_used: torch.Tensor  # [] float32
     k_used: torch.Tensor      # [] float32
+
+
+@dataclasses.dataclass
+class TopKSim:
+    """Sparse SP relation: per-row top-K neighbor lists of the symmetrized,
+    Eq. 2-normalized similarity matrix, bounded to a width ``K`` instead
+    of densified to ``[S, S]``.
+
+    Rows are sorted by similarity descending, ties by ascending neighbor
+    slot (``lax.top_k``'s order in the JAX package; the port gets it from
+    a stable descending sort).  Entries beyond the row's positive degree
+    carry ``ids == -1`` and ``sims == 0``.
+
+    Exactness certificate: ``spill[s]`` is the (K+1)-th largest positive
+    similarity of row ``s`` (0 when the row has at most K positive
+    entries).  Every dropped entry is ``<= spill[s]``, so ``spill[s] <
+    alpha`` proves the list holds every alpha-edge of ``s`` and the
+    clustering engines are label-identical to the dense ones
+    (``core.similarity.topk_overflow`` counts the rows where it fails).
+    ``degree`` and the ``row_*`` moments are exact statistics of the full
+    positive row, so alpha resolves as from the dense matrix.
+    """
+
+    ids: torch.Tensor         # [S, K] int32 neighbor slots (-1 padding)
+    sims: torch.Tensor        # [S, K] float32, descending per row
+    spill: torch.Tensor       # [S] float32 (K+1)-th largest positive sim
+    degree: torch.Tensor      # [S] int32 positive entries of the full row
+    row_sum: torch.Tensor     # [S] float32 sum of positive entries
+    row_sumsq: torch.Tensor   # [S] float32 sum of squared positive entries
+
+    @property
+    def num_slots(self) -> int:
+        return self.ids.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.ids.shape[1]

@@ -38,8 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--ptxas-options=-v")
 
 LAUNCHES = {"stjoin_best_match": 0, "stjoin_vote_fused": 0,
-            "jaccard_window": 0, "stjoin_sim_fused": 0, "round_scan": 0,
-            "claim_max": 0}
+            "jaccard_window": 0, "stjoin_sim_fused": 0,
+            "stjoin_sim_panel_fused": 0, "round_scan": 0, "claim_max": 0,
+            "topk_round_scan": 0, "topk_claim_max": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +58,10 @@ _SIGNATURES = {
     # delta_t; raw; stream
     "stjoin_sim_fused": [_P] * 12 + [_I] * 5 + [ctypes.c_float] * 3
                         + [_P, _P],
+    # the K4 operands up to ms; p0, panel; eps_sp, eps_t, delta_t; fwd,
+    # rev; stream
+    "stjoin_sim_panel_fused": [_P] * 12 + [_I] * 7 + [ctypes.c_float] * 3
+                              + [_P, _P, _P],
     # masks, T, M, W, w, d, stream
     "jaccard_window": [_P, _I, _I, _I, _I, _P, _P],
     # sim, rank, unresolved, is_rep, alpha, S, n_split, blocked, claimed,
@@ -66,6 +71,12 @@ _SIGNATURES = {
     # scratch_slot, n_split, best_w, best_slot, stream
     "claim_max": [_P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P, _I,
                   _P, _P, _P],
+    # ids, sims, rank, unresolved, is_rep, alpha, S, K, blocked, claimed,
+    # stream
+    "topk_round_scan": [_P] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P],
+    # ids, sims, rank, is_rep, valid, alpha, S, K, best_w, best_slot,
+    # stream
+    "topk_claim_max": [_P] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P],
 }
 
 _lib = None

@@ -7,9 +7,13 @@
 //   stjoin_best_match  <- repro/kernels/stjoin/stjoin.py  stjoin_pallas
 //   stjoin_vote_fused  <- repro/kernels/stjoin/stjoin.py  stjoin_vote_fused_flat
 //   stjoin_sim_fused   <- repro/kernels/stjoin/stjoin.py  stjoin_sim_fused_flat
+//   stjoin_sim_panel_fused
+//                      <- repro/kernels/stjoin/stjoin.py  stjoin_sim_panel_fused_flat
 //   jaccard_window     <- repro/kernels/jaccard/jaccard.py jaccard_pallas
 //   round_scan         <- repro/kernels/cluster/cluster.py round_scan_pallas
 //   claim_max          <- repro/kernels/cluster/cluster.py assign_pallas
+//   topk_round_scan    <- repro/kernels/cluster/cluster.py topk_round_scan_pallas
+//   topk_claim_max     <- repro/kernels/cluster/cluster.py topk_assign_pallas
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (never --use_fast_math).  The arithmetic below also spells out the
@@ -282,39 +286,24 @@ stjoin_vote_fused_kernel(JoinOperands op, int M, float delta_t,
   for (int m = tid; m < M; m += kThreads) vote[row0 + m] = acc[m];
 }
 
-// ---------------------------------------------------------------------------
-// K4: fused pass 2 -> raw [T*ms, C*ms] f32, the un-normalized similarity
-// scatter: raw[ref_gid[p], cand_gid[c, idx]] += w for every refined match.
-//
-// The slot maps are block-structured: ref_gid of row t lies in
-// [t*ms, (t+1)*ms) or is the sentinel T*ms, cand_gid of candidate c in
-// [c*ms, (c+1)*ms) or the sentinel C*ms (the wrapper checks this).  So
-// the work of one (row t, candidate c) pair writes one ms x ms block of
-// raw and nothing else.
-//
-// Bound: bytes (every cell of raw written once).  Design: one block per
-// (row t, tile of 32 candidates): sweep with argmax, refine, then lane j
-// owns candidate c0 + j and walks m in ascending order, adding each
-// weight into its ms x ms block in shared memory -- each cell sums in the
-// reference's flat (t, m, c) order, one rounded add at a time from +0.0,
-// without atomics.  Finally the block writes its [ms, 32*ms] slab of raw
-// whole (zeros included), so raw needs no zero fill.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-stjoin_sim_fused_kernel(JoinOperands op, int M, float delta_t,
-                        const int* __restrict__ ref_gid,
-                        const int* __restrict__ cand_gid, int ms,
-                        long long n_dst, float* __restrict__ raw) {
-  __shared__ SweepSmem sm;
-  extern __shared__ float dyn[];
+// The scatter of one (row t, tile of candidates from c0) block of K4 and
+// K7 into shared memory: blk[j][i*ms + k] (padded to ms*ms + 1 per
+// candidate) sums, in ascending m, the refined weights of row t's point m
+// whose ref slot is t*ms + i and whose matched point of candidate c0 + j
+// has the slot (c0 + j)*ms + k.  Every thread calls it: it synchronizes.
+__device__ __forceinline__ void sim_block(SweepSmem& sm,
+                                          const JoinOperands& op, int M,
+                                          float delta_t,
+                                          const int* __restrict__ ref_gid,
+                                          const int* __restrict__ cand_gid,
+                                          int ms, long long t, int c0,
+                                          float* dyn) {
   const int bs = ms * ms + 1;                             // padded block
   float* tw = dyn;                                        // [M][33]
   int* tidx = reinterpret_cast<int*>(dyn + M * kTileStride);  // [M][33]
   float* blk = dyn + 2 * M * kTileStride;                 // [32][bs]
   const int tid = threadIdx.y * K1_TC + threadIdx.x;
-  const long long t = blockIdx.x;
   const long long row0 = t * M;
-  const int c0 = blockIdx.y * K1_TC;
   for (int e = tid; e < K1_TC * bs; e += kThreads) blk[e] = 0.f;
 
   sweep_row_tile(sm, op, row0, M, c0, tw, tidx);
@@ -336,12 +325,123 @@ stjoin_sim_fused_kernel(JoinOperands op, int M, float delta_t,
     }
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// K4: fused pass 2 -> raw [T*ms, C*ms] f32, the un-normalized similarity
+// scatter: raw[ref_gid[p], cand_gid[c, idx]] += w for every refined match.
+//
+// The slot maps are block-structured: ref_gid of row t lies in
+// [t*ms, (t+1)*ms) or is the sentinel T*ms, cand_gid of candidate c in
+// [c*ms, (c+1)*ms) or the sentinel C*ms (the wrapper checks this).  So
+// the work of one (row t, candidate c) pair writes one ms x ms block of
+// raw and nothing else.
+//
+// Bound: bytes (every cell of raw written once).  Design: one block per
+// (row t, tile of 32 candidates): sweep with argmax, refine, then lane j
+// owns candidate c0 + j and walks m in ascending order, adding each
+// weight into its ms x ms block in shared memory (sim_block) -- each cell
+// sums in the reference's flat (t, m, c) order, one rounded add at a time
+// from +0.0, without atomics.  Finally the block writes its [ms, 32*ms]
+// slab of raw whole (zeros included), so raw needs no zero fill.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+stjoin_sim_fused_kernel(JoinOperands op, int M, float delta_t,
+                        const int* __restrict__ ref_gid,
+                        const int* __restrict__ cand_gid, int ms,
+                        long long n_dst, float* __restrict__ raw) {
+  __shared__ SweepSmem sm;
+  extern __shared__ float dyn[];
+  const long long t = blockIdx.x;
+  const int c0 = blockIdx.y * K1_TC;
+  sim_block(sm, op, M, delta_t, ref_gid, cand_gid, ms, t, c0, dyn);
+  const int bs = ms * ms + 1;
+  const float* blk = dyn + 2 * M * kTileStride;
+  const int tid = threadIdx.y * K1_TC + threadIdx.x;
   const int ncols = min(K1_TC, op.C - c0) * ms;
   for (int e = tid; e < ms * ncols; e += kThreads) {
     const int i = e / ncols, col = e % ncols;
     const int cl = col / ms, k = col % ms;
     raw[(size_t)(t * ms + i) * n_dst + (size_t)c0 * ms + col] =
         blk[cl * bs + i * ms + k];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7: fused pass 2 for one panel of slots [p0, p0 + panel), in both
+// orientations: fwd[i, j] = raw[p0 + i, j] ([panel, C*ms]) and
+// rev[i, j] = raw[j, p0 + i] ([panel, T*ms]), bit for bit K4's cells.
+//
+// With the block slot maps only few pairs reach a panel: fwd needs the
+// rows t_lo..t_hi that own a panel slot against every candidate, rev
+// every row against the candidates c_lo..c_hi that own one (rev[i, j]
+// comes from the pair (row j / ms, candidate (p0 + i) / ms)).  The TPU
+// kernel re-sweeps all T*C pairs per panel; this one sweeps about
+// 2 * (panel / ms + 1) * T pairs of trajectories.
+//
+// Bound: bytes (the two slabs written once) or the panel's share of the
+// needed pairs.  Design: one launch per panel; the first n_rows * ntc
+// blocks are K4's blocks of the panel's rows (one per row and tile of 32
+// candidates), the rest one per (row, tile of the panel's candidates,
+// which start at c_lo).  Each runs K4's sim_block, so every cell sums the
+// same weights in the same m order as K4's raw, then writes only the
+// cells whose slot lies inside the panel (a panel may split a
+// trajectory's slots).  Between them the blocks write every cell of both
+// slabs, so neither needs a zero fill.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+stjoin_sim_panel_fused_kernel(JoinOperands op, int M, float delta_t,
+                              const int* __restrict__ ref_gid,
+                              const int* __restrict__ cand_gid, int ms,
+                              int p0, int panel, int t_lo, int ntc,
+                              long long n_fwd_blocks, int c_lo, int c_hi,
+                              long long n_src, long long n_dst,
+                              float* __restrict__ fwd,
+                              float* __restrict__ rev) {
+  __shared__ SweepSmem sm;
+  extern __shared__ float dyn[];
+  const long long b = blockIdx.x;
+  const bool forward = b < n_fwd_blocks;
+  JoinOperands o = op;
+  long long t;
+  int c0;
+  if (forward) {
+    t = t_lo + b / ntc;
+    c0 = (int)(b % ntc) * K1_TC;
+  } else {
+    const long long r = b - n_fwd_blocks;
+    const int ntr = (c_hi - c_lo) / K1_TC + 1;
+    t = r / ntr;
+    c0 = c_lo + (int)(r % ntr) * K1_TC;
+    o.C = c_hi + 1;            // the sweep stops at the panel's candidates
+  }
+  sim_block(sm, o, M, delta_t, ref_gid, cand_gid, ms, t, c0, dyn);
+  const int bs = ms * ms + 1;
+  const float* blk = dyn + 2 * M * kTileStride;
+  const int tid = threadIdx.y * K1_TC + threadIdx.x;
+  const int nc = min(K1_TC, o.C - c0);
+  if (forward) {
+    // rows i of the block whose slot t*ms + i lies in the panel
+    const long long s0 = t * ms;
+    const int i_lo = p0 > s0 ? (int)(p0 - s0) : 0;
+    const int i_hi = p0 + panel < s0 + ms ? (int)(p0 + panel - s0) : ms;
+    const int ncols = nc * ms;
+    for (int e = tid; e < (i_hi - i_lo) * ncols; e += kThreads) {
+      const int i = i_lo + e / ncols, col = e % ncols;
+      const int cl = col / ms, k = col % ms;
+      fwd[(size_t)(s0 + i - p0) * n_dst + (size_t)c0 * ms + col] =
+          blk[cl * bs + i * ms + k];
+    }
+  } else {
+    // cells (i, k) whose candidate slot (c0 + cl)*ms + k lies in the
+    // panel; rev row = that slot - p0, rev column = t*ms + i
+    for (int e = tid; e < nc * ms * ms; e += kThreads) {
+      const int i = e % ms, k = (e / ms) % ms, cl = e / (ms * ms);
+      const long long slot = (long long)(c0 + cl) * ms + k;
+      if (slot < p0 || slot >= (long long)p0 + panel) continue;
+      rev[(size_t)(slot - p0) * n_src + (size_t)t * ms + i] =
+          blk[cl * bs + i * ms + k];
+    }
   }
 }
 
@@ -502,6 +602,110 @@ __global__ void claim_max_merge_kernel(const float* __restrict__ part_w,
   best_slot[s] = aw > 0.f ? as : -1;
 }
 
+// ---------------------------------------------------------------------------
+// K8: K5 over [S, K] neighbor lists.
+//
+// For every list row s: OR over its entries u = ids[s, e] of
+//   u >= 0 && sims[s, e] > 0 && sims[s, e] >= alpha && rank[u] < rank[s]
+// masked by unresolved[u] (-> blocked[s]) and by is_rep[u] (-> claimed[s]).
+//
+// Bound: bytes (one read of ids and sims).  Design: one warp per row; the
+// lanes read the row's K entries coalesced and gather rank and the two
+// flags at the ids (the [S] vectors stay in L2).  A warp vote gives the
+// two bits and lane 0 writes both outputs whole: no atomics, no zero fill,
+// exact.
+// ---------------------------------------------------------------------------
+__global__ void topk_round_scan_kernel(const int* __restrict__ ids,
+                                       const float* __restrict__ sims,
+                                       const int* __restrict__ rank,
+                                       const uint8_t* __restrict__ unresolved,
+                                       const uint8_t* __restrict__ is_rep,
+                                       float alpha, int S, int K,
+                                       uint8_t* __restrict__ blocked,
+                                       uint8_t* __restrict__ claimed) {
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= S) return;                  // uniform across the warp
+  const int s = (int)warp;
+  const int rs = rank[s];
+  const size_t base = (size_t)s * K;
+  bool b = false, c = false;
+  for (int e = lane; e < K; e += 32) {
+    const int u = ids[base + e];
+    const float v = sims[base + e];
+    if (u >= 0 && v > 0.f && v >= alpha && rank[u] < rs) {
+      b |= unresolved[u] != 0;
+      c |= is_rep[u] != 0;
+    }
+  }
+  b = __any_sync(0xffffffffu, b);
+  c = __any_sync(0xffffffffu, c);
+  if (lane == 0) {
+    blocked[s] = b ? 1 : 0;
+    claimed[s] = c ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9: K6 over [S, K] neighbor lists.
+//
+// Per valid row s: over entries u = ids[s, e] with is_rep[u] and an
+// alpha-edge, the maximum weight, the minimum visit rank among ties;
+// best_slot = -1 where the weight is 0.
+//
+// Bound: bytes (one read of ids and sims).  Design: one warp per row; each
+// lane keeps a running (w, rank, slot) over its entries, then a butterfly
+// of shuffles merges the lanes.  (weight desc, rank asc) is a total order
+// (ranks are distinct), so the merge is exact in any order.
+// ---------------------------------------------------------------------------
+__global__ void topk_claim_max_kernel(const int* __restrict__ ids,
+                                      const float* __restrict__ sims,
+                                      const int* __restrict__ rank,
+                                      const uint8_t* __restrict__ is_rep,
+                                      const uint8_t* __restrict__ valid,
+                                      float alpha, int S, int K,
+                                      float* __restrict__ best_w,
+                                      int* __restrict__ best_slot) {
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= S) return;                  // uniform across the warp
+  const int s = (int)warp;
+  float aw = 0.f;
+  int ar = INT_MAX, as = -1;
+  if (valid[s]) {
+    const size_t base = (size_t)s * K;
+    for (int e = lane; e < K; e += 32) {
+      const int u = ids[base + e];
+      const float v = sims[base + e];
+      if (u >= 0 && v > 0.f && v >= alpha && is_rep[u]) {
+        const int r = rank[u];
+        if (v > aw || (v == aw && r < ar)) {
+          aw = v;
+          ar = r;
+          as = u;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ow = __shfl_xor_sync(0xffffffffu, aw, off);
+    const int orr = __shfl_xor_sync(0xffffffffu, ar, off);
+    const int os = __shfl_xor_sync(0xffffffffu, as, off);
+    if (ow > aw || (ow == aw && orr < ar)) {
+      aw = ow;
+      ar = orr;
+      as = os;
+    }
+  }
+  if (lane == 0) {
+    best_w[s] = aw;
+    best_slot[s] = aw > 0.f ? as : -1;
+  }
+}
+
 constexpr int kColThreads = 128;
 
 int rows_per_split(int S, int n_split) {
@@ -573,6 +777,39 @@ int stjoin_sim_fused(const float* rx, const float* ry, const float* rt,
   return (int)cudaGetLastError();
 }
 
+int stjoin_sim_panel_fused(const float* rx, const float* ry,
+                           const float* rt, const int* rid,
+                           const uint8_t* rok, const float* cx,
+                           const float* cy, const float* ct, const int* cid,
+                           const uint8_t* cok, const int* ref_gid,
+                           const int* cand_gid, int T, int M, int C, int Mc,
+                           int ms, int p0, int panel, float eps_sp,
+                           float eps_t, float delta_t, float* fwd,
+                           float* rev, cudaStream_t stream) {
+  // the wrapper checks 0 <= p0 and p0 + panel <= min(T, C) * ms
+  if (T > 0 && C > 0 && ms > 0 && panel > 0) {
+    const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
+                          C, Mc, eps_sp, eps_t};
+    const int smem =
+        (2 * M * kTileStride + K1_TC * (ms * ms + 1)) * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        stjoin_sim_panel_fused_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int t_lo = p0 / ms, t_hi = min(T - 1, (p0 + panel - 1) / ms);
+    const int c_lo = p0 / ms, c_hi = min(C - 1, (p0 + panel - 1) / ms);
+    const int ntc = (C + K1_TC - 1) / K1_TC;
+    const int ntr = (c_hi - c_lo) / K1_TC + 1;
+    const long long n_fwd = (long long)(t_hi - t_lo + 1) * ntc;
+    const long long blocks = n_fwd + (long long)T * ntr;
+    stjoin_sim_panel_fused_kernel<<<(unsigned)blocks, dim3(K1_TC, K1_TY),
+                                    smem, stream>>>(
+        op, M, delta_t, ref_gid, cand_gid, ms, p0, panel, t_lo, ntc, n_fwd,
+        c_lo, c_hi, (long long)T * ms, (long long)C * ms, fwd, rev);
+  }
+  return (int)cudaGetLastError();
+}
+
 int jaccard_window(const uint32_t* masks, int T, int M, int W, int w,
                    float* d, cudaStream_t stream) {
   const long long n = (long long)T * M;
@@ -611,6 +848,32 @@ int claim_max(const float* sim, const int* rank, const uint8_t* is_rep,
     claim_max_merge_kernel<<<(S + kColThreads - 1) / kColThreads,
                              kColThreads, 0, stream>>>(
         part_w, part_rank, part_slot, S, n_split, best_w, best_slot);
+  }
+  return (int)cudaGetLastError();
+}
+
+int topk_round_scan(const int* ids, const float* sims, const int* rank,
+                    const uint8_t* unresolved, const uint8_t* is_rep,
+                    float alpha, int S, int K, uint8_t* blocked,
+                    uint8_t* claimed, cudaStream_t stream) {
+  if (S > 0) {
+    const int threads = 256;   // 8 warps, one list row each
+    const long long blocks = ((long long)S * 32 + threads - 1) / threads;
+    topk_round_scan_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+        ids, sims, rank, unresolved, is_rep, alpha, S, K, blocked, claimed);
+  }
+  return (int)cudaGetLastError();
+}
+
+int topk_claim_max(const int* ids, const float* sims, const int* rank,
+                   const uint8_t* is_rep, const uint8_t* valid, float alpha,
+                   int S, int K, float* best_w, int* best_slot,
+                   cudaStream_t stream) {
+  if (S > 0) {
+    const int threads = 256;   // 8 warps, one list row each
+    const long long blocks = ((long long)S * 32 + threads - 1) / threads;
+    topk_claim_max_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+        ids, sims, rank, is_rep, valid, alpha, S, K, best_w, best_slot);
   }
   return (int)cudaGetLastError();
 }

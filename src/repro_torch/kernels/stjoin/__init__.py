@@ -1,8 +1,10 @@
 """The join kernels (``repro/kernels/stjoin/stjoin.py``): K1, the dense
 best-match join (replaces ``stjoin_pallas``), and the fused streaming
 passes of ``mode="fused"``, K2 (votes and packed TSA2 words, replaces
-``stjoin_vote_fused_flat``) and K4 (the raw similarity scatter, replaces
-``stjoin_sim_fused_flat``).  All three run one best-match sweep.
+``stjoin_vote_fused_flat``), K4 (the raw similarity scatter, replaces
+``stjoin_sim_fused_flat``) and K7 (one row panel of that scatter in both
+orientations, for ``sim_mode="topk"``; replaces
+``stjoin_sim_panel_fused_flat``).  All four run one best-match sweep.
 
 Numerics of the sweep, which the CUDA kernels, their plain versions
 (``ref.py``) and the Pallas kernels share:
@@ -40,5 +42,6 @@ versions bit for bit):
   rounded add at a time from +0.0 (the Pallas kernel sums blocks of
   candidates, then the blocks).
 * **A similarity cell adds its weights in (t, m, c) order**, as the
-  materialize path's scatter does, so both modes give the same matrix.
+  materialize path's scatter does, so both modes give the same matrix,
+  and K7's panels hold K4's cells bit for bit.
 """

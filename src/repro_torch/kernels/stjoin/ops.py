@@ -1,13 +1,14 @@
 """Public wrappers: TrajectoryBatch- and array-level subtrajectory join
 through the join kernels (counterpart of ``repro.kernels.stjoin.ops``:
 the dense ``best_match_join_kernel`` and ``subtrajectory_join``, and the
-fused streaming passes ``stjoin_vote_fused(_arrays)`` and
-``stjoin_sim_fused(_arrays)``; the index-pruned variants are ROADMAP
-queue 1 item 8).
+fused streaming passes ``stjoin_vote_fused(_arrays)``,
+``stjoin_sim_fused(_arrays)`` and ``stjoin_sim_panel_fused(_arrays)``; the
+index-pruned variants are ROADMAP queue 1 item 8).
 
 Dispatch is on the tensors' device: CUDA tensors launch the CUDA kernels
 (``csrc/dsc_kernels.cu``: ``stjoin_best_match``, ``stjoin_vote_fused``,
-``stjoin_sim_fused``), CPU tensors take the plain versions in ``ref.py``.
+``stjoin_sim_fused``, ``stjoin_sim_panel_fused``), CPU tensors take the
+plain versions in ``ref.py``.
 The kernels need no padding and no tile geometry: the TPU's row-aligned
 blocks and word-aligned candidate blocks are a tiling constraint of the
 Pallas kernels, not part of the contract.  Numerics are set out in this
@@ -22,6 +23,7 @@ from repro_torch.core.similarity import slot_ids
 from repro_torch.core.types import JoinResult, TrajectoryBatch, f32
 from repro_torch.kernels import check_cuda_operands, launch
 from repro_torch.kernels.stjoin.ref import (stjoin_ref, stjoin_sim_fused_ref,
+                                            stjoin_sim_panel_fused_ref,
                                             stjoin_vote_fused_ref)
 
 # shared memory an sm_90 block can opt into, less the sweep's static
@@ -29,6 +31,8 @@ from repro_torch.kernels.stjoin.ref import (stjoin_ref, stjoin_sim_fused_ref,
 _DYN_SMEM_MAX = 232448 - 13728
 _INDEX_ITEM = ("use_index: the pruned fused kernels (K11, K12) are ROADMAP "
                "queue 1 item 8")
+_PANEL_INDEX_ITEM = ("use_index: the pruned panel kernel (K13) is ROADMAP "
+                     "queue 1 item 8")
 
 
 def _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid, cid):
@@ -188,20 +192,21 @@ def stjoin_vote_fused(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
         with_masks=with_masks)
 
 
-def _check_block_slots(ref_gid, cand_gid, ms: int, n_src: int, n_dst: int):
-    """K4's slot contract: the slots of reference row t lie in
+def _check_block_slots(ref_gid, cand_gid, ms: int, n_src: int, n_dst: int,
+                       name: str = "stjoin_sim_fused"):
+    """The slot contract of K4 and K7: the slots of reference row t lie in
     ``[t*ms, (t+1)*ms)``, those of candidate c in ``[c*ms, (c+1)*ms)``,
     or are the sentinels ``n_src`` / ``n_dst``."""
     T, C = ref_gid.shape[0], cand_gid.shape[0]
     if T * ms != n_src or C * ms != n_dst:
-        raise ValueError(f"stjoin_sim_fused: n_src={n_src}, n_dst={n_dst} "
+        raise ValueError(f"{name}: n_src={n_src}, n_dst={n_dst} "
                          f"are not T*ms, C*ms for T={T}, C={C}")
     dev = ref_gid.device
     in_block = lambda g, n, k: ((g == n) | (torch.div(
         g, max(ms, 1), rounding_mode="floor") == torch.arange(
             k, device=dev)[:, None])).all()
     if not bool(in_block(ref_gid, n_src, T) & in_block(cand_gid, n_dst, C)):
-        raise ValueError("stjoin_sim_fused: a slot lies outside its "
+        raise ValueError(f"{name}: a slot lies outside its "
                          "trajectory's block of ms slots")
 
 
@@ -262,3 +267,69 @@ def stjoin_sim_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
         slot_ids(ref_sub_local, max_subs, n_src), cand.x, cand.y, cand.t,
         cand.valid, cand.traj_id, slot_ids(cand_sub_local, max_subs, n_dst),
         n_src, n_dst, eps_sp, eps_t, delta_t, tile_ids=tile_ids)
+
+
+def stjoin_sim_panel_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy,
+                                  ct, cvalid, cid, cand_gid, n_src: int,
+                                  n_dst: int, eps_sp, eps_t, delta_t, p0, *,
+                                  panel: int, tile_ids=None):
+    """Fused pass 2 for one panel of ``panel`` slots, in both orientations:
+    ``(fwd [panel, n_dst], rev [panel, n_src])`` with ``fwd[i, j] =
+    raw[p0 + i, j]`` and ``rev[i, j] = raw[j, p0 + i]`` of the ``raw``
+    that ``stjoin_sim_fused_arrays`` builds, bit for bit.
+
+    On the card (K7) the slot maps must be the DSC block maps, as for K4;
+    then only the rows and the candidates that own a panel slot are swept,
+    about ``2 * panel / ms`` trajectories against all, instead of all
+    against all.  The panel may split a trajectory's slots.
+    """
+    if tile_ids is not None:
+        raise NotImplementedError(_PANEL_INDEX_ITEM)
+    T, M = rx.shape
+    C, Mc = cx.shape
+    p0 = int(p0)
+    if p0 < 0 or panel < 1 or p0 + panel > min(n_src, n_dst):
+        raise ValueError(f"stjoin_sim_panel_fused: panel [{p0}, "
+                         f"{p0 + panel}) is outside the {n_src} x {n_dst} "
+                         "slots")
+    ref_ops, cand_ops = _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct,
+                                       cvalid, cid)
+    ref_gid = ref_gid.to(torch.int32).contiguous()
+    cand_gid = cand_gid.to(torch.int32).contiguous()
+    if not rx.is_cuda:
+        return stjoin_sim_panel_fused_ref(
+            *ref_ops, ref_gid.view(-1), *cand_ops, cand_gid, eps_sp, eps_t,
+            delta_t, M=M, n_src=n_src, n_dst=n_dst, p0=p0, panel=panel)
+    ms = n_src // max(T, 1)
+    _check_block_slots(ref_gid, cand_gid, ms, n_src, n_dst,
+                       name="stjoin_sim_panel_fused")
+    dev = _check_fused("stjoin_sim_panel_fused", ref_ops, cand_ops, M,
+                       (2 * M * 33 + 32 * (ms * ms + 1)) * 4)
+    check_cuda_operands("stjoin_sim_panel_fused",
+                        ref_x=(ref_ops[0], torch.float32),
+                        ref_gid=(ref_gid, torch.int32),
+                        cand_gid=(cand_gid, torch.int32))
+    fwd = torch.empty((panel, n_dst), dtype=torch.float32, device=dev)
+    rev = torch.empty((panel, n_src), dtype=torch.float32, device=dev)
+    launch("stjoin_sim_panel_fused", *(t.data_ptr() for t in ref_ops),
+           *(t.data_ptr() for t in cand_ops), ref_gid.data_ptr(),
+           cand_gid.data_ptr(), T, M, C, Mc, ms, p0, panel,
+           *_eps(eps_sp, eps_t, delta_t), fwd.data_ptr(), rev.data_ptr(),
+           device=dev)
+    return fwd, rev
+
+
+def stjoin_sim_panel_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
+                           ref_sub_local, cand_sub_local, max_subs: int,
+                           eps_sp, eps_t, delta_t=0.0, *, p0, panel: int,
+                           tile_ids=None):
+    """Batch-level panel pass 2 (cf. ``stjoin_sim_fused``): the two raw
+    orientations of the rows ``[p0, p0 + panel)`` that
+    ``core.similarity.topk_stream`` finalizes."""
+    n_src, n_dst = ref.num_trajs * max_subs, cand.num_trajs * max_subs
+    return stjoin_sim_panel_fused_arrays(
+        ref.x, ref.y, ref.t, ref.valid, ref.traj_id,
+        slot_ids(ref_sub_local, max_subs, n_src), cand.x, cand.y, cand.t,
+        cand.valid, cand.traj_id, slot_ids(cand_sub_local, max_subs, n_dst),
+        n_src, n_dst, eps_sp, eps_t, delta_t, p0, panel=panel,
+        tile_ids=tile_ids)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the join kernels (same flattened contracts as
 ``repro.kernels.stjoin.ref.stjoin_ref`` and the fused passes
-``stjoin_vote_fused_flat`` / ``stjoin_sim_fused_flat`` of
-``repro.kernels.stjoin.stjoin``).
+``stjoin_vote_fused_flat`` / ``stjoin_sim_fused_flat`` /
+``stjoin_sim_panel_fused_flat`` of ``repro.kernels.stjoin.stjoin``).
 
 The fused passes are composed from the K1 plain version, the delta_t
 refine (``run_refine``) and the two consumers (``vote_words_ref`` and the
@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.geometry import filter_delta_t
-from repro_torch.core.similarity import scatter_raw
+from repro_torch.core.similarity import (panel_local, panel_members,
+                                         scatter_raw)
 from repro_torch.core.types import JoinResult, f32, sqrt_rn
 from repro_torch.core.windows import pack_bits
 
@@ -139,3 +140,41 @@ def stjoin_sim_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, ref_gid,
     T, C = ref_x.shape[0] // M, cand_x.shape[0]
     return scatter_raw(w.view(T, M, C), idx.view(T, M, C),
                        ref_gid.view(T, M), cand_gid, n_src, n_dst)
+
+
+def stjoin_sim_panel_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, ref_gid,
+                               cand_x, cand_y, cand_t, cand_id, cand_ok,
+                               cand_gid, eps_sp, eps_t, delta_t, *, M: int,
+                               n_src: int, n_dst: int, p0: int, panel: int):
+    """Panel pass 2: ``(fwd [panel, n_dst], rev [panel, n_src])`` with
+    ``fwd[i, j] = raw[p0 + i, j]`` and ``rev[i, j] = raw[j, p0 + i]`` of
+    ``stjoin_sim_fused_ref``'s ``raw``, bit for bit.
+
+    Only the matches that reach the panel are computed: the reference rows
+    that own a panel slot against every candidate (forward), and every
+    reference row against the candidates that own one (reverse).  A
+    (point, candidate) weight and its refine depend on nothing else, and
+    each slab adds in ``scatter_raw``'s (t, m, c) order.
+    """
+    T, C = ref_x.shape[0] // M, cand_x.shape[0]
+    gid = ref_gid.view(T, M)
+    ref = (ref_x, ref_y, ref_t, ref_id, ref_ok)
+    cand = (cand_x, cand_y, cand_t, cand_id, cand_ok)
+
+    def join(ref_ops, cand_ops, rt):
+        w, idx = stjoin_ref(*ref_ops, *cand_ops, eps_sp, eps_t)
+        return run_refine(w, idx, rt, M, delta_t)
+
+    rows = panel_members(gid, p0, panel)
+    pts = (rows[:, None] * M + torch.arange(M, device=rows.device)).view(-1)
+    w, idx = join([a[pts] for a in ref], cand, ref_t[pts])
+    fwd = scatter_raw(w.view(-1, M, C), idx.view(-1, M, C),
+                      panel_local(gid[rows], p0, panel), cand_gid, panel,
+                      n_dst)
+    cols = panel_members(cand_gid, p0, panel)
+    w, idx = join(ref, [a[cols] for a in cand], ref_t)
+    nc = cols.shape[0]
+    rev = scatter_raw(w.view(T, M, nc), idx.view(T, M, nc), gid,
+                      panel_local(cand_gid[cols], p0, panel), n_src, panel,
+                      transpose=True)
+    return fwd, rev

@@ -117,7 +117,8 @@ def test_plan_object_equals_flags_and_sequential_engine(fig1):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sim_mode="topk"), "item 7"), (dict(use_index=True), "item 8")])
+    (dict(sim_mode="topk", use_index=True), "item 8"),
+    (dict(use_index=True), "item 8")])
 def test_later_slices_raise(kw, item):
     tb, _ = tsyn.figure1_scenario(n_per_route=1, points_per_leg=8,
                                   device="cpu")

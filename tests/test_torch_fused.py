@@ -221,7 +221,7 @@ def test_fused_stage_times():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="fused", sim_mode="topk"), "item 7"),
+    (dict(mode="fused", sim_mode="topk", use_index=True), "item 8"),
     (dict(mode="fused", use_index=True), "item 8")])
 def test_fused_later_slices_raise(kw, item):
     jb, fkw, _ = _scenario("fig1_tsa2")
