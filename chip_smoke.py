@@ -46,6 +46,22 @@ Top-K similarity (``sim_mode="topk"``, the default K = 32 and widening):
 * the fused top-K path at ``dsc_sis``: labels equal to the dense dsc_sis
   run's (after step 6).
 
+Index pruning (``use_index=True``, the pruned kernels K10-K13):
+
+* T = 512: the materialize, fused and fused top-K kernel plans with the
+  index give the labels of the same plans without it (after the top-K
+  parity step);
+* dsc_brest as the launcher lays it out (after the brest main paths): the
+  three pruned paths, each launching exactly its kernels; labels, ``sim``
+  and the top-K lists equal to the unpruned runs'; then K10 bitwise K1,
+  K11 bitwise K2 (vote and words), K12 bitwise K4, K13 bitwise K7 on
+  every panel; tile counts, tile-list widths, planning ms, stage times and
+  peak memory printed;
+* the same 4096 vessels with rows stably sorted by lane (the layout of
+  ``benchmarks/kernel_bench.py``), where the plans skip tiles: the three
+  unpruned and the three pruned paths, the same checks, and each pruned
+  kernel against its plain version (timed, with its bound).
+
 Prints one JSON ``kernels`` line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any mismatch or
 error exits non-zero without the result line; so does a machine without a
@@ -55,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +99,11 @@ REPLACES = {
     "claim_max": "src/repro/kernels/cluster/cluster.py:120",
     "topk_round_scan": "src/repro/kernels/cluster/cluster.py:195",
     "topk_claim_max": "src/repro/kernels/cluster/cluster.py:216",
+    "stjoin_best_match_pruned": "src/repro/kernels/stjoin/stjoin.py:811",
+    "stjoin_vote_fused_pruned": "src/repro/kernels/stjoin/stjoin.py:637",
+    "stjoin_sim_fused_pruned": "src/repro/kernels/stjoin/stjoin.py:763",
+    "stjoin_sim_panel_fused_pruned":
+        "src/repro/kernels/stjoin/stjoin.py:515",
 }
 # the kernels each main path launches, and no other
 PATH_KERNELS = {
@@ -94,7 +116,15 @@ PATH_KERNELS = {
     "fused_topk": {"stjoin_vote_fused", "jaccard_window",
                    "stjoin_sim_panel_fused", "topk_round_scan",
                    "topk_claim_max"},
+    "materialize+index": {"stjoin_best_match_pruned", "jaccard_window",
+                          "round_scan", "claim_max"},
+    "fused+index": {"stjoin_vote_fused_pruned", "jaccard_window",
+                    "stjoin_sim_fused_pruned", "round_scan", "claim_max"},
+    "fused_topk+index": {"stjoin_vote_fused_pruned", "jaccard_window",
+                         "stjoin_sim_panel_fused_pruned", "topk_round_scan",
+                         "topk_claim_max"},
 }
+PRUNED_PATHS = ("materialize", "fused", "fused_topk")
 LABELS = ("member_of", "is_rep", "is_outlier")
 
 
@@ -162,7 +192,8 @@ def k1_window_pairs(batch, eps_t: float) -> int:
     return int(window_partners(batch, eps_t).sum())
 
 
-def brest_batch(n_vessels: int, dev, delta_t: float = 0.0):
+def brest_batch(n_vessels: int, dev, delta_t: float = 0.0,
+                sort_by_lane: bool = False):
     """The launcher's ``dsc_brest`` data and parameters
     (``repro.launch.run_dsc``: eps_sp = 0.15 * diameter, eps_t = mean
     sampling interval, delta_t = 0, w = 20, tau = 0.4, -1 sigma
@@ -171,26 +202,38 @@ def brest_batch(n_vessels: int, dev, delta_t: float = 0.0):
     ``segmentation="tsa1"``); TSA2 is chosen here so that the Jaccard
     kernel runs: the launcher equivalent is ``--config dsc_brest
     --n-trajs 4096 --segmentation tsa2``.  ``dsc_sis`` has the same
-    generator and parameters at 8192 vessels."""
-    from repro_torch.core.types import DSCParams
+    generator and parameters at 8192 vessels.
+
+    ``sort_by_lane``: the same vessels and parameters with the rows stably
+    sorted by lane, ids following their rows (the layout of
+    ``benchmarks/kernel_bench.py``): tiles of 32 neighbouring rows then
+    stay on few lanes, and the index plans skip tiles."""
+    from repro_torch.core.types import DSCParams, TrajectoryBatch
     from repro_torch.data.synthetic import ais_like, default_dsc_params_for
-    batch, _ = ais_like(n_vessels=n_vessels, max_points=128, n_lanes=8,
-                        seed=0, device=dev)
+    batch, lanes = ais_like(n_vessels=n_vessels, max_points=128, n_lanes=8,
+                            seed=0, device=dev)
     diam, mean_dt = default_dsc_params_for(batch)
     params = DSCParams(eps_sp=0.15 * diam, eps_t=mean_dt, delta_t=delta_t,
                        w=20, tau=0.4, alpha_sigma=-1.0, k_sigma=-1.0,
                        max_subtrajs_per_traj=8, segmentation="tsa2")
+    if sort_by_lane:
+        o = torch.from_numpy(lanes.argsort(kind="stable")).to(dev)
+        batch = TrajectoryBatch(x=batch.x[o], y=batch.y[o], t=batch.t[o],
+                                valid=batch.valid[o],
+                                traj_id=batch.traj_id[o])
     return batch, params
 
 
 def kernel_plan(path: str = "materialize"):
     """The kernel plan of a path: ``"materialize"``, ``"fused"``,
-    ``"materialize_topk"`` or ``"fused_topk"`` (the default K and panel)."""
+    ``"materialize_topk"`` or ``"fused_topk"`` (the default K and panel),
+    with the index where the path ends in ``"+index"``."""
     from repro_torch.core.plan import EnginePlan
+    path, _, index = path.partition("+")
     mode, _, sim = path.partition("_")
     return EnginePlan(mode=mode, use_kernel=True, seg_use_kernel=True,
                       cluster_use_kernel=True, sim_mode=sim or "dense",
-                      cluster_engine="rounds")
+                      cluster_engine="rounds", use_index=index == "index")
 
 
 def check_output(out, batch, params):
@@ -333,14 +376,378 @@ def phase_parity_topk(dev):
             f"after {out.dispatches} dispatches, rounds {out.rounds}")
 
 
+def phase_parity_index(dev):
+    """T = 512: each kernel plan with the index gives the labels of the
+    same plan without it."""
+    from repro_torch.core.dsc import run_dsc
+    batch, params = brest_batch(512, dev)
+    for path in PRUNED_PATHS:
+        dense = run_dsc(batch, params, plan=kernel_plan(path), device=dev)
+        out = run_dsc(batch, params, plan=kernel_plan(path + "+index"),
+                      device=dev)
+        same_labels(out, dense, f"T=512 {path}: index vs no index")
+        check_output(out, batch, params)
+    log("phase parity index (T=512): labels with the index equal those "
+        f"without it on {', '.join(PRUNED_PATHS)}")
+
+
+def same_pruned(outs, pouts, what: str):
+    """The pruned paths' outputs against the unpruned ones: labels, the
+    dense ``sim`` and the top-K lists bitwise."""
+    for path in PRUNED_PATHS:
+        a, b = outs[path], pouts[path]
+        same_labels(b, a, f"{what} {path}: index vs no index")
+        check(torch.equal(b.seg.sub_local, a.seg.sub_local),
+              f"{what} {path}: sub_local differs")
+        if a.sim is not None:
+            check(torch.equal(b.sim, a.sim), f"{what} {path}: sim differs")
+        else:
+            check(torch.equal(b.sim_topk.ids, a.sim_topk.ids)
+                  and torch.equal(b.sim_topk.sims, a.sim_topk.sims),
+                  f"{what} {path}: top-K lists differ")
+    log(f"{what}: with the index, labels, sub_local, sim and the top-K "
+        "lists equal the unpruned runs'")
+
+
+def plan_index(batch, params, report, name: str):
+    """Both tile plans of the batch's self-join, timed (host clock around
+    synchronized calls, the transposition of the fused plan included):
+    ``(join tile_ids, fused FusedTilePlan)``."""
+    from repro_torch.kernels.stjoin import ops as sj
+    eps = (params.eps_sp, params.eps_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask, counts, _ = sj.plan_join_index(batch, batch, *eps)
+    join_ids = sj._compact(mask, counts, None, "pruned join")
+    torch.cuda.synchronize()
+    join_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fplan = sj.plan_fused_tiles(*(batch.x, batch.y, batch.t,
+                                  batch.valid) * 2, *eps)
+    _ = fplan.by_row, fplan.by_tile
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    jk, jd = int(counts.sum()), mask.numel()
+    fk = int((fplan.tile_ids >= 0).sum())
+    fd = fplan.tile_ids.shape[0] * -(-batch.num_trajs // sj.FUSED_BC)
+    log(f"index plans ({name}): join {jk} of {jd} tiles kept "
+        f"({100 * jk / jd:.2f}%), tile_ids {list(join_ids.shape)}, planned "
+        f"in {join_ms:.2f} ms; fused {fk} of {fd} tiles kept "
+        f"({100 * fk / fd:.2f}%), tile_ids {list(fplan.tile_ids.shape)}, "
+        f"planned and transposed in {fused_ms:.2f} ms")
+    report[f"{name}_index_plans"] = dict(
+        join_kept=jk, join_dense=jd, join_width=join_ids.shape[1],
+        join_plan_ms=join_ms, fused_kept=fk, fused_dense=fd,
+        fused_width=fplan.tile_ids.shape[1], fused_plan_ms=fused_ms)
+    return join_ids, fplan
+
+
+def kept_window_pairs(batch, eps_t: float, tile_ids, bp: int, bc: int,
+                      rows=None, cands=None) -> int:
+    """``window_partners`` restricted to the (block of ``bp`` points,
+    tile of ``bc`` candidates) pairs a plan keeps: the (point, candidate
+    point) pairs with |dt| <= eps_t of another trajectory that a pruned
+    kernel has to evaluate.  ``rows`` / ``cands``: only the points of
+    these reference rows / of these candidates (closed ranges)."""
+    from repro_torch.kernels.stjoin.ref import tile_keep
+    T, M = batch.x.shape
+    t = batch.t.double()
+    tv = torch.where(batch.valid, t, torch.inf)
+    lo, hi = (t - eps_t).reshape(-1), (t + eps_t).reshape(-1)
+    rows_sorted = tv.sort(dim=1).values
+    own = (torch.searchsorted(rows_sorted, (t + eps_t), right=True)
+           - torch.searchsorted(rows_sorted, (t - eps_t))).reshape(-1)
+    keep = tile_keep(tile_ids, -(-T // bc))
+    pts = torch.arange(T * M, device=t.device)
+    ok = batch.valid.reshape(-1)
+    if rows is not None:
+        ok = ok & (pts // M >= rows[0]) & (pts // M <= rows[1])
+    c_lo, c_hi = (0, T - 1) if cands is None else cands
+    total = 0
+    for j in range(c_lo // bc, c_hi // bc + 1):
+        a, b = max(j * bc, c_lo), min((j + 1) * bc, c_hi + 1)
+        seq = tv[a:b].reshape(-1).sort().values
+        p = torch.nonzero(ok & keep[pts // bp, j])[:, 0]
+        cnt = (torch.searchsorted(seq, hi[p], right=True)
+               - torch.searchsorted(seq, lo[p]))
+        mine = (p // M >= a) & (p // M < b)
+        total += int((cnt - torch.where(mine, own[p], 0)).sum())
+    return total
+
+
+def live_reads(pairs, bp: int, bc: int, P: int, C: int, cands=None):
+    """The reference points ``[P]`` and candidates ``[C]`` (bool) that a
+    pruned kernel reads for the live (block, tile) entries ``pairs
+    [n, 2]``: the points of each block, the candidates of each tile
+    (``cands``: only those in this closed range)."""
+    dev = pairs.device
+    pts = torch.zeros(P, dtype=torch.bool, device=dev)
+    cand = torch.zeros(C, dtype=torch.bool, device=dev)
+    blk, tile = pairs[:, 0].long().unique(), pairs[:, 1].long().unique()
+    p = (blk[:, None] * bp + torch.arange(bp, device=dev)).reshape(-1)
+    pts[p[p < P]] = True
+    c = (tile[:, None] * bc + torch.arange(bc, device=dev)).reshape(-1)
+    lo, hi = (0, C - 1) if cands is None else cands
+    cand[c[(c >= lo) & (c <= hi)]] = True
+    return pts, cand
+
+
+def read_bytes(pts, cand, Mc: int, gids: bool = False) -> int:
+    """``join_input_bytes`` of the points and candidates read (``gids``:
+    with their slot maps, 4 bytes a point)."""
+    n_p, n_c = int(pts.sum()), int(cand.sum())
+    return (join_input_bytes(n_p, n_c, Mc)
+            + (4 * (n_p + n_c * Mc) if gids else 0))
+
+
+def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
+                         rows, name: str, n_plain: int):
+    """K10-K13 on the batch's plans, each against its dense kernel bit for
+    bit (K13 on every panel) and against its plain version bit for bit,
+    on the first ``n_plain`` reference rows (K13 on one whole panel).
+    With ``n_plain`` = T, each is also timed, with its bound, into
+    ``rows``.  ``sub``: the main path's segmentation (``sub_local``).  The
+    plain versions of K11 and K12 share one pruned plain join (the fused
+    plan's), as K2's and K4's share K1's: their plain time is that join's
+    plus their tail.  A bound counts the operands a kernel reads for its
+    plan's live entries (``live_reads``), those entries, its outputs, and
+    the pairs its kept tiles need (``kept_window_pairs``)."""
+    from repro_torch.core.similarity import plan_panel, scatter_raw, slot_ids
+    from repro_torch.kernels.stjoin import ops as sj
+    from repro_torch.kernels.stjoin.ref import (run_refine,
+                                                stjoin_pruned_ref,
+                                                stjoin_sim_panel_fused_ref,
+                                                vote_words_ref)
+    T, M = batch.x.shape
+    C, Mc = T, M
+    P = T * M
+    ms_ = params.max_subtrajs_per_traj
+    S = T * ms_
+    eps = (params.eps_sp, params.eps_t, params.delta_t)
+    arrs = (batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2
+    ref_ops, cand_ops = sj._flat_operands(*arrs)
+    gid = slot_ids(sub, ms_, S)
+    tiles = (fplan.tile_ids, M, fplan.bc)
+    timed = n_plain == T
+    nP, nS = n_plain * M, n_plain * ms_
+    head = tuple(a[:nP] for a in ref_ops)   # the first rows' points
+    rng = f"rows [0, {n_plain})"
+
+    # ---- K10 against K1 and its plain version -----------------------------
+    kw, ki = sj.stjoin_best_match_pruned(*ref_ops, *cand_ops, join_ids,
+                                         *eps[:2])
+    dw, di = sj.stjoin_best_match(*ref_ops, *cand_ops, *eps[:2])
+    check(torch.equal(kw, dw) and torch.equal(ki, di),
+          f"{name}: K10 not bitwise K1")
+    del dw, di
+    plain_out = []
+    plain = time_ms(lambda: plain_out.append(stjoin_pruned_ref(
+        *head, *cand_ops, join_ids, *eps[:2], bp=sj.JOIN_BP,
+        bc=sj.JOIN_BC)), reps=1, warmup=0)
+    pw, pi = plain_out.pop()
+    err = float((kw[:nP] - pw).abs().max())
+    check(torch.equal(kw[:nP], pw) and torch.equal(ki[:nP], pi),
+          f"{name}: K10 not bitwise its plain version on {rng} (max err "
+          f"{err})")
+    del pw, pi
+    ms = time_ms(lambda: sj.stjoin_best_match_pruned(
+        *ref_ops, *cand_ops, join_ids, *eps[:2], out_w=kw, out_idx=ki),
+        reps=3)
+    ms1 = time_ms(lambda: sj.stjoin_best_match(
+        *ref_ops, *cand_ops, *eps[:2], out_w=kw, out_idx=ki), reps=3)
+    log(f"{name}: K10 {ms:.3f} ms (its two fills included), K1 {ms1:.3f} "
+        "ms, on the same inputs")
+    if timed:
+        live, _ = sj._live_pairs(join_ids)
+        pairs = kept_window_pairs(batch, params.eps_t, join_ids, sj.JOIN_BP,
+                                  sj.JOIN_BC)
+        nbytes = (read_bytes(*live_reads(live, sj.JOIN_BP, sj.JOIN_BC, P,
+                                         C), Mc)
+                  + 8 * live.shape[0] + 8 * P * C)
+        kernel_row(rows, "stjoin_best_match_pruned", launches, err, ms,
+                   plain, bound_ms(nbytes, K1_OPS_PER_PAIR * pairs))
+        log(f"  K10: {live.shape[0]} live entries, {pairs} needed pairs in "
+            "kept tiles; library none")
+    del kw, ki
+    # the materialize join stage's join, whole (plan, fills, K10 / K1), in
+    # turns: dense, index, index, dense
+    join = {False: sj.best_match_join_kernel, True: sj.best_match_join_pruned}
+    jms = {False: 0.0, True: 0.0}
+    for idx in (False, True, True, False):
+        jms[idx] += time_ms(lambda: join[idx](batch, batch, *eps[:2]),
+                            reps=2) / 2
+    log(f"{name}: the join, whole wrapper: with the index {jms[True]:.3f} "
+        f"ms (plan, two fills, K10), dense {jms[False]:.3f} ms (K1)")
+
+    # ---- K11 against K2, K12 against K4 -----------------------------------
+    kv, kwords = sj.stjoin_vote_fused_arrays(*arrs, *eps, tile_ids=fplan)
+    dv, dwords = sj.stjoin_vote_fused_arrays(*arrs, *eps)
+    check(torch.equal(kv, dv) and torch.equal(kwords, dwords),
+          f"{name}: K11 vote / words not bitwise K2's")
+    del dv, dwords
+    raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps,
+                              tile_ids=fplan)
+    draw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps)
+    check(torch.equal(raw, draw), f"{name}: K12 raw not bitwise K4's")
+    del draw
+    if timed:
+        ms11 = time_ms(lambda: sj.stjoin_vote_fused_arrays(
+            *arrs, *eps, tile_ids=fplan), reps=3)
+        ms12 = time_ms(lambda: sj.stjoin_sim_fused(
+            batch, batch, sub, sub, ms_, *eps, tile_ids=fplan), reps=3)
+
+    # ---- K11 and K12 against their plain versions -------------------------
+    plain_out = []
+    join_ms = time_ms(lambda: plain_out.append(stjoin_pruned_ref(
+        *head, *cand_ops, fplan.tile_ids, *eps[:2], bp=M, bc=fplan.bc)),
+        reps=1, warmup=0)
+    pw, pi = plain_out.pop()
+    ref_t = batch.t.reshape(-1)[:nP]
+    tail = time_ms(lambda: plain_out.append(vote_words_ref(
+        run_refine(pw, None, ref_t, M, params.delta_t)[0])), reps=1,
+        warmup=0)
+    pv, pwords = plain_out.pop()
+    err = float((kv.view(-1)[:nP] - pv).abs().max())
+    check(torch.equal(kv.view(-1)[:nP], pv)
+          and torch.equal(kwords.view(P, -1)[:nP], pwords),
+          f"{name}: K11 not bitwise its plain version on {rng} (max err "
+          f"{err})")
+    W = pwords.shape[1]
+    del pv, pwords
+    live, _ = fplan.by_row
+    if timed:
+        fpairs = kept_window_pairs(batch, params.eps_t, fplan.tile_ids, M,
+                                   fplan.bc)
+        reads = live_reads(live, M, fplan.bc, P, C)
+        K = fplan.tile_ids.shape[1]     # a row shorter than K reads its -1
+        short = int(((fplan.tile_ids >= 0).sum(1) < K).sum())
+        kernel_row(rows, "stjoin_vote_fused_pruned", launches, err, ms11,
+                   join_ms + tail,
+                   bound_ms(read_bytes(*reads, Mc)
+                            + 4 * (live.shape[0] + short) + P * 4
+                            + P * W * 4, K1_OPS_PER_PAIR * fpairs))
+    w_r, i_r = run_refine(pw, pi, ref_t, M, params.delta_t)
+    del pw, pi
+    tail = time_ms(lambda: plain_out.append(scatter_raw(
+        w_r.view(n_plain, M, C), i_r.view(n_plain, M, C),
+        slot_ids(sub[:n_plain], ms_, nS), gid, nS, S)), reps=1, warmup=0)
+    praw = plain_out.pop()
+    err = float((raw[:nS] - praw).abs().max())
+    check(torch.equal(raw[:nS], praw),
+          f"{name}: K12 not bitwise its plain version on {rng} (max err "
+          f"{err})")
+    if timed:
+        kernel_row(rows, "stjoin_sim_fused_pruned", launches, err, ms12,
+                   join_ms + tail,
+                   bound_ms(read_bytes(*reads, Mc, gids=True)
+                            + 8 * live.shape[0] + S * S * 4,
+                            K1_OPS_PER_PAIR * fpairs))
+        log(f"  K11 / K12 plain = the pruned plain join {join_ms:.1f} ms + "
+            f"their tails; {live.shape[0]} live entries, {fpairs} needed "
+            "pairs in kept tiles; library none")
+    del w_r, i_r, praw, kv, kwords
+
+    # ---- K13 against K7, every panel (each call timed) ---------------------
+    Sb = plan_panel(S)
+    swept = {"K13": 0.0, "K7": 0.0}
+
+    def timed_panel(key, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sj.stjoin_sim_panel_fused(batch, batch, sub, sub, ms_, *eps,
+                                        p0=p0, panel=Sb, **kw)
+        end.record()
+        end.synchronize()
+        swept[key] += start.elapsed_time(end)
+        return out
+
+    for p0 in range(0, S, Sb):
+        f13, r13 = timed_panel("K13", tile_ids=fplan)
+        f7, r7 = timed_panel("K7")
+        check(torch.equal(f13, f7) and torch.equal(r13, r7),
+              f"{name}: K13 panel {p0} not bitwise K7's")
+        check(torch.equal(f13, raw[p0:p0 + Sb])
+              and torch.equal(r13, raw.T[p0:p0 + Sb]),
+              f"{name}: K13 panel {p0} not bitwise K12's raw")
+    del raw, f7, r7
+    log(f"{name}: K10 bitwise K1, K11 bitwise K2 (vote, words), K12 bitwise "
+        f"K4, K13 bitwise K7 on all {S // Sb} panels; all panels, one call "
+        f"each (CUDA events, wrapper included): K13 {swept['K13']:.1f} ms, "
+        f"K7 {swept['K7']:.1f} ms")
+
+    # ---- K13 against its plain version, one panel in the middle ------------
+    p0 = (S // Sb // 2) * Sb
+    plain_out = []
+    plain = time_ms(lambda: plain_out.append(stjoin_sim_panel_fused_ref(
+        *ref_ops, gid.view(-1), *cand_ops, gid, *eps, M=M, n_src=S,
+        n_dst=S, p0=p0, panel=Sb, tiles=tiles)), reps=1, warmup=0)
+    pf, pr = plain_out.pop()
+    f13, r13 = sj.stjoin_sim_panel_fused(batch, batch, sub, sub, ms_, *eps,
+                                         p0=p0, panel=Sb, tile_ids=fplan)
+    err = max(float((f13 - pf).abs().max()), float((r13 - pr).abs().max()))
+    check(torch.equal(f13, pf) and torch.equal(r13, pr),
+          f"{name}: K13 not bitwise its plain version on panel {p0} (max "
+          f"err {err})")
+    log(f"{name}: K10, K11, K12 bitwise their plain versions on {rng}, K13 "
+        f"on panel [{p0}, {p0 + Sb})")
+    if timed:
+        ms = time_ms(lambda: sj.stjoin_sim_panel_fused(
+            batch, batch, sub, sub, ms_, *eps, p0=p0, panel=Sb,
+            tile_ids=fplan), reps=10)
+        # the panel's live entries, sliced as the wrapper slices them
+        t_lo, t_hi = p0 // ms_, (p0 + Sb - 1) // ms_
+        fwd_pairs, blocks = fplan.by_row
+        rev_pairs, tile_of = fplan.by_tile
+        f0, f1 = (int(i) for i in blocks.searchsorted([t_lo, t_hi + 1]))
+        r0, r1 = (int(i) for i in tile_of.searchsorted(
+            [t_lo // fplan.bc, t_hi // fplan.bc + 1]))
+        fp, fc = live_reads(fwd_pairs[f0:f1], M, fplan.bc, P, C)
+        rp, rc = live_reads(rev_pairs[r0:r1], M, fplan.bc, P, C,
+                            cands=(t_lo, t_hi))
+        pairs = (kept_window_pairs(batch, params.eps_t, fplan.tile_ids, M,
+                                   fplan.bc, rows=(t_lo, t_hi))
+                 + kept_window_pairs(batch, params.eps_t, fplan.tile_ids, M,
+                                     fplan.bc, cands=(t_lo, t_hi)))
+        nbytes = (read_bytes(fp | rp, fc | rc, Mc, gids=True)
+                  + 8 * (f1 - f0 + r1 - r0) + 2 * Sb * S * 4)
+        kernel_row(rows, "stjoin_sim_panel_fused_pruned", launches, err, ms,
+                   plain, bound_ms(nbytes, K1_OPS_PER_PAIR * pairs))
+        log(f"  K13 panel [{p0}, {p0 + Sb}): {f1 - f0} forward and "
+            f"{r1 - r0} reverse live entries, {int((fp | rp).sum())} "
+            f"reference points and {int((fc | rc).sum())} candidates read, "
+            f"{pairs} needed pairs; library none")
+
+
+def phase_index(dev, report, batch, params, name: str, outs=None):
+    """The three pruned paths on one batch (and, without ``outs``, the
+    three unpruned ones first), their outputs compared; returns each
+    kernel's launch count in the pruned run of its path (K11 runs in two
+    paths, once in each) and the fused segmentation."""
+    outs = dict(outs or {})
+    for path in PRUNED_PATHS:
+        if path not in outs:
+            outs[path] = phase_main(dev, report, path, name=name,
+                                    data=(batch, params))[2]
+    pouts, launches = {}, {}
+    for path in PRUNED_PATHS:
+        _, _, pouts[path], n = phase_main(dev, report, path + "+index",
+                                          name=name, data=(batch, params))
+        for k, v in n.items():      # a kernel's count in its path's run
+            launches[k] = max(launches.get(k, 0), v)
+    same_pruned(outs, pouts, name)
+    return launches, pouts["fused"].seg.sub_local
+
+
 def phase_main(dev, report, mode: str, n_vessels: int = 4096,
-               name: str = "dsc_brest"):
-    """One main path at full size; launch counts read around it.  Peak
+               name: str = "dsc_brest", data=None):
+    """One main path at full size (``data``: its ``(batch, params)``, else
+    ``brest_batch(n_vessels)``); launch counts read around it.  Peak
     memory is the run's own: the peak allocation above what was
     allocated just before it."""
     from repro_torch import kernels
     from repro_torch.core.dsc import run_dsc
-    batch, params = brest_batch(n_vessels, dev)
+    batch, params = data or brest_batch(n_vessels, dev)
     T, M = batch.x.shape
     log(f"main path ({mode}): {name} T={T} M={M} "
         f"S={T * params.max_subtrajs_per_traj} "
@@ -361,14 +768,15 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
     check(ran == PATH_KERNELS[mode],
           f"{mode} path launched {sorted(ran)}, expected "
           f"{sorted(PATH_KERNELS[mode])}")
-    if mode.endswith("_topk"):
+    if "_topk" in mode:
         from repro_torch.core.similarity import plan_panel
         S = out.table.num_slots
         want = {"topk_round_scan": out.rounds,
                 "topk_claim_max": out.dispatches}
-        if "stjoin_sim_panel_fused" in ran:
-            want["stjoin_sim_panel_fused"] = (out.dispatches * S
-                                              // plan_panel(S))
+        for panel in ("stjoin_sim_panel_fused",
+                      "stjoin_sim_panel_fused_pruned"):
+            if panel in ran:
+                want[panel] = out.dispatches * S // plan_panel(S)
         check(out.sim is None and peak < S * S * 4,
               f"{mode}: a [S, S] matrix was built (peak {peak} B)")
     else:
@@ -694,6 +1102,23 @@ def phase_topk_kernels(batch, params, tout, launches, raw, rows):
         f"{n_valid} valid rows of {S}")
 
 
+def log_ptxas(build_log: str) -> None:
+    """One line per kernel from ``nvcc --ptxas-options=-v``: its
+    registers and spills (nothing when the library was already built)."""
+    name, spill = "?", ""
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for "
+                      r".*?([A-Za-z][A-Za-z_]*_kernel)E", line)
+        if m:
+            name = m.group(1)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            log(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}; {spill}")
+        elif "error" in line:
+            log("  ptxas: " + line.strip())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every number to this file")
@@ -717,14 +1142,13 @@ def main(argv=None) -> int:
     kernels.library()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s into {kernels.build_dir()}")
-    for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  ptxas: " + line.strip())
+    log_ptxas(kernels.build_log)
     report = {"card": card, "build_s": build_s}
 
     phase_parity(dev)
     phase_parity_fused(dev)
     phase_parity_topk(dev)
+    phase_parity_index(dev)
     batch, params, out, launches = phase_main(dev, report, "materialize")
     _, _, fout, flaunches = phase_main(dev, report, "fused")
     same_labels(fout, out, "dsc_brest: fused vs materialize path")
@@ -737,14 +1161,30 @@ def main(argv=None) -> int:
     check(torch.equal(tout.sscr, fout.sscr), "dsc_brest: top-K sscr")
     log("dsc_brest: fused top-K labels equal the dense fused labels; lists "
         "bitwise topk_from_dense of the dense matrix")
+    join_ids, fplan = plan_index(batch, params, report, "dsc_brest")
+    _, sub = phase_index(dev, report, batch, params, "dsc_brest",
+                         outs=dict(materialize=out, fused=fout,
+                                   fused_topk=tout))
     rows = []
     pw, pi, k1_plain = phase_kernels(batch, params, out, launches, rows)
     raw = phase_fused_kernels(batch, params, fout, flaunches, pw, pi,
                               k1_plain, rows)
     phase_topk_kernels(batch, params, tout, tlaunches, raw, rows)
+    del out, fout, tout, pw, pi, raw
+    torch.cuda.empty_cache()
+    phase_pruned_kernels(batch, params, sub, join_ids, fplan, {}, rows,
+                         "dsc_brest", n_plain=1024)
+    del join_ids, fplan
+    sbatch, _ = brest_batch(4096, dev, sort_by_lane=True)
+    name = "dsc_brest_lanes"
+    join_ids, fplan = plan_index(sbatch, params, report, name)
+    ilaunches, sub = phase_index(dev, report, sbatch, params, name)
+    torch.cuda.empty_cache()
+    phase_pruned_kernels(sbatch, params, sub, join_ids, fplan, ilaunches,
+                         rows, name, n_plain=sbatch.num_trajs)
+    del sbatch, join_ids, fplan, sub
     order = list(REPLACES)
     rows.sort(key=lambda r: order.index(r["name"]))
-    del out, fout, tout, pw, pi, raw
     torch.cuda.empty_cache()
     _, _, sout, _ = phase_main(dev, report, "fused", n_vessels=8192,
                                name="dsc_sis")

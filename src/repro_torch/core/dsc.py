@@ -27,8 +27,15 @@ Similarity representations (``EnginePlan.sim_mode``):
 Both modes run the same stage bodies under the same ``STAGES`` names, in
 ``_run_stages`` (the reference's ``_finish`` is folded in so the cube's
 only reference can be dropped as soon as nothing reads it), and
-``DSCOutput`` carries no ``join``.  ``use_index`` is a later slice of the
-port and raises ``NotImplementedError``.
+``DSCOutput`` carries no ``join``.
+
+``EnginePlan.use_index`` prunes candidate tiles with the spatiotemporal
+grid (``repro_torch.index``), losslessly: materialize mode with the
+kernel plan runs the pruned join K10, without it the plain join under the
+row-level prune mask; fused mode plans the tiles once
+(``plan_fused_tile_ids``, inside the ``join_vote`` stage) and runs the
+pruned passes K11 and K12, or K13 per panel, with that one plan in every
+dispatch.
 """
 from __future__ import annotations
 
@@ -123,11 +130,12 @@ def _segment_body(batch, params, vote, masks, plan: EnginePlan):
 
 
 def _similarity_body(batch, params, join, seg, table, plan: EnginePlan,
-                     k: int):
+                     k: int, tiles=None):
     """SP relation: ``(sim, topk)``, exactly one of them not None.  From
-    the cube or (fused mode, ``join is None``) from the fused pass 2: the
-    dense ``[S, S]`` matrix, or (``sim_mode="topk"``) the panel-streamed
-    ``[S, K]`` lists."""
+    the cube or (fused mode, ``join is None``) from the fused pass 2 over
+    the tile plan ``tiles`` (``None``: every tile): the dense ``[S, S]``
+    matrix, or (``sim_mode="topk"``) the panel-streamed ``[S, K]``
+    lists."""
     ms = params.max_subtrajs_per_traj
     if plan.sim_mode == "topk":
         if join is not None:
@@ -140,13 +148,13 @@ def _similarity_body(batch, params, join, seg, table, plan: EnginePlan,
             return stjoin_ops.stjoin_sim_panel_fused(
                 batch, batch, seg.sub_local, seg.sub_local, ms,
                 params.eps_sp, params.eps_t, params.delta_t, p0=p0,
-                panel=Sb)
+                panel=Sb, tile_ids=tiles)
 
         return None, similarity.topk_stream(panel_raw, table, k=k, panel=Sb)
     if join is None:
         raw = stjoin_ops.stjoin_sim_fused(
             batch, batch, seg.sub_local, seg.sub_local, ms, params.eps_sp,
-            params.eps_t, params.delta_t)
+            params.eps_t, params.delta_t, tile_ids=tiles)
         return similarity.finalize_sim(raw, table), None
     return similarity.similarity_matrix(join, seg, seg.sub_local, table,
                                         ms), None
@@ -180,25 +188,45 @@ def _vote_from_join_body(params, join):
     return vote, masks
 
 
+def plan_fused_tile_ids(batch: TrajectoryBatch, params: DSCParams,
+                        plan: EnginePlan):
+    """Host-side fused-tile planning (``mode="fused"`` + ``use_index``):
+    the ``FusedTilePlan`` of the batch's self-join in the port's geometry,
+    or ``None`` when the index is off.  The plan depends only on the
+    batch and the eps thresholds, so one plan serves every dispatch."""
+    if not (plan.mode == "fused" and plan.use_index):
+        return None
+    return stjoin_ops.plan_fused_tiles(
+        batch.x, batch.y, batch.t, batch.valid,
+        batch.x, batch.y, batch.t, batch.valid, params.eps_sp, params.eps_t)
+
+
 def _join_vote_materialize_body(batch, params, plan: EnginePlan):
+    """``(join, vote, masks, None)``: the cube, from K1, K10 (``use_index``
+    with the kernel plan) or the plain join (pruned by the row-level mask
+    under ``use_index``)."""
     if plan.use_kernel:
         join = stjoin_ops.subtrajectory_join(
-            batch, batch, params.eps_sp, params.eps_t, params.delta_t)
+            batch, batch, params.eps_sp, params.eps_t, params.delta_t,
+            use_index=plan.use_index)
     else:
         join = geometry.subtrajectory_join(
-            batch, batch, params.eps_sp, params.eps_t, params.delta_t)
+            batch, batch, params.eps_sp, params.eps_t, params.delta_t,
+            use_index=plan.use_index)
     vote, masks = _vote_from_join_body(params, join)
-    return join, vote, masks
+    return join, vote, masks, None
 
 
 def _join_vote_fused_body(batch, params, plan: EnginePlan):
-    """Fused pass 1: ``(None, vote, masks)`` — no cube."""
+    """Fused pass 1: ``(None, vote, masks, tiles)`` — no cube; ``tiles``
+    is the tile plan (``use_index``) the later passes reuse."""
+    tiles = plan_fused_tile_ids(batch, params, plan)
     vote, masks = stjoin_ops.stjoin_vote_fused_arrays(
         batch.x, batch.y, batch.t, batch.valid, batch.traj_id,
         batch.x, batch.y, batch.t, batch.valid, batch.traj_id,
-        params.eps_sp, params.eps_t, params.delta_t,
+        params.eps_sp, params.eps_t, params.delta_t, tile_ids=tiles,
         with_masks=params.segmentation == "tsa2")
-    return None, vote, masks
+    return None, vote, masks, tiles
 
 
 _JOIN_VOTE = {"materialize": _join_vote_materialize_body,
@@ -215,7 +243,7 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
     nothing can read it again: after the dense similarity stage, or after
     the last top-K dispatch."""
     with timer.stage("join_vote"):
-        join, vote, masks = _JOIN_VOTE[plan.mode](batch, params, plan)
+        join, vote, masks, tiles = _JOIN_VOTE[plan.mode](batch, params, plan)
     with timer.stage("segment"):
         seg, table = _segment_body(batch, params, vote, masks, plan)
     del masks
@@ -225,7 +253,7 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
     while True:
         with timer.stage("similarity"):
             sim, topk = _similarity_body(batch, params, join, seg, table,
-                                         plan, k)
+                                         plan, k, tiles)
         if topk is None:
             join = None
         with timer.stage("cluster"):
@@ -282,9 +310,6 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
     if on_overflow not in _ON_OVERFLOW:
         raise ValueError(f"on_overflow={on_overflow!r}: expected "
                          "'raise', 'widen', or 'degrade'")
-    if plan.use_index:
-        raise NotImplementedError(
-            "use_index (kernels K10-K13) is ROADMAP queue 1 item 8")
     dev = resolve_device(device)
     if batch.device != dev:
         batch = batch.to(dev)

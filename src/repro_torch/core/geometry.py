@@ -13,18 +13,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.types import JoinResult, TrajectoryBatch, f32, sqrt_rn
+from repro_torch.index.grid import trajectory_pair_mask
 
 # elements of one [rows, M, C, Mc] broadcast temporary
 CHUNK_ELEMENTS = 1 << 27
 
 
 def best_match_join(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
-                    eps_t) -> JoinResult:
+                    eps_t, *, prune_mask: torch.Tensor | None = None
+                    ) -> JoinResult:
     """Dense best-match spatiotemporal join; ``[T_ref, M_ref, T_cand]``.
     Pairs of points of the same trajectory id never match.
 
     The ``[T, M, C, Mc]`` broadcast is evaluated in chunks of reference
     rows, so the temporaries stay bounded at any batch size.
+    ``prune_mask``: optional ``[T_ref, T_cand]`` bool from the index
+    (``repro_torch.index.grid.trajectory_pair_mask``); pairs masked False
+    are skipped.  A conservative mask leaves the result unchanged.
     """
     T, M = ref.x.shape
     C, Mc = cand.x.shape
@@ -45,6 +50,8 @@ def best_match_join(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
         ok &= ref.valid[r, :, None, None] & cok
         same = ref.traj_id[r, None] == cand.traj_id[None, :]
         ok &= ~same[:, None, :, None]
+        if prune_mask is not None:
+            ok &= prune_mask[r, None, :, None]
         w = torch.where(ok, 1.0 - d_sp / eps_sp, 0.0)
         bw = w.amax(dim=-1)
         arg = w.argmax(dim=-1)
@@ -90,11 +97,18 @@ def filter_delta_t(join: JoinResult, ref_t: torch.Tensor, delta_t) -> JoinResult
 def subtrajectory_join(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
                        eps_t, delta_t=0.0, *, use_index: bool = False
                        ) -> JoinResult:
-    """Problem 1, end to end: cylinder join + delta_t run filtering."""
+    """Problem 1, end to end: cylinder join + delta_t run filtering.
+
+    ``use_index=True`` applies the row-level spatiotemporal prune mask
+    (bbox distance test per trajectory pair) before the sweep; the mask is
+    conservative, so the output is unchanged.
+    """
+    prune_mask = None
     if use_index:
-        raise NotImplementedError(
-            "use_index: index pruning is ROADMAP queue 1 item 8")
-    j = best_match_join(ref, cand, eps_sp, eps_t)
+        prune_mask = trajectory_pair_mask(
+            ref.x, ref.y, ref.t, ref.valid, cand.x, cand.y, cand.t,
+            cand.valid, eps_sp, eps_t)
+    j = best_match_join(ref, cand, eps_sp, eps_t, prune_mask=prune_mask)
     if float(delta_t) > 0.0:
         return filter_delta_t(j, ref.t, delta_t)
     return j

@@ -13,15 +13,17 @@ clustering (P3)       ``cluster_engine``, ``cluster_use_kernel``
 ====================  =====================================================
 
 The port runs both modes (``"materialize"``, ``"fused"``) with either
-similarity representation (``"dense"``, ``"topk"``) and no index;
-``use_index`` validates here and ``run_dsc`` rejects it until it is
-ported.  ``use_kernel`` picks the join kernel of materialize mode only:
-fused mode on the card always runs its kernels.  ``sim_topk=None`` means
+similarity representation (``"dense"``, ``"topk"``), with or without the
+index (``use_index``: grid candidate-tile pruning, lossless; the pruned
+kernels K10-K13 on the card).  ``use_kernel`` picks the join kernel of
+materialize mode only (K1, or K10 under ``use_index``): fused mode on the
+card always runs its kernels.  ``sim_topk=None`` means
 K = 32 and ``sim_panel=None`` a panel height of at most 128, both resolved
 at run time against S.  The reference's tile and distributed fields come
 with the code that reads them; the fused tile geometry
-(``fused_rows/bc/bm``) has no counterpart, since the CUDA kernels take no
-tile geometry.
+(``fused_rows/bc/bm``) has no counterpart: the dense CUDA kernels take no
+tile geometry, and the pruned ones take only their own blocks, which the
+tile plans of ``kernels.stjoin.ops`` carry.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ class EnginePlan:
     mode: str = "materialize"          # "materialize" | "fused"
     use_kernel: bool = False           # CUDA join kernel (materialize only)
     use_index: bool = False            # grid candidate-tile pruning
+                                       # (K10-K13 with the kernel plan)
     seg_use_kernel: bool = False       # CUDA TSA2 Jaccard kernel
     sim_mode: str = "dense"            # "dense" | "topk"
     sim_topk: int | None = None        # K of the top-K lists (None = 32)

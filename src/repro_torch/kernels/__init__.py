@@ -40,7 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 LAUNCHES = {"stjoin_best_match": 0, "stjoin_vote_fused": 0,
             "jaccard_window": 0, "stjoin_sim_fused": 0,
             "stjoin_sim_panel_fused": 0, "round_scan": 0, "claim_max": 0,
-            "topk_round_scan": 0, "topk_claim_max": 0}
+            "topk_round_scan": 0, "topk_claim_max": 0,
+            "stjoin_best_match_pruned": 0, "stjoin_vote_fused_pruned": 0,
+            "stjoin_sim_fused_pruned": 0,
+            "stjoin_sim_panel_fused_pruned": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +65,26 @@ _SIGNATURES = {
     # rev; stream
     "stjoin_sim_panel_fused": [_P] * 12 + [_I] * 7 + [ctypes.c_float] * 3
                               + [_P, _P, _P],
+    # the K1 operands, P, C, Mc, eps_sp, eps_t; live (block, tile) pairs,
+    # their count; best_w, best_idx; stream
+    "stjoin_best_match_pruned": [_P] * 10 + [ctypes.c_longlong, _I, _I,
+                                             ctypes.c_float, ctypes.c_float,
+                                             _P, ctypes.c_longlong,
+                                             _P, _P, _P],
+    # the K2 operands up to W; tile_ids, K; stream
+    "stjoin_vote_fused_pruned": [_P] * 10 + [_I] * 4
+                                + [ctypes.c_float] * 3
+                                + [_P, _P, _I, _P, _I, _P],
+    # the K4 operands up to delta_t; live (row, tile) pairs, their count;
+    # raw; stream
+    "stjoin_sim_fused_pruned": [_P] * 12 + [_I] * 5 + [ctypes.c_float] * 3
+                               + [_P, ctypes.c_longlong, _P, _P],
+    # the K7 operands up to delta_t; forward pairs and count, reverse
+    # pairs and count; c_lo, c_hi; fwd, rev; stream
+    "stjoin_sim_panel_fused_pruned": [_P] * 12 + [_I] * 7
+                                     + [ctypes.c_float] * 3
+                                     + [_P, ctypes.c_longlong] * 2
+                                     + [_I, _I, _P, _P, _P],
     # masks, T, M, W, w, d, stream
     "jaccard_window": [_P, _I, _I, _I, _I, _P, _P],
     # sim, rank, unresolved, is_rep, alpha, S, n_split, blocked, claimed,

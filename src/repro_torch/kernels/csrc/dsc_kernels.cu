@@ -14,6 +14,14 @@
 //   claim_max          <- repro/kernels/cluster/cluster.py assign_pallas
 //   topk_round_scan    <- repro/kernels/cluster/cluster.py topk_round_scan_pallas
 //   topk_claim_max     <- repro/kernels/cluster/cluster.py topk_assign_pallas
+//   stjoin_best_match_pruned
+//                      <- repro/kernels/stjoin/stjoin.py  stjoin_pallas_pruned
+//   stjoin_vote_fused_pruned
+//                      <- repro/kernels/stjoin/stjoin.py  stjoin_vote_fused_pruned_flat
+//   stjoin_sim_fused_pruned
+//                      <- repro/kernels/stjoin/stjoin.py  stjoin_sim_fused_pruned_flat
+//   stjoin_sim_panel_fused_pruned
+//                      <- repro/kernels/stjoin/stjoin.py  stjoin_sim_panel_fused_pruned_flat
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (never --use_fast_math).  The arithmetic below also spells out the
@@ -150,13 +158,12 @@ __device__ __forceinline__ void sweep_best(SweepSmem& sm,
 // one sweep per block (64 points x 32 candidates); each warp writes 32
 // consecutive outputs of one row.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-stjoin_best_match_kernel(JoinOperands op, long long P,
-                         float* __restrict__ out_w,
-                         int* __restrict__ out_idx) {
-  __shared__ SweepSmem sm;
-  const long long p0 = (long long)blockIdx.x * K1_PTS;
-  const int c0 = blockIdx.y * K1_TC;
+__device__ __forceinline__ void best_match_block(SweepSmem& sm,
+                                                 const JoinOperands& op,
+                                                 long long P, long long p0,
+                                                 int c0,
+                                                 float* __restrict__ out_w,
+                                                 int* __restrict__ out_idx) {
   float best[K1_NP];
   int arg[K1_NP];
   sweep_best(sm, op, p0, P, c0, best, arg);
@@ -172,6 +179,15 @@ stjoin_best_match_kernel(JoinOperands op, long long P,
       out_idx[o] = best[k] > 0.f ? arg[k] : -1;
     }
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+stjoin_best_match_kernel(JoinOperands op, long long P,
+                         float* __restrict__ out_w,
+                         int* __restrict__ out_idx) {
+  __shared__ SweepSmem sm;
+  best_match_block(sm, op, P, (long long)blockIdx.x * K1_PTS,
+                   blockIdx.y * K1_TC, out_w, out_idx);
 }
 
 // ---------------------------------------------------------------------------
@@ -252,6 +268,40 @@ __device__ __forceinline__ void refine_tile(float* tw, int* tidx,
 // at a time, starting from +0.0 (the plain version's order), with no
 // atomics; each word is written whole by one thread.
 // ---------------------------------------------------------------------------
+// One candidate tile of K2 / K11 for the row at row0: sweep, refine, then
+// the thread of point m adds the tile's 32 refined weights to acc[m] in
+// ascending candidate order and writes the tile's word, after zeroing the
+// row's words [w_from, c0 / 32) (tiles K11 skips; K2 passes w_from =
+// c0 / 32).  Every thread calls it: it synchronizes.
+__device__ __forceinline__ void vote_tile(SweepSmem& sm,
+                                          const JoinOperands& op, int M,
+                                          float delta_t, long long row0,
+                                          int c0, float* tw, float* acc,
+                                          int* __restrict__ words, int W,
+                                          int w_from) {
+  const int tid = threadIdx.y * K1_TC + threadIdx.x;
+  sweep_row_tile(sm, op, row0, M, c0, tw, nullptr);
+  if (threadIdx.y == 0) refine_tile(tw, nullptr, op.rt + row0, M, delta_t);
+  __syncthreads();
+  const int nc = min(K1_TC, op.C - c0);
+  for (int m = tid; m < M; m += kThreads) {
+    float a = acc[m];
+    uint32_t word = 0u;
+    for (int j = 0; j < nc; ++j) {
+      const float w = tw[m * kTileStride + j];
+      a = __fadd_rn(a, w);
+      word |= (w > 0.f ? 1u : 0u) << j;
+    }
+    acc[m] = a;
+    if (words != nullptr) {
+      int* row = words + (size_t)(row0 + m) * W;
+      for (int k = w_from; k < c0 / K1_TC; ++k) row[k] = 0;
+      row[c0 / K1_TC] = (int)word;
+    }
+  }
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kThreads)
 stjoin_vote_fused_kernel(JoinOperands op, int M, float delta_t,
                          float* __restrict__ vote, int* __restrict__ words,
@@ -264,25 +314,8 @@ stjoin_vote_fused_kernel(JoinOperands op, int M, float delta_t,
   const long long row0 = (long long)blockIdx.x * M;
   for (int m = tid; m < M; m += kThreads) acc[m] = 0.f;
 
-  for (int c0 = 0; c0 < op.C; c0 += K1_TC) {
-    sweep_row_tile(sm, op, row0, M, c0, tw, nullptr);
-    if (threadIdx.y == 0) refine_tile(tw, nullptr, op.rt + row0, M, delta_t);
-    __syncthreads();
-    const int nc = min(K1_TC, op.C - c0);
-    for (int m = tid; m < M; m += kThreads) {
-      float a = acc[m];
-      uint32_t word = 0u;
-      for (int j = 0; j < nc; ++j) {
-        const float w = tw[m * kTileStride + j];
-        a = __fadd_rn(a, w);
-        word |= (w > 0.f ? 1u : 0u) << j;
-      }
-      acc[m] = a;
-      if (words != nullptr)
-        words[(size_t)(row0 + m) * W + c0 / K1_TC] = (int)word;
-    }
-    __syncthreads();
-  }
+  for (int c0 = 0; c0 < op.C; c0 += K1_TC)
+    vote_tile(sm, op, M, delta_t, row0, c0, tw, acc, words, W, c0 / K1_TC);
   for (int m = tid; m < M; m += kThreads) vote[row0 + m] = acc[m];
 }
 
@@ -345,15 +378,13 @@ __device__ __forceinline__ void sim_block(SweepSmem& sm,
 // from +0.0, without atomics.  Finally the block writes its [ms, 32*ms]
 // slab of raw whole (zeros included), so raw needs no zero fill.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-stjoin_sim_fused_kernel(JoinOperands op, int M, float delta_t,
-                        const int* __restrict__ ref_gid,
-                        const int* __restrict__ cand_gid, int ms,
-                        long long n_dst, float* __restrict__ raw) {
-  __shared__ SweepSmem sm;
-  extern __shared__ float dyn[];
-  const long long t = blockIdx.x;
-  const int c0 = blockIdx.y * K1_TC;
+// One (row t, tile from c0) block of K4 / K12: sim_block, then the block
+// writes its [ms, 32*ms] slab of raw whole (zeros included).
+__device__ __forceinline__ void sim_fused_block(
+    SweepSmem& sm, const JoinOperands& op, int M, float delta_t,
+    const int* __restrict__ ref_gid, const int* __restrict__ cand_gid,
+    int ms, long long n_dst, long long t, int c0, float* dyn,
+    float* __restrict__ raw) {
   sim_block(sm, op, M, delta_t, ref_gid, cand_gid, ms, t, c0, dyn);
   const int bs = ms * ms + 1;
   const float* blk = dyn + 2 * M * kTileStride;
@@ -364,6 +395,57 @@ stjoin_sim_fused_kernel(JoinOperands op, int M, float delta_t,
     const int cl = col / ms, k = col % ms;
     raw[(size_t)(t * ms + i) * n_dst + (size_t)c0 * ms + col] =
         blk[cl * bs + i * ms + k];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+stjoin_sim_fused_kernel(JoinOperands op, int M, float delta_t,
+                        const int* __restrict__ ref_gid,
+                        const int* __restrict__ cand_gid, int ms,
+                        long long n_dst, float* __restrict__ raw) {
+  __shared__ SweepSmem sm;
+  extern __shared__ float dyn[];
+  sim_fused_block(sm, op, M, delta_t, ref_gid, cand_gid, ms, n_dst,
+                  blockIdx.x, blockIdx.y * K1_TC, dyn, raw);
+}
+
+// One block of K7 / K13: sim_block for (row t, candidates c0 .. o.C - 1,
+// at most 32), then only the cells whose slot lies in the panel
+// [p0, p0 + panel): a forward block's rows, a reverse block's candidate
+// slots (transposed into rev).
+__device__ __forceinline__ void sim_panel_block(
+    SweepSmem& sm, const JoinOperands& o, int M, float delta_t,
+    const int* __restrict__ ref_gid, const int* __restrict__ cand_gid,
+    int ms, int p0, int panel, long long t, int c0, bool forward,
+    long long n_src, long long n_dst, float* dyn, float* __restrict__ fwd,
+    float* __restrict__ rev) {
+  sim_block(sm, o, M, delta_t, ref_gid, cand_gid, ms, t, c0, dyn);
+  const int bs = ms * ms + 1;
+  const float* blk = dyn + 2 * M * kTileStride;
+  const int tid = threadIdx.y * K1_TC + threadIdx.x;
+  const int nc = min(K1_TC, o.C - c0);
+  if (forward) {
+    // rows i of the block whose slot t*ms + i lies in the panel
+    const long long s0 = t * ms;
+    const int i_lo = p0 > s0 ? (int)(p0 - s0) : 0;
+    const int i_hi = p0 + panel < s0 + ms ? (int)(p0 + panel - s0) : ms;
+    const int ncols = nc * ms;
+    for (int e = tid; e < (i_hi - i_lo) * ncols; e += kThreads) {
+      const int i = i_lo + e / ncols, col = e % ncols;
+      const int cl = col / ms, k = col % ms;
+      fwd[(size_t)(s0 + i - p0) * n_dst + (size_t)c0 * ms + col] =
+          blk[cl * bs + i * ms + k];
+    }
+  } else {
+    // cells (i, k) whose candidate slot (c0 + cl)*ms + k lies in the
+    // panel; rev row = that slot - p0, rev column = t*ms + i
+    for (int e = tid; e < nc * ms * ms; e += kThreads) {
+      const int i = e % ms, k = (e / ms) % ms, cl = e / (ms * ms);
+      const long long slot = (long long)(c0 + cl) * ms + k;
+      if (slot < p0 || slot >= (long long)p0 + panel) continue;
+      rev[(size_t)(slot - p0) * n_src + (size_t)t * ms + i] =
+          blk[cl * bs + i * ms + k];
+    }
   }
 }
 
@@ -415,34 +497,139 @@ stjoin_sim_panel_fused_kernel(JoinOperands op, int M, float delta_t,
     c0 = c_lo + (int)(r % ntr) * K1_TC;
     o.C = c_hi + 1;            // the sweep stops at the panel's candidates
   }
-  sim_block(sm, o, M, delta_t, ref_gid, cand_gid, ms, t, c0, dyn);
-  const int bs = ms * ms + 1;
-  const float* blk = dyn + 2 * M * kTileStride;
+  sim_panel_block(sm, o, M, delta_t, ref_gid, cand_gid, ms, p0, panel, t,
+                  c0, forward, n_src, n_dst, dyn, fwd, rev);
+}
+
+// ---------------------------------------------------------------------------
+// The index-pruned kernels K10-K13.  A tile plan names, per reference
+// block, the ascending ids of the candidate tiles that can hold a match
+// (repro_torch.index.grid; a skipped tile provably holds none).  The
+// port's plans use the dense kernels' own blocks: 64 reference points x
+// 32 candidates for K10 (K1's block), one reference row x 32 candidates
+// for K11-K13 (K2's, K4's and K7's block), so a tile is one packed TSA2
+// word.  Each pruned kernel runs its dense kernel's block body (the same
+// __device__ functions) on the planned tiles only, so a kept tile's
+// output is its dense kernel's, bit for bit; a skipped tile's output is
+// what the dense kernel writes for a tile without a match: (0, -1), a
+// zero word, zero cells.  Blocks are launched only for live entries: the
+// wrapper passes the plan's live (block, tile) pairs as a flat int2 list
+// (row-major, or tile-major for K13's reverse blocks).  The candidate
+// operands are read in place through the tile ids (the TPU kernels gather
+// them to [nRb, K, bc, Mc] first).
+//
+// Bound: that of the dense kernel over the kept pairs' share of the work;
+// the outputs are still written whole.
+// ---------------------------------------------------------------------------
+
+// K10 <- stjoin_pallas_pruned: K1 over the live (64-point block, 32-
+// candidate tile) pairs.  The wrapper fills best_w with 0 and best_idx
+// with -1 first (two memsets), then one block per live pair writes its
+// 64 x 32 outputs.  Four blocks per SM, K1's occupancy: left free, ptxas
+// gives this kernel 80 registers (K1: 64), which fits only three.
+__global__ void __launch_bounds__(kThreads, 4)
+stjoin_best_match_pruned_kernel(JoinOperands op, long long P,
+                                const int2* __restrict__ pairs,
+                                float* __restrict__ out_w,
+                                int* __restrict__ out_idx) {
+  __shared__ SweepSmem sm;
+  const int2 e = pairs[blockIdx.x];
+  best_match_block(sm, op, P, (long long)e.x * K1_PTS, e.y * K1_TC, out_w,
+                   out_idx);
+}
+
+// K11 <- stjoin_vote_fused_pruned_flat: K2's block per reference row,
+// walking only the row's K planned tiles (ascending, -1 padded).  Vote:
+// a skipped tile has only +0.0 weights, and adding +0.0 to a running sum
+// that started at +0.0 and only ever adds non-negative weights changes no
+// bit, so skipping those adds leaves vote bitwise K2's.  Words: the
+// thread of point m writes 0 into the words of the tiles skipped before
+// each planned tile and after the last one, so every word is written
+// once, by one thread, without atomics or a fill.
+__global__ void __launch_bounds__(kThreads)
+stjoin_vote_fused_pruned_kernel(JoinOperands op, int M, float delta_t,
+                                const int* __restrict__ tile_ids, int K,
+                                float* __restrict__ vote,
+                                int* __restrict__ words, int W) {
+  __shared__ SweepSmem sm;
+  extern __shared__ float dyn[];
+  float* tw = dyn;                        // [M][33]
+  float* acc = dyn + M * kTileStride;     // [M]
   const int tid = threadIdx.y * K1_TC + threadIdx.x;
-  const int nc = min(K1_TC, o.C - c0);
-  if (forward) {
-    // rows i of the block whose slot t*ms + i lies in the panel
-    const long long s0 = t * ms;
-    const int i_lo = p0 > s0 ? (int)(p0 - s0) : 0;
-    const int i_hi = p0 + panel < s0 + ms ? (int)(p0 + panel - s0) : ms;
-    const int ncols = nc * ms;
-    for (int e = tid; e < (i_hi - i_lo) * ncols; e += kThreads) {
-      const int i = i_lo + e / ncols, col = e % ncols;
-      const int cl = col / ms, k = col % ms;
-      fwd[(size_t)(s0 + i - p0) * n_dst + (size_t)c0 * ms + col] =
-          blk[cl * bs + i * ms + k];
-    }
-  } else {
-    // cells (i, k) whose candidate slot (c0 + cl)*ms + k lies in the
-    // panel; rev row = that slot - p0, rev column = t*ms + i
-    for (int e = tid; e < nc * ms * ms; e += kThreads) {
-      const int i = e % ms, k = (e / ms) % ms, cl = e / (ms * ms);
-      const long long slot = (long long)(c0 + cl) * ms + k;
-      if (slot < p0 || slot >= (long long)p0 + panel) continue;
-      rev[(size_t)(slot - p0) * n_src + (size_t)t * ms + i] =
-          blk[cl * bs + i * ms + k];
+  const long long row0 = (long long)blockIdx.x * M;
+  const int* tiles = tile_ids + (size_t)blockIdx.x * K;
+  for (int m = tid; m < M; m += kThreads) acc[m] = 0.f;
+
+  int w_from = 0;
+  for (int s = 0; s < K; ++s) {
+    const int j = tiles[s];
+    if (j < 0) break;
+    vote_tile(sm, op, M, delta_t, row0, j * K1_TC, tw, acc, words, W,
+              w_from);
+    w_from = j + 1;
+  }
+  for (int m = tid; m < M; m += kThreads) {
+    vote[row0 + m] = acc[m];
+    if (words != nullptr) {
+      int* row = words + (size_t)(row0 + m) * W;
+      for (int k = w_from; k < W; ++k) row[k] = 0;
     }
   }
+}
+
+// K12 <- stjoin_sim_fused_pruned_flat: K4's block for each live (row,
+// 32-candidate tile) pair.  K4 writes every cell of raw; here the cells
+// of skipped pairs are the wrapper's zero fill (+0.0, what K4 writes for
+// a pair without a match).
+__global__ void __launch_bounds__(kThreads)
+stjoin_sim_fused_pruned_kernel(JoinOperands op, int M, float delta_t,
+                               const int* __restrict__ ref_gid,
+                               const int* __restrict__ cand_gid, int ms,
+                               long long n_dst,
+                               const int2* __restrict__ pairs,
+                               float* __restrict__ raw) {
+  __shared__ SweepSmem sm;
+  extern __shared__ float dyn[];
+  const int2 e = pairs[blockIdx.x];
+  sim_fused_block(sm, op, M, delta_t, ref_gid, cand_gid, ms, n_dst, e.x,
+                  e.y * K1_TC, dyn, raw);
+}
+
+// K13 <- stjoin_sim_panel_fused_pruned_flat: K7 over the plan.  Forward
+// blocks: K7's forward blocks of the rows t_lo..t_hi that own a panel
+// slot, for their planned tiles only (fwd_pairs: the plan's row-major
+// entries of those rows).  Reverse blocks: one per (row t, tile j) entry
+// of the plan in transpose (rev_pairs: the entries of the tiles that hold
+// the panel's candidates c_lo..c_hi, tile-major), sweeping the panel's
+// candidates inside tile j only.  A cell's sum does not depend on how the
+// candidates are grouped into blocks (each lane owns one candidate), so
+// every written cell is K7's; the rest are the wrapper's zero fill of both
+// slabs.
+__global__ void __launch_bounds__(kThreads)
+stjoin_sim_panel_fused_pruned_kernel(JoinOperands op, int M, float delta_t,
+                                     const int* __restrict__ ref_gid,
+                                     const int* __restrict__ cand_gid,
+                                     int ms, int p0, int panel,
+                                     const int2* __restrict__ fwd_pairs,
+                                     long long n_fwd,
+                                     const int2* __restrict__ rev_pairs,
+                                     int c_lo, int c_hi, long long n_src,
+                                     long long n_dst,
+                                     float* __restrict__ fwd,
+                                     float* __restrict__ rev) {
+  __shared__ SweepSmem sm;
+  extern __shared__ float dyn[];
+  const long long b = blockIdx.x;
+  const bool forward = b < n_fwd;
+  const int2 e = forward ? fwd_pairs[b] : rev_pairs[b - n_fwd];
+  JoinOperands o = op;
+  int c0 = e.y * K1_TC;
+  if (!forward) {
+    c0 = max(c0, c_lo);
+    o.C = min(c_hi + 1, e.y * K1_TC + K1_TC);
+  }
+  sim_panel_block(sm, o, M, delta_t, ref_gid, cand_gid, ms, p0, panel, e.x,
+                  c0, forward, n_src, n_dst, dyn, fwd, rev);
 }
 
 // ---------------------------------------------------------------------------
@@ -806,6 +993,108 @@ int stjoin_sim_panel_fused(const float* rx, const float* ry,
                                     smem, stream>>>(
         op, M, delta_t, ref_gid, cand_gid, ms, p0, panel, t_lo, ntc, n_fwd,
         c_lo, c_hi, (long long)T * ms, (long long)C * ms, fwd, rev);
+  }
+  return (int)cudaGetLastError();
+}
+
+int stjoin_best_match_pruned(const float* rx, const float* ry,
+                             const float* rt, const int* rid,
+                             const uint8_t* rok, const float* cx,
+                             const float* cy, const float* ct, const int* cid,
+                             const uint8_t* cok, long long P, int C, int Mc,
+                             float eps_sp, float eps_t, const int* pairs,
+                             long long n_pairs, float* out_w, int* out_idx,
+                             cudaStream_t stream) {
+  if (n_pairs > 0) {
+    const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
+                          C, Mc, eps_sp, eps_t};
+    stjoin_best_match_pruned_kernel<<<(unsigned)n_pairs, dim3(K1_TC, K1_TY),
+                                      0, stream>>>(
+        op, P, reinterpret_cast<const int2*>(pairs), out_w, out_idx);
+  }
+  return (int)cudaGetLastError();
+}
+
+int stjoin_vote_fused_pruned(const float* rx, const float* ry,
+                             const float* rt, const int* rid,
+                             const uint8_t* rok, const float* cx,
+                             const float* cy, const float* ct, const int* cid,
+                             const uint8_t* cok, int T, int M, int C, int Mc,
+                             float eps_sp, float eps_t, float delta_t,
+                             float* vote, int* words, int W,
+                             const int* tile_ids, int K,
+                             cudaStream_t stream) {
+  if (T > 0) {
+    const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
+                          C, Mc, eps_sp, eps_t};
+    const int smem = M * (kTileStride + 1) * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        stjoin_vote_fused_pruned_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    stjoin_vote_fused_pruned_kernel<<<T, dim3(K1_TC, K1_TY), smem, stream>>>(
+        op, M, delta_t, tile_ids, K, vote, words, W);
+  }
+  return (int)cudaGetLastError();
+}
+
+int stjoin_sim_fused_pruned(const float* rx, const float* ry,
+                            const float* rt, const int* rid,
+                            const uint8_t* rok, const float* cx,
+                            const float* cy, const float* ct, const int* cid,
+                            const uint8_t* cok, const int* ref_gid,
+                            const int* cand_gid, int T, int M, int C, int Mc,
+                            int ms, float eps_sp, float eps_t, float delta_t,
+                            const int* pairs, long long n_pairs, float* raw,
+                            cudaStream_t stream) {
+  if (n_pairs > 0 && ms > 0) {
+    const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
+                          C, Mc, eps_sp, eps_t};
+    const int smem =
+        (2 * M * kTileStride + K1_TC * (ms * ms + 1)) * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        stjoin_sim_fused_pruned_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    stjoin_sim_fused_pruned_kernel<<<(unsigned)n_pairs, dim3(K1_TC, K1_TY),
+                                     smem, stream>>>(
+        op, M, delta_t, ref_gid, cand_gid, ms, (long long)C * ms,
+        reinterpret_cast<const int2*>(pairs), raw);
+  }
+  return (int)cudaGetLastError();
+}
+
+int stjoin_sim_panel_fused_pruned(const float* rx, const float* ry,
+                                  const float* rt, const int* rid,
+                                  const uint8_t* rok, const float* cx,
+                                  const float* cy, const float* ct,
+                                  const int* cid, const uint8_t* cok,
+                                  const int* ref_gid, const int* cand_gid,
+                                  int T, int M, int C, int Mc, int ms, int p0,
+                                  int panel, float eps_sp, float eps_t,
+                                  float delta_t, const int* fwd_pairs,
+                                  long long n_fwd, const int* rev_pairs,
+                                  long long n_rev, int c_lo, int c_hi,
+                                  float* fwd, float* rev,
+                                  cudaStream_t stream) {
+  // the wrapper checks 0 <= p0, p0 + panel <= min(T, C) * ms, and passes
+  // c_lo = p0 / ms, c_hi = min(C - 1, (p0 + panel - 1) / ms)
+  if (n_fwd + n_rev > 0 && ms > 0) {
+    const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
+                          C, Mc, eps_sp, eps_t};
+    const int smem =
+        (2 * M * kTileStride + K1_TC * (ms * ms + 1)) * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        stjoin_sim_panel_fused_pruned_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    stjoin_sim_panel_fused_pruned_kernel<<<(unsigned)(n_fwd + n_rev),
+                                           dim3(K1_TC, K1_TY), smem,
+                                           stream>>>(
+        op, M, delta_t, ref_gid, cand_gid, ms, p0, panel,
+        reinterpret_cast<const int2*>(fwd_pairs), n_fwd,
+        reinterpret_cast<const int2*>(rev_pairs), c_lo, c_hi,
+        (long long)T * ms, (long long)C * ms, fwd, rev);
   }
   return (int)cudaGetLastError();
 }

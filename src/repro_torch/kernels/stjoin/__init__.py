@@ -4,7 +4,10 @@ passes of ``mode="fused"``, K2 (votes and packed TSA2 words, replaces
 ``stjoin_vote_fused_flat``), K4 (the raw similarity scatter, replaces
 ``stjoin_sim_fused_flat``) and K7 (one row panel of that scatter in both
 orientations, for ``sim_mode="topk"``; replaces
-``stjoin_sim_panel_fused_flat``).  All four run one best-match sweep.
+``stjoin_sim_panel_fused_flat``), and their index-pruned twins for
+``use_index=True``: K10 (replaces ``stjoin_pallas_pruned``), K11, K12
+and K13 (replace ``stjoin_*_fused_pruned_flat``), which run the same
+block bodies over the tiles a plan keeps.  All run one best-match sweep.
 
 Numerics of the sweep, which the CUDA kernels, their plain versions
 (``ref.py``) and the Pallas kernels share:

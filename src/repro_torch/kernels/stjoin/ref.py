@@ -1,13 +1,23 @@
 """Plain PyTorch versions of the join kernels (same flattened contracts as
 ``repro.kernels.stjoin.ref.stjoin_ref`` and the fused passes
 ``stjoin_vote_fused_flat`` / ``stjoin_sim_fused_flat`` /
-``stjoin_sim_panel_fused_flat`` of ``repro.kernels.stjoin.stjoin``).
+``stjoin_sim_panel_fused_flat`` of ``repro.kernels.stjoin.stjoin``, and
+their index-pruned twins ``stjoin_pallas_pruned`` and
+``stjoin_*_fused_pruned_flat``).
 
 The fused passes are composed from the K1 plain version, the delta_t
 refine (``run_refine``) and the two consumers (``vote_words_ref`` and the
 materialize path's own scatter, ``core.similarity.scatter_raw``), each of
 which fixes the float summation order the CUDA kernels use, so kernel and
 plain version agree bit for bit on the card.
+
+The pruned versions take a tile plan ``tiles = (tile_ids, bp, bc)``:
+``tile_ids [nRb, K]`` lists, per block of ``bp`` consecutive reference
+points, the ascending ids of the blocks of ``bc`` consecutive candidates
+to sweep (-1 padded).  Only those pairs are swept (``stjoin_pruned_ref``);
+every other pair stays at ``(0, -1)``, which is what the dense sweep gives
+it when the plan is conservative, so each pruned version equals its dense
+one bit for bit.  Any geometry is accepted.
 """
 from __future__ import annotations
 
@@ -61,6 +71,66 @@ def stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
         best_w[p] = bw.clamp_min(0.0)
         best_idx[p] = torch.where(bw > 0.0, arg.to(torch.int32), -1)
     return best_w, best_idx
+
+
+def tile_keep(tile_ids: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """A tile plan as a ``[nRb, n_tiles]`` bool (ids outside the range,
+    -1 included, are dropped)."""
+    dev = tile_ids.device
+    live = (tile_ids >= 0) & (tile_ids < n_tiles)
+    keep = torch.zeros((tile_ids.shape[0], n_tiles + 1), dtype=torch.bool,
+                       device=dev)
+    keep.scatter_(1, torch.where(live, tile_ids, n_tiles).long(), True)
+    return keep[:, :n_tiles]
+
+
+def stjoin_pruned_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
+                      cand_x, cand_y, cand_t, cand_id, cand_ok, tile_ids,
+                      eps_sp, eps_t, *, bp: int, bc: int, ref_points=None,
+                      cand_cols=None):
+    """K10's plain version: ``(best_w [P, C], best_idx [P, C])`` with only
+    the (reference block, candidate tile) pairs ``tile_ids`` names swept
+    (by ``stjoin_ref``, one candidate tile at a time), ``(0, -1)``
+    elsewhere.
+
+    ``ref_points [P]`` / ``cand_cols [C]``: the points' and candidates'
+    indices in the arrays the plan was built for, when the operands are a
+    subset of them (default: the operands are those arrays).
+    """
+    P, C = ref_x.shape[0], cand_x.shape[0]
+    dev = ref_x.device
+    ref = (ref_x, ref_y, ref_t, ref_id, ref_ok)
+    cand = (cand_x, cand_y, cand_t, cand_id, cand_ok)
+    if ref_points is None:
+        ref_points = torch.arange(P, device=dev)
+    if cand_cols is None:
+        cand_cols = torch.arange(C, device=dev)
+    best_w = torch.zeros((P, C), dtype=torch.float32, device=dev)
+    best_idx = torch.full((P, C), -1, dtype=torch.int32, device=dev)
+    if P == 0 or C == 0:
+        return best_w, best_idx
+    block = torch.div(ref_points, bp, rounding_mode="floor")
+    tile = torch.div(cand_cols, bc, rounding_mode="floor")
+    keep = tile_keep(tile_ids, int(tile.max()) + 1)
+    for j in torch.unique(tile).tolist():
+        cols = torch.nonzero(tile == j)[:, 0]
+        pts = torch.nonzero(keep[block, j])[:, 0]
+        if pts.numel() == 0:
+            continue
+        w, idx = stjoin_ref(*(a[pts] for a in ref), *(a[cols] for a in cand),
+                            eps_sp, eps_t)
+        best_w[pts[:, None], cols] = w
+        best_idx[pts[:, None], cols] = idx
+    return best_w, best_idx
+
+
+def _join(ref, cand, eps_sp, eps_t, tiles, **subset):
+    """K1's plain sweep, or (``tiles`` given) the pruned one."""
+    if tiles is None:
+        return stjoin_ref(*ref, *cand, eps_sp, eps_t)
+    tile_ids, bp, bc = tiles
+    return stjoin_pruned_ref(*ref, *cand, tile_ids, eps_sp, eps_t, bp=bp,
+                             bc=bc, **subset)
 
 
 def run_refine(w, idx, ref_t, M: int, delta_t, *,
@@ -118,11 +188,13 @@ def vote_words_ref(w, with_words: bool = True):
 def stjoin_vote_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
                           cand_x, cand_y, cand_t, cand_id, cand_ok,
                           eps_sp, eps_t, delta_t, *, M: int,
-                          with_words: bool = True):
+                          with_words: bool = True, tiles=None):
     """Fused pass 1: ``(vote [P] f32, words [P, ceil(C/32)] i32 | None)``
-    for ``P = T * M`` reference points in whole rows of ``M``."""
-    w, _ = stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, cand_x, cand_y,
-                      cand_t, cand_id, cand_ok, eps_sp, eps_t)
+    for ``P = T * M`` reference points in whole rows of ``M``; with
+    ``tiles``, K11's plain version."""
+    w, _ = _join((ref_x, ref_y, ref_t, ref_id, ref_ok),
+                 (cand_x, cand_y, cand_t, cand_id, cand_ok), eps_sp, eps_t,
+                 tiles)
     w, _ = run_refine(w, None, ref_t, M, delta_t)
     return vote_words_ref(w, with_words)
 
@@ -130,12 +202,13 @@ def stjoin_vote_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
 def stjoin_sim_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, ref_gid,
                          cand_x, cand_y, cand_t, cand_id, cand_ok, cand_gid,
                          eps_sp, eps_t, delta_t, *, M: int, n_src: int,
-                         n_dst: int):
+                         n_dst: int, tiles=None):
     """Fused pass 2: the raw similarity scatter ``[n_src, n_dst]``
     (``ref_gid [P]``, ``cand_gid [C, Mc]``; the sentinels are ``n_src``
-    and ``n_dst``)."""
-    w, idx = stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, cand_x, cand_y,
-                        cand_t, cand_id, cand_ok, eps_sp, eps_t)
+    and ``n_dst``); with ``tiles``, K12's plain version."""
+    w, idx = _join((ref_x, ref_y, ref_t, ref_id, ref_ok),
+                   (cand_x, cand_y, cand_t, cand_id, cand_ok), eps_sp, eps_t,
+                   tiles)
     w, idx = run_refine(w, idx, ref_t, M, delta_t)
     T, C = ref_x.shape[0] // M, cand_x.shape[0]
     return scatter_raw(w.view(T, M, C), idx.view(T, M, C),
@@ -145,7 +218,8 @@ def stjoin_sim_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, ref_gid,
 def stjoin_sim_panel_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, ref_gid,
                                cand_x, cand_y, cand_t, cand_id, cand_ok,
                                cand_gid, eps_sp, eps_t, delta_t, *, M: int,
-                               n_src: int, n_dst: int, p0: int, panel: int):
+                               n_src: int, n_dst: int, p0: int, panel: int,
+                               tiles=None):
     """Panel pass 2: ``(fwd [panel, n_dst], rev [panel, n_src])`` with
     ``fwd[i, j] = raw[p0 + i, j]`` and ``rev[i, j] = raw[j, p0 + i]`` of
     ``stjoin_sim_fused_ref``'s ``raw``, bit for bit.
@@ -154,25 +228,27 @@ def stjoin_sim_panel_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, ref_gid,
     that own a panel slot against every candidate (forward), and every
     reference row against the candidates that own one (reverse).  A
     (point, candidate) weight and its refine depend on nothing else, and
-    each slab adds in ``scatter_raw``'s (t, m, c) order.
+    each slab adds in ``scatter_raw``'s (t, m, c) order.  With ``tiles``,
+    K13's plain version: each of the two joins sweeps only the planned
+    pairs among its operands.
     """
     T, C = ref_x.shape[0] // M, cand_x.shape[0]
     gid = ref_gid.view(T, M)
     ref = (ref_x, ref_y, ref_t, ref_id, ref_ok)
     cand = (cand_x, cand_y, cand_t, cand_id, cand_ok)
 
-    def join(ref_ops, cand_ops, rt):
-        w, idx = stjoin_ref(*ref_ops, *cand_ops, eps_sp, eps_t)
+    def join(ref_ops, cand_ops, rt, **subset):
+        w, idx = _join(ref_ops, cand_ops, eps_sp, eps_t, tiles, **subset)
         return run_refine(w, idx, rt, M, delta_t)
 
     rows = panel_members(gid, p0, panel)
     pts = (rows[:, None] * M + torch.arange(M, device=rows.device)).view(-1)
-    w, idx = join([a[pts] for a in ref], cand, ref_t[pts])
+    w, idx = join([a[pts] for a in ref], cand, ref_t[pts], ref_points=pts)
     fwd = scatter_raw(w.view(-1, M, C), idx.view(-1, M, C),
                       panel_local(gid[rows], p0, panel), cand_gid, panel,
                       n_dst)
     cols = panel_members(cand_gid, p0, panel)
-    w, idx = join(ref, [a[cols] for a in cand], ref_t)
+    w, idx = join(ref, [a[cols] for a in cand], ref_t, cand_cols=cols)
     nc = cols.shape[0]
     rev = scatter_raw(w.view(T, M, nc), idx.view(T, M, nc), gid,
                       panel_local(cand_gid[cols], p0, panel), n_src, panel,

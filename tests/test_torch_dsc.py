@@ -116,14 +116,31 @@ def test_plan_object_equals_flags_and_sequential_engine(fig1):
             tdsc.run_dsc(tb, p, device="cpu", plan=EnginePlan(**bad))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(sim_mode="topk", use_index=True), "item 8"),
-    (dict(use_index=True), "item 8")])
-def test_later_slices_raise(kw, item):
-    tb, _ = tsyn.figure1_scenario(n_per_route=1, points_per_leg=8,
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        tdsc.run_dsc(tb, DSCParams(), device="cpu", plan=EnginePlan(**kw))
+@pytest.mark.parametrize("sim_mode", ["topk", "dense"])
+def test_use_index_matches_reference(sim_mode):
+    """Materialize mode under the default plan with ``use_index=True``
+    (the plain join under the row-level prune mask): labels and
+    segmentation equal to the reference's and to the unpruned run."""
+    jb, kw = _scenario("ais")
+    jo = jdsc.run_dsc(jb, JParams(**kw), use_index=True, sim_mode=sim_mode)
+    tb, p = _port(jb), DSCParams(**kw)
+    to = tdsc.run_dsc(tb, p, device="cpu",
+                      plan=EnginePlan(use_index=True, sim_mode=sim_mode))
+    base = tdsc.run_dsc(tb, p, device="cpu",
+                        plan=EnginePlan(sim_mode=sim_mode))
+    for f in ("member_of", "is_rep", "is_outlier"):
+        assert np.array_equal(np.asarray(getattr(jo.result, f)),
+                              getattr(to.result, f).numpy()), f
+        assert torch.equal(getattr(to.result, f), getattr(base.result, f))
+    for f in ("cut", "sub_local", "num_subs"):
+        assert np.array_equal(np.asarray(getattr(jo.seg, f)),
+                              getattr(to.seg, f).numpy()), f
+    assert torch.equal(to.vote, base.vote)
+    if sim_mode == "topk":
+        assert to.sim_topk.k == jo.sim_topk.k
+        assert int(to.sim_overflow) == int(jo.sim_overflow) == 0
+    else:
+        assert torch.equal(to.sim, base.sim)
 
 
 def test_stage_times_and_summary(fig1):

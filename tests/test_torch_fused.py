@@ -220,27 +220,55 @@ def test_fused_stage_times():
     assert list(times) == list(tdsc.STAGES)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mode="fused", sim_mode="topk", use_index=True), "item 8"),
-    (dict(mode="fused", use_index=True), "item 8")])
-def test_fused_later_slices_raise(kw, item):
-    jb, fkw, _ = _scenario("fig1_tsa2")
-    with pytest.raises(NotImplementedError, match=item):
-        tdsc.run_dsc(_port(jb), DSCParams(**fkw), device="cpu",
-                     plan=EnginePlan(**kw))
+@pytest.mark.parametrize("sim_mode", ["topk", "dense"])
+def test_fused_use_index_matches_reference(sim_mode):
+    """Fused mode with ``use_index=True`` (the pruned passes over one tile
+    plan): labels and ``sub_local`` equal to the reference's fused pruned
+    run and to the port's unpruned fused run; ``sim`` / the lists bitwise
+    the unpruned run's."""
+    jb, kw, flags = _scenario("ais_kernel_flags")
+    jo = jdsc.run_dsc(jb, JParams(**kw), mode="fused", use_index=True,
+                      sim_mode=sim_mode, **flags)
+    tb, p = _port(jb), DSCParams(**kw)
+    plan = dict(mode="fused", sim_mode=sim_mode, **flags)
+    to = tdsc.run_dsc(tb, p, device="cpu",
+                      plan=EnginePlan(use_index=True, **plan))
+    base = tdsc.run_dsc(tb, p, device="cpu", plan=EnginePlan(**plan))
+    for f in ("member_of", "is_rep", "is_outlier"):
+        assert np.array_equal(np.asarray(getattr(jo.result, f)),
+                              getattr(to.result, f).numpy()), f
+        assert torch.equal(getattr(to.result, f), getattr(base.result, f))
+    assert np.array_equal(np.asarray(jo.seg.sub_local),
+                          to.seg.sub_local.numpy())
+    assert torch.equal(to.vote, base.vote)
+    if sim_mode == "topk":
+        assert to.sim_topk.k == jo.sim_topk.k
+        assert torch.equal(to.sim_topk.sims, base.sim_topk.sims)
+    else:
+        assert torch.equal(to.sim, base.sim)
 
 
-def test_fused_wrappers_reject_tile_plans():
+def test_fused_wrappers_take_tile_plans():
+    """The batch- and array-level passes take a ``FusedTilePlan`` and
+    give the unpruned outputs; a raw ``tile_ids`` tensor is refused (its
+    order and geometry are unchecked)."""
     tb = _port(_pair("self")[0])
     args = (*_arrays(tb), *_arrays(tb), 2.5, 12.0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tops.stjoin_vote_fused(tb, tb, 2.5, 12.0, use_index=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tops.stjoin_vote_fused_arrays(*args, tile_ids=torch.zeros(1, 1))
-    sub = torch.zeros(tb.x.shape, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tops.stjoin_sim_fused(tb, tb, sub, sub, 2, 2.5, 12.0,
-                              tile_ids=torch.zeros(1, 1))
+    dv, dw = tops.stjoin_vote_fused_arrays(*args)
+    v, w = tops.stjoin_vote_fused(tb, tb, 2.5, 12.0, use_index=True)
+    assert torch.equal(v, dv) and torch.equal(w, dw)
+    plan = tops.plan_fused_tiles(*(tb.x, tb.y, tb.t, tb.valid) * 2, 2.5,
+                                 12.0)
+    v, w = tops.stjoin_vote_fused_arrays(*args, tile_ids=plan)
+    assert torch.equal(v, dv) and torch.equal(w, dw)
+    with pytest.raises(TypeError, match="FusedTilePlan"):
+        tops.stjoin_vote_fused_arrays(*args, tile_ids=plan.tile_ids)
+    sub = torch.from_numpy(np.random.default_rng(0).integers(
+        -1, 2, tb.x.shape).astype(np.int32))
+    raw = tops.stjoin_sim_fused(tb, tb, sub, sub, 2, 2.5, 12.0)
+    assert torch.equal(tops.stjoin_sim_fused(tb, tb, sub, sub, 2, 2.5, 12.0,
+                                             tile_ids=plan), raw)
+    assert bool((raw > 0).any())
 
 
 def test_block_slot_contract():

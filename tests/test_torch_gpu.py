@@ -16,7 +16,7 @@ from repro_torch.core.dsc import run_dsc
 from repro_torch.core.plan import EnginePlan
 from repro_torch.core.similarity import (plan_panel, slot_ids,
                                          topk_from_dense, topk_reduce_rows)
-from repro_torch.core.types import DSCParams
+from repro_torch.core.types import DSCParams, TrajectoryBatch
 from repro_torch.core.windows import pack_bits
 from repro_torch.data.synthetic import ais_like, figure1_scenario
 from repro_torch.kernels.cluster.ops import (cluster_assign,
@@ -26,7 +26,8 @@ from repro_torch.kernels.cluster.ops import (cluster_assign,
 from repro_torch.kernels.jaccard.ops import window_jaccard
 from repro_torch.kernels.stjoin import ops as stjoin_ops
 from repro_torch.kernels.stjoin.ops import best_match_join_kernel
-from repro_torch.kernels.stjoin.ref import (stjoin_ref, stjoin_sim_fused_ref,
+from repro_torch.kernels.stjoin.ref import (stjoin_pruned_ref, stjoin_ref,
+                                            stjoin_sim_fused_ref,
                                             stjoin_sim_panel_fused_ref,
                                             stjoin_vote_fused_ref)
 
@@ -43,13 +44,34 @@ PATH_KERNELS = {
     "fused_topk": {"stjoin_vote_fused", "jaccard_window",
                    "stjoin_sim_panel_fused", "topk_round_scan",
                    "topk_claim_max"},
+    "materialize+index": {"stjoin_best_match_pruned", "jaccard_window",
+                          "round_scan", "claim_max"},
+    "fused+index": {"stjoin_vote_fused_pruned", "jaccard_window",
+                    "stjoin_sim_fused_pruned", "round_scan", "claim_max"},
+    "fused_topk+index": {"stjoin_vote_fused_pruned", "jaccard_window",
+                         "stjoin_sim_panel_fused_pruned", "topk_round_scan",
+                         "topk_claim_max"},
 }
+# lane-clustered traffic, rows sorted by lane: the port's plans skip tiles
+LANE_EPS = (3.0, 600.0)
 
 
 def _path_plan(path, **kw):
+    path, _, index = path.partition("+")
     mode, _, sim = path.partition("_")
     return EnginePlan(mode=mode, sim_mode=sim or "dense", use_kernel=True,
-                      seg_use_kernel=True, cluster_use_kernel=True, **kw)
+                      seg_use_kernel=True, cluster_use_kernel=True,
+                      use_index=index == "index", **kw)
+
+
+def _lanes(cuda, n=128, M=16):
+    """``benchmarks/kernel_bench.py``'s layout: AIS-like vessels on 8
+    lanes, rows stably sorted by lane."""
+    tb, lanes = ais_like(n_vessels=n, n_lanes=8, max_points=M, area=100.0,
+                         lane_width=0.5, seed=1, device=cuda)
+    o = torch.from_numpy(np.argsort(lanes, kind="stable")).to(cuda)
+    return TrajectoryBatch(x=tb.x[o], y=tb.y[o], t=tb.t[o],
+                           valid=tb.valid[o], traj_id=tb.traj_id[o])
 
 
 @pytest.fixture
@@ -110,11 +132,17 @@ def test_k5_k6_match_plain(cuda, S):
 @pytest.mark.parametrize("mode", sorted(PATH_KERNELS))
 def test_run_dsc_kernel_plan_matches_cpu(cuda, mode):
     """The kernel plan on the card and the plain versions on the CPU; the
-    card run launches exactly its path's kernels."""
-    tb, _ = figure1_scenario(n_per_route=4, points_per_leg=24, seed=0,
-                             device="cpu")
-    p = DSCParams(eps_sp=0.42, eps_t=1.0, w=6, tau=0.15, alpha_sigma=-1.0,
-                  k_sigma=-1.0, segmentation="tsa2")
+    card run launches exactly its path's kernels (the pruned paths on the
+    lane-sorted batch, whose plans skip tiles)."""
+    if mode.endswith("+index"):
+        tb = _lanes(cuda).to("cpu")
+        p = DSCParams(eps_sp=LANE_EPS[0], eps_t=LANE_EPS[1], w=4, tau=0.4,
+                      alpha_sigma=-1.0, k_sigma=-1.0, segmentation="tsa2")
+    else:
+        tb, _ = figure1_scenario(n_per_route=4, points_per_leg=24, seed=0,
+                                 device="cpu")
+        p = DSCParams(eps_sp=0.42, eps_t=1.0, w=6, tau=0.15,
+                      alpha_sigma=-1.0, k_sigma=-1.0, segmentation="tsa2")
     plan = _path_plan(mode)
     kernels.reset_launch_counts()
     g = run_dsc(tb, p, plan=plan, device=cuda)
@@ -286,3 +314,130 @@ def test_run_dsc_topk_kernel_plan(cuda):
     want = topk_from_dense(dense.sim, dense.table, out.sim_topk.k)
     for f in ("ids", "sims", "spill", "degree", "row_sum", "row_sumsq"):
         assert torch.equal(getattr(out.sim_topk, f), getattr(want, f)), f
+
+
+# ---------------------------------------------------------------------------
+# The pruned kernels K10-K13: each bitwise its dense kernel and its plain
+# version, on a lane-sorted batch whose plans skip tiles.
+# ---------------------------------------------------------------------------
+
+
+def _flat(tb):
+    return stjoin_ops._flat_operands(*(tb.x, tb.y, tb.t, tb.valid,
+                                       tb.traj_id) * 2)
+
+
+def test_k10_matches_k1_and_plain(cuda):
+    tb = _lanes(cuda)
+    mask, _, _ = stjoin_ops.plan_join_index(tb, tb, *LANE_EPS)
+    assert 0 < int(mask.sum()) < mask.numel()
+    before = kernels.LAUNCHES["stjoin_best_match_pruned"]
+    k = stjoin_ops.best_match_join_pruned(tb, tb, *LANE_EPS)
+    assert kernels.LAUNCHES["stjoin_best_match_pruned"] == before + 1
+    d = best_match_join_kernel(tb, tb, *LANE_EPS)
+    assert torch.equal(k.best_w, d.best_w)
+    assert torch.equal(k.best_idx, d.best_idx)
+    ref_ops, cand_ops = _flat(tb)
+    tile_ids = stjoin_ops._compact(mask, mask.sum(1), None, "join")
+    w, i = stjoin_pruned_ref(*ref_ops, *cand_ops, tile_ids, *LANE_EPS,
+                             bp=stjoin_ops.JOIN_BP, bc=stjoin_ops.JOIN_BC)
+    T, M = tb.x.shape
+    assert torch.equal(k.best_w.view(T * M, -1), w)
+    assert torch.equal(k.best_idx.view(T * M, -1), i)
+    assert bool((i >= 0).any())
+    with pytest.raises(ValueError, match="bp=256, bc=8"):
+        stjoin_ops.best_match_join_pruned(tb, tb, *LANE_EPS, bp=256, bc=8)
+
+
+def _fused_plan(tb, **kw):
+    return stjoin_ops.plan_fused_tiles(*(tb.x, tb.y, tb.t, tb.valid) * 2,
+                                       *LANE_EPS, **kw)
+
+
+@pytest.mark.parametrize("delta_t", [0.0, 300.0])
+def test_k11_matches_k2_and_plain(cuda, delta_t):
+    tb = _lanes(cuda)
+    plan = _fused_plan(tb)
+    kept = int((plan.tile_ids >= 0).sum())
+    assert 0 < kept < plan.tile_ids.shape[0] * 4
+    arrs = (tb.x, tb.y, tb.t, tb.valid, tb.traj_id) * 2
+    ref_ops, cand_ops = _flat(tb)
+    M = tb.x.shape[1]
+    for with_masks in (True, False):
+        before = kernels.LAUNCHES["stjoin_vote_fused_pruned"]
+        kv, kw = stjoin_ops.stjoin_vote_fused_arrays(
+            *arrs, *LANE_EPS, delta_t, tile_ids=plan, with_masks=with_masks)
+        assert kernels.LAUNCHES["stjoin_vote_fused_pruned"] == before + 1
+        dv, dw = stjoin_ops.stjoin_vote_fused_arrays(
+            *arrs, *LANE_EPS, delta_t, with_masks=with_masks)
+        pv, pw = stjoin_vote_fused_ref(
+            *ref_ops, *cand_ops, *LANE_EPS, delta_t, M=M,
+            with_words=with_masks, tiles=(plan.tile_ids, M, plan.bc))
+        assert torch.equal(kv, dv) and torch.equal(kv.view(-1), pv)
+        if with_masks:
+            assert torch.equal(kw, dw) and torch.equal(kw.view(pw.shape), pw)
+            assert bool((pw != 0).any())
+        else:
+            assert kw is None and dw is None and pw is None
+    other = _fused_plan(tb, rows=2, bc=16)
+    with pytest.raises(ValueError, match="rows=2, bc=16"):
+        stjoin_ops.stjoin_vote_fused_arrays(*arrs, *LANE_EPS,
+                                            tile_ids=other)
+
+
+@pytest.mark.parametrize("delta_t", [0.0, 300.0])
+def test_k12_matches_k4_and_plain(cuda, delta_t):
+    tb = _lanes(cuda)
+    plan = _fused_plan(tb)
+    rng = np.random.default_rng(3)
+    ms = 4
+    T, M = tb.x.shape
+    sub = torch.from_numpy(rng.integers(-1, ms, (T, M)).astype(np.int32))
+    sub = sub.to(cuda)
+    before = kernels.LAUNCHES["stjoin_sim_fused_pruned"]
+    raw = stjoin_ops.stjoin_sim_fused(tb, tb, sub, sub, ms, *LANE_EPS,
+                                      delta_t, tile_ids=plan)
+    assert kernels.LAUNCHES["stjoin_sim_fused_pruned"] == before + 1
+    dense = stjoin_ops.stjoin_sim_fused(tb, tb, sub, sub, ms, *LANE_EPS,
+                                        delta_t)
+    assert torch.equal(raw, dense)
+    ref_ops, cand_ops = _flat(tb)
+    gid = slot_ids(sub, ms, T * ms)
+    plain = stjoin_sim_fused_ref(
+        *ref_ops, gid.view(-1), *cand_ops, gid, *LANE_EPS, delta_t, M=M,
+        n_src=T * ms, n_dst=T * ms, tiles=(plan.tile_ids, M, plan.bc))
+    assert torch.equal(raw, plain)
+    assert bool((plain > 0).any())
+
+
+@pytest.mark.parametrize("ms,Sb,delta_t", [(3, 13, 0.0), (8, 128, 300.0)])
+def test_k13_matches_k7_and_plain(cuda, ms, Sb, delta_t):
+    """Every panel: K13's slabs bitwise K7's and its plain version's; Sb =
+    13 with ms = 3 splits trajectories' slots, and panels cross tiles."""
+    tb = _lanes(cuda)
+    plan = _fused_plan(tb)
+    rng = np.random.default_rng(ms)
+    T, M = tb.x.shape
+    sub = torch.from_numpy(rng.integers(-1, ms, (T, M)).astype(np.int32))
+    sub = sub.to(cuda)
+    S = T * ms
+    ref_ops, cand_ops = _flat(tb)
+    gid = slot_ids(sub, ms, S)
+    hit = False
+    for p0 in range(0, S - Sb + 1, Sb):
+        before = kernels.LAUNCHES["stjoin_sim_panel_fused_pruned"]
+        fwd, rev = stjoin_ops.stjoin_sim_panel_fused(
+            tb, tb, sub, sub, ms, *LANE_EPS, delta_t, p0=p0, panel=Sb,
+            tile_ids=plan)
+        assert kernels.LAUNCHES["stjoin_sim_panel_fused_pruned"] \
+            == before + 1
+        df, dr = stjoin_ops.stjoin_sim_panel_fused(
+            tb, tb, sub, sub, ms, *LANE_EPS, delta_t, p0=p0, panel=Sb)
+        pf, pr = stjoin_sim_panel_fused_ref(
+            *ref_ops, gid.view(-1), *cand_ops, gid, *LANE_EPS, delta_t, M=M,
+            n_src=S, n_dst=S, p0=p0, panel=Sb,
+            tiles=(plan.tile_ids, M, plan.bc))
+        assert torch.equal(fwd, df) and torch.equal(rev, dr), p0
+        assert torch.equal(fwd, pf) and torch.equal(rev, pr), p0
+        hit |= bool((pf > 0).any())
+    assert hit

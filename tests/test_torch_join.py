@@ -136,8 +136,19 @@ def test_kernel_join_with_refine_matches_reference(case, delta_t):
     _assert_join(j, t, atol=PALLAS_K1_ATOL)
 
 
-def test_index_join_is_a_later_slice():
+def test_index_join_matches_reference():
+    """``subtrajectory_join(use_index=True)`` through the pruned join
+    (K10's plain version) and the refine: equal to the reference's pruned
+    join (``best_w`` to one ulp, see ``PALLAS_K1_ATOL``) and bitwise the
+    port's dense join."""
     jb, eps_sp, eps_t = CASES["fig1"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tops.subtrajectory_join(_port(jb), _port(jb), eps_sp, eps_t,
-                                use_index=True)
+    for delta_t in (0.0, 2.5):
+        j = jops.subtrajectory_join(jb, jb, eps_sp, eps_t, delta_t,
+                                    use_index=True)
+        t = tops.subtrajectory_join(_port(jb), _port(jb), eps_sp, eps_t,
+                                    delta_t, use_index=True)
+        _assert_join(j, t, atol=PALLAS_K1_ATOL)
+        d = tops.subtrajectory_join(_port(jb), _port(jb), eps_sp, eps_t,
+                                    delta_t)
+        assert torch.equal(t.best_w, d.best_w)
+        assert torch.equal(t.best_idx, d.best_idx)

@@ -213,9 +213,11 @@ def test_panel_pass_delta_t_and_cross_join():
     with pytest.raises(ValueError, match="outside"):
         tops.stjoin_sim_panel_fused(tb, tc, rsub, csub, ms, *eps, p0=20,
                                     panel=2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tops.stjoin_sim_panel_fused(tb, tc, rsub, csub, ms, *eps, p0=0,
-                                    panel=2, tile_ids=torch.zeros(1, 1))
+    plan = tops.plan_fused_tiles(tb.x, tb.y, tb.t, tb.valid, tc.x, tc.y,
+                                 tc.t, tc.valid, *eps[:2])
+    fwd, rev = tops.stjoin_sim_panel_fused(tb, tc, rsub, csub, ms, *eps,
+                                           p0=5, panel=9, tile_ids=plan)
+    assert torch.equal(fwd, raw[5:14]) and torch.equal(rev, raw.T[5:14])
 
 
 # ---------------------------------------------------------------------------
