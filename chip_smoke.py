@@ -62,6 +62,24 @@ Index pruning (``use_index=True``, the pruned kernels K10-K13):
   unpruned and the three pruned paths, the same checks, and each pruned
   kernel against its plain version (timed, with its bound).
 
+The entry points off the DSC paths (after the dsc_sis runs):
+
+* LCSS (``lcss_similarity``, K14) on the lane-sorted dsc_brest vessels,
+  each paired with the next 8 rows (B = 32,768 pairs of 128 x 128 points,
+  dsc_brest's eps): one launch on the entry point's run; the kernel
+  bitwise its sheared plain twin on every pair, the row scan on the first
+  pairs, and itself on the swapped pairs; 0 <= weighted <= count <=
+  min(n, m);
+* attention (``flash_attention``, K15) at the shapes of two models the
+  repo supports: smollm-360m prefill (15 heads, 5 KV, hd 64, L = 4096,
+  causal) in float32 and bfloat16, a gemma2-2b local layer (8 heads, 4
+  KV, hd 256, softcap 50, window 4096, L = 8192) in bfloat16, and one
+  gemma2-2b decode step (Lq = 1 against M = 8192, ``max_kv``), and the
+  gemma2-2b local layer in float32 with q unscaled, so that the scores
+  reach into the softcap: one launch per case on the entry point's run;
+  each against the plain version within its stated tolerance, timed, and
+  the smollm cases beside ``scaled_dot_product_attention(is_causal=True)``.
+
 Prints one JSON ``kernels`` line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any mismatch or
 error exits non-zero without the result line; so does a machine without a
@@ -80,12 +98,14 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-CSRC = "src/repro_torch/kernels/csrc/dsc_kernels.cu"
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; f32 outside
 # the tensor cores is 67 TFLOP/s counting an FMA as two operations, so
-# 33.5e12 f32 instructions per second for code built with -fmad=false
+# 33.5e12 f32 instructions per second for code built with -fmad=false;
+# bf16 in the tensor cores 989 TFLOP/s (dense)
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12 / 2
+F32_FLOPS_PER_S = 67e12
+F32_OPS_PER_S = F32_FLOPS_PER_S / 2
+BF16_FLOPS_PER_S = 989e12
 # f32 operations of one K1 pair evaluation: dx, dy, dx*dx, dy*dy, the sum,
 # dt and the two threshold compares (no FMA)
 K1_OPS_PER_PAIR = 8
@@ -104,7 +124,13 @@ REPLACES = {
     "stjoin_sim_fused_pruned": "src/repro/kernels/stjoin/stjoin.py:763",
     "stjoin_sim_panel_fused_pruned":
         "src/repro/kernels/stjoin/stjoin.py:515",
+    "lcss_wavefront": "src/repro/kernels/lcss/lcss.py:57",
+    "flash_attention_fwd": "src/repro/kernels/attention/flash.py:83",
 }
+CSRC = "src/repro_torch/kernels/csrc/"
+# the source of each kernel outside dsc_kernels.cu
+SOURCES = {"lcss_wavefront": "lcss_kernels.cu",
+           "flash_attention_fwd": "attention_kernels.cu"}
 # the kernels each main path launches, and no other
 PATH_KERNELS = {
     "materialize": {"stjoin_best_match", "jaccard_window", "round_scan",
@@ -163,9 +189,11 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, ops: float = 0.0):
+def bound_ms(nbytes: float, ops: float = 0.0, rate: float = F32_OPS_PER_S):
+    """The larger of the bytes over HBM's rate and the operations over
+    ``rate`` (f32 instructions by default)."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / F32_OPS_PER_S * 1e3
+    t_o = ops / rate * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -808,7 +836,8 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
 
 def kernel_row(rows, name, launches, err, ms, plain, bound, lib=None):
     b, by = bound
-    rows.append({"name": name, "route": "cuda", "source": CSRC,
+    rows.append({"name": name, "route": "cuda",
+                 "source": CSRC + SOURCES.get(name, "dsc_kernels.cu"),
                  "replaces": REPLACES[name], "launches": launches[name],
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
                  "bound_ms": b, "bound_by": by, "library_ms": lib})
@@ -1102,15 +1131,246 @@ def phase_topk_kernels(batch, params, tout, launches, raw, rows):
         f"{n_valid} valid rows of {S}")
 
 
+# f32 instructions of one LCSS cell: the weight (dx, dy, two products,
+# their sum, the square root, dt, its absolute value, two compares) where
+# both points are valid, the division and subtraction where they match, and
+# one add and three maxima per channel for the DP
+LCSS_OPS_VALID, LCSS_OPS_MATCH, LCSS_OPS_DP = 10, 2, 8
+LCSS_PARTNERS = 8          # each trajectory is paired with the next 8 rows
+
+
+def phase_lcss(dev, report, rows):
+    """K14 at dsc_brest: the lane-sorted vessels, each paired with the next
+    ``LCSS_PARTNERS`` rows (mod T), dsc_brest's eps.  ``lcss_similarity``
+    once with the counts read around it; then the kernel bitwise its
+    sheared plain twin (every pair), the row scan (the first pairs) and
+    itself on the swapped pairs, timed with its bound.  No single PyTorch
+    call computes the DP: library none."""
+    from repro_torch import kernels
+    from repro_torch.kernels.lcss import ops as lo
+    from repro_torch.kernels.lcss import ref as lr
+    batch, params = brest_batch(4096, dev, sort_by_lane=True)
+    T, M = batch.x.shape
+    ri = torch.arange(T, device=dev).repeat_interleave(LCSS_PARTNERS)
+    si = (ri + torch.arange(1, LCSS_PARTNERS + 1, device=dev)
+          .repeat(T)) % T
+    cols = (batch.x, batch.y, batch.t, batch.valid)
+    ops = [c[ri].contiguous() for c in cols] + [c[si].contiguous()
+                                                 for c in cols]
+    eps = (params.eps_sp, params.eps_t)
+    B = ri.shape[0]
+    log(f"lcss (K14): {B} pairs of lane-sorted dsc_brest vessels, N=M={M}, "
+        f"eps_sp={params.eps_sp:.6g} eps_t={params.eps_t:.6g}")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = lo.lcss_similarity(*ops, *eps, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ran = {k: n for k, n in launches.items() if n}
+    check(ran == {"lcss_wavefront": 1},
+          f"lcss_similarity launched {ran}, expected one lcss_wavefront")
+    check(sim.shape == (B, 2) and bool(torch.isfinite(sim).all()),
+          "lcss: similarity shape or non-finite values")
+
+    got = lo.lcss_wavefront(*ops, *eps)
+    n = ops[3].sum(1)
+    m = ops[7].sum(1)
+    check(bool((got[:, 0] >= 0).all()) and bool((got[:, 0] <= got[:, 1])
+                                                .all())
+          and bool((got[:, 1] <= torch.minimum(n, m)).all()),
+          "lcss: not 0 <= weighted <= count <= min(n, m)")
+    check(torch.equal(lo.lcss_wavefront(*ops[4:], *ops[:4], *eps), got),
+          "lcss: the swapped pairs score differently")
+    head = [o[:64] for o in ops]
+    check(torch.equal(lr.lcss_ref(*head, *eps), got[:64]),
+          "lcss: K14 not bitwise the row scan on the first 64 pairs")
+    ms = time_ms(lambda: lo.lcss_wavefront(*ops, *eps), reps=10)
+    out = []
+    plain = time_ms(lambda: out.append(lr.lcss_wavefront_ref(
+        lr.shear_weights(*ops, *eps))), reps=1, warmup=0)
+    twin = out.pop()
+    err = float((got - twin).abs().max())
+    check(torch.equal(got, twin),
+          f"lcss: K14 not bitwise its sheared plain twin (max err {err})")
+    del twin, out
+    torch.cuda.empty_cache()
+    wu = lr.match_weights(*ops, *eps)
+    matched = int((wu[:, 1] > 0).sum())
+    del wu
+    valid_cells = int((n * m).sum())
+    cells = B * M * M
+    op_count = (LCSS_OPS_VALID * valid_cells + LCSS_OPS_MATCH * matched
+                + LCSS_OPS_DP * cells)
+    nbytes = B * 2 * M * 13 + B * 2 * 4
+    kernel_row(rows, "lcss_wavefront", launches, err, ms, plain,
+               bound_ms(nbytes, op_count))
+    nz = int((got[:, 1] > 0).sum())
+    log(f"  K14: {cells} cells, {valid_cells} with both points valid, "
+        f"{matched} matching; {nz} of {B} pairs share a point; mean "
+        f"similarity (weighted, count) {sim.mean(0).tolist()}; the entry "
+        f"point's run {wall * 1e3:.3f} ms (host clock); library none")
+    report["lcss"] = dict(pairs=B, N=M, M=M, cells=cells,
+                          valid_cells=valid_cells, matched=matched,
+                          sharing_pairs=nz, ms=ms, plain_ms=plain,
+                          wall_ms=wall * 1e3, launches=launches)
+
+
+# (name, dtype, B, L query, M keys, KV, G, hd, mask, softcap, q scale) at
+# the shapes of configs/smollm_360m.py and configs/gemma2_2b.py.  The decode
+# step attends keys [0, 6000] of an 8192-slot cache.  With q scaled by
+# hd**-0.5 the scores are about N(0, 1) and a softcap of 50 does nothing,
+# so the last case leaves q unscaled (scores about N(0, hd)): there tanh
+# bends the scores, in float32, where a flipped bfloat16 rounding of a
+# score would not swamp the check
+ATTN_CASES = (
+    ("smollm-360m prefill f32", torch.float32, 1, 4096, 4096, 5, 3, 64,
+     dict(), None, 64 ** -0.5),
+    ("smollm-360m prefill bf16", torch.bfloat16, 1, 4096, 4096, 5, 3, 64,
+     dict(), None, 64 ** -0.5),
+    ("gemma2-2b local prefill bf16", torch.bfloat16, 1, 8192, 8192, 4, 2,
+     256, dict(window=4096), 50.0, 256 ** -0.5),
+    ("gemma2-2b decode bf16", torch.bfloat16, 1, 1, 8192, 4, 2, 256,
+     dict(max_kv=6000), 50.0, 256 ** -0.5),
+    ("gemma2-2b local prefill f32, q unscaled", torch.float32, 1, 8192,
+     8192, 4, 2, 256, dict(window=4096), 50.0, 1.0),
+)
+
+
+def attention_inputs(dev, case, seed):
+    """q (times the case's scale; the models scale it by hd**-0.5), k, v
+    from a seed; positions; the mask arguments."""
+    _, dtype, B, Lq, M, KV, G, hd, mask, _, q_scale = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Lq, KV, G, hd), generator=g, device=dev) * q_scale
+    k = torch.randn((B, M, KV, hd), generator=g, device=dev)
+    v = torch.randn((B, M, KV, hd), generator=g, device=dev)
+    qp = torch.arange(M - Lq, M, dtype=torch.int32, device=dev)
+    if "max_kv" in mask:
+        qp = torch.full((1,), mask["max_kv"], dtype=torch.int32, device=dev)
+    kp = torch.arange(M, dtype=torch.int32, device=dev)
+    return [t.to(dtype) for t in (q, k, v)], qp, kp
+
+
+def phase_attention(dev, report, rows):
+    """K15 at the models' shapes: ``flash_attention`` once per case with the
+    counts read around the four calls; then each case against the plain
+    version (within ``kernel_tolerance``; the largest share of it used is
+    logged)
+    and timed with its bound; the smollm
+    cases beside ``scaled_dot_product_attention(is_causal=True)`` on the
+    same values laid out as it takes them (the layout change untimed).
+    The JSON row is the float32 smollm case; the others are logged."""
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.kernels.attention import ops as ao
+    from repro_torch.kernels.attention.ref import (attention_mask,
+                                                   flash_attention_ref,
+                                                   kernel_tolerance)
+    inputs = [attention_inputs(dev, c, i) for i, c in enumerate(ATTN_CASES)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = [ao.flash_attention(q, k, v, qp, kp, softcap=c[9], device=dev,
+                               **c[8])
+            for c, ((q, k, v), qp, kp) in zip(ATTN_CASES, inputs)]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ran = {k: n for k, n in launches.items() if n}
+    check(ran == {"flash_attention_fwd": len(ATTN_CASES)},
+          f"flash_attention launched {ran}, expected "
+          f"{len(ATTN_CASES)} flash_attention_fwd")
+    report["attention"] = {}
+    for case, ((q, k, v), qp, kp), got in zip(ATTN_CASES, inputs, outs):
+        name, dtype, B, Lq, M, KV, G, hd, mask, cap, _ = case
+        args = (mask.get("window", ao.HUGE), mask.get("prefix", 0),
+                mask.get("max_kv", ao.HUGE))
+        check(got.shape == q.shape and got.dtype == dtype
+              and bool(torch.isfinite(got).all()),
+              f"{name}: output shape, dtype or non-finite values")
+        res = []            # warmed: a cold first call spreads 3x
+        plain = time_ms(lambda: res.append(flash_attention_ref(
+            q, k, v, qp, kp, *args, softcap=cap)), reps=3)
+        want = res.pop()
+        ok = attention_mask(qp, kp, *args)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        share = diff / kernel_tolerance(q, k, v, qp, kp, *args, cap, want)
+        used, at = share.reshape(-1).max(0)
+        used, at = float(used), int(at)
+        row = at // (KV * G * hd) % Lq
+        log(f"  {name}: {used:.4g} of the tolerance used, most at query "
+            f"{row} ({int(ok[row].sum())} keys kept; K15 "
+            f"{float(got.reshape(-1)[at]):.6g}, plain "
+            f"{float(want.reshape(-1)[at]):.6g})")
+        check(used <= 1.0,
+              f"{name}: K15 outside its tolerance of the plain version "
+              f"(max err {err}, {used:.3g} of the tolerance)")
+        if dtype == torch.bfloat16:     # each against float32 arithmetic
+            exact = flash_attention_ref(q.float(), k.float(), v.float(), qp,
+                                        kp, *args, softcap=cap)
+            log(f"  {name}: max |K15 - f32| = "
+                f"{float((got.float() - exact).abs().max())}, max |plain - "
+                f"f32| = {float((want.float() - exact).abs().max())}")
+            del exact
+        del want, res, diff, share
+        if cap:             # how far the scores reach into the softcap
+            s = torch.einsum("blkgh,bmkh->blkgm", q[:, -256:].float(),
+                             k.float())
+            log(f"  {name}: max |q.k| over the last 256 query rows = "
+                f"{float(s.abs().max()):.4g} (softcap {cap})")
+            del s
+        ms = time_ms(lambda: ao.flash_attention_fwd(q, k, v, qp, kp, *args,
+                                                    softcap=cap), reps=3)
+        pairs = int(ok.sum())                       # unmasked
+        flops = 4 * hd * pairs * B * KV * G
+        # k and v of the keys some row keeps (of all, if a row keeps none:
+        # it averages every v), q in and out, the positions
+        keys = int(ok.any(0).sum()) if bool(ok.any(1).all()) else M
+        esize = q.element_size()
+        nbytes = 2 * q.numel() * esize + 2 * B * keys * KV * hd * esize \
+            + 4 * (Lq + M)
+        rate = F32_FLOPS_PER_S if dtype == torch.float32 else \
+            BF16_FLOPS_PER_S
+        bound = bound_ms(nbytes, flops, rate)
+        lib = None
+        if name.startswith("smollm"):
+            H = KV * G
+            qs = q.reshape(B, Lq, H, hd).transpose(1, 2).contiguous()
+            ks, vs = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                      .contiguous() for t in (k, v))
+            sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  scale=1.0)
+            lerr = float((sdpa.transpose(1, 2).reshape(q.shape).float()
+                          - got.float()).abs().max())
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, scale=1.0), reps=3)
+            del qs, ks, vs, sdpa
+            log(f"  {name}: max |K15 - SDPA| = {lerr}")
+        log(f"  {name}: B={B} Lq={Lq} M={M} KV={KV} G={G} hd={hd} "
+            f"mask={mask} softcap={cap}: err={err} ms={ms:.4f} "
+            f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]}; "
+            f"{pairs} unmasked pairs, {keys} keys read, {flops:.4g} flops) "
+            f"tolerance_used={used:.4g} library_ms={lib}")
+        report["attention"][name] = dict(
+            err=err, tolerance_used=used, ms=ms, plain_ms=plain,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
+            pairs=pairs, keys=keys, flops=flops)
+        if name == ATTN_CASES[0][0]:
+            kernel_row(rows, "flash_attention_fwd", launches, err, ms, plain,
+                       bound, lib)
+    del outs, inputs
+
+
 def log_ptxas(build_log: str) -> None:
     """One line per kernel from ``nvcc --ptxas-options=-v``: its
     registers and spills (nothing when the library was already built)."""
     name, spill = "?", ""
     for line in build_log.splitlines():
         m = re.search(r"Function properties for "
-                      r".*?([A-Za-z][A-Za-z_]*_kernel)E", line)
-        if m:
-            name = m.group(1)
+                      r".*?([A-Za-z][A-Za-z_]*_kernel)(E|I(\w+?)EE)", line)
+        if m:        # a template's arguments in their mangled form
+            name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -1142,8 +1402,14 @@ def main(argv=None) -> int:
     kernels.library()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.1f} s into {kernels.build_dir()}")
+    if kernels.build_seconds:       # a fresh build: one nvcc per source
+        steps = kernels.build_seconds
+        log("  build steps (s): " + ", ".join(f"{k} {v:.1f}"
+                                             for k, v in steps.items())
+            + f"; one after another {sum(steps.values()):.1f}")
     log_ptxas(kernels.build_log)
-    report = {"card": card, "build_s": build_s}
+    report = {"card": card, "build_s": build_s,
+              "build_steps_s": kernels.build_seconds}
 
     phase_parity(dev)
     phase_parity_fused(dev)
@@ -1183,8 +1449,6 @@ def main(argv=None) -> int:
     phase_pruned_kernels(sbatch, params, sub, join_ids, fplan, ilaunches,
                          rows, name, n_plain=sbatch.num_trajs)
     del sbatch, join_ids, fplan, sub
-    order = list(REPLACES)
-    rows.sort(key=lambda r: order.index(r["name"]))
     torch.cuda.empty_cache()
     _, _, sout, _ = phase_main(dev, report, "fused", n_vessels=8192,
                                name="dsc_sis")
@@ -1198,6 +1462,14 @@ def main(argv=None) -> int:
               f"dsc_sis: fused top-K vs fused dense path: {f} differs")
     log("dsc_sis: fused top-K labels equal the dense fused labels")
     del stout
+    torch.cuda.empty_cache()
+    phase_lcss(dev, report, rows)
+    torch.cuda.empty_cache()
+    phase_attention(dev, report, rows)
+    order = list(REPLACES)
+    rows.sort(key=lambda r: order.index(r["name"]))
+    check(len(rows) == len(REPLACES),
+          f"{len(rows)} kernel rows, expected {len(REPLACES)}")
     report["kernels"] = rows
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

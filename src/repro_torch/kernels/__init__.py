@@ -7,12 +7,16 @@ Each kernel package mirrors ``repro.kernels``:
   ref.py — the plain PyTorch version, the oracle the tests hold the
            JAX package against
 
-The kernels live in ``csrc/dsc_kernels.cu``: one translation unit with a
-plain C interface, compiled by ``nvcc`` for ``sm_90a`` at first use into
-``build/repro_torch_kernels/<hash>/`` at the root of the checkout, and
-loaded with ``ctypes``.  FMA contraction is off (``-fmad=false``) and
+The kernels live in ``csrc/``: ``dsc_kernels.cu`` (the DSC pipeline,
+K1-K13), ``lcss_kernels.cu`` (K14) and ``attention_kernels.cu`` (K15),
+each a translation unit with a plain C interface.  At first use each is
+compiled by its own ``nvcc`` for ``sm_90a`` (all started together) and the
+objects are linked into one library under
+``build/repro_torch_kernels/<hash>/`` at the root of the checkout, loaded
+with ``ctypes``.  FMA contraction is off (``-fmad=false``) and
 ``--use_fast_math`` is never passed, so square roots and divisions stay
-IEEE-rounded and the kernels agree bit for bit with their plain versions.
+IEEE-rounded and the DSC and LCSS kernels agree bit for bit with their
+plain versions.
 
 ``LAUNCHES`` counts the launches of each kernel; a wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its main
@@ -26,15 +30,17 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("dsc_kernels.cu",)
+_SOURCES = ("dsc_kernels.cu", "lcss_kernels.cu", "attention_kernels.cu")
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "--ptxas-options=-v")
 
 LAUNCHES = {"stjoin_best_match": 0, "stjoin_vote_fused": 0,
@@ -43,7 +49,8 @@ LAUNCHES = {"stjoin_best_match": 0, "stjoin_vote_fused": 0,
             "topk_round_scan": 0, "topk_claim_max": 0,
             "stjoin_best_match_pruned": 0, "stjoin_vote_fused_pruned": 0,
             "stjoin_sim_fused_pruned": 0,
-            "stjoin_sim_panel_fused_pruned": 0}
+            "stjoin_sim_panel_fused_pruned": 0, "lcss_wavefront": 0,
+            "flash_attention_fwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,11 +107,22 @@ _SIGNATURES = {
     # ids, sims, rank, is_rep, valid, alpha, S, K, best_w, best_slot,
     # stream
     "topk_claim_max": [_P] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P],
+    # rx, ry, rt, rv, sx, sy, st, sv; B, N, M; eps_sp, eps_t; scores;
+    # stream
+    "lcss_wavefront": [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 2
+                      + [_P, _P],
+    # q, k, v, q_pos, kv_pos; B, Lq, M, KV, G, hd; window, prefix, max_kv;
+    # softcap (0 = none); bf16 (0 = float32); out; stream
+    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_I] * 3
+                           + [ctypes.c_float, _I, _P, _P],
 }
 
 _lib = None
 _lib_lock = threading.Lock()
 build_log = ""
+# seconds of each source's compile and of the link, from the last build:
+# one nvcc over all sources in turn takes about their sum
+build_seconds: dict[str, float] = {}
 
 
 def has_cuda() -> bool:
@@ -150,26 +168,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build() -> Path:
-    """Compile the kernels (once per source hash) and return the library.
+def _run(cmd: list[str]) -> tuple[subprocess.CompletedProcess, float]:
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc, time.perf_counter() - t0
 
-    The output is written to a temporary name and renamed into place, so
+
+def build() -> Path:
+    """Compile the kernels (once per source hash) and return the library:
+    one ``nvcc -c`` per source, all started together, then one link.
+
+    The library is written to a temporary name and renamed into place, so
     concurrent builders never load a half-written library.
     """
-    global build_log
+    global build_log, build_seconds
     out_dir = build_dir()
-    lib = out_dir / "libdsc_kernels.so"
+    lib = out_dir / "librepro_torch_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libdsc_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + build_log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out_dir / f"{Path(s).stem}.{pid}.o" for s in _SOURCES]
+    steps = {s: [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+             for s, o in zip(_SOURCES, objs)}
+    with ThreadPoolExecutor(len(steps)) as pool:
+        runs = dict(zip(steps, pool.map(_run, steps.values())))
+    tmp = out_dir / f"librepro_torch_kernels.{pid}.so"
+    if all(proc.returncode == 0 for proc, _ in runs.values()):
+        steps["link"] = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        runs["link"] = _run(steps["link"])
+    for o in objs:
+        o.unlink(missing_ok=True)
+    build_seconds = {step: sec for step, (_, sec) in runs.items()}
+    build_log = "\n".join(f"{' '.join(steps[step])}  ({sec:.1f} s)\n"
+                          f"{proc.stdout}{proc.stderr}"
+                          for step, (proc, sec) in runs.items())
+    (out_dir / "build.log").write_text(build_log)
+    failed = [step for step, (proc, _) in runs.items() if proc.returncode]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                           f"{build_log}")
     os.replace(tmp, lib)
     return lib
 

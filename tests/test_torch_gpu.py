@@ -23,7 +23,12 @@ from repro_torch.kernels.cluster.ops import (cluster_assign,
                                              cluster_round_scan,
                                              topk_cluster_assign,
                                              topk_cluster_round_scan)
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.attention.ref import (flash_attention_ref,
+                                               kernel_tolerance)
 from repro_torch.kernels.jaccard.ops import window_jaccard
+from repro_torch.kernels.lcss import ops as lcss_ops
+from repro_torch.kernels.lcss import ref as lcss_ref
 from repro_torch.kernels.stjoin import ops as stjoin_ops
 from repro_torch.kernels.stjoin.ops import best_match_join_kernel
 from repro_torch.kernels.stjoin.ref import (stjoin_pruned_ref, stjoin_ref,
@@ -441,3 +446,123 @@ def test_k13_matches_k7_and_plain(cuda, ms, Sb, delta_t):
         assert torch.equal(fwd, pf) and torch.equal(rev, pr), p0
         hit |= bool((pf > 0).any())
     assert hit
+
+
+# ---------------------------------------------------------------------------
+# K14 (LCSS wavefront) and K15 (attention forward), the entry points off the
+# DSC paths.
+# ---------------------------------------------------------------------------
+
+
+def _lcss_pairs(cuda, B, N, M, seed, p_valid=0.9):
+    rng = np.random.default_rng(seed)
+    cols = []
+    for n in (N, M):
+        cols += [rng.uniform(0, 5, (B, n)), rng.uniform(0, 5, (B, n)),
+                 np.sort(rng.uniform(0, 50, (B, n)), 1)]
+        cols.append(rng.uniform(0, 1, (B, n)) < p_valid)
+    out = [torch.from_numpy(c.astype(np.float32) if c.dtype != bool else c)
+           .to(cuda) for c in cols]
+    return out, 2.0, 25.0
+
+
+@pytest.mark.parametrize("B,N,M,p_valid", [
+    (64, 128, 128, 0.9), (37, 33, 17, 0.9), (20, 1, 40, 1.0),
+    (20, 40, 1, 1.0), (9, 300, 70, 0.8), (5, 16, 16, 0.0)])
+def test_k14_matches_plain(cuda, B, N, M, p_valid):
+    """K14 bitwise its sheared plain twin and the row scan, and on the
+    transposed pairs; N != M, N = 1, M = 1, more rows than threads, and
+    all-invalid pairs (score 0)."""
+    ops, eps_sp, eps_t = _lcss_pairs(cuda, B, N, M, B + N + M, p_valid)
+    before = kernels.LAUNCHES["lcss_wavefront"]
+    got = lcss_ops.lcss_wavefront(*ops, eps_sp, eps_t)
+    assert kernels.LAUNCHES["lcss_wavefront"] == before + 1
+    twin = lcss_ref.lcss_wavefront_ref(lcss_ref.shear_weights(*ops, eps_sp,
+                                                              eps_t))
+    assert torch.equal(got, twin)
+    if N * M <= 1200:
+        assert torch.equal(got, lcss_ref.lcss_ref(*ops, eps_sp, eps_t))
+    swapped = lcss_ops.lcss_wavefront(*ops[4:], *ops[:4], eps_sp, eps_t)
+    assert torch.equal(got, swapped)
+    assert bool((got[:, 0] >= 0).all()) and bool((got[:, 0] <= got[:, 1]).all())
+    if p_valid == 0.0:
+        assert not bool(got.any())
+    else:
+        assert bool((got[:, 1] > 0).any())
+
+
+def test_lcss_entry_points_launch_k14_once(cuda):
+    ops, eps_sp, eps_t = _lcss_pairs(cuda, 8, 24, 24, 0)
+    arrays = [o.cpu().numpy() for o in ops]
+    for fn in (lcss_ops.lcss_scores, lcss_ops.lcss_similarity):
+        kernels.reset_launch_counts()
+        got = fn(*arrays, eps_sp, eps_t)
+        assert got.is_cuda
+        assert {k: n for k, n in kernels.LAUNCHES.items() if n} \
+            == {"lcss_wavefront": 1}
+        want = fn(*arrays, eps_sp, eps_t, device="cpu")
+        assert torch.equal(got.cpu(), want)
+
+
+# a fully masked row against the mean of v (every probability is exactly
+# 1, so only the output is rounded) and the entry point against the CPU
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+            torch.bfloat16: dict(atol=1e-3, rtol=1e-2)}
+ATTN_MASKS = {
+    "causal": dict(),
+    "window_prefix_softcap": dict(window=8, prefix=12, softcap=30.0),
+    "decode_max_kv": dict(max_kv=40),
+    "fully_masked": dict(window=4),
+}
+
+
+def _attn_case(cuda, mask, dtype, hd):
+    rng = np.random.default_rng(hd)
+    Lq, M, KV, G = {"decode_max_kv": (1, 96), "fully_masked": (40, 70)}.get(
+        mask, (70, 70)) + (2, 3)
+    q = rng.normal(0, 1, (2, Lq, KV, G, hd)) * hd ** -0.5
+    k, v = (rng.normal(0, 1, (2, M, KV, hd)) for _ in range(2))
+    qkv = [torch.from_numpy(a.astype(np.float32)).to(dtype).to(cuda)
+           for a in (q, k, v)]
+    qp = np.arange(Lq) + (40 if mask == "decode_max_kv" else 0)
+    kp = np.arange(M) + (10 if mask == "fully_masked" else 0)
+    pos = [torch.from_numpy(p.astype(np.int32)).to(cuda) for p in (qp, kp)]
+    return qkv, pos
+
+
+@pytest.mark.parametrize("hd", [16, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", sorted(ATTN_MASKS))
+def test_k15_matches_plain(cuda, mask, dtype, hd):
+    """K15 within its tolerance of the plain version (``kernel_tolerance``),
+    for each mask kind and both dtypes (a fully masked row averages v), M
+    not a multiple of the kernel's 32-key tile."""
+    (q, k, v), (qp, kp) = _attn_case(cuda, mask, dtype, hd)
+    kw = ATTN_MASKS[mask]
+    args = (kw.get("window", attn_ops.HUGE), kw.get("prefix", 0),
+            kw.get("max_kv", attn_ops.HUGE))
+    before = kernels.LAUNCHES["flash_attention_fwd"]
+    got = attn_ops.flash_attention_fwd(q, k, v, qp, kp, *args,
+                                       softcap=kw.get("softcap"))
+    assert kernels.LAUNCHES["flash_attention_fwd"] == before + 1
+    want = flash_attention_ref(q, k, v, qp, kp, *args,
+                               softcap=kw.get("softcap"))
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = kernel_tolerance(q, k, v, qp, kp, *args, kw.get("softcap"), want)
+    used = float(((got.float() - want.float()).abs() / tol).max())
+    assert used <= 1.0, f"{used:.3g} of the tolerance"
+    if mask == "fully_masked":
+        mean = v.float().mean(dim=1)[:, None, :, None, :].expand(q.shape)
+        torch.testing.assert_close(got[:, :10].float(), mean[:, :10],
+                                   **ATTN_TOL[dtype])
+
+
+def test_flash_attention_launches_k15_once(cuda):
+    (q, k, v), (qp, kp) = _attn_case(cuda, "causal", torch.float32, 64)
+    kernels.reset_launch_counts()
+    got = attn_ops.flash_attention(q, k, v, qp, kp, window=16)
+    assert {k_: n for k_, n in kernels.LAUNCHES.items() if n} \
+        == {"flash_attention_fwd": 1}
+    want = attn_ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), qp.cpu(),
+                                    kp.cpu(), window=16, device="cpu")
+    torch.testing.assert_close(got.cpu(), want, **ATTN_TOL[torch.float32])
