@@ -76,9 +76,13 @@ The entry points off the DSC paths (after the dsc_sis runs):
   KV, hd 256, softcap 50, window 4096, L = 8192) in bfloat16, and one
   gemma2-2b decode step (Lq = 1 against M = 8192, ``max_kv``), and the
   gemma2-2b local layer in float32 with q unscaled, so that the scores
-  reach into the softcap: one launch per case on the entry point's run;
-  each against the plain version within its stated tolerance, timed, and
-  the smollm cases beside ``scaled_dot_product_attention(is_causal=True)``.
+  reach into the softcap, and one small hd-512 case for the general path:
+  one launch per case on the entry point's run; each against the plain
+  version within its stated tolerance, timed, and the smollm cases beside
+  ``scaled_dot_product_attention(is_causal=True)``; the K15 path each case
+  took (``bf16_mma``, ``f32_tiled`` or ``general``, and its key split),
+  and the tiles it skipped out of those it swept, equal to the plain
+  mirror of its tile test.
 
 Prints one JSON ``kernels`` line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any mismatch or
@@ -187,6 +191,31 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in a CUDA
+    graph, replayed ``replays`` times between CUDA events (no host
+    overhead between the kernels, unlike ``time_ms`` on back-to-back
+    calls, which a small kernel can outrun)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def bound_ms(nbytes: float, ops: float = 0.0, rate: float = F32_OPS_PER_S):
@@ -1218,8 +1247,9 @@ def phase_lcss(dev, report, rows):
 
 
 # (name, dtype, B, L query, M keys, KV, G, hd, mask, softcap, q scale) at
-# the shapes of configs/smollm_360m.py and configs/gemma2_2b.py.  The decode
-# step attends keys [0, 6000] of an 8192-slot cache.  With q scaled by
+# the shapes of configs/smollm_360m.py and configs/gemma2_2b.py, and one
+# head dim past the fast paths' 256.  The decode step attends keys [0,
+# 6000] of an 8192-slot cache.  With q scaled by
 # hd**-0.5 the scores are about N(0, 1) and a softcap of 50 does nothing,
 # so the last case leaves q unscaled (scores about N(0, hd)): there tanh
 # bends the scores, in float32, where a flipped bfloat16 rounding of a
@@ -1235,6 +1265,8 @@ ATTN_CASES = (
      dict(max_kv=6000), 50.0, 256 ** -0.5),
     ("gemma2-2b local prefill f32, q unscaled", torch.float32, 1, 8192,
      8192, 4, 2, 256, dict(window=4096), 50.0, 1.0),
+    ("hd-512 general bf16", torch.bfloat16, 1, 1024, 1024, 2, 2, 512,
+     dict(window=256), None, 512 ** -0.5),
 )
 
 
@@ -1255,10 +1287,12 @@ def attention_inputs(dev, case, seed):
 
 def phase_attention(dev, report, rows):
     """K15 at the models' shapes: ``flash_attention`` once per case with the
-    counts read around the four calls; then each case against the plain
+    counts read around those calls; then each case's path and tile counts
+    (a second call, bitwise the first, counting the tiles it swept and
+    skipped against ``tile_class_ref``), the case against the plain
     version (within ``kernel_tolerance``; the largest share of it used is
-    logged)
-    and timed with its bound; the smollm
+    logged) and timed with its bound, per call (``time_ms``) and as
+    device time (``graph_ms``, replayed from a CUDA graph); the smollm
     cases beside ``scaled_dot_product_attention(is_causal=True)`` on the
     same values laid out as it takes them (the layout change untimed).
     The JSON row is the float32 smollm case; the others are logged."""
@@ -1267,7 +1301,8 @@ def phase_attention(dev, report, rows):
     from repro_torch.kernels.attention import ops as ao
     from repro_torch.kernels.attention.ref import (attention_mask,
                                                    flash_attention_ref,
-                                                   kernel_tolerance)
+                                                   kernel_tolerance,
+                                                   tile_class_ref)
     inputs = [attention_inputs(dev, c, i) for i, c in enumerate(ATTN_CASES)]
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1288,6 +1323,26 @@ def phase_attention(dev, report, rows):
         check(got.shape == q.shape and got.dtype == dtype
               and bool(torch.isfinite(got).all()),
               f"{name}: output shape, dtype or non-finite values")
+        plan = ao.plan_for(q, k, v)
+        stats = torch.zeros(2, dtype=torch.int32, device=dev)
+        again = ao.flash_attention_fwd(q, k, v, qp, kp, *args, softcap=cap,
+                                       stats=stats)
+        check(torch.equal(again, got), f"{name}: K15 not bitwise repeatable")
+        del again
+        cls = tile_class_ref(qp, kp, *args, G=G, rows=plan.rows,
+                             keys=plan.keys)
+        swept, skipped = stats.tolist()
+        mirror = [cls.numel() * B * KV, int((cls == 0).sum()) * B * KV]
+        check([swept, skipped] == mirror,
+              f"{name}: K15 swept / skipped {swept} / {skipped} tiles, the "
+              f"mirror {mirror[0]} / {mirror[1]}")
+        kname = k15_kernel(plan, hd, dtype)
+        log(f"  {name}: path {plan.path} ({plan.rows} rows x {plan.keys} "
+            f"keys a tile, {plan.nsplit} key splits of "
+            f"{plan.tiles_per_split} tiles); skipped {skipped} of {swept} "
+            f"(row block, tile) pairs, as the mirror; "
+            f"{int((cls == 2).sum()) * B * KV} fully kept; ptxas {kname}: "
+            f"{PTXAS.get(kname, 'not built in this run')}")
         res = []            # warmed: a cold first call spreads 3x
         plain = time_ms(lambda: res.append(flash_attention_ref(
             q, k, v, qp, kp, *args, softcap=cap)), reps=3)
@@ -1320,8 +1375,10 @@ def phase_attention(dev, report, rows):
             log(f"  {name}: max |q.k| over the last 256 query rows = "
                 f"{float(s.abs().max()):.4g} (softcap {cap})")
             del s
-        ms = time_ms(lambda: ao.flash_attention_fwd(q, k, v, qp, kp, *args,
-                                                    softcap=cap), reps=3)
+        call = lambda: ao.flash_attention_fwd(q, k, v, qp, kp, *args,
+                                              softcap=cap)
+        ms = time_ms(call, reps=20, warmup=3)
+        dev_ms = graph_ms(call)
         pairs = int(ok.sum())                       # unmasked
         flops = 4 * hd * pairs * B * KV * G
         # k and v of the keys some row keeps (of all, if a row keeps none:
@@ -1351,9 +1408,13 @@ def phase_attention(dev, report, rows):
             f"mask={mask} softcap={cap}: err={err} ms={ms:.4f} "
             f"plain_ms={plain:.4f} bound_ms={bound[0]:.4f} ({bound[1]}; "
             f"{pairs} unmasked pairs, {keys} keys read, {flops:.4g} flops) "
-            f"tolerance_used={used:.4g} library_ms={lib}")
+            f"tolerance_used={used:.4g} library_ms={lib} "
+            f"graph_ms={dev_ms:.4f} (device time, replayed)")
         report["attention"][name] = dict(
-            err=err, tolerance_used=used, ms=ms, plain_ms=plain,
+            err=err, tolerance_used=used, ms=ms, graph_ms=dev_ms,
+            plain_ms=plain,
+            path=plan.path, nsplit=plan.nsplit, tiles_swept=swept,
+            tiles_skipped=skipped,
             bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
             pairs=pairs, keys=keys, flops=flops)
         if name == ATTN_CASES[0][0]:
@@ -1362,21 +1423,50 @@ def phase_attention(dev, report, rows):
     del outs, inputs
 
 
+def kernel_name(line: str) -> str | None:
+    """The kernel a ptxas ``Function properties for <mangled>`` line is
+    about: the ``<length><name>`` of the mangled name that ends in
+    ``_kernel`` (its template arguments in their mangled form), or None."""
+    mangled = line.split("Function properties for", 1)[1].strip()
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):        # a length may follow digits
+            n, at = int(digits[i:]), m.end()
+            name = mangled[at:at + n]
+            if len(name) == n and name.endswith("_kernel"):
+                t = re.match(r"I(\w+?)EE", mangled[at + n:])
+                return name + (f"<{t.group(1)}>" if t else "")
+    return None
+
+
+# ptxas' registers and spills of each kernel instantiation, by name (empty
+# when the library was already built)
+PTXAS: dict[str, str] = {}
+
+
 def log_ptxas(build_log: str) -> None:
     """One line per kernel from ``nvcc --ptxas-options=-v``: its
     registers and spills (nothing when the library was already built)."""
-    name, spill = "?", ""
+    name, spill = None, ""
     for line in build_log.splitlines():
-        m = re.search(r"Function properties for "
-                      r".*?([A-Za-z][A-Za-z_]*_kernel)(E|I(\w+?)EE)", line)
-        if m:        # a template's arguments in their mangled form
-            name = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+        if "Function properties for" in line:
+            name = kernel_name(line)
         elif "spill" in line:
             spill = line.strip()
-        elif "registers" in line:
-            log(f"  ptxas: {name}: {line.split(':', 1)[1].strip()}; {spill}")
+        elif "registers" in line and name:
+            PTXAS[name] = f"{line.split(':', 1)[1].strip()}; {spill}"
+            log(f"  ptxas: {name}: {PTXAS[name]}")
         elif "error" in line:
             log("  ptxas: " + line.strip())
+
+
+def k15_kernel(plan, hd: int, dtype) -> str:
+    """The ptxas name of the kernel instantiation a K15 plan launches."""
+    if plan.path == "general":
+        return "attn_general_kernel<" + ("f>" if dtype == torch.float32
+                                         else "13__nv_bfloat16>")
+    hd_class = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    return f"attn_{plan.path}_kernel<Li{hd_class}ELi{plan.keys}>"
 
 
 def main(argv=None) -> int:

@@ -107,14 +107,16 @@ _SIGNATURES = {
     # ids, sims, rank, is_rep, valid, alpha, S, K, best_w, best_slot,
     # stream
     "topk_claim_max": [_P] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P],
-    # rx, ry, rt, rv, sx, sy, st, sv; B, N, M; eps_sp, eps_t; scores;
-    # stream
+    # rx, ry, rt, rv, sx, sy, st, sv; B, N, M; eps_sp, eps_t; diagonal
+    # scratch (NULL: shared memory); scores; stream
     "lcss_wavefront": [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 2
-                      + [_P, _P],
+                      + [_P, _P, _P],
     # q, k, v, q_pos, kv_pos; B, Lq, M, KV, G, hd; window, prefix, max_kv;
-    # softcap (0 = none); bf16 (0 = float32); out; stream
+    # softcap (0 = none); bf16 (0 = float32); path, nsplit,
+    # tiles_per_split; split scratch m, l, acc; tile counters; out; stream
     "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_I] * 3
-                           + [ctypes.c_float, _I, _P, _P],
+                           + [ctypes.c_float, _I] + [_I] * 3 + [_P] * 4
+                           + [_P, _P],
 }
 
 _lib = None

@@ -181,13 +181,18 @@ __device__ __forceinline__ void best_match_block(SweepSmem& sm,
   }
 }
 
+// The grid is linear (x has a 2^31 - 1 limit, y only 65535): block x is
+// point block x % n_pb of candidate tile x / n_pb, the order of the former
+// 2-D grid.  32-bit index math (the launcher keeps the grid below 2^31): a
+// 64-bit division took K1 from 64 to 80 registers.
 __global__ void __launch_bounds__(kThreads)
-stjoin_best_match_kernel(JoinOperands op, long long P,
+stjoin_best_match_kernel(JoinOperands op, long long P, unsigned n_pb,
                          float* __restrict__ out_w,
                          int* __restrict__ out_idx) {
   __shared__ SweepSmem sm;
-  best_match_block(sm, op, P, (long long)blockIdx.x * K1_PTS,
-                   blockIdx.y * K1_TC, out_w, out_idx);
+  const unsigned x = blockIdx.x;
+  best_match_block(sm, op, P, (long long)(x % n_pb) * K1_PTS,
+                   (int)(x / n_pb) * K1_TC, out_w, out_idx);
 }
 
 // ---------------------------------------------------------------------------
@@ -399,14 +404,16 @@ __device__ __forceinline__ void sim_fused_block(
 }
 
 __global__ void __launch_bounds__(kThreads)
-stjoin_sim_fused_kernel(JoinOperands op, int M, float delta_t,
+stjoin_sim_fused_kernel(JoinOperands op, int M, unsigned T, float delta_t,
                         const int* __restrict__ ref_gid,
                         const int* __restrict__ cand_gid, int ms,
                         long long n_dst, float* __restrict__ raw) {
   __shared__ SweepSmem sm;
   extern __shared__ float dyn[];
+  // linear grid, as K1's: row x % T of candidate tile x / T
+  const unsigned x = blockIdx.x;
   sim_fused_block(sm, op, M, delta_t, ref_gid, cand_gid, ms, n_dst,
-                  blockIdx.x, blockIdx.y * K1_TC, dyn, raw);
+                  (int)(x % T), (int)(x / T) * K1_TC, dyn, raw);
 }
 
 // One block of K7 / K13: sim_block for (row t, candidates c0 .. o.C - 1,
@@ -912,11 +919,12 @@ int stjoin_best_match(const float* rx, const float* ry, const float* rt,
   if (P > 0 && C > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    const dim3 block(K1_TC, K1_TY);
-    const dim3 grid((unsigned)((P + K1_PTS - 1) / K1_PTS),
-                    (unsigned)((C + K1_TC - 1) / K1_TC));
-    stjoin_best_match_kernel<<<grid, block, 0, stream>>>(op, P, out_w,
-                                                         out_idx);
+    const long long n_pb = (P + K1_PTS - 1) / K1_PTS;
+    const long long blocks = n_pb * ((C + K1_TC - 1) / K1_TC);
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    stjoin_best_match_kernel<<<(unsigned)blocks, dim3(K1_TC, K1_TY), 0,
+                               stream>>>(op, P, (unsigned)n_pb, out_w,
+                                         out_idx);
   }
   return (int)cudaGetLastError();
 }
@@ -957,9 +965,12 @@ int stjoin_sim_fused(const float* rx, const float* ry, const float* rt,
         stjoin_sim_fused_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)T, (unsigned)((C + K1_TC - 1) / K1_TC));
-    stjoin_sim_fused_kernel<<<grid, dim3(K1_TC, K1_TY), smem, stream>>>(
-        op, M, delta_t, ref_gid, cand_gid, ms, (long long)C * ms, raw);
+    const long long blocks = (long long)T * ((C + K1_TC - 1) / K1_TC);
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    stjoin_sim_fused_kernel<<<(unsigned)blocks, dim3(K1_TC, K1_TY), smem,
+                              stream>>>(op, M, (unsigned)T, delta_t, ref_gid,
+                                        cand_gid, ms, (long long)C * ms,
+                                        raw);
   }
   return (int)cudaGetLastError();
 }

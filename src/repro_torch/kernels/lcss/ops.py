@@ -7,9 +7,13 @@ launches the ``lcss_wavefront`` kernel (``csrc/lcss_kernels.cu``), which
 forms the match weights in registers and never builds the sheared tensor;
 on CPU tensors it takes the plain versions of the TPU kernel's two steps
 (``ref.shear_weights`` then ``ref.lcss_wavefront_ref``).  Both give the
-same scores bit for bit.
+same scores bit for bit.  Pairs too long for the kernel's shared memory
+(``smem_bytes`` above the card's opt-in limit) keep its diagonals in a
+global scratch that the wrapper allocates.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -37,11 +41,29 @@ def lcss_wavefront(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t):
             raise ValueError(f"lcss_wavefront: {name} operands are not all "
                              f"[{B}, {n}]")
     scores = torch.empty((B, 2), dtype=f, device=dev)
+    scratch = None
+    if smem_bytes(N, M) > _smem_optin(dev.index or 0):
+        scratch = torch.empty(B * 6 * N, dtype=f, device=dev)
     launch("lcss_wavefront", rx.data_ptr(), ry.data_ptr(), rt.data_ptr(),
            rv.data_ptr(), sx.data_ptr(), sy.data_ptr(), st.data_ptr(),
            sv.data_ptr(), B, N, M, float(eps_sp), float(eps_t),
-           scores.data_ptr(), device=dev)
+           0 if scratch is None else scratch.data_ptr(), scores.data_ptr(),
+           device=dev)
     return scores
+
+
+def smem_bytes(N: int, M: int) -> int:
+    """Shared memory of one K14 block (``lcss_kernels.cu::lcss_smem_bytes``):
+    three diagonals of both channels and both sequences' points, in
+    floats.  Past the card's opt-in limit the diagonals go to a global
+    scratch of ``6 N`` floats a pair."""
+    return 4 * (10 * N + 4 * M)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return getattr(props, "shared_memory_per_block_optin", 232448)
 
 
 def _operands(dev, rx, ry, rt, rv, sx, sy, st, sv):

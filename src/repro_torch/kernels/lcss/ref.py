@@ -45,22 +45,18 @@ def match_weights(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t):
 
 
 def lcss_ref(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t):
-    """Batched row-scan DP, ``[B, N] x [B, M] -> [B, 2]`` (weighted, count).
-    O(N * M) steps over ``[B, 2]`` tensors: test shapes only."""
+    """Batched row-scan DP, ``[B, N] x [B, M] -> [B, 2]`` (weighted, count),
+    one row at a time.  Along a row, ``L[i, j] = max(L[i, j-1], L[i-1, j],
+    L[i-1, j-1] + w[i, j], 0)`` unrolls to a running max (``cummax``) of
+    ``max(L[i-1, j], L[i-1, j-1] + w[i, j], 0)``: the same add and the same
+    exact maxima as the cell-by-cell scan, so the same bits."""
     wu = match_weights(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t)
     B, ch, N, M = wu.shape
     zero = torch.zeros((B, ch, 1), dtype=torch.float32, device=wu.device)
     prev = torch.zeros((B, ch, M), dtype=torch.float32, device=wu.device)
     for i in range(N):
         cand = torch.cat([zero, prev[..., :-1]], dim=-1) + wu[:, :, i]
-        carry = zero[..., 0]
-        cols = []
-        for j in range(M):
-            cur = torch.maximum(torch.maximum(prev[..., j], carry),
-                                cand[..., j]).clamp_min(0.0)
-            cols.append(cur)
-            carry = cur
-        prev = torch.stack(cols, dim=-1)
+        prev = torch.maximum(prev, cand).clamp_min(0.0).cummax(-1).values
     return prev[..., -1]
 
 

@@ -87,8 +87,6 @@ def stjoin_best_match(ref_x, ref_y, ref_t, ref_id, ref_ok,
         ref_t=(ref_t, f), ref_id=(ref_id, i), ref_ok=(ref_ok, b),
         cand_x=(cand_x, f), cand_y=(cand_y, f), cand_t=(cand_t, f),
         cand_id=(cand_id, i), cand_ok=(cand_ok, b))
-    if (C + 31) // 32 > 65535:
-        raise ValueError(f"stjoin_best_match: C={C} exceeds the grid")
     if out_w is None:
         out_w = torch.empty((P, C), dtype=f, device=dev)
         out_idx = torch.empty((P, C), dtype=i, device=dev)
@@ -533,8 +531,6 @@ def stjoin_sim_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct,
     check_cuda_operands(name, ref_x=(ref_ops[0], torch.float32),
                         ref_gid=(ref_gid, torch.int32),
                         cand_gid=(cand_gid, torch.int32))
-    if (C + 31) // 32 > 65535:
-        raise ValueError(f"{name}: C={C} exceeds the grid")
     args = (*(t.data_ptr() for t in ref_ops),
             *(t.data_ptr() for t in cand_ops), ref_gid.data_ptr(),
             cand_gid.data_ptr(), T, M, C, Mc, ms,

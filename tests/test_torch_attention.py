@@ -15,6 +15,13 @@ bfloat16, a fully masked row, and Lq = 1 and 48.  Tolerances and why:
   a sum taken in another order can round a score or a probability one
   bfloat16 ulp apart, and the output is rounded to bfloat16 too (one ulp
   is at most 2**-7 = 0.0078 of the value, inside ``rtol``).
+
+The plain mirrors of the CUDA launcher's pieces are held here too: the
+tile test (``tile_class_ref``) never skips a pair that the mask keeps and
+never calls a tile fully kept that is not; the key split and merge
+(``flash_attention_split_ref``) gives ``repro``'s output within the
+float32 tolerance above and, in bfloat16, within ``kernel_tolerance``
+(it rounds the unnormalised probabilities, as the kernels do).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -139,3 +146,101 @@ def test_no_card_means_no_silent_cpu(monkeypatch):
     q, k, v = _qkv(6, Lq=4, M=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tops.flash_attention(q, k, v, np.arange(4), np.arange(4))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_tile_mirror_never_skips_a_kept_pair(seed):
+    """Random, unsorted positions, windows, prefixes and ``max_kv``, at the
+    tile shapes of all three paths."""
+    rng = np.random.default_rng(seed)
+    Lq, M, G = rng.integers(1, 150), rng.integers(1, 300), rng.integers(1, 4)
+    qp = torch.from_numpy(rng.integers(-20, 200, Lq).astype(np.int32))
+    kp = torch.from_numpy(rng.integers(-20, 200, M).astype(np.int32))
+    if seed % 2:
+        qp, kp = qp.sort().values, kp.sort().values.flip(0)
+    window = int(rng.choice([HUGE, 1, 5, 40]))
+    prefix = int(rng.choice([0, 10, 90]))
+    max_kv = int(rng.choice([HUGE, 0, 37, 150]))
+    ok = tref.attention_mask(qp, kp, window, prefix, max_kv)
+    ok_rows = ok.repeat_interleave(int(G), dim=0)       # row r = query r // G
+    for path in tops.PATHS:
+        rows, keys = tops.tile_shape(path, 64)
+        cls = tref.tile_class_ref(qp, kp, window, prefix, max_kv, G=int(G),
+                                  rows=rows, keys=keys)
+        r = torch.arange(Lq * int(G))[:, None] // rows
+        c = torch.arange(M)[None, :] // keys
+        per_pair = cls[r, c]
+        assert not bool((ok_rows & (per_pair == 0)).any())
+        assert bool(ok_rows[per_pair == 2].all())
+
+
+SPLIT_CASES = {
+    "decode_max_kv": dict(Lq=1, M=90, qp=[60], max_kv=60, softcap=50.0),
+    "fully_masked_rows": dict(Lq=12, M=40, qp=np.arange(12),
+                              kp=np.arange(40) + 5, window=4),
+    "window_softcap": dict(Lq=30, M=30, window=6, softcap=30.0),
+    "prefix": dict(Lq=25, M=33, prefix=9),
+}
+
+
+@pytest.mark.parametrize("nsplit", [3, 7])
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_merge_matches_jax(case, dtype, nsplit):
+    """The key split's plain partials and merge against ``repro``'s
+    ``flash_attention_ref``."""
+    kw = dict(SPLIT_CASES[case])
+    Lq, M = kw.pop("Lq"), kw.pop("M")
+    qp = np.asarray(kw.pop("qp", np.arange(M - Lq, M)))
+    kp = np.asarray(kw.pop("kp", np.arange(M)))
+    q, k, v = _qkv(nsplit, B=2, Lq=Lq, M=M, KV=2, G=2, hd=16,
+                   q_scale=0.25)
+    window, prefix, max_kv = (kw.get("window", HUGE), kw.get("prefix", 0),
+                              kw.get("max_kv", HUGE))
+    softcap = kw.get("softcap")
+    jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = jref(*(jnp.asarray(a, jd) for a in (q, k, v)),
+                jnp.asarray(qp, jnp.int32), jnp.asarray(kp, jnp.int32),
+                window, prefix, max_kv, softcap=softcap)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    td = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    tqp, tkp = (torch.from_numpy(p.astype(np.int32)) for p in (qp, kp))
+    got = tref.flash_attention_split_ref(tq, tk, tv, tqp, tkp, window,
+                                         prefix, max_kv, softcap, nsplit)
+    assert got.dtype == td and got.shape == tq.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL[dtype])
+        return
+    tol = tref.kernel_tolerance(tq, tk, tv, tqp, tkp, window, prefix, max_kv,
+                                softcap, want)
+    assert bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_head_dim_320_matches_jax(dtype):
+    """Head dims past the fast kernels' 256 (the card's general path)."""
+    q, k, v = _qkv(8, B=1, Lq=20, M=20, KV=2, G=2, hd=320,
+                   q_scale=320 ** -0.5)
+    got, want = _run(q, k, v, np.arange(20), np.arange(20), dtype,
+                     window=7)
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+def test_plan_paths_and_splits():
+    """The path by dtype, head dim and alignment; a key split only when
+    the blocks cannot fill the card."""
+    bf, f = torch.bfloat16, torch.float32
+    plan = tops.plan_fwd
+    assert plan(1, 4096, 4096, 5, 3, 64, bf).path == "bf16_mma"
+    assert plan(1, 4096, 4096, 5, 3, 64, f).path == "f32_tiled"
+    assert plan(1, 4096, 4096, 5, 3, 64, f, aligned=False).path == "general"
+    assert plan(1, 16, 16, 1, 1, 320, bf).path == "general"
+    assert plan(1, 16, 16, 1, 1, 12, bf).path == "general"
+    assert plan(1, 4096, 4096, 5, 3, 64, bf).nsplit == 1
+    assert plan(1, 8192, 8192, 4, 2, 256, bf).nsplit == 1
+    dec = plan(1, 1, 8192, 4, 2, 256, bf)
+    assert dec.nsplit > 1 and dec.keys == 32
+    assert dec.nsplit * dec.tiles_per_split >= 8192 // 32
+    assert (dec.nsplit - 1) * dec.tiles_per_split < 8192 // 32
+    assert plan(1, 1, 1, 4, 2, 256, bf).nsplit == 1

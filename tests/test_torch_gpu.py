@@ -25,7 +25,8 @@ from repro_torch.kernels.cluster.ops import (cluster_assign,
                                              topk_cluster_round_scan)
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import (flash_attention_ref,
-                                               kernel_tolerance)
+                                               kernel_tolerance,
+                                               tile_class_ref)
 from repro_torch.kernels.jaccard.ops import window_jaccard
 from repro_torch.kernels.lcss import ops as lcss_ops
 from repro_torch.kernels.lcss import ref as lcss_ref
@@ -566,3 +567,206 @@ def test_flash_attention_launches_k15_once(cuda):
     want = attn_ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), qp.cpu(),
                                     kp.cpu(), window=16, device="cpu")
     torch.testing.assert_close(got.cpu(), want, **ATTN_TOL[torch.float32])
+
+
+def _k15_check(q, k, v, qp, kp, window=None, prefix=None, max_kv=None,
+               softcap=None):
+    """One K15 launch against the plain version within
+    ``kernel_tolerance``; its skipped tiles against the mirror of the tile
+    test.  Returns the output and the plan."""
+    args = (attn_ops.HUGE if window is None else window,
+            0 if prefix is None else prefix,
+            attn_ops.HUGE if max_kv is None else max_kv)
+    stats = torch.zeros(2, dtype=torch.int32, device=q.device)
+    before = kernels.LAUNCHES["flash_attention_fwd"]
+    got = attn_ops.flash_attention_fwd(q, k, v, qp, kp, *args,
+                                       softcap=softcap, stats=stats)
+    assert kernels.LAUNCHES["flash_attention_fwd"] == before + 1
+    want = flash_attention_ref(q, k, v, qp, kp, *args, softcap=softcap)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = kernel_tolerance(q, k, v, qp, kp, *args, softcap, want)
+    used = float(((got.float() - want.float()).abs() / tol).max())
+    assert used <= 1.0, f"{used:.3g} of the tolerance"
+    B, Lq, KV, G, hd = q.shape
+    plan = attn_ops.plan_for(q, k, v)
+    cls = tile_class_ref(qp, kp, *args, G=G, rows=plan.rows, keys=plan.keys)
+    assert stats.tolist() == [cls.numel() * B * KV,
+                              int((cls == 0).sum()) * B * KV]
+    return got, plan
+
+
+def _k15_inputs(cuda, dtype, B, Lq, M, KV, G, hd, qp, kp, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(0, 1, (B, Lq, KV, G, hd)) * hd ** -0.5
+    k, v = (rng.normal(0, 1, (B, M, KV, hd)) for _ in range(2))
+    qkv = [torch.from_numpy(a.astype(np.float32)).to(dtype).to(cuda)
+           for a in (q, k, v)]
+    pos = [torch.from_numpy(np.asarray(p, np.int32)).to(cuda)
+           for p in (qp, kp)]
+    return qkv, pos
+
+
+def _edge(name, rng):
+    """(Lq, M, positions, mask) of each tile-skip edge."""
+    if name == "mixed_block":        # queries 0-9 keep no key
+        return 70, 130, np.arange(70), np.arange(130) + 10, dict(window=8)
+    if name == "descending_kv":
+        return 90, 150, np.arange(90) + 60, np.arange(150)[::-1].copy(), \
+            dict(window=40)
+    if name == "shuffled_kv":
+        return 90, 150, np.arange(90) + 60, rng.permutation(150), \
+            dict(window=40, softcap=30.0)
+    if name == "prefix_across_tiles":
+        return 200, 200, np.arange(200), np.arange(200), dict(prefix=100)
+    if name == "window_below_tile":
+        return 150, 150, np.arange(150), np.arange(150), dict(window=5)
+    if name == "max_kv_in_tile":
+        return 100, 150, np.arange(100) + 50, np.arange(150), \
+            dict(max_kv=37)
+    return 77, 97, np.arange(77) + 20, np.arange(97), dict()  # ragged M
+
+
+K15_EDGES = ("mixed_block", "descending_kv", "shuffled_kv",
+             "prefix_across_tiles", "window_below_tile", "max_kv_in_tile",
+             "ragged_m")
+
+
+def _no_split(monkeypatch):
+    """Plan as for a card of one SM: no key split at these small shapes."""
+    monkeypatch.setattr(attn_ops, "_sm_count", lambda index: 1)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", K15_EDGES)
+def test_k15_tile_skip_edges(cuda, monkeypatch, edge, dtype, split):
+    """Skipping tiles never changes a row beyond ``kernel_tolerance``: a
+    block mixing fully masked rows and rows that keep keys, unsorted key
+    positions, a prefix across tiles, a window below one tile, ``max_kv``
+    inside a tile, M not a multiple of any tile; with the keys split and
+    merged (the plan's choice here) and in one pass."""
+    if not split:
+        _no_split(monkeypatch)
+    Lq, M, qp, kp, mask = _edge(edge, np.random.default_rng(7))
+    (q, k, v), (qp, kp) = _k15_inputs(cuda, dtype, 2, Lq, M, 2, 3, 64, qp,
+                                      kp)
+    got, plan = _k15_check(q, k, v, qp, kp, **mask)
+    assert plan.path == ("bf16_mma" if dtype == torch.bfloat16
+                         else "f32_tiled")
+    assert (plan.nsplit > 1) == split
+    if edge == "mixed_block":
+        mean = v.float().mean(dim=1)[:, None, :, None, :].expand(q.shape)
+        torch.testing.assert_close(got[:, :10].float(), mean[:, :10],
+                                   **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,max_kv", [(1, None), (33, None), (1000, None),
+                                      (1000, 700), (9000, None),
+                                      (9000, 6000)])
+def test_k15_decode_split(cuda, M, max_kv, dtype):
+    """Lq = 1 and Lq * G below one row block: the keys split across blocks
+    and merged (every M past one tile), with and without ``max_kv``."""
+    qpos = [M - 1 if max_kv is None else max_kv]
+    (q, k, v), (qp, kp) = _k15_inputs(cuda, dtype, 1, 1, M, 4, 2, 256,
+                                      qpos, np.arange(M), seed=M)
+    _, plan = _k15_check(q, k, v, qp, kp, max_kv=max_kv, softcap=50.0)
+    assert (plan.nsplit > 1) == (M > plan.keys)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256, 320])
+def test_k15_head_dims(cuda, monkeypatch, hd, dtype, split):
+    """Every head dim: the fast paths up to 256, the general path above;
+    split and in one pass."""
+    if not split:
+        _no_split(monkeypatch)
+    (q, k, v), (qp, kp) = _k15_inputs(cuda, dtype, 1, 100, 100, 2, 2, hd,
+                                      np.arange(100), np.arange(100),
+                                      seed=hd)
+    _, plan = _k15_check(q, k, v, qp, kp, window=30)
+    assert (plan.path == "general") == (hd > 256)
+    assert (plan.nsplit > 1) == split
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k15_many_kv_heads(cuda, dtype):
+    """B * KV = 65537, past the 65535 of a grid's y dimension."""
+    (q, k, v), (qp, kp) = _k15_inputs(cuda, dtype, 65537, 2, 3, 1, 1, 8,
+                                      [1, 2], [0, 1, 2])
+    _k15_check(q, k, v, qp, kp)
+
+
+@pytest.mark.parametrize("case", ["bf16_prefill", "f32_prefill",
+                                  "bf16_decode", "general"])
+def test_k15_bitwise_repeatable(cuda, case):
+    """Two identical K15 calls give equal bits (the split merge runs in a
+    fixed order, no float atomics)."""
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+    Lq, M, hd = {"bf16_decode": (1, 5000, 256), "general": (60, 200, 320)
+                 }.get(case, (300, 300, 64))
+    (q, k, v), (qp, kp) = _k15_inputs(cuda, dtype, 1, Lq, M, 2, 3, hd,
+                                      np.arange(M - Lq, M), np.arange(M))
+    a = attn_ops.flash_attention(q, k, v, qp, kp, softcap=50.0)
+    b = attn_ops.flash_attention(q, k, v, qp, kp, softcap=50.0)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,N,M", [(2, 4300, 4300), (3, 5000, 300)])
+def test_k14_long_pairs(cuda, B, N, M):
+    """K14 bitwise its sheared twin and the row scan for pairs at and past
+    the shared-memory limit (the diagonals then live in a global
+    scratch)."""
+    ops, eps_sp, eps_t = _lcss_pairs(cuda, B, N, M, N + M)
+    got = lcss_ops.lcss_wavefront(*ops, eps_sp, eps_t)
+    assert torch.equal(got, lcss_ref.lcss_ref(*ops, eps_sp, eps_t))
+    twin = lcss_ref.lcss_wavefront_ref(lcss_ref.shear_weights(*ops, eps_sp,
+                                                              eps_t))
+    assert torch.equal(got, twin)
+    assert bool((got[:, 1] > 0).all())
+
+
+def _wide_candidates(cuda, C=32 * 65536 + 1, n_ref=5):
+    """One reference trajectory against C one-point candidates:
+    ceil(C / 32) = 65,537 candidate tiles."""
+    rng = np.random.default_rng(C)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    ref = TrajectoryBatch(x=f(rng.uniform(0, 5, (1, n_ref))),
+                          y=f(rng.uniform(0, 5, (1, n_ref))),
+                          t=f(np.sort(rng.uniform(0, 50, (1, n_ref)), 1)),
+                          valid=torch.ones((1, n_ref), dtype=torch.bool,
+                                           device=cuda),
+                          traj_id=torch.tensor([C], dtype=torch.int32,
+                                               device=cuda))
+    cand = TrajectoryBatch(x=f(rng.uniform(0, 5, (C, 1))),
+                           y=f(rng.uniform(0, 5, (C, 1))),
+                           t=f(rng.uniform(0, 50, (C, 1))),
+                           valid=torch.from_numpy(rng.uniform(size=(C, 1))
+                                                  < 0.9).to(cuda),
+                           traj_id=torch.arange(C, dtype=torch.int32,
+                                                device=cuda))
+    return ref, cand
+
+
+def test_k1_k4_wide_candidate_grid(cuda):
+    """K1 and K4 bitwise their plain versions with ceil(C / 32) = 65,537
+    candidate tiles."""
+    ref, cand = _wide_candidates(cuda)
+    arrs = (ref.x, ref.y, ref.t, ref.valid, ref.traj_id, cand.x, cand.y,
+            cand.t, cand.valid, cand.traj_id)
+    ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
+    w, i = stjoin_ops.stjoin_best_match(*ref_ops, *cand_ops, 0.5, 5.0)
+    pw, pi = stjoin_ref(*ref_ops, *cand_ops, 0.5, 5.0)
+    assert torch.equal(w, pw) and torch.equal(i, pi)
+    assert bool((pi[:, -1000:] >= 0).any())
+    ms, C, M = 2, cand.num_trajs, ref.max_points
+    rsub = torch.tensor([[0, 0, 1, 1, -1]], dtype=torch.int32, device=cuda)
+    csub = torch.zeros((C, 1), dtype=torch.int32, device=cuda)
+    raw = stjoin_ops.stjoin_sim_fused(ref, cand, rsub, csub, ms, 0.5, 5.0)
+    plain = stjoin_sim_fused_ref(
+        *ref_ops, slot_ids(rsub, ms, ms).view(-1), *cand_ops,
+        slot_ids(csub, ms, C * ms), 0.5, 5.0, 0.0, M=M, n_src=ms,
+        n_dst=C * ms)
+    assert torch.equal(raw, plain)
+    assert bool((plain[:, -2000:] > 0).any())
