@@ -42,7 +42,9 @@ Top-K similarity (``sim_mode="topk"``, the default K = 32 and widening):
   check, stage times, final K, dispatches and a peak below one ``[S, S]``
   float32 matrix;
 * K7 (one panel, bitwise against its plain version and against K4's
-  ``raw``), K8 and K9 against their plain versions (in step 5);
+  ``raw``; its (group, chunk) skip counts equal to the plain mirror's;
+  timed alone from a CUDA graph, per prepared call and through the public
+  wrapper), K8 and K9 against their plain versions (in step 5);
 * the fused top-K path at ``dsc_sis``: labels equal to the dense dsc_sis
   run's (after step 6).
 
@@ -55,6 +57,7 @@ Index pruning (``use_index=True``, the pruned kernels K10-K13):
   three pruned paths, each launching exactly its kernels; labels, ``sim``
   and the top-K lists equal to the unpruned runs'; then K10 bitwise K1,
   K11 bitwise K2 (vote and words), K12 bitwise K4, K13 bitwise K7 on
+  every panel, and the skip counts of both equal to the plain mirror's on
   every panel; tile counts, tile-list widths, planning ms, stage times and
   peak memory printed;
 * the same 4096 vessels with rows stably sorted by lane (the layout of
@@ -113,6 +116,10 @@ BF16_FLOPS_PER_S = 989e12
 # f32 operations of one K1 pair evaluation: dx, dy, dx*dx, dy*dy, the sum,
 # dt and the two threshold compares (no FMA)
 K1_OPS_PER_PAIR = 8
+# point pairs of one (group of 8 reference points, chunk of 8 candidate
+# points) pair that K7 / K13 evaluate when they keep it (M, Mc multiples
+# of 8, as at dsc_brest and dsc_sis)
+PANEL_SLOTS = 64
 REPLACES = {
     "stjoin_best_match": "src/repro/kernels/stjoin/stjoin.py:893",
     "stjoin_vote_fused": "src/repro/kernels/stjoin/stjoin.py:583",
@@ -704,23 +711,32 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
             "pairs in kept tiles; library none")
     del w_r, i_r, praw, kv, kwords
 
-    # ---- K13 against K7, every panel (each call timed) ---------------------
+    # ---- K13 against K7, every panel (each call timed), skip counts ---------
     Sb = plan_panel(S)
-    swept = {"K13": 0.0, "K7": 0.0}
+    sweeps = {"K13": sj.sim_panel_sweep(batch, batch, sub, sub, ms_, *eps,
+                                        tile_ids=fplan),
+              "K7": sj.sim_panel_sweep(batch, batch, sub, sub, ms_, *eps)}
+    swept = {k: 0.0 for k in sweeps}
+    counts = {k: [0, 0] for k in sweeps}
+    stats = torch.zeros(2, dtype=torch.int32, device=batch.x.device)
 
-    def timed_panel(key, **kw):
+    def timed_panel(key):
+        stats.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = sj.stjoin_sim_panel_fused(batch, batch, sub, sub, ms_, *eps,
-                                        p0=p0, panel=Sb, **kw)
+        out = sweeps[key](p0, panel=Sb, stats=stats)
         end.record()
         end.synchronize()
         swept[key] += start.elapsed_time(end)
+        got, want = stats.tolist(), sweeps[key].skip_counts(p0, panel=Sb)
+        check(got == list(want), f"{name}: {key} panel {p0} swept / skipped "
+              f"{got} (group, chunk) pairs, the mirror {want}")
+        counts[key] = [a + b for a, b in zip(counts[key], got)]
         return out
 
     for p0 in range(0, S, Sb):
-        f13, r13 = timed_panel("K13", tile_ids=fplan)
+        f13, r13 = timed_panel("K13")
         f7, r7 = timed_panel("K7")
         check(torch.equal(f13, f7) and torch.equal(r13, r7),
               f"{name}: K13 panel {p0} not bitwise K7's")
@@ -729,9 +745,11 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
               f"{name}: K13 panel {p0} not bitwise K12's raw")
     del raw, f7, r7
     log(f"{name}: K10 bitwise K1, K11 bitwise K2 (vote, words), K12 bitwise "
-        f"K4, K13 bitwise K7 on all {S // Sb} panels; all panels, one call "
-        f"each (CUDA events, wrapper included): K13 {swept['K13']:.1f} ms, "
-        f"K7 {swept['K7']:.1f} ms")
+        f"K4, K13 bitwise K7 on all {S // Sb} panels; all panels, one "
+        f"prepared call each (CUDA events): K13 {swept['K13']:.1f} ms, K7 "
+        f"{swept['K7']:.1f} ms; (group, chunk) pairs skipped of swept, "
+        f"equal to the mirror on every panel: K13 {counts['K13'][1]} of "
+        f"{counts['K13'][0]}, K7 {counts['K7'][1]} of {counts['K7'][0]}")
 
     # ---- K13 against its plain version, one panel in the middle ------------
     p0 = (S // Sb // 2) * Sb
@@ -749,9 +767,14 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
     log(f"{name}: K10, K11, K12 bitwise their plain versions on {rng}, K13 "
         f"on panel [{p0}, {p0 + Sb})")
     if timed:
-        ms = time_ms(lambda: sj.stjoin_sim_panel_fused(
+        wrapper = time_ms(lambda: sj.stjoin_sim_panel_fused(
             batch, batch, sub, sub, ms_, *eps, p0=p0, panel=Sb,
             tile_ids=fplan), reps=10)
+        call = time_ms(lambda: sweeps["K13"](p0, panel=Sb), reps=10)
+        ms = graph_ms(lambda: sweeps["K13"](p0, panel=Sb))
+        stats.zero_()
+        sweeps["K13"](p0, panel=Sb, stats=stats)
+        skips = panel_skips(sweeps["K13"], p0, Sb, stats, f"{name}: K13")
         # the panel's live entries, sliced as the wrapper slices them
         t_lo, t_hi = p0 // ms_, (p0 + Sb - 1) // ms_
         fwd_pairs, blocks = fplan.by_row
@@ -772,8 +795,10 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
                    plain, bound_ms(nbytes, K1_OPS_PER_PAIR * pairs))
         log(f"  K13 panel [{p0}, {p0 + Sb}): {f1 - f0} forward and "
             f"{r1 - r0} reverse live entries, {int((fp | rp).sum())} "
-            f"reference points and {int((fc | rc).sum())} candidates read, "
-            f"{pairs} needed pairs; library none")
+            f"reference points and {int((fc | rc).sum())} candidates read; "
+            f"{skips}; {pairs} needed pairs; kernel alone {ms:.4f} ms (CUDA "
+            f"graph, its two zero fills included), per call {call:.4f} ms "
+            f"(prepared), {wrapper:.4f} ms (public wrapper); library none")
 
 
 def phase_index(dev, report, batch, params, name: str, outs=None):
@@ -1050,10 +1075,29 @@ def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
     return raw
 
 
+def panel_skips(sweep, p0: int, Sb: int, stats, what: str) -> str:
+    """The (group, chunk) pairs a K7 / K13 call tested and skipped
+    (``stats``), held equal to the plain mirror, and the pair slots the
+    kept ones hold against those of every pair swept, as a log phrase."""
+    swept, skipped = stats.tolist()
+    want = sweep.skip_counts(p0, panel=Sb)
+    check([swept, skipped] == list(want),
+          f"{what} panel {p0}: swept / skipped {swept} / {skipped} (group, "
+          f"chunk) pairs, the mirror {want[0]} / {want[1]}")
+    T, M, _, Mc = sweep.shape
+    n = sweep.pairs(p0, panel=Sb).shape[0]
+    slots = (swept - skipped) * PANEL_SLOTS
+    return (f"{skipped} of {swept} (group, chunk) pairs skipped (equal to "
+            f"the mirror), {slots} pair slots evaluated of the {n * M * Mc} "
+            f"of its {n} (row, candidate) pairs")
+
+
 def phase_topk_kernels(batch, params, tout, launches, raw, rows):
     """K7, K8 and K9 against their plain versions on the fused top-K
-    path's inputs: K7 on one panel (also bitwise against K4's ``raw``), K8
-    and K9 on the final lists.  No single PyTorch call computes any of
+    path's inputs: K7 on one panel (also bitwise against K4's ``raw``, its
+    skip counts against the plain mirror; timed alone from a CUDA graph,
+    per prepared call and per call of the public wrapper), K8 and K9 on
+    the final lists.  No single PyTorch call computes any of
     them: K7 is a best match, a run refine and a keyed scatter in two
     orientations; K8 and K9 gather rank and state at the list ids and
     reduce each row by a predicate or a two-key (weight, rank) order."""
@@ -1076,10 +1120,14 @@ def phase_topk_kernels(batch, params, tout, launches, raw, rows):
     # ---- K7: one panel in the middle, both slabs -------------------------
     sub = tout.seg.sub_local
     p0 = (S // Sb // 2) * Sb
-    fwd, rev = sj.stjoin_sim_panel_fused(batch, batch, sub, sub, ms_, *eps,
-                                         p0=p0, panel=Sb)
-    ms = time_ms(lambda: sj.stjoin_sim_panel_fused(
+    sweep = sj.sim_panel_sweep(batch, batch, sub, sub, ms_, *eps)
+    stats = torch.zeros(2, dtype=torch.int32, device=batch.x.device)
+    fwd, rev = sweep(p0, panel=Sb, stats=stats)
+    skips = panel_skips(sweep, p0, Sb, stats, "K7")
+    wrapper = time_ms(lambda: sj.stjoin_sim_panel_fused(
         batch, batch, sub, sub, ms_, *eps, p0=p0, panel=Sb), reps=10)
+    call = time_ms(lambda: sweep(p0, panel=Sb), reps=10)
+    ms = graph_ms(lambda: sweep(p0, panel=Sb))
     ref_ops, cand_ops = sj._flat_operands(
         *(batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2)
     gid = slot_ids(sub, ms_, S)
@@ -1100,10 +1148,14 @@ def phase_topk_kernels(batch, params, tout, launches, raw, rows):
     P, C, Mc = T * M, T, M
     kernel_row(rows, "stjoin_sim_panel_fused", launches, err, ms, plain,
                bound_ms(join_input_bytes(P, C, Mc) + P * 4 + C * Mc * 4
-                        + 2 * Sb * S * 4, K1_OPS_PER_PAIR * pairs))
-    log(f"  K7 panel [{p0}, {p0 + Sb}): rows {t_lo}..{t_hi}, "
-        f"{pairs} needed pairs, {int((pf > 0).sum())} + "
-        f"{int((pr > 0).sum())} nonzero cells; library none")
+                        + 2 * Sb * S * 4,
+                        K1_OPS_PER_PAIR * pairs))
+    log(f"  K7 panel [{p0}, {p0 + Sb}): rows {t_lo}..{t_hi}; {skips}; "
+        f"{pairs} needed pairs (|dt| <= eps_t); "
+        f"{int((pf > 0).sum())} + {int((pr > 0).sum())} nonzero cells; "
+        f"kernel alone {ms:.4f} ms (CUDA graph), per call {call:.4f} ms "
+        f"(prepared), {wrapper:.4f} ms (public wrapper: slot-map check and "
+        "chunk bounds); library none")
     tk, table = tout.sim_topk, tout.table
 
     def panel_tail():

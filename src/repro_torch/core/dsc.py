@@ -143,14 +143,12 @@ def _similarity_body(batch, params, join, seg, table, plan: EnginePlan,
                 join, seg, seg.sub_local, table, ms, k=k,
                 panel=plan.sim_panel)
         Sb = similarity.plan_panel(table.num_slots, plan.sim_panel)
-
-        def panel_raw(p0):
-            return stjoin_ops.stjoin_sim_panel_fused(
-                batch, batch, seg.sub_local, seg.sub_local, ms,
-                params.eps_sp, params.eps_t, params.delta_t, p0=p0,
-                panel=Sb, tile_ids=tiles)
-
-        return None, similarity.topk_stream(panel_raw, table, k=k, panel=Sb)
+        # operands, slot-map check and chunk time bounds once per dispatch
+        sweep = stjoin_ops.sim_panel_sweep(
+            batch, batch, seg.sub_local, seg.sub_local, ms, params.eps_sp,
+            params.eps_t, params.delta_t, tile_ids=tiles)
+        return None, similarity.topk_stream(
+            lambda p0: sweep(p0, panel=Sb), table, k=k, panel=Sb)
     if join is None:
         raw = stjoin_ops.stjoin_sim_fused(
             batch, batch, seg.sub_local, seg.sub_local, ms, params.eps_sp,

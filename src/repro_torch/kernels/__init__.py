@@ -68,10 +68,10 @@ _SIGNATURES = {
     # delta_t; raw; stream
     "stjoin_sim_fused": [_P] * 12 + [_I] * 5 + [ctypes.c_float] * 3
                         + [_P, _P],
-    # the K4 operands up to ms; p0, panel; eps_sp, eps_t, delta_t; fwd,
-    # rev; stream
+    # the K4 operands up to ms; p0, panel; eps_sp, eps_t, delta_t; chunk
+    # time bounds lo, hi; skip counts (NULL: none); fwd, rev; stream
     "stjoin_sim_panel_fused": [_P] * 12 + [_I] * 7 + [ctypes.c_float] * 3
-                              + [_P, _P, _P],
+                              + [_P] * 3 + [_P, _P, _P],
     # the K1 operands, P, C, Mc, eps_sp, eps_t; live (block, tile) pairs,
     # their count; best_w, best_idx; stream
     "stjoin_best_match_pruned": [_P] * 10 + [ctypes.c_longlong, _I, _I,
@@ -87,11 +87,12 @@ _SIGNATURES = {
     "stjoin_sim_fused_pruned": [_P] * 12 + [_I] * 5 + [ctypes.c_float] * 3
                                + [_P, ctypes.c_longlong, _P, _P],
     # the K7 operands up to delta_t; forward pairs and count, reverse
-    # pairs and count; c_lo, c_hi; fwd, rev; stream
+    # pairs and count; c_lo, c_hi; chunk bounds, skip counts; fwd, rev;
+    # stream
     "stjoin_sim_panel_fused_pruned": [_P] * 12 + [_I] * 7
                                      + [ctypes.c_float] * 3
                                      + [_P, ctypes.c_longlong] * 2
-                                     + [_I, _I, _P, _P, _P],
+                                     + [_I, _I] + [_P] * 3 + [_P, _P, _P],
     # masks, T, M, W, w, d, stream
     "jaccard_window": [_P, _I, _I, _I, _I, _P, _P],
     # sim, rank, unresolved, is_rep, alpha, S, n_split, blocked, claimed,

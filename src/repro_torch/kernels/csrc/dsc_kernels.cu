@@ -33,6 +33,7 @@
 // and returns cudaGetLastError() so the Python wrapper raises on a launch
 // that was refused.
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <climits>
 #include <cstdint>
 
@@ -416,46 +417,6 @@ stjoin_sim_fused_kernel(JoinOperands op, int M, unsigned T, float delta_t,
                   (int)(x % T), (int)(x / T) * K1_TC, dyn, raw);
 }
 
-// One block of K7 / K13: sim_block for (row t, candidates c0 .. o.C - 1,
-// at most 32), then only the cells whose slot lies in the panel
-// [p0, p0 + panel): a forward block's rows, a reverse block's candidate
-// slots (transposed into rev).
-__device__ __forceinline__ void sim_panel_block(
-    SweepSmem& sm, const JoinOperands& o, int M, float delta_t,
-    const int* __restrict__ ref_gid, const int* __restrict__ cand_gid,
-    int ms, int p0, int panel, long long t, int c0, bool forward,
-    long long n_src, long long n_dst, float* dyn, float* __restrict__ fwd,
-    float* __restrict__ rev) {
-  sim_block(sm, o, M, delta_t, ref_gid, cand_gid, ms, t, c0, dyn);
-  const int bs = ms * ms + 1;
-  const float* blk = dyn + 2 * M * kTileStride;
-  const int tid = threadIdx.y * K1_TC + threadIdx.x;
-  const int nc = min(K1_TC, o.C - c0);
-  if (forward) {
-    // rows i of the block whose slot t*ms + i lies in the panel
-    const long long s0 = t * ms;
-    const int i_lo = p0 > s0 ? (int)(p0 - s0) : 0;
-    const int i_hi = p0 + panel < s0 + ms ? (int)(p0 + panel - s0) : ms;
-    const int ncols = nc * ms;
-    for (int e = tid; e < (i_hi - i_lo) * ncols; e += kThreads) {
-      const int i = i_lo + e / ncols, col = e % ncols;
-      const int cl = col / ms, k = col % ms;
-      fwd[(size_t)(s0 + i - p0) * n_dst + (size_t)c0 * ms + col] =
-          blk[cl * bs + i * ms + k];
-    }
-  } else {
-    // cells (i, k) whose candidate slot (c0 + cl)*ms + k lies in the
-    // panel; rev row = that slot - p0, rev column = t*ms + i
-    for (int e = tid; e < nc * ms * ms; e += kThreads) {
-      const int i = e % ms, k = (e / ms) % ms, cl = e / (ms * ms);
-      const long long slot = (long long)(c0 + cl) * ms + k;
-      if (slot < p0 || slot >= (long long)p0 + panel) continue;
-      rev[(size_t)(slot - p0) * n_src + (size_t)t * ms + i] =
-          blk[cl * bs + i * ms + k];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K7: fused pass 2 for one panel of slots [p0, p0 + panel), in both
 // orientations: fwd[i, j] = raw[p0 + i, j] ([panel, C*ms]) and
@@ -468,44 +429,410 @@ __device__ __forceinline__ void sim_panel_block(
 // kernel re-sweeps all T*C pairs per panel; this one sweeps about
 // 2 * (panel / ms + 1) * T pairs of trajectories.
 //
-// Bound: bytes (the two slabs written once) or the panel's share of the
-// needed pairs.  Design: one launch per panel; the first n_rows * ntc
-// blocks are K4's blocks of the panel's rows (one per row and tile of 32
-// candidates), the rest one per (row, tile of the panel's candidates,
-// which start at c_lo).  Each runs K4's sim_block, so every cell sums the
-// same weights in the same m order as K4's raw, then writes only the
-// cells whose slot lies inside the panel (a panel may split a
-// trajectory's slots).  Between them the blocks write every cell of both
-// slabs, so neither needs a zero fill.
+// Bound: bytes (the two slabs written once, 2 * panel * S * 4); the pairs
+// with |dt| <= eps_t are about 1% of the point pairs of those
+// trajectories.  Design:
+// - One (reference row t, candidate c) pair per lane, 32 per block.
+//   Forward blocks: a row that owns a panel slot against a tile of 32
+//   candidates.  Reverse blocks: the n_lane panel candidates of one
+//   32-candidate tile against per_block = 32 / n_lane rows, so with 16
+//   panel candidates (ms = 8, panel = 128) every lane has a live pair.
+// - An exact time-window skip (panel_sweep).  Thread (lane j, warp w)
+//   takes, per pass of 64 points, the group of 8 consecutive points
+//   64s + 8w .. 64s + 8w + 7 of its lane's row: points close in time, with
+//   bounds [p_min, p_max] over its valid times.  The wrapper gives the
+//   min / max time over the valid points of each chunk of 8 candidate
+//   points ([C, ceil(Mc/8)], once per dispatch).  A thread skips chunk k
+//   iff the group or the chunk holds no valid time, or
+//   __fsub_rn(q_min, p_max) > eps_t, or __fsub_rn(p_min, q_max) > eps_t:
+//   the pair test's own IEEE subtraction, and rounding is monotone and
+//   odd, so every pair of a skipped chunk has |fl(pt - qt)| > eps_t and
+//   fails the test (a NaN bound never skips).  Each lane walks only its
+//   own kept chunks (the set bits of a mask) in ascending index.
+// - Per kept chunk, the cylinder test of its 8 x 8 pairs sets a mask; the
+//   IEEE square root and division of the weight then run per lane over
+//   its own passes, in ascending index with a strict '>', so (best,
+//   argmax) is sweep_best's bit for bit.  (Inside the test loop a warp
+//   would run that branch for every pair that any of its lanes passes.)
+// - The block stages its lanes' candidates in shared memory, a window of
+//   wp points at a time (the whole trajectory when Mc <= wp: once per
+//   block; a reverse block's rows read one copy), as x, y and t with
+//   t = NaN where the point is invalid, so the pair test needs no flags;
+//   the reference points of a pair that cannot match (invalid, same
+//   trajectory, dead lane) carry t = NaN too.
+// - The sweep's epilogue maps each match through the slot maps to its
+//   cell of the pair's ms x ms block, with all 256 threads, so the scatter
+//   (one warp) reads only shared memory.  Then refine_tile on each lane's
+//   own row and sim_block's scatter: lane j adds its weights in ascending
+//   m into its block, one rounded add at a time from +0.0, no atomics.
+//   Every cell sums the same weights in the same order as K4's raw; a
+//   block writes only the cells whose slot lies inside the panel (a panel
+//   may split a trajectory's slots), and between them the blocks write
+//   every cell of both slabs.
+// - stats (optional): the (group, chunk) pairs tested and skipped, summed
+//   per warp and added with integer atomics (exact, any order); the plain
+//   mirror is stjoin/ref.py::panel_skip_counts_ref.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-stjoin_sim_panel_fused_kernel(JoinOperands op, int M, float delta_t,
-                              const int* __restrict__ ref_gid,
-                              const int* __restrict__ cand_gid, int ms,
-                              int p0, int panel, int t_lo, int ntc,
-                              long long n_fwd_blocks, int c_lo, int c_hi,
-                              long long n_src, long long n_dst,
-                              float* __restrict__ fwd,
-                              float* __restrict__ rev) {
-  __shared__ SweepSmem sm;
-  extern __shared__ float dyn[];
-  const long long b = blockIdx.x;
-  const bool forward = b < n_fwd_blocks;
-  JoinOperands o = op;
-  long long t;
-  int c0;
-  if (forward) {
-    t = t_lo + b / ntc;
-    c0 = (int)(b % ntc) * K1_TC;
-  } else {
-    const long long r = b - n_fwd_blocks;
-    const int ntr = (c_hi - c_lo) / K1_TC + 1;
-    t = r / ntr;
-    c0 = c_lo + (int)(r % ntr) * K1_TC;
-    o.C = c_hi + 1;            // the sweep stops at the panel's candidates
+constexpr int kChunk = 8;                  // candidate points per chunk
+constexpr int kGroup = 8;                  // reference points per group
+constexpr int kPassPts = kGroup * K1_TY;   // reference points per pass
+
+struct PanelArgs {
+  int M, ms, p0, panel;
+  float delta_t;
+  const int* ref_gid;
+  const int* cand_gid;
+  const float* chunk_lo;   // [C, nch]: min / max time over each chunk's
+  const float* chunk_hi;   // valid points, (+inf, -inf) where it has none
+  int nch;
+  int wp;                  // candidate points staged per window: 32, 64
+                           // or 128
+  int c_lo, c_hi;          // the candidates that own a panel slot
+  int n_lane, per_block;   // reverse blocks: candidates per row, rows
+  long long n_src, n_dst;
+  int* stats;              // [2]: (group, chunk) pairs swept, skipped
+  float* fwd;
+  float* rev;
+};
+
+// strides of the staged window: odd, so lane j's row starts in bank j
+__host__ __device__ inline int panel_tile_stride(int wp) { return wp + 1; }
+__host__ __device__ inline int panel_bound_stride(int wp) {
+  return (wp / kChunk) | 1;
+}
+
+// Dynamic shared memory of K7 / K13 in floats: the [M][33] weights and
+// indices, then the staged window (x, y, t and the chunk bounds), which
+// the ms x ms blocks of the scatter reuse once the sweep is done.
+__host__ __device__ inline long long panel_smem_floats(int M, int ms,
+                                                        int wp) {
+  const long long tile = 3LL * K1_TC * panel_tile_stride(wp)
+                         + 2LL * K1_TC * panel_bound_stride(wp);
+  const long long blk = (long long)K1_TC * (ms * ms + 1);
+  return 2LL * M * kTileStride + (tile > blk ? tile : blk);
+}
+
+// The block's pairs: lane j's row (-1: no pair) and candidate, and the
+// lane whose staged copy of that candidate it reads (a reverse block's
+// rows share their candidates, staged once).
+struct PanelLanes {
+  int t[K1_TC];
+  int c[K1_TC];
+  int s[K1_TC];
+};
+
+struct PanelTile {
+  float* x;
+  float* y;
+  float* t;
+  float* lo;
+  float* hi;
+};
+
+// Stage candidate points [w0, w0 + wp) and their chunk bounds of every
+// live lane that reads its own copy (L.t[j] >= 0, L.s[j] == j); padding
+// has t = NaN and empty bounds.  Each thread issues the loads of four
+// points before it stores them (wp is a power of two >= 32, so 32 * wp
+// is a multiple of 4 * 256).
+__device__ __forceinline__ void panel_stage(const JoinOperands& op,
+                                            const PanelArgs& a, int w0,
+                                            const PanelLanes& L,
+                                            const PanelTile& s) {
+  const int S7 = panel_tile_stride(a.wp), SB = panel_bound_stride(a.wp);
+  const int lg = __ffs(a.wp) - 1;
+  const int tid = threadIdx.y * K1_TC + threadIdx.x;
+  for (int e0 = tid; e0 < K1_TC * a.wp; e0 += 4 * kThreads) {
+    float vx[4], vy[4], vt[4];
+    int at[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * kThreads;
+      const int jl = e >> lg, mm = e & (a.wp - 1), m = w0 + mm;
+      const bool ld = L.t[jl] >= 0 && L.s[jl] == jl && m < op.Mc;
+      const size_t g = (size_t)L.c[jl] * op.Mc + m;
+      vx[u] = ld ? op.cx[g] : 0.f;
+      vy[u] = ld ? op.cy[g] : 0.f;
+      const float t = ld ? op.ct[g] : 0.f;
+      vt[u] = ld && op.cok[g] ? t : CUDART_NAN_F;
+      at[u] = jl * S7 + mm;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      s.x[at[u]] = vx[u];
+      s.y[at[u]] = vy[u];
+      s.t[at[u]] = vt[u];
+    }
   }
-  sim_panel_block(sm, o, M, delta_t, ref_gid, cand_gid, ms, p0, panel, t,
-                  c0, forward, n_src, n_dst, dyn, fwd, rev);
+  const int k0 = w0 / kChunk, nk = a.wp / kChunk;
+  for (int e = tid; e < K1_TC * nk; e += kThreads) {
+    const int jl = e / nk, k = e % nk;
+    const bool ld = L.t[jl] >= 0 && L.s[jl] == jl && k0 + k < a.nch;
+    const size_t g = (size_t)L.c[jl] * a.nch + k0 + k;
+    s.lo[jl * SB + k] = ld ? a.chunk_lo[g] : CUDART_INF_F;
+    s.hi[jl * SB + k] = ld ? a.chunk_hi[g] : -CUDART_INF_F;
+  }
+}
+
+// The sweep of K7 / K13: leaves lane j's weights (0 = no match) in tw
+// [m][33], as sweep_row_tile does for K4, and in tidx [m][33] the cell
+// of each match in the pair's ms x ms block (-1 = none): K4's winning
+// index, mapped through the slot maps.  Every thread calls it: it
+// synchronizes.
+__device__ __forceinline__ void panel_sweep(const JoinOperands& op,
+                                            const PanelArgs& a,
+                                            const PanelLanes& L, float* tw,
+                                            int* tidx, const PanelTile& s) {
+  const int j = threadIdx.x, M = a.M;
+  const int S7 = panel_tile_stride(a.wp), SB = panel_bound_stride(a.wp);
+  const bool live = L.t[j] >= 0;
+  const int t_j = live ? L.t[j] : 0, c_j = L.c[j], ms = a.ms;
+  const long long row0 = (long long)t_j * M;
+  const int my_cid = live ? op.cid[c_j] : 0;
+  const float eps2 = __fmul_rn(op.eps_sp, op.eps_sp);
+  const bool one_window = op.Mc <= a.wp;
+  const int row = L.s[j];                  // the staged copy it reads
+  const float* qx = s.x + row * S7;
+  const float* qy = s.y + row * S7;
+  const float* qt = s.t + row * S7;
+  int n_swept = 0, n_skipped = 0;
+  if (one_window) {
+    panel_stage(op, a, 0, L, s);
+    __syncthreads();
+  }
+  for (int m0 = 0; m0 < M; m0 += kPassPts) {
+    const int mb = m0 + threadIdx.y * kGroup;     // this thread's group
+    float px[kGroup], py[kGroup], pt[kGroup], best[kGroup];
+    int arg[kGroup];
+    float p_min = CUDART_INF_F, p_max = -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      const int m = mb + r;
+      const long long p = row0 + m;
+      const bool in = live && m < M;
+      const float t = in ? op.rt[p] : 0.f;
+      const bool ok = in && op.rok[p];
+      const float tp = ok ? t : CUDART_NAN_F;
+      p_min = fminf(p_min, tp);                   // fminf drops a NaN
+      p_max = fmaxf(p_max, tp);
+      px[r] = in ? op.rx[p] : 0.f;
+      py[r] = in ? op.ry[p] : 0.f;
+      pt[r] = ok && op.rid[p] != my_cid ? tp : CUDART_NAN_F;
+      best[r] = -1.f;
+      arg[r] = 0;
+    }
+    const bool counted = live && mb < M;
+    for (int w0 = 0; w0 < op.Mc; w0 += a.wp) {
+      if (!one_window) {
+        __syncthreads();
+        panel_stage(op, a, w0, L, s);
+        __syncthreads();
+      }
+      const int nchw = (min(a.wp, op.Mc - w0) + kChunk - 1) / kChunk;
+      uint32_t keep = 0u;
+      if (counted && !(p_min > p_max)) {
+        for (int k = 0; k < nchw; ++k) {
+          const float lo = s.lo[row * SB + k], hi = s.hi[row * SB + k];
+          const bool skip = lo > hi || __fsub_rn(lo, p_max) > op.eps_t
+                            || __fsub_rn(p_min, hi) > op.eps_t;
+          keep |= (skip ? 0u : 1u) << k;
+        }
+      }
+      if (counted) {
+        n_swept += nchw;
+        n_skipped += nchw - __popc(keep);
+      }
+      while (keep != 0u) {                        // ascending chunks
+        const int k = __ffs(keep) - 1;
+        keep &= keep - 1u;
+        // the cylinder test of all 8 x 8 pairs, then the weight of each
+        // pair that passes, per lane: a warp steps through the passes of
+        // its busiest lane, not through every pair some lane passes
+        uint32_t hit[2] = {0u, 0u};             // bit 8r + mm of pair (r, mm)
+#pragma unroll
+        for (int mm = 0; mm < kChunk; ++mm) {
+          const int q = k * kChunk + mm;
+          const float cx = qx[q], cy = qy[q], ct = qt[q];
+#pragma unroll
+          for (int r = 0; r < kGroup; ++r) {
+            const float dx = __fsub_rn(px[r], cx);
+            const float dy = __fsub_rn(py[r], cy);
+            const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+            const float dt = fabsf(__fsub_rn(pt[r], ct));
+            if (d2 <= eps2 && dt <= op.eps_t)
+              hit[r / 4] |= 1u << (8 * (r % 4) + mm);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kGroup; ++r) {
+          uint32_t h = (hit[r / 4] >> (8 * (r % 4))) & 0xffu;
+          while (h != 0u) {                       // ascending points
+            const int q = k * kChunk + __ffs(h) - 1;
+            h &= h - 1u;
+            const float dx = __fsub_rn(px[r], qx[q]);
+            const float dy = __fsub_rn(py[r], qy[q]);
+            const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+            const float w =
+                __fsub_rn(1.f, __fdiv_rn(__fsqrt_rn(d2), op.eps_sp));
+            if (w > best[r]) {
+              best[r] = w;
+              arg[r] = w0 + q;
+            }
+          }
+        }
+      }
+    }
+    // the cell of each match in the pair's ms x ms block (-1: none, or a
+    // slot outside it: a sentinel), so the scatter reads no global memory
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      const int m = mb + r;
+      if (m < M) {
+        const long long i = (live ? a.ref_gid[row0 + m] : 0)
+                            - (long long)t_j * ms;
+        const long long k =
+            (live ? a.cand_gid[(size_t)c_j * op.Mc + arg[r]] : 0)
+            - (long long)c_j * ms;
+        const bool matched = best[r] > 0.f;
+        tw[m * kTileStride + j] = matched ? best[r] : 0.f;
+        tidx[m * kTileStride + j] =
+            matched && i >= 0 && i < ms && k >= 0 && k < ms ? (int)(i * ms + k)
+                                                        : -1;
+      }
+    }
+  }
+  if (a.stats != nullptr) {
+    n_swept = __reduce_add_sync(0xffffffffu, n_swept);
+    n_skipped = __reduce_add_sync(0xffffffffu, n_skipped);
+    if (j == 0 && n_swept > 0) {
+      atomicAdd(a.stats, n_swept);
+      atomicAdd(a.stats + 1, n_skipped);
+    }
+  }
+  __syncthreads();
+}
+
+// Lane j (of warp 0): refine its pair's row, then add its weights in
+// ascending m into its ms x ms block, as sim_block does.
+__device__ __forceinline__ void panel_scatter(const JoinOperands& op,
+                                              const PanelArgs& a,
+                                              const PanelLanes& L, float* tw,
+                                              int* tidx, float* blk) {
+  const int j = threadIdx.x, bs = a.ms * a.ms + 1;
+  float* b = blk + j * bs;
+  for (int e = 0; e < bs; ++e) b[e] = 0.f;
+  const int t = L.t[j];
+  if (t < 0) return;
+  refine_tile(tw, tidx, op.rt + (long long)t * a.M, a.M, a.delta_t);
+  for (int m = 0; m < a.M; ++m) {
+    const float w = tw[m * kTileStride + j];
+    const int cell = tidx[m * kTileStride + j];
+    if (w > 0.f && cell >= 0) b[cell] = __fadd_rn(b[cell], w);
+  }
+}
+
+// The cells of the block's pairs whose slot lies in the panel: a forward
+// block's rows (one row, every lane live up to the last candidate), a
+// reverse block's candidate slots, transposed into rev.  Consecutive
+// threads write a pair's ms columns, then the next row's.
+__device__ __forceinline__ void panel_write(const JoinOperands& op,
+                                            const PanelArgs& a, bool forward,
+                                            const PanelLanes& L,
+                                            const float* blk) {
+  const int ms = a.ms, bs = ms * ms + 1;
+  const int tid = threadIdx.y * K1_TC + threadIdx.x;
+  if (forward) {
+    const long long s0 = (long long)L.t[0] * ms;
+    const int c0 = L.c[0];
+    const int nc = min(K1_TC, op.C - c0);
+    const int i_lo = a.p0 > s0 ? (int)(a.p0 - s0) : 0;
+    const int i_hi = a.p0 + a.panel < s0 + ms ? (int)(a.p0 + a.panel - s0)
+                                              : ms;
+    const int ncols = nc * ms;
+    for (int e = tid; e < (i_hi - i_lo) * ncols; e += kThreads) {
+      const int i = i_lo + e / ncols, col = e % ncols;
+      const int cl = col / ms, k = col % ms;
+      a.fwd[(size_t)(s0 + i - a.p0) * a.n_dst + (size_t)c0 * ms + col] =
+          blk[cl * bs + i * ms + k];
+    }
+  } else {
+    const int nl = a.n_lane, E = a.per_block;
+    for (int e = tid; e < nl * ms * E * ms; e += kThreads) {
+      const int i = e % ms;
+      int r = e / ms;
+      const int q = r % E;
+      r /= E;
+      const int k = r % ms, o = r / ms;
+      const int jl = q * nl + o;
+      const int t = L.t[jl];
+      if (t < 0) continue;
+      const long long slot = (long long)L.c[jl] * ms + k;
+      if (slot < a.p0 || slot >= (long long)a.p0 + a.panel) continue;
+      a.rev[(size_t)(slot - a.p0) * a.n_src + (size_t)t * ms + i] =
+          blk[jl * bs + i * ms + k];
+    }
+  }
+}
+
+// Lane j's pair: row t against candidate first + o, live up to last.
+__device__ __forceinline__ void panel_lane(PanelLanes& L, bool live,
+                                           long long t, int first, int last,
+                                           int o) {
+  const int c = first + o;
+  live = live && c <= last;
+  L.t[threadIdx.x] = live ? (int)t : -1;
+  L.c[threadIdx.x] = live ? c : 0;
+}
+
+// One block of K7 / K13 once the lane tables are set: sweep, refine and
+// scatter, write.
+__device__ __forceinline__ void panel_block(const JoinOperands& op,
+                                            const PanelArgs& a, bool forward,
+                                            PanelLanes& L, float* dyn) {
+  const int S7 = panel_tile_stride(a.wp), SB = panel_bound_stride(a.wp);
+  float* tw = dyn;                                            // [M][33]
+  int* tidx = reinterpret_cast<int*>(dyn + a.M * kTileStride);  // [M][33]
+  float* tile = dyn + 2 * a.M * kTileStride;
+  const PanelTile s{tile, tile + K1_TC * S7, tile + 2 * K1_TC * S7,
+                    tile + 3 * K1_TC * S7, tile + 3 * K1_TC * S7 + K1_TC * SB};
+  if (threadIdx.y == 0) {
+    const int j = threadIdx.x, o = forward ? j : j % a.n_lane;
+    L.s[j] = L.t[o] >= 0 && L.c[o] == L.c[j] ? o : j;
+  }
+  __syncthreads();
+  panel_sweep(op, a, L, tw, tidx, s);
+  if (threadIdx.y == 0) panel_scatter(op, a, L, tw, tidx, tile);
+  __syncthreads();
+  panel_write(op, a, forward, L, tile);
+}
+
+// Forward blocks: row t_lo + b / ntc against tile b % ntc.  Reverse
+// blocks: entries e (tile-major: tile j_lo + e / T, row e % T), per_block
+// of them a block, each the panel's candidates inside its tile.
+__global__ void __launch_bounds__(kThreads, 2)
+stjoin_sim_panel_fused_kernel(JoinOperands op, PanelArgs a, int T, int t_lo,
+                              int ntc, long long n_fwd, int j_lo,
+                              int n_rev_tiles) {
+  extern __shared__ float dyn[];
+  __shared__ PanelLanes L;
+  const long long b = blockIdx.x;
+  const bool forward = b < n_fwd;
+  if (threadIdx.y == 0) {
+    const int j = threadIdx.x;
+    if (forward) {
+      const int tile = (int)(b % ntc);
+      panel_lane(L, true, t_lo + b / ntc, tile * K1_TC,
+                 min(op.C, tile * K1_TC + K1_TC) - 1, j);
+    } else {
+      const long long e = (b - n_fwd) * a.per_block + j / a.n_lane;
+      const int tile = j_lo + (int)(e / T);
+      panel_lane(L,
+                 j < a.per_block * a.n_lane && e < (long long)T * n_rev_tiles,
+                 e % T, max(a.c_lo, tile * K1_TC),
+                 min(a.c_hi, tile * K1_TC + K1_TC - 1), j % a.n_lane);
+    }
+  }
+  __syncthreads();
+  panel_block(op, a, forward, L, dyn);
 }
 
 // ---------------------------------------------------------------------------
@@ -605,38 +932,39 @@ stjoin_sim_fused_pruned_kernel(JoinOperands op, int M, float delta_t,
 // K13 <- stjoin_sim_panel_fused_pruned_flat: K7 over the plan.  Forward
 // blocks: K7's forward blocks of the rows t_lo..t_hi that own a panel
 // slot, for their planned tiles only (fwd_pairs: the plan's row-major
-// entries of those rows).  Reverse blocks: one per (row t, tile j) entry
-// of the plan in transpose (rev_pairs: the entries of the tiles that hold
-// the panel's candidates c_lo..c_hi, tile-major), sweeping the panel's
-// candidates inside tile j only.  A cell's sum does not depend on how the
-// candidates are grouped into blocks (each lane owns one candidate), so
+// entries of those rows).  Reverse blocks: the plan's entries (row t,
+// tile j) of the tiles that hold the panel's candidates c_lo..c_hi
+// (rev_pairs, tile-major), per_block entries a block, each lane one of the
+// panel's candidates inside its entry's tile.  A cell's sum does not
+// depend on how the pairs are grouped into blocks (each lane owns one), so
 // every written cell is K7's; the rest are the wrapper's zero fill of both
 // slabs.
-__global__ void __launch_bounds__(kThreads)
-stjoin_sim_panel_fused_pruned_kernel(JoinOperands op, int M, float delta_t,
-                                     const int* __restrict__ ref_gid,
-                                     const int* __restrict__ cand_gid,
-                                     int ms, int p0, int panel,
+__global__ void __launch_bounds__(kThreads, 2)
+stjoin_sim_panel_fused_pruned_kernel(JoinOperands op, PanelArgs a,
                                      const int2* __restrict__ fwd_pairs,
                                      long long n_fwd,
                                      const int2* __restrict__ rev_pairs,
-                                     int c_lo, int c_hi, long long n_src,
-                                     long long n_dst,
-                                     float* __restrict__ fwd,
-                                     float* __restrict__ rev) {
-  __shared__ SweepSmem sm;
+                                     long long n_rev) {
   extern __shared__ float dyn[];
+  __shared__ PanelLanes L;
   const long long b = blockIdx.x;
   const bool forward = b < n_fwd;
-  const int2 e = forward ? fwd_pairs[b] : rev_pairs[b - n_fwd];
-  JoinOperands o = op;
-  int c0 = e.y * K1_TC;
-  if (!forward) {
-    c0 = max(c0, c_lo);
-    o.C = min(c_hi + 1, e.y * K1_TC + K1_TC);
+  if (threadIdx.y == 0) {
+    const int j = threadIdx.x;
+    if (forward) {
+      const int2 e = fwd_pairs[b];
+      panel_lane(L, true, e.x, e.y * K1_TC,
+                 min(op.C, e.y * K1_TC + K1_TC) - 1, j);
+    } else {
+      const long long q = (b - n_fwd) * a.per_block + j / a.n_lane;
+      const bool live = j < a.per_block * a.n_lane && q < n_rev;
+      const int2 e = live ? rev_pairs[q] : make_int2(0, 0);
+      panel_lane(L, live, e.x, max(a.c_lo, e.y * K1_TC),
+                 min(a.c_hi, e.y * K1_TC + K1_TC - 1), j % a.n_lane);
+    }
   }
-  sim_panel_block(sm, o, M, delta_t, ref_gid, cand_gid, ms, p0, panel, e.x,
-                  c0, forward, n_src, n_dst, dyn, fwd, rev);
+  __syncthreads();
+  panel_block(op, a, forward, L, dyn);
 }
 
 // ---------------------------------------------------------------------------
@@ -906,6 +1234,36 @@ int rows_per_split(int S, int n_split) {
   return (S + n_split - 1) / n_split;
 }
 
+// The launch set-up of K7 / K13: the reverse lanes (n_lane panel
+// candidates of one tile per row, per_block rows a block), the staged
+// window wp (the widest of 128, 64 and 32 points whose shared memory fits
+// the card, no wider than Mc needs) and the dynamic shared memory.
+int panel_setup(PanelArgs& a, int Mc, const void* kernel, int* smem) {
+  a.n_lane = 0;
+  for (int j = a.c_lo / K1_TC; j <= a.c_hi / K1_TC; ++j)
+    a.n_lane = max(a.n_lane, min(a.c_hi, j * K1_TC + K1_TC - 1)
+                                 - max(a.c_lo, j * K1_TC) + 1);
+  a.per_block = K1_TC / a.n_lane;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  int need = K1_TC;                        // a power of two >= Mc
+  while (need < Mc && need < 128) need *= 2;
+  a.wp = 0;
+  for (int wp = 128; wp >= 32 && a.wp == 0; wp /= 2) {
+    const long long bytes = panel_smem_floats(a.M, a.ms, wp) * 4
+                            + (long long)sizeof(PanelLanes);
+    if (bytes <= optin) a.wp = min(wp, need);
+  }
+  if (a.wp == 0) return (int)cudaErrorInvalidValue;
+  *smem = (int)(panel_smem_floats(a.M, a.ms, a.wp) * sizeof(float));
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -982,28 +1340,32 @@ int stjoin_sim_panel_fused(const float* rx, const float* ry,
                            const uint8_t* cok, const int* ref_gid,
                            const int* cand_gid, int T, int M, int C, int Mc,
                            int ms, int p0, int panel, float eps_sp,
-                           float eps_t, float delta_t, float* fwd,
+                           float eps_t, float delta_t, const float* chunk_lo,
+                           const float* chunk_hi, int* stats, float* fwd,
                            float* rev, cudaStream_t stream) {
-  // the wrapper checks 0 <= p0 and p0 + panel <= min(T, C) * ms
+  // the wrapper checks 0 <= p0, p0 + panel <= min(T, C) * ms and the chunk
+  // bounds' shape [C, ceil(Mc / 8)]
   if (T > 0 && C > 0 && ms > 0 && panel > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    const int smem =
-        (2 * M * kTileStride + K1_TC * (ms * ms + 1)) * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        stjoin_sim_panel_fused_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+    PanelArgs a{M, ms, p0, panel, delta_t, ref_gid, cand_gid, chunk_lo,
+                chunk_hi, (Mc + kChunk - 1) / kChunk, 0, p0 / ms,
+                min(C - 1, (p0 + panel - 1) / ms), 0, 0, (long long)T * ms,
+                (long long)C * ms, stats, fwd, rev};
+    int smem = 0;
+    const int err = panel_setup(
+        a, Mc, (const void*)stjoin_sim_panel_fused_kernel, &smem);
+    if (err != 0) return err;
     const int t_lo = p0 / ms, t_hi = min(T - 1, (p0 + panel - 1) / ms);
-    const int c_lo = p0 / ms, c_hi = min(C - 1, (p0 + panel - 1) / ms);
     const int ntc = (C + K1_TC - 1) / K1_TC;
-    const int ntr = (c_hi - c_lo) / K1_TC + 1;
+    const int j_lo = a.c_lo / K1_TC, n_rev_tiles = a.c_hi / K1_TC - j_lo + 1;
     const long long n_fwd = (long long)(t_hi - t_lo + 1) * ntc;
-    const long long blocks = n_fwd + (long long)T * ntr;
+    const long long blocks =
+        n_fwd + ((long long)T * n_rev_tiles + a.per_block - 1) / a.per_block;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
     stjoin_sim_panel_fused_kernel<<<(unsigned)blocks, dim3(K1_TC, K1_TY),
-                                    smem, stream>>>(
-        op, M, delta_t, ref_gid, cand_gid, ms, p0, panel, t_lo, ntc, n_fwd,
-        c_lo, c_hi, (long long)T * ms, (long long)C * ms, fwd, rev);
+                                    smem, stream>>>(op, a, T, t_lo, ntc,
+                                                    n_fwd, j_lo, n_rev_tiles);
   }
   return (int)cudaGetLastError();
 }
@@ -1086,26 +1448,30 @@ int stjoin_sim_panel_fused_pruned(const float* rx, const float* ry,
                                   float delta_t, const int* fwd_pairs,
                                   long long n_fwd, const int* rev_pairs,
                                   long long n_rev, int c_lo, int c_hi,
+                                  const float* chunk_lo,
+                                  const float* chunk_hi, int* stats,
                                   float* fwd, float* rev,
                                   cudaStream_t stream) {
-  // the wrapper checks 0 <= p0, p0 + panel <= min(T, C) * ms, and passes
-  // c_lo = p0 / ms, c_hi = min(C - 1, (p0 + panel - 1) / ms)
+  // the wrapper checks 0 <= p0, p0 + panel <= min(T, C) * ms and the chunk
+  // bounds, and passes c_lo = p0 / ms, c_hi = min(C - 1, (p0 + panel - 1)
+  // / ms)
   if (n_fwd + n_rev > 0 && ms > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    const int smem =
-        (2 * M * kTileStride + K1_TC * (ms * ms + 1)) * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        stjoin_sim_panel_fused_pruned_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    stjoin_sim_panel_fused_pruned_kernel<<<(unsigned)(n_fwd + n_rev),
+    PanelArgs a{M, ms, p0, panel, delta_t, ref_gid, cand_gid, chunk_lo,
+                chunk_hi, (Mc + kChunk - 1) / kChunk, 0, c_lo, c_hi, 0, 0,
+                (long long)T * ms, (long long)C * ms, stats, fwd, rev};
+    int smem = 0;
+    const int err = panel_setup(
+        a, Mc, (const void*)stjoin_sim_panel_fused_pruned_kernel, &smem);
+    if (err != 0) return err;
+    const long long blocks = n_fwd + (n_rev + a.per_block - 1) / a.per_block;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    stjoin_sim_panel_fused_pruned_kernel<<<(unsigned)blocks,
                                            dim3(K1_TC, K1_TY), smem,
                                            stream>>>(
-        op, M, delta_t, ref_gid, cand_gid, ms, p0, panel,
-        reinterpret_cast<const int2*>(fwd_pairs), n_fwd,
-        reinterpret_cast<const int2*>(rev_pairs), c_lo, c_hi,
-        (long long)T * ms, (long long)C * ms, fwd, rev);
+        op, a, reinterpret_cast<const int2*>(fwd_pairs), n_fwd,
+        reinterpret_cast<const int2*>(rev_pairs), n_rev);
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,11 @@ orientations, for ``sim_mode="topk"``; replaces
 ``stjoin_sim_panel_fused_flat``), and their index-pruned twins for
 ``use_index=True``: K10 (replaces ``stjoin_pallas_pruned``), K11, K12
 and K13 (replace ``stjoin_*_fused_pruned_flat``), which run the same
-block bodies over the tiles a plan keeps.  All run one best-match sweep.
+block bodies over the tiles a plan keeps.  K1, K2, K4 and K10-K12 run
+one best-match sweep; K7 and K13 run a sweep of their own that skips, per
+group of 8 consecutive reference points, the chunks of 8 candidate points
+whose valid times all lie farther than eps_t (``ref.chunk_time_bounds``,
+``ref.panel_skip_ref``), with the same matches, weights and indices.
 
 Numerics of the sweep, which the CUDA kernels, their plain versions
 (``ref.py``) and the Pallas kernels share:
@@ -32,6 +36,13 @@ Numerics of the sweep, which the CUDA kernels, their plain versions
   ``-fmad=false``), square root and division are IEEE-rounded
   (``__fsqrt_rn`` / ``__fdiv_rn``, no ``--use_fast_math``), so the kernel
   matches the plain PyTorch version bit for bit on the card.
+* **The time-window skip is exact.**  A (group, chunk) pair is skipped
+  only when one of them holds no valid time or ``q_min - p_max > eps_t``
+  or ``p_min - q_max > eps_t`` in float32, the pair test's own rounded
+  subtraction; rounding is monotone and odd, so every pair it skips has
+  ``|fl(t_p - t_q)| > eps_t`` (a NaN bound skips nothing).  The chunks a
+  point keeps are walked in ascending index, so the first index still
+  wins a tie.
 
 Numerics of the fused consumers, which fix an order the Pallas kernels do
 not (so the port matches them to 1e-5, and its kernels match their plain

@@ -2,7 +2,9 @@
 through the join kernels (counterpart of ``repro.kernels.stjoin.ops``:
 the dense ``best_match_join_kernel`` and ``subtrajectory_join``, the
 fused streaming passes ``stjoin_vote_fused(_arrays)``,
-``stjoin_sim_fused(_arrays)`` and ``stjoin_sim_panel_fused(_arrays)``, and
+``stjoin_sim_fused(_arrays)`` and ``stjoin_sim_panel_fused(_arrays)`` (or,
+for many panels, ``sim_panel_sweep`` / ``prepare_sim_panel``: operands,
+checks and the chunk time bounds once, then one launch per panel), and
 their index-pruned variants: ``plan_join_index`` /
 ``best_match_join_pruned`` and ``plan_fused_tiles`` with the ``tile_ids=``
 plans of the fused passes).
@@ -34,7 +36,9 @@ from repro_torch.core.similarity import slot_ids
 from repro_torch.core.types import JoinResult, TrajectoryBatch, f32
 from repro_torch.index import grid as gridx
 from repro_torch.kernels import check_cuda_operands, launch
-from repro_torch.kernels.stjoin.ref import (stjoin_pruned_ref, stjoin_ref,
+from repro_torch.kernels.stjoin.ref import (chunk_time_bounds,
+                                            panel_skip_counts_ref,
+                                            stjoin_pruned_ref, stjoin_ref,
                                             stjoin_sim_fused_ref,
                                             stjoin_sim_panel_fused_ref,
                                             stjoin_vote_fused_ref)
@@ -565,86 +569,238 @@ def stjoin_sim_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
         n_src, n_dst, eps_sp, eps_t, delta_t, tile_ids=tile_ids)
 
 
-def stjoin_sim_panel_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy,
-                                  ct, cvalid, cid, cand_gid, n_src: int,
-                                  n_dst: int, eps_sp, eps_t, delta_t, p0, *,
-                                  panel: int, tile_ids=None):
-    """Fused pass 2 for one panel of ``panel`` slots, in both orientations:
-    ``(fwd [panel, n_dst], rev [panel, n_src])`` with ``fwd[i, j] =
-    raw[p0 + i, j]`` and ``rev[i, j] = raw[j, p0 + i]`` of the ``raw``
-    that ``stjoin_sim_fused_arrays`` builds, bit for bit.
+# K7 / K13's time-window skip: candidate points per chunk of the bounds
+# and reference points per group (kChunk and kGroup of dsc_kernels.cu)
+PANEL_CHUNK = 8
+PANEL_GROUP = 8
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SimPanelSweep:
+    """The panel pass 2 of one dispatch: operands flattened, slot maps and
+    plan checked, and the candidates' chunk time bounds built once, for
+    every panel.  ``sweep(p0, panel=Sb)`` gives ``(fwd [panel, n_dst], rev
+    [panel, n_src])`` with ``fwd[i, j] = raw[p0 + i, j]`` and ``rev[i, j] =
+    raw[j, p0 + i]`` of the ``raw`` that ``stjoin_sim_fused_arrays`` builds,
+    bit for bit: through K7 (or K13 with a plan) on the card, through
+    ``stjoin_sim_panel_fused_ref`` on the CPU.  Build it with
+    ``prepare_sim_panel`` or ``sim_panel_sweep``; the check of the slot
+    maps (one host sync) happens there, not per panel."""
+
+    on_card: bool              # launch K7 / K13 (else the plain version)
+
+    ref_ops: tuple
+    cand_ops: tuple
+    ref_gid: torch.Tensor      # [T, M] int32
+    cand_gid: torch.Tensor     # [C, Mc] int32
+    n_src: int
+    n_dst: int
+    eps: tuple                 # eps_sp, eps_t, delta_t (f32 values)
+    plan: FusedTilePlan | None
+    chunk_lo: torch.Tensor     # [C, ceil(Mc / PANEL_CHUNK)] f32
+    chunk_hi: torch.Tensor
+
+    @property
+    def name(self) -> str:
+        return "stjoin_sim_panel_fused" + ("" if self.plan is None
+                                           else "_pruned")
+
+    @property
+    def shape(self):
+        """``(T, M, C, Mc)``."""
+        return (*self.ref_gid.shape, *self.cand_gid.shape)
+
+    def _geometry(self, p0: int, panel: int):
+        """``(ms, t_lo, t_hi, c_lo, c_hi)``: the rows and the candidates
+        that own a slot of the panel; raises if it leaves the slots."""
+        if p0 < 0 or panel < 1 or p0 + panel > min(self.n_src, self.n_dst):
+            raise ValueError(f"{self.name}: panel [{p0}, {p0 + panel}) is "
+                             f"outside the {self.n_src} x {self.n_dst} "
+                             "slots")
+        T, _, C, _ = self.shape
+        ms = max(self.n_src // max(T, 1), 1)
+        return (ms, p0 // ms, min(T - 1, (p0 + panel - 1) // ms), p0 // ms,
+                min(C - 1, (p0 + panel - 1) // ms))
+
+    def _plan_slices(self, t_lo, t_hi, c_lo, c_hi):
+        """The plan's live entries of the panel: ``(fwd_pairs, rev_pairs)``
+        views of its row-major entries of rows t_lo..t_hi and of its
+        tile-major entries of the tiles that hold c_lo..c_hi."""
+        fwd_pairs, blocks = self.plan.by_row
+        rev_pairs, tiles = self.plan.by_tile
+        f0, f1 = np.searchsorted(blocks, [t_lo, t_hi + 1])
+        r0, r1 = np.searchsorted(tiles, [c_lo // FUSED_BC,
+                                         c_hi // FUSED_BC + 1])
+        return fwd_pairs[f0:f1], rev_pairs[r0:r1]
+
+    def pairs(self, p0, *, panel: int) -> torch.Tensor:
+        """The (row t, candidate c) pairs the panel's kernel sweeps,
+        ``[n, 2]`` int64: forward, the rows that own a panel slot against
+        every candidate (with a plan: of their planned tiles); reverse,
+        every row (the plan's rows) against the panel's candidates."""
+        ms, t_lo, t_hi, c_lo, c_hi = self._geometry(int(p0), panel)
+        T, _, C, _ = self.shape
+        dev = self.ref_gid.device
+        ar = lambda a, b: torch.arange(a, b, device=dev)
+        if self.plan is None:
+            fwd = torch.cartesian_prod(ar(t_lo, t_hi + 1), ar(0, C))
+            rev = torch.cartesian_prod(ar(0, T), ar(c_lo, c_hi + 1))
+            return torch.cat([fwd, rev])
+        if (self.plan.rows, self.plan.bc) != (FUSED_ROWS, FUSED_BC):
+            raise _geometry_error(self.name, dict(rows=self.plan.rows,
+                                                  bc=self.plan.bc),
+                                  dict(rows=FUSED_ROWS, bc=FUSED_BC))
+        out = []
+        for entries, lo, hi in zip(self._plan_slices(t_lo, t_hi, c_lo, c_hi),
+                                   (0, c_lo), (C - 1, c_hi)):
+            e = entries.long()
+            c = e[:, 1:] * FUSED_BC + ar(0, FUSED_BC)
+            keep = (c >= lo) & (c <= hi)
+            t = e[:, :1].expand_as(c)
+            out.append(torch.stack([t[keep], c[keep]], dim=1))
+        return torch.cat(out)
+
+    def skip_counts(self, p0, *, panel: int) -> tuple[int, int]:
+        """``(swept, skipped)`` (group, chunk) pairs of the panel's kernel,
+        from the plain mirror ``panel_skip_counts_ref``."""
+        T, M, _, _ = self.shape
+        return panel_skip_counts_ref(
+            self.ref_ops[2], self.ref_ops[4], M, self.chunk_lo,
+            self.chunk_hi, self.eps[1], self.pairs(p0, panel=panel),
+            group=PANEL_GROUP)
+
+    def __call__(self, p0, *, panel: int, stats=None):
+        """One panel: ``(fwd, rev)``.  ``stats``: an int32 CUDA tensor of 2
+        on the operands' device to which the kernel adds the (group,
+        chunk) pairs it tested and those it skipped; the plain version
+        sweeps no groups and refuses it."""
+        p0 = int(p0)
+        ms, t_lo, t_hi, c_lo, c_hi = self._geometry(p0, panel)
+        if stats is not None and not (
+                self.on_card and stats.dtype == torch.int32
+                and stats.numel() == 2
+                and stats.device == self.ref_gid.device):
+            raise ValueError(f"{self.name}: stats must be an int32 tensor "
+                             "of 2 on the operands' CUDA device")
+        T, M, C, Mc = self.shape
+        if not self.on_card:
+            return stjoin_sim_panel_fused_ref(
+                *self.ref_ops, self.ref_gid.view(-1), *self.cand_ops,
+                self.cand_gid, *self.eps, M=M, n_src=self.n_src,
+                n_dst=self.n_dst, p0=p0, panel=panel,
+                tiles=_plain_tiles(self.plan, M))
+        dev = self.ref_gid.device
+        args = (*(t.data_ptr() for t in self.ref_ops),
+                *(t.data_ptr() for t in self.cand_ops),
+                self.ref_gid.data_ptr(), self.cand_gid.data_ptr(), T, M, C,
+                Mc, ms, p0, panel, *self.eps)
+        tail = (self.chunk_lo.data_ptr(), self.chunk_hi.data_ptr(),
+                None if stats is None else stats.data_ptr())
+        if self.plan is None:
+            fwd = torch.empty((panel, self.n_dst), dtype=torch.float32,
+                              device=dev)
+            rev = torch.empty((panel, self.n_src), dtype=torch.float32,
+                              device=dev)
+            launch(self.name, *args, *tail, fwd.data_ptr(), rev.data_ptr(),
+                   device=dev)
+            return fwd, rev
+        # forward: the planned tiles of the rows t_lo..t_hi that own a panel
+        # slot; reverse: the plan's rows of the tiles that hold the
+        # candidates c_lo..c_hi that own one.  Cells of skipped pairs stay
+        # +0.0.
+        fwd_pairs, rev_pairs = self._plan_slices(t_lo, t_hi, c_lo, c_hi)
+        fwd = torch.zeros((panel, self.n_dst), dtype=torch.float32,
+                          device=dev)
+        rev = torch.zeros((panel, self.n_src), dtype=torch.float32,
+                          device=dev)
+        launch(self.name, *args, fwd_pairs.data_ptr(), fwd_pairs.shape[0],
+               rev_pairs.data_ptr(), rev_pairs.shape[0], c_lo, c_hi, *tail,
+               fwd.data_ptr(), rev.data_ptr(), device=dev)
+        return fwd, rev
+
+
+def prepare_sim_panel(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct, cvalid,
+                      cid, cand_gid, n_src: int, n_dst: int, eps_sp, eps_t,
+                      delta_t, *, tile_ids=None) -> SimPanelSweep:
+    """The panel pass 2 on raw arrays (cf. ``stjoin_sim_fused_arrays``),
+    prepared for many panels: a ``SimPanelSweep``.
 
     On the card (K7) the slot maps must be the DSC block maps, as for K4;
     then only the rows and the candidates that own a panel slot are swept,
     about ``2 * panel / ms`` trajectories against all, instead of all
-    against all.  The panel may split a trajectory's slots.  ``tile_ids``
-    (a ``plan_fused_tiles`` plan) sweeps only the planned tiles among
-    those (K13); the output is identical.
+    against all, and of those only the chunks of candidate points within
+    eps_t of each group of reference points.  The panel may split a
+    trajectory's slots.  ``tile_ids`` (a ``plan_fused_tiles`` plan) sweeps
+    only the planned tiles among those (K13); the output is identical.
+    The kernel runs when any operand lies on the card, and then all must
+    lie on that one card.  A shape whose staged window does not fit one
+    block's shared memory is refused by the launcher (``RuntimeError``).
     """
     T, M = rx.shape
     C, Mc = cx.shape
     name = "stjoin_sim_panel_fused" if tile_ids is None else \
         "stjoin_sim_panel_fused_pruned"
-    p0 = int(p0)
-    if p0 < 0 or panel < 1 or p0 + panel > min(n_src, n_dst):
-        raise ValueError(f"{name}: panel [{p0}, {p0 + panel}) is outside "
-                         f"the {n_src} x {n_dst} slots")
-    plan = _resolve_plan(tile_ids, name, rx.is_cuda, T, C, rx.device)
     ref_ops, cand_ops = _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct,
                                        cvalid, cid)
     ref_gid = ref_gid.to(torch.int32).contiguous()
     cand_gid = cand_gid.to(torch.int32).contiguous()
-    if not rx.is_cuda:
-        return stjoin_sim_panel_fused_ref(
-            *ref_ops, ref_gid.view(-1), *cand_ops, cand_gid, eps_sp, eps_t,
-            delta_t, M=M, n_src=n_src, n_dst=n_dst, p0=p0, panel=panel,
-            tiles=_plain_tiles(plan, M))
-    ms = n_src // max(T, 1)
-    _check_block_slots(ref_gid, cand_gid, ms, n_src, n_dst, name=name)
-    dev = _check_fused(name, ref_ops, cand_ops, M,
-                       (2 * M * 33 + 32 * (ms * ms + 1)) * 4)
-    check_cuda_operands(name, ref_x=(ref_ops[0], torch.float32),
-                        ref_gid=(ref_gid, torch.int32),
-                        cand_gid=(cand_gid, torch.int32))
-    args = (*(t.data_ptr() for t in ref_ops),
-            *(t.data_ptr() for t in cand_ops), ref_gid.data_ptr(),
-            cand_gid.data_ptr(), T, M, C, Mc, ms, p0, panel,
-            *_eps(eps_sp, eps_t, delta_t))
-    if plan is None:
-        fwd = torch.empty((panel, n_dst), dtype=torch.float32, device=dev)
-        rev = torch.empty((panel, n_src), dtype=torch.float32, device=dev)
-        launch(name, *args, fwd.data_ptr(), rev.data_ptr(), device=dev)
-        return fwd, rev
-    # forward: the planned tiles of the rows t_lo..t_hi that own a panel
-    # slot; reverse: the plan's rows of the tiles that hold the candidates
-    # c_lo..c_hi that own one.  Cells of skipped pairs stay +0.0.
-    t_lo, t_hi = p0 // ms, min(T - 1, (p0 + panel - 1) // ms)
-    c_lo, c_hi = p0 // ms, min(C - 1, (p0 + panel - 1) // ms)
-    fwd_pairs, blocks = plan.by_row
-    rev_pairs, tiles = plan.by_tile
-    f0, f1 = np.searchsorted(blocks, [t_lo, t_hi + 1])
-    r0, r1 = np.searchsorted(tiles, [c_lo // FUSED_BC,
-                                     c_hi // FUSED_BC + 1])
-    fwd = torch.zeros((panel, n_dst), dtype=torch.float32, device=dev)
-    rev = torch.zeros((panel, n_src), dtype=torch.float32, device=dev)
-    row = fwd_pairs.stride(0) * fwd_pairs.element_size()
-    launch(name, *args, fwd_pairs.data_ptr() + int(f0) * row, int(f1 - f0),
-           rev_pairs.data_ptr() + int(r0) * row, int(r1 - r0), c_lo, c_hi,
-           fwd.data_ptr(), rev.data_ptr(), device=dev)
-    return fwd, rev
+    on_card = any(a.is_cuda for a in (*ref_ops, *cand_ops, ref_gid,
+                                      cand_gid))
+    if on_card:
+        f, i, b = torch.float32, torch.int32, torch.bool
+        check_cuda_operands(
+            name, ref_x=(ref_ops[0], f), ref_y=(ref_ops[1], f),
+            ref_t=(ref_ops[2], f), ref_id=(ref_ops[3], i),
+            ref_ok=(ref_ops[4], b), cand_x=(cand_ops[0], f),
+            cand_y=(cand_ops[1], f), cand_t=(cand_ops[2], f),
+            cand_id=(cand_ops[3], i), cand_ok=(cand_ops[4], b),
+            ref_gid=(ref_gid, i), cand_gid=(cand_gid, i))
+        _check_block_slots(ref_gid, cand_gid, n_src // max(T, 1), n_src,
+                           n_dst, name=name)
+    plan = _resolve_plan(tile_ids, name, on_card, T, C, rx.device)
+    chunk_lo, chunk_hi = chunk_time_bounds(cand_ops[2], cand_ops[4],
+                                           PANEL_CHUNK)
+    return SimPanelSweep(on_card=on_card, ref_ops=ref_ops,
+                         cand_ops=cand_ops, ref_gid=ref_gid,
+                         cand_gid=cand_gid, n_src=n_src, n_dst=n_dst,
+                         eps=_eps(eps_sp, eps_t, delta_t), plan=plan,
+                         chunk_lo=chunk_lo, chunk_hi=chunk_hi)
+
+
+def sim_panel_sweep(ref: TrajectoryBatch, cand: TrajectoryBatch,
+                    ref_sub_local, cand_sub_local, max_subs: int, eps_sp,
+                    eps_t, delta_t=0.0, *, tile_ids=None) -> SimPanelSweep:
+    """Batch-level ``prepare_sim_panel`` (cf. ``stjoin_sim_fused``): the
+    panels of the raw rows that ``core.similarity.topk_stream``
+    finalizes."""
+    n_src, n_dst = ref.num_trajs * max_subs, cand.num_trajs * max_subs
+    return prepare_sim_panel(
+        ref.x, ref.y, ref.t, ref.valid, ref.traj_id,
+        slot_ids(ref_sub_local, max_subs, n_src), cand.x, cand.y, cand.t,
+        cand.valid, cand.traj_id, slot_ids(cand_sub_local, max_subs, n_dst),
+        n_src, n_dst, eps_sp, eps_t, delta_t, tile_ids=tile_ids)
+
+
+def stjoin_sim_panel_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy,
+                                  ct, cvalid, cid, cand_gid, n_src: int,
+                                  n_dst: int, eps_sp, eps_t, delta_t, p0, *,
+                                  panel: int, tile_ids=None, stats=None):
+    """Fused pass 2 for one panel of ``panel`` slots, in both orientations
+    (``prepare_sim_panel`` for this one panel, its checks included):
+    ``(fwd [panel, n_dst], rev [panel, n_src])``, bit for bit the rows and
+    transposed columns of ``stjoin_sim_fused_arrays``'s ``raw``."""
+    return prepare_sim_panel(
+        rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct, cvalid, cid, cand_gid,
+        n_src, n_dst, eps_sp, eps_t, delta_t, tile_ids=tile_ids)(
+            p0, panel=panel, stats=stats)
 
 
 def stjoin_sim_panel_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
                            ref_sub_local, cand_sub_local, max_subs: int,
                            eps_sp, eps_t, delta_t=0.0, *, p0, panel: int,
-                           tile_ids=None):
+                           tile_ids=None, stats=None):
     """Batch-level panel pass 2 (cf. ``stjoin_sim_fused``): the two raw
     orientations of the rows ``[p0, p0 + panel)`` that
     ``core.similarity.topk_stream`` finalizes."""
-    n_src, n_dst = ref.num_trajs * max_subs, cand.num_trajs * max_subs
-    return stjoin_sim_panel_fused_arrays(
-        ref.x, ref.y, ref.t, ref.valid, ref.traj_id,
-        slot_ids(ref_sub_local, max_subs, n_src), cand.x, cand.y, cand.t,
-        cand.valid, cand.traj_id, slot_ids(cand_sub_local, max_subs, n_dst),
-        n_src, n_dst, eps_sp, eps_t, delta_t, p0, panel=panel,
-        tile_ids=tile_ids)
+    return sim_panel_sweep(ref, cand, ref_sub_local, cand_sub_local,
+                           max_subs, eps_sp, eps_t, delta_t,
+                           tile_ids=tile_ids)(p0, panel=panel, stats=stats)

@@ -254,3 +254,62 @@ def stjoin_sim_panel_fused_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, ref_gid,
                       panel_local(cand_gid[cols], p0, panel), n_src, panel,
                       transpose=True)
     return fwd, rev
+
+
+def chunk_time_bounds(t, ok, chunk: int):
+    """``(lo, hi)`` ``[R, ceil(N / chunk)]`` f32: the min and max time over
+    the valid points of each run of ``chunk`` consecutive points of each
+    row of ``t [R, N]`` (NaN times count as invalid); ``(+inf, -inf)``
+    where a run holds none.  K7 and K13 take these of the candidates as
+    their chunk bounds; the same reduction over groups of reference points
+    gives the groups' bounds (``panel_skip_ref``)."""
+    R, N = t.shape
+    n = -(-N // chunk)
+    pad = n * chunk - N
+    keep = ok & ~torch.isnan(t)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=t.device)
+    lo = torch.nn.functional.pad(torch.where(keep, t, inf), (0, pad),
+                                 value=float("inf"))
+    hi = torch.nn.functional.pad(torch.where(keep, t, -inf), (0, pad),
+                                 value=float("-inf"))
+    return (lo.view(R, n, chunk).amin(-1).contiguous(),
+            hi.view(R, n, chunk).amax(-1).contiguous())
+
+
+def panel_skip_ref(g_lo, g_hi, c_lo, c_hi, eps_t):
+    """The time-window skip of K7 / K13, ``[..., groups, chunks]`` bool:
+    true where a group of reference points with time bounds ``(g_lo,
+    g_hi) [..., G]`` and a chunk of candidate points with ``(c_lo, c_hi)
+    [..., K]`` cannot hold a pair with ``|t_p - t_q| <= eps_t``: either
+    holds no valid time (lo > hi), or ``c_lo - g_hi > eps_t``, or ``g_lo -
+    c_hi > eps_t`` in f32, the rounded subtraction of the pair test.  A
+    NaN bound makes every test false: it never skips."""
+    eps = f32(eps_t, g_lo.device)
+    gl, gh = g_lo[..., :, None], g_hi[..., :, None]
+    cl, ch = c_lo[..., None, :], c_hi[..., None, :]
+    return (gl > gh) | (cl > ch) | ((cl - gh) > eps) | ((gl - ch) > eps)
+
+
+# (row, candidate) pairs per step of ``panel_skip_counts_ref``
+_SKIP_ROWS = 16384
+
+
+def panel_skip_counts_ref(ref_t, ref_ok, M: int, chunk_lo, chunk_hi, eps_t,
+                          pairs, *, group: int):
+    """``(swept, skipped)``: the (reference group, candidate chunk) pairs
+    that K7 / K13 test and those they skip over the (row t, candidate c)
+    ``pairs [n, 2]`` they sweep, from the reference points' flat times
+    ``ref_t`` / ``ref_ok`` (rows of ``M``, groups of ``group`` consecutive
+    points) and the candidates' chunk bounds.  The kernels' ``stats`` must
+    equal these."""
+    T = ref_t.shape[0] // M
+    g_lo, g_hi = chunk_time_bounds(ref_t.view(T, M), ref_ok.view(T, M),
+                                   group)
+    pairs = pairs.long()
+    n = pairs.shape[0]
+    skipped = 0
+    for s in range(0, n, _SKIP_ROWS):
+        t, c = pairs[s:s + _SKIP_ROWS].unbind(1)
+        skipped += int(panel_skip_ref(g_lo[t], g_hi[t], chunk_lo[c],
+                                      chunk_hi[c], eps_t).sum())
+    return n * g_lo.shape[1] * chunk_lo.shape[1], skipped

@@ -213,35 +213,133 @@ def test_k4_matches_plain(cuda, n, M, C, Mc, eps_sp, delta_t):
     assert bool((plain > 0).any())
 
 
-@pytest.mark.parametrize("n,M,eps_sp,delta_t,ms,Sb", [
-    (10, 40, 15.0, 0.0, 4, 8), (13, 70, 8.0, 300.0, 3, 13),
-    (37, 50, 10.0, 0.0, 8, 37)])
-def test_k7_matches_plain_and_k4(cuda, n, M, eps_sp, delta_t, ms, Sb):
+def _retime(tb, times, seed=0):
+    """The batch with adversarial times: ``"grid60"`` rounds them to
+    multiples of 60 s (pairs exactly 0 or 60 s apart), ``"epoch"`` adds
+    1.7e9 in float32 (spacing 128 s), ``"unsorted"`` permutes each row's
+    points; ``"ais"`` leaves them."""
+    t = tb.t
+    if times == "grid60":
+        t = torch.round(t / 60.0) * 60.0
+    elif times == "epoch":
+        t = (t.double() + 1.7e9).float()
+    elif times == "unsorted":
+        rng = np.random.default_rng(seed)
+        o = torch.from_numpy(np.argsort(rng.uniform(size=t.shape), 1))
+        o = o.to(t.device)
+        g = lambda a: torch.gather(a, 1, o)
+        return TrajectoryBatch(x=g(tb.x), y=g(tb.y), t=g(t),
+                               valid=g(tb.valid), traj_id=tb.traj_id)
+    return TrajectoryBatch(x=tb.x, y=tb.y, t=t, valid=tb.valid,
+                           traj_id=tb.traj_id)
+
+
+def _panel_stats(tb, sub, ms, eps, p0, Sb, want_skipped, **kw):
+    """One panel through the public wrapper with ``stats`` and through a
+    prepared sweep: the counts equal the plain mirror's, the two runs are
+    bitwise equal; returns ``(fwd, rev, swept, skipped)``."""
+    stats = torch.zeros(2, dtype=torch.int32, device=tb.x.device)
+    fwd, rev = stjoin_ops.stjoin_sim_panel_fused(
+        tb, tb, sub, sub, ms, *eps, p0=p0, panel=Sb, stats=stats, **kw)
+    sweep = stjoin_ops.sim_panel_sweep(tb, tb, sub, sub, ms, *eps, **kw)
+    swept, skipped = sweep.skip_counts(p0, panel=Sb)
+    assert stats.tolist() == [swept, skipped], (p0, stats, swept, skipped)
+    again = sweep(p0, panel=Sb)
+    assert torch.equal(again[0], fwd) and torch.equal(again[1], rev), p0
+    want_skipped.append((swept, skipped))
+    return fwd, rev
+
+
+@pytest.mark.parametrize("n,M,eps_sp,eps_t,delta_t,ms,Sb,times", [
+    (10, 40, 15.0, 120.0, 0.0, 4, 8, "ais"),
+    (13, 70, 8.0, 120.0, 300.0, 3, 13, "ais"),
+    (37, 50, 10.0, 120.0, 0.0, 8, 37, "ais"),
+    (37, 50, 10.0, 60.0, 0.0, 3, 37, "grid60"),
+    (40, 45, 10.0, 120.0, 0.0, 2, 16, "epoch"),
+    (35, 33, 10.0, 120.0, 200.0, 3, 15, "unsorted"),
+    (20, 40, 15.0, 1e9, 0.0, 4, 8, "ais"),
+    (20, 40, 15.0, 1e-3, 0.0, 4, 8, "grid60"),
+    (9, 150, 15.0, 120.0, 0.0, 4, 12, "ais"),
+    (6, 700, 15.0, 120.0, 300.0, 2, 4, "ais")])
+def test_k7_matches_plain_and_k4(cuda, n, M, eps_sp, eps_t, delta_t, ms, Sb,
+                                 times):
     """Every panel: K7's two slabs bitwise equal to its plain version and
-    to the K4 kernel's raw rows and transposed columns.  Sb = 13 with
-    ms = 3 and Sb = 37 with ms = 8 split trajectories' slots."""
+    to the K4 kernel's raw rows and transposed columns, its skip counts
+    equal to the plain mirror's, two runs bitwise equal.  Sb = 13 with
+    ms = 3 and Sb = 37 with ms = 8 split trajectories' slots; ms = 3 with
+    Sb = 37 and ms = 2 with Sb = 16 put a panel's candidates across the
+    32-candidate tiles.  Times on a 60 s grid with eps_t = 60 (pairs
+    exactly eps_t apart), epoch-sized, unsorted; eps_t = 1e9 skips only
+    empty chunks, eps_t = 1e-3 most chunks.  M = 150 stages the
+    candidates in two windows of 128 points, M = 700 in windows of 64
+    (the widest whose shared memory fits)."""
     tb, _ = ais_like(n_vessels=n, max_points=M, seed=n, device=cuda)
+    tb = _retime(tb, times, seed=n)
     rng = np.random.default_rng(n)
     sub = torch.from_numpy(rng.integers(-1, ms, (n, M)).astype(np.int32))
     sub = sub.to(cuda)
-    raw = stjoin_ops.stjoin_sim_fused(tb, tb, sub, sub, ms, eps_sp, 120.0,
-                                      delta_t)
+    eps = (eps_sp, eps_t, delta_t)
+    raw = stjoin_ops.stjoin_sim_fused(tb, tb, sub, sub, ms, *eps)
     S = n * ms
     arrs = (tb.x, tb.y, tb.t, tb.valid, tb.traj_id) * 2
     ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
     gid = slot_ids(sub, ms, S)
+    counts = []
     for p0 in range(0, S, Sb):
         before = kernels.LAUNCHES["stjoin_sim_panel_fused"]
-        fwd, rev = stjoin_ops.stjoin_sim_panel_fused(
-            tb, tb, sub, sub, ms, eps_sp, 120.0, delta_t, p0=p0, panel=Sb)
-        assert kernels.LAUNCHES["stjoin_sim_panel_fused"] == before + 1
+        fwd, rev = _panel_stats(tb, sub, ms, eps, p0, Sb, counts)
+        assert kernels.LAUNCHES["stjoin_sim_panel_fused"] == before + 2
         pf, pr = stjoin_sim_panel_fused_ref(
-            *ref_ops, gid.view(-1), *cand_ops, gid, eps_sp, 120.0, delta_t,
-            M=M, n_src=S, n_dst=S, p0=p0, panel=Sb)
+            *ref_ops, gid.view(-1), *cand_ops, gid, *eps, M=M, n_src=S,
+            n_dst=S, p0=p0, panel=Sb)
         assert torch.equal(fwd, pf) and torch.equal(rev, pr), p0
         assert torch.equal(fwd, raw[p0:p0 + Sb]), p0
         assert torch.equal(rev, raw.T[p0:p0 + Sb]), p0
     assert bool((raw > 0).any())
+    swept, skipped = np.sum(counts, 0)
+    if eps_t == 1e9:                 # only chunks or groups of padding
+        assert skipped < swept // 2
+    elif eps_t == 1e-3:              # groups of 8 points span 7 steps
+        assert skipped > 0.7 * swept
+    else:
+        assert 0 < skipped < swept
+
+
+@pytest.mark.parametrize("on_cpu", ["batch", "slots", "stats"])
+def test_k7_refuses_mixed_devices(cuda, on_cpu):
+    """An operand on the CPU beside others on the card is refused before
+    any launch (``ValueError``), and the card stays usable; so is a
+    ``stats`` tensor off the operands' card."""
+    tb, _ = ais_like(n_vessels=6, max_points=20, seed=6, device=cuda)
+    sub = torch.zeros((6, 20), dtype=torch.int32, device=cuda)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda)
+    if on_cpu == "batch":
+        tb = TrajectoryBatch(x=tb.x.cpu(), y=tb.y.cpu(), t=tb.t.cpu(),
+                             valid=tb.valid.cpu(), traj_id=tb.traj_id.cpu())
+    elif on_cpu == "slots":
+        sub = sub.cpu()
+    else:
+        stats = stats.cpu()
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="devices|stats"):
+        stjoin_ops.stjoin_sim_panel_fused(tb, tb, sub, sub, 2, 10.0, 120.0,
+                                          0.0, p0=0, panel=4, stats=stats)
+    assert kernels.LAUNCHES == before
+    torch.cuda.synchronize()
+
+
+def test_k7_refuses_rows_past_shared_memory(cuda):
+    """Rows too long for one block's shared memory (the ``[M][33]`` tiles
+    of M = 900 points alone pass the opt-in limit) are refused by the
+    launcher (``RuntimeError``) without a launch; the card stays usable."""
+    tb, _ = ais_like(n_vessels=2, max_points=900, seed=2, device=cuda)
+    sub = torch.zeros((2, 900), dtype=torch.int32, device=cuda)
+    sweep = stjoin_ops.sim_panel_sweep(tb, tb, sub, sub, 2, 10.0, 120.0)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match="stjoin_sim_panel_fused"):
+        sweep(0, panel=2)
+    assert kernels.LAUNCHES == before
+    torch.cuda.synchronize()
 
 
 def _lists(rng, S, K, cuda):
@@ -416,12 +514,19 @@ def test_k12_matches_k4_and_plain(cuda, delta_t):
     assert bool((plain > 0).any())
 
 
-@pytest.mark.parametrize("ms,Sb,delta_t", [(3, 13, 0.0), (8, 128, 300.0)])
-def test_k13_matches_k7_and_plain(cuda, ms, Sb, delta_t):
-    """Every panel: K13's slabs bitwise K7's and its plain version's; Sb =
-    13 with ms = 3 splits trajectories' slots, and panels cross tiles."""
-    tb = _lanes(cuda)
-    plan = _fused_plan(tb)
+@pytest.mark.parametrize("ms,Sb,eps_t,delta_t,times", [
+    (3, 13, LANE_EPS[1], 0.0, "ais"), (8, 128, LANE_EPS[1], 300.0, "ais"),
+    (3, 13, 60.0, 0.0, "grid60"), (2, 24, LANE_EPS[1], 0.0, "unsorted"),
+    (8, 128, 1e9, 0.0, "epoch"), (3, 39, 1e-3, 0.0, "grid60")])
+def test_k13_matches_k7_and_plain(cuda, ms, Sb, eps_t, delta_t, times):
+    """Every panel: K13's slabs bitwise K7's and its plain version's, its
+    skip counts equal to the plain mirror's over its planned pairs, two
+    runs bitwise equal; Sb = 13 with ms = 3 splits trajectories' slots,
+    and panels cross tiles.  Adversarial times and eps_t as for K7."""
+    tb = _retime(_lanes(cuda), times)
+    eps = (LANE_EPS[0], eps_t, delta_t)
+    plan = stjoin_ops.plan_fused_tiles(*(tb.x, tb.y, tb.t, tb.valid) * 2,
+                                       *eps[:2])
     rng = np.random.default_rng(ms)
     T, M = tb.x.shape
     sub = torch.from_numpy(rng.integers(-1, ms, (T, M)).astype(np.int32))
@@ -430,23 +535,26 @@ def test_k13_matches_k7_and_plain(cuda, ms, Sb, delta_t):
     ref_ops, cand_ops = _flat(tb)
     gid = slot_ids(sub, ms, S)
     hit = False
+    counts = []
     for p0 in range(0, S - Sb + 1, Sb):
         before = kernels.LAUNCHES["stjoin_sim_panel_fused_pruned"]
-        fwd, rev = stjoin_ops.stjoin_sim_panel_fused(
-            tb, tb, sub, sub, ms, *LANE_EPS, delta_t, p0=p0, panel=Sb,
-            tile_ids=plan)
+        fwd, rev = _panel_stats(tb, sub, ms, eps, p0, Sb, counts,
+                                tile_ids=plan)
         assert kernels.LAUNCHES["stjoin_sim_panel_fused_pruned"] \
-            == before + 1
+            == before + 2
         df, dr = stjoin_ops.stjoin_sim_panel_fused(
-            tb, tb, sub, sub, ms, *LANE_EPS, delta_t, p0=p0, panel=Sb)
+            tb, tb, sub, sub, ms, *eps, p0=p0, panel=Sb)
         pf, pr = stjoin_sim_panel_fused_ref(
-            *ref_ops, gid.view(-1), *cand_ops, gid, *LANE_EPS, delta_t, M=M,
-            n_src=S, n_dst=S, p0=p0, panel=Sb,
-            tiles=(plan.tile_ids, M, plan.bc))
+            *ref_ops, gid.view(-1), *cand_ops, gid, *eps, M=M, n_src=S,
+            n_dst=S, p0=p0, panel=Sb, tiles=(plan.tile_ids, M, plan.bc))
         assert torch.equal(fwd, df) and torch.equal(rev, dr), p0
         assert torch.equal(fwd, pf) and torch.equal(rev, pr), p0
         hit |= bool((pf > 0).any())
     assert hit
+    swept, skipped = np.sum(counts, 0)
+    assert skipped < swept
+    if eps_t != 1e9 and times != "unsorted":    # unsorted: chunks span all
+        assert skipped > 0
 
 
 # ---------------------------------------------------------------------------

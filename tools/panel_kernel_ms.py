@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""K7 and K13 (the top-K panel passes) timed alone on one CUDA card, for
+the port in a given ``src`` directory, so that two versions of the port
+can be held against each other within one run:
+
+    python3 tools/panel_kernel_ms.py [--src DIR] [--label NAME]
+
+``--src`` defaults to this checkout's ``src``; the kernels build beside
+it at first use.  Data and parameters are ``chip_smoke.brest_batch``'s
+(dsc_brest: 4,096 AIS-like vessels x 128 points).  K7 runs on the
+launcher's layout, K13 lane-sorted with the index's plan, each on the
+middle panel of the top-K stream, with the segmentation of one
+``run_dsc`` call of its path (that call's wall and similarity stage are
+reported too).
+
+"Alone" is ``chip_smoke.graph_ms`` of the panel's launch with its
+operands prepared once and no slot-map check (K13 with the two zero
+fills of its slabs): through ``prepare_sim_panel``'s prepared call where
+the version has one, else through the launcher with the argument list of
+that version's ``stjoin_sim_panel_fused_arrays``.  Both outputs are held
+bitwise against the public wrapper, which is timed per call as well.
+Prints the card line, then one JSON line.
+"""
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def panel_call(sj, batch, sub, ms, eps, p0, Sb, plan):
+    """A function that launches the panel's kernel on prepared operands,
+    and its ``(fwd, rev)`` output."""
+    from repro_torch.core.similarity import slot_ids
+    from repro_torch.kernels import launch
+    if hasattr(sj, "prepare_sim_panel"):
+        sweep = sj.sim_panel_sweep(batch, batch, sub, sub, ms, *eps,
+                                   tile_ids=plan)
+        out = []
+        return lambda: out.append(sweep(p0, panel=Sb)), out
+    T, M = batch.x.shape
+    S = T * ms
+    ref_ops, cand_ops = sj._flat_operands(
+        *(batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2)
+    gid = slot_ids(sub, ms, S).to(torch.int32).contiguous()
+    dev = batch.x.device
+    name = "stjoin_sim_panel_fused" + ("" if plan is None else "_pruned")
+    args = (*(t.data_ptr() for t in (*ref_ops, *cand_ops)), gid.data_ptr(),
+            gid.data_ptr(), T, M, T, M, ms, p0, Sb, *sj._eps(*eps))
+    fwd = torch.empty((Sb, S), dtype=torch.float32, device=dev)
+    rev = torch.empty((Sb, S), dtype=torch.float32, device=dev)
+    tail = ()
+    if plan is not None:         # the panel's slices of the plan's entries
+        lo, hi = p0 // ms, min(T - 1, (p0 + Sb - 1) // ms)
+        fwd_pairs, blocks = plan.by_row
+        rev_pairs, tiles = plan.by_tile
+        f0, f1 = (int(i) for i in blocks.searchsorted([lo, hi + 1]))
+        r0, r1 = (int(i) for i in tiles.searchsorted(
+            [lo // sj.FUSED_BC, hi // sj.FUSED_BC + 1]))
+        row = fwd_pairs.stride(0) * fwd_pairs.element_size()
+        tail = (fwd_pairs.data_ptr() + f0 * row, f1 - f0,
+                rev_pairs.data_ptr() + r0 * row, r1 - r0, lo, hi)
+
+    def call():
+        if plan is not None:     # cells of skipped pairs stay +0.0
+            fwd.zero_()
+            rev.zero_()
+        launch(name, *args, *tail, fwd.data_ptr(), rev.data_ptr(),
+               device=dev)
+    call.operands = (ref_ops, cand_ops, gid)    # alive as long as call
+    return call, [(fwd, rev)]
+
+
+def measure(cs, batch, params, path):
+    """One ``run_dsc`` call of ``path``, then its middle panel's kernel
+    alone and through the public wrapper."""
+    from repro_torch.core.dsc import plan_fused_tile_ids, run_dsc
+    from repro_torch.core.similarity import plan_panel
+    from repro_torch.kernels.stjoin import ops as sj
+    plan = cs.kernel_plan(path)
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_dsc(batch, params, plan=plan, device=batch.x.device,
+                  stage_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = params.max_subtrajs_per_traj
+    S = batch.num_trajs * ms
+    Sb = plan_panel(S)
+    p0 = (S // Sb // 2) * Sb
+    eps = (params.eps_sp, params.eps_t, params.delta_t)
+    tiles = plan_fused_tile_ids(batch, params, plan)
+    sub = out.seg.sub_local
+    call, got = panel_call(sj, batch, sub, ms, eps, p0, Sb, tiles)
+    call()
+    want = sj.stjoin_sim_panel_fused(batch, batch, sub, sub, ms, *eps,
+                                     p0=p0, panel=Sb, tile_ids=tiles)
+    cs.check(all(torch.equal(a, b) for a, b in zip(got[-1], want)),
+             f"{path}: the prepared launch differs from the public wrapper")
+    alone = cs.graph_ms(call)
+    wrapper = cs.time_ms(lambda: sj.stjoin_sim_panel_fused(
+        batch, batch, sub, sub, ms, *eps, p0=p0, panel=Sb, tile_ids=tiles),
+        reps=10)
+    return dict(path=path, p0=p0, panel=Sb, alone_ms=alone,
+                wrapper_ms=wrapper, wall_s=wall,
+                similarity_ms=times["similarity"], final_k=out.sim_topk.k,
+                dispatches=out.dispatches,
+                clusters=int(out.result.is_rep.sum()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the src directory of the port to time")
+    ap.add_argument("--label", default="", help="a name for the JSON line")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("panel_kernel_ms: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch import kernels
+    dev = torch.device("cuda")
+    card = cs.gpu_line()
+    kernels.library()
+    k7 = measure(cs, *cs.brest_batch(4096, dev), "fused_topk")
+    k13 = measure(cs, *cs.brest_batch(4096, dev, sort_by_lane=True),
+                  "fused_topk+index")
+    print(card)
+    print(json.dumps(dict(label=args.label, src=args.src, card=card,
+                          K7=k7, K13=k13)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
