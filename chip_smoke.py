@@ -26,10 +26,14 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
 5. Each kernel against its plain PyTorch version on the card, on its main
    path's full-size inputs: integer / boolean outputs equal, float outputs
    bitwise equal.  Times the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call.
+   PyTorch call computes the same function, that call.  K2's and K4's
+   (group, chunk) skip counts equal the plain mirror's; the pair slots
+   they evaluate are printed beside those of every pair and the needed
+   ones, with ptxas' registers and spills.
 6. The fused path at ``dsc_sis`` (8192 vessels x 128 points, S = 65,536;
    the same generator and parameters): launch counts, sanity checks,
-   stage times and peak memory.
+   stage times and peak memory; then K2 and K4 on its inputs, timed and
+   bitwise their plain versions on the first 256 rows.
 
 Top-K similarity (``sim_mode="topk"``, the default K = 32 and widening):
 
@@ -56,7 +60,8 @@ Index pruning (``use_index=True``, the pruned kernels K10-K13):
 * dsc_brest as the launcher lays it out (after the brest main paths): the
   three pruned paths, each launching exactly its kernels; labels, ``sim``
   and the top-K lists equal to the unpruned runs'; then K10 bitwise K1,
-  K11 bitwise K2 (vote and words), K12 bitwise K4, K13 bitwise K7 on
+  K11 bitwise K2 (vote and words), K12 bitwise K4 (the skip counts of
+  both equal to the plain mirror's over the plan), K13 bitwise K7 on
   every panel, and the skip counts of both equal to the plain mirror's on
   every panel; tile counts, tile-list widths, planning ms, stage times and
   peak memory printed;
@@ -644,13 +649,25 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
         f"ms (plan, two fills, K10), dense {jms[False]:.3f} ms (K1)")
 
     # ---- K11 against K2, K12 against K4 -----------------------------------
-    kv, kwords = sj.stjoin_vote_fused_arrays(*arrs, *eps, tile_ids=fplan)
+    stats = torch.zeros(2, dtype=torch.int64, device=batch.x.device)
+    kv, kwords = sj.stjoin_vote_fused_arrays(*arrs, *eps, tile_ids=fplan,
+                                             stats=stats)
+    mirror = sj.fused_skip_counts(batch.t, batch.valid, batch.t, batch.valid,
+                                  params.eps_t, tile_ids=fplan)
+    n_pairs = sj.fused_pairs(T, C, fplan).shape[0]
+    needed = K1_OPS_PER_PAIR * kept_window_pairs(
+        batch, params.eps_t, fplan.tile_ids, M, fplan.bc)
+    log(f"{name}: K11 {n_pairs} (row, candidate) pairs planned; "
+        + fused_skips(stats, mirror, n_pairs * M * Mc, needed, "K11"))
     dv, dwords = sj.stjoin_vote_fused_arrays(*arrs, *eps)
     check(torch.equal(kv, dv) and torch.equal(kwords, dwords),
           f"{name}: K11 vote / words not bitwise K2's")
     del dv, dwords
+    stats.zero_()
     raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps,
-                              tile_ids=fplan)
+                              tile_ids=fplan, stats=stats)
+    log(f"{name}: K12 " + fused_skips(stats, mirror, n_pairs * M * Mc,
+                                      needed, "K12"))
     draw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps)
     check(torch.equal(raw, draw), f"{name}: K12 raw not bitwise K4's")
     del draw
@@ -680,8 +697,7 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
     del pv, pwords
     live, _ = fplan.by_row
     if timed:
-        fpairs = kept_window_pairs(batch, params.eps_t, fplan.tile_ids, M,
-                                   fplan.bc)
+        fpairs = needed // K1_OPS_PER_PAIR
         reads = live_reads(live, M, fplan.bc, P, C)
         K = fplan.tile_ids.shape[1]     # a row shorter than K reads its -1
         short = int(((fplan.tile_ids >= 0).sum(1) < K).sum())
@@ -718,7 +734,7 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
               "K7": sj.sim_panel_sweep(batch, batch, sub, sub, ms_, *eps)}
     swept = {k: 0.0 for k in sweeps}
     counts = {k: [0, 0] for k in sweeps}
-    stats = torch.zeros(2, dtype=torch.int32, device=batch.x.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=batch.x.device)
 
     def timed_panel(key):
         stats.zero_()
@@ -1034,7 +1050,11 @@ def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
     sweep_ms = K1_OPS_PER_PAIR * P * C * Mc / F32_OPS_PER_S * 1e3
 
     # ---- K2: vote sums and packed words ----------------------------------
-    kv, kw = sj.stjoin_vote_fused_arrays(*arrs, *eps)
+    stats = torch.zeros(2, dtype=torch.int64, device=batch.x.device)
+    kv, kw = sj.stjoin_vote_fused_arrays(*arrs, *eps, stats=stats)
+    mirror = sj.fused_skip_counts(batch.t, batch.valid, batch.t, batch.valid,
+                                  params.eps_t)
+    log("  K2 " + fused_skips(stats, mirror, P * C * Mc, ops, "K2"))
     ms = time_ms(lambda: sj.stjoin_vote_fused_arrays(*arrs, *eps), reps=3)
     plain_out = []
     tail = time_ms(lambda: plain_out.append(vote_words_ref(
@@ -1049,12 +1069,15 @@ def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
     kernel_row(rows, "stjoin_vote_fused", launches, err, ms, k1_plain + tail,
                bound_ms(join_input_bytes(P, C, Mc) + P * 4 + P * W * 4, ops))
     log(f"  K2 plain = K1 plain {k1_plain:.1f} ms + refine, vote and words "
-        f"{tail:.1f} ms; full-sweep floor {sweep_ms:.4f} ms; library none")
+        f"{tail:.1f} ms; full-sweep floor {sweep_ms:.4f} ms; library none; "
+        f"ptxas {PTXAS.get(FUSED_PTXAS['stjoin_vote_fused'], 'not built in this run')}")
     del kv, kw, pv, pwords
 
     # ---- K4: the raw similarity scatter ----------------------------------
     sub = fout.seg.sub_local
-    raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps)
+    stats.zero_()
+    raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps, stats=stats)
+    log("  K4 " + fused_skips(stats, mirror, P * C * Mc, ops, "K4"))
     ms = time_ms(lambda: sj.stjoin_sim_fused(batch, batch, sub, sub, ms_,
                                              *eps), reps=3)
     w_r, i_r = run_refine(pw, pi, ref_t, M, params.delta_t)
@@ -1071,8 +1094,68 @@ def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
                         + S * S * 4, ops))
     log(f"  K4 plain = K1 plain {k1_plain:.1f} ms + refine and scatter "
         f"{tail:.1f} ms; {int((praw > 0).sum())} nonzero cells of {S * S}; "
-        f"full-sweep floor {sweep_ms:.4f} ms; library none")
+        f"full-sweep floor {sweep_ms:.4f} ms; library none; ptxas "
+        f"{PTXAS.get(FUSED_PTXAS['stjoin_sim_fused'], 'not built in this run')}")
     return raw
+
+
+def fused_skips(stats, mirror, pair_slots: int, ops: int, what: str) -> str:
+    """The (group, chunk) pairs a K2 / K4 / K11 / K12 launch tested and
+    skipped (``stats``), held equal to the plain mirror, and the pair slots
+    the kept ones hold against every pair of the launch and the f32
+    operations the needed pairs take, as a log phrase."""
+    swept, skipped = stats.tolist()
+    check([swept, skipped] == list(mirror),
+          f"{what}: swept / skipped {swept} / {skipped} (group, chunk) "
+          f"pairs, the mirror {mirror[0]} / {mirror[1]}")
+    slots = (swept - skipped) * PANEL_SLOTS
+    return (f"{skipped} of {swept} (group, chunk) pairs skipped (equal to "
+            f"the mirror; {100 * (swept - skipped) / max(swept, 1):.2f}% "
+            f"kept), {slots} pair slots evaluated of {pair_slots} "
+            f"({pair_slots / max(slots, 1):.1f}x fewer), "
+            f"{ops // K1_OPS_PER_PAIR} needed")
+
+
+def phase_fused_head(batch, params, sub, report, name: str, n_plain: int):
+    """K2 and K4 on the fused path's inputs (``sub``: its segmentation),
+    timed, and bitwise against their plain versions on the first
+    ``n_plain`` reference rows against every candidate (the plain join of
+    every row would not fit at dsc_sis: [P, C] = 8.6e9 pairs)."""
+    from repro_torch.core.similarity import slot_ids
+    from repro_torch.kernels.stjoin import ops as sj
+    from repro_torch.kernels.stjoin.ref import (stjoin_sim_fused_ref,
+                                                stjoin_vote_fused_ref)
+    T, M = batch.x.shape
+    ms_ = params.max_subtrajs_per_traj
+    S = T * ms_
+    nP, nS = n_plain * M, n_plain * ms_
+    arrs = (batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2
+    eps = (params.eps_sp, params.eps_t, params.delta_t)
+    ref_ops, cand_ops = sj._flat_operands(*arrs)
+    head = tuple(a[:nP] for a in ref_ops)
+    kv, kw = sj.stjoin_vote_fused_arrays(*arrs, *eps)
+    ms2 = time_ms(lambda: sj.stjoin_vote_fused_arrays(*arrs, *eps), reps=3)
+    pv, pw = stjoin_vote_fused_ref(*head, *cand_ops, *eps, M=M)
+    check(torch.equal(kv.view(-1)[:nP], pv)
+          and torch.equal(kw.view(T * M, -1)[:nP], pw),
+          f"{name}: K2 vote / words not bitwise the plain version on rows "
+          f"[0, {n_plain})")
+    del kv, kw, pv, pw
+    raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps)
+    ms4 = time_ms(lambda: sj.stjoin_sim_fused(batch, batch, sub, sub, ms_,
+                                              *eps), reps=3)
+    praw = stjoin_sim_fused_ref(
+        *head, slot_ids(sub[:n_plain], ms_, nS).view(-1), *cand_ops,
+        slot_ids(sub, ms_, S), *eps, M=M, n_src=nS, n_dst=S)
+    check(torch.equal(raw[:nS], praw),
+          f"{name}: K4 raw not bitwise the plain version on rows "
+          f"[0, {n_plain})")
+    log(f"{name}: K2 (vote, words) and K4 (raw) bitwise their plain "
+        f"versions on rows [0, {n_plain}); K2 {ms2:.3f} ms, K4 {ms4:.3f} ms "
+        "(CUDA events, public wrappers)")
+    report[f"{name}_fused_kernels"] = dict(k2_ms=ms2, k4_ms=ms4,
+                                           plain_rows=n_plain)
+    del raw, praw
 
 
 def panel_skips(sweep, p0: int, Sb: int, stats, what: str) -> str:
@@ -1121,7 +1204,7 @@ def phase_topk_kernels(batch, params, tout, launches, raw, rows):
     sub = tout.seg.sub_local
     p0 = (S // Sb // 2) * Sb
     sweep = sj.sim_panel_sweep(batch, batch, sub, sub, ms_, *eps)
-    stats = torch.zeros(2, dtype=torch.int32, device=batch.x.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=batch.x.device)
     fwd, rev = sweep(p0, panel=Sb, stats=stats)
     skips = panel_skips(sweep, p0, Sb, stats, "K7")
     wrapper = time_ms(lambda: sj.stjoin_sim_panel_fused(
@@ -1494,6 +1577,10 @@ def kernel_name(line: str) -> str | None:
 # ptxas' registers and spills of each kernel instantiation, by name (empty
 # when the library was already built)
 PTXAS: dict[str, str] = {}
+# the kernel instantiation each fused launcher runs (K4 / K12 launch the
+# forward blocks of K7's / K13's kernel, K11 K2's kernel)
+FUSED_PTXAS = {"stjoin_vote_fused": "stjoin_vote_fused_kernel",
+               "stjoin_sim_fused": "stjoin_sim_panel_fused_kernel"}
 
 
 def log_ptxas(build_log: str) -> None:
@@ -1592,10 +1679,14 @@ def main(argv=None) -> int:
                          rows, name, n_plain=sbatch.num_trajs)
     del sbatch, join_ids, fplan, sub
     torch.cuda.empty_cache()
-    _, _, sout, _ = phase_main(dev, report, "fused", n_vessels=8192,
-                               name="dsc_sis")
+    sbatch, sparams, sout, _ = phase_main(dev, report, "fused",
+                                          n_vessels=8192, name="dsc_sis")
     dense_labels = [getattr(sout.result, f).cpu() for f in LABELS]
+    sub = sout.seg.sub_local
     del sout
+    torch.cuda.empty_cache()
+    phase_fused_head(sbatch, sparams, sub, report, "dsc_sis", n_plain=256)
+    del sbatch, sub
     torch.cuda.empty_cache()
     _, _, stout, _ = phase_main(dev, report, "fused_topk", n_vessels=8192,
                                 name="dsc_sis")

@@ -61,13 +61,14 @@ _SIGNATURES = {
                                       ctypes.c_float, ctypes.c_float,
                                       _P, _P, _P],
     # ref x, y, t, id, ok; cand x, y, t, id, ok; T, M, C, Mc; eps_sp,
-    # eps_t, delta_t; vote, words (NULL for TSA1), W; stream
+    # eps_t, delta_t; chunk time bounds lo, hi; skip counts (NULL: none);
+    # vote, words (NULL for TSA1), W; stream
     "stjoin_vote_fused": [_P] * 10 + [_I] * 4 + [ctypes.c_float] * 3
-                         + [_P, _P, _I, _P],
+                         + [_P] * 3 + [_P, _P, _I, _P],
     # the K2 operands, ref_gid, cand_gid; T, M, C, Mc, ms; eps_sp, eps_t,
-    # delta_t; raw; stream
+    # delta_t; chunk bounds lo, hi; skip counts; raw; stream
     "stjoin_sim_fused": [_P] * 12 + [_I] * 5 + [ctypes.c_float] * 3
-                        + [_P, _P],
+                        + [_P] * 3 + [_P, _P],
     # the K4 operands up to ms; p0, panel; eps_sp, eps_t, delta_t; chunk
     # time bounds lo, hi; skip counts (NULL: none); fwd, rev; stream
     "stjoin_sim_panel_fused": [_P] * 12 + [_I] * 7 + [ctypes.c_float] * 3
@@ -80,12 +81,13 @@ _SIGNATURES = {
                                              _P, _P, _P],
     # the K2 operands up to W; tile_ids, K; stream
     "stjoin_vote_fused_pruned": [_P] * 10 + [_I] * 4
-                                + [ctypes.c_float] * 3
+                                + [ctypes.c_float] * 3 + [_P] * 3
                                 + [_P, _P, _I, _P, _I, _P],
     # the K4 operands up to delta_t; live (row, tile) pairs, their count;
-    # raw; stream
+    # chunk bounds lo, hi; skip counts; raw; stream
     "stjoin_sim_fused_pruned": [_P] * 12 + [_I] * 5 + [ctypes.c_float] * 3
-                               + [_P, ctypes.c_longlong, _P, _P],
+                               + [_P, ctypes.c_longlong] + [_P] * 3
+                               + [_P, _P],
     # the K7 operands up to delta_t; forward pairs and count, reverse
     # pairs and count; c_lo, c_hi; chunk bounds, skip counts; fwd, rev;
     # stream

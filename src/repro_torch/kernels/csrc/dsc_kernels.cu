@@ -23,6 +23,10 @@
 //   stjoin_sim_panel_fused_pruned
 //                      <- repro/kernels/stjoin/stjoin.py  stjoin_sim_panel_fused_pruned_flat
 //
+// (C launchers; stjoin_vote_fused and its pruned twin launch one kernel,
+// stjoin_sim_fused the forward blocks of stjoin_sim_panel_fused's kernel,
+// stjoin_sim_fused_pruned those of its pruned twin's.)
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (never --use_fast_math).  The arithmetic below also spells out the
 // IEEE-rounded intrinsics, so no flag can contract d2 into an FMA or
@@ -40,7 +44,9 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// The best-match sweep shared by K1, K2 and K4.
+// The best-match sweep of K1 and K10 (the fused passes run the time-window
+// sweep further down, panel_sweep, with the same matches, weights and
+// indices).
 //
 // For every (reference point p, candidate trajectory c): the best weight
 // 1 - sqrt(d2)/eps_sp over c's points inside the (eps_sp, eps_t) cylinder,
@@ -54,8 +60,7 @@ namespace {
 // memory ([point][candidate], padded, so both the staging stores and the
 // per-point reads are conflict-free).  The candidate points are walked in
 // index order with a strict '>', so the first index wins ties exactly as
-// argmax does in the reference.  K1, K2 and K4 all call this one function,
-// so their matches, weights and indices cannot drift apart.
+// argmax does in the reference.
 // ---------------------------------------------------------------------------
 constexpr int K1_TC = 32;    // candidates per block (threadIdx.x)
 constexpr int K1_TY = 8;     // thread rows per block (threadIdx.y)
@@ -196,283 +201,71 @@ stjoin_best_match_kernel(JoinOperands op, long long P, unsigned n_pb,
                    (int)(x / n_pb) * K1_TC, out_w, out_idx);
 }
 
-// ---------------------------------------------------------------------------
-// The fused passes K2 and K4 work on one reference trajectory row (its M
-// points are consecutive in the flat operands) against one tile of 32
-// candidates at a time.  sweep_row_tile runs the sweep over the row in
-// chunks of 64 points and leaves the tile's weights (0 = no match) and
-// winning indices (-1 = none) in shared memory, [m][32] padded to 33.
-// refine_tile is the delta_t run refine (DTJ's Refine step): for one
-// candidate, a run is a maximal streak of consecutive matched m; it
-// survives iff max(t) - min(t) over the run is >= delta_t, exactly the
-// test of repro_torch.core.geometry.filter_delta_t.  One thread per
-// candidate walks the row in order.  delta_t <= 0 keeps every run.
-// ---------------------------------------------------------------------------
-constexpr int kTileStride = K1_TC + 1;
-
-__device__ __forceinline__ void sweep_row_tile(SweepSmem& sm,
-                                               const JoinOperands& op,
-                                               long long row0, int M, int c0,
-                                               float* tw, int* tidx) {
-  for (int m0 = 0; m0 < M; m0 += K1_PTS) {
-    float best[K1_NP];
-    int arg[K1_NP];
-    sweep_best(sm, op, row0 + m0, row0 + M, c0, best, arg);
-#pragma unroll
-    for (int k = 0; k < K1_NP; ++k) {
-      const int m = m0 + threadIdx.y + k * K1_TY;
-      if (m < M) {
-        const int e = m * kTileStride + threadIdx.x;
-        tw[e] = best[k] > 0.f ? best[k] : 0.f;
-        if (tidx != nullptr) tidx[e] = best[k] > 0.f ? arg[k] : -1;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Called by the 32 threads of threadIdx.y == 0 (lane j owns candidate
-// c0 + j); the caller synchronizes afterwards.
-__device__ __forceinline__ void refine_tile(float* tw, int* tidx,
-                                            const float* __restrict__ rt_row,
-                                            int M, float delta_t) {
-  if (!(delta_t > 0.f)) return;
-  const int j = threadIdx.x;
-  int m = 0;
-  while (m < M) {
-    if (!(tw[m * kTileStride + j] > 0.f)) {
-      ++m;
-      continue;
-    }
-    const int first = m;
-    float lo = rt_row[m], hi = lo;
-    while (m + 1 < M && tw[(m + 1) * kTileStride + j] > 0.f) {
-      ++m;
-      lo = fminf(lo, rt_row[m]);
-      hi = fmaxf(hi, rt_row[m]);
-    }
-    if (!(__fsub_rn(hi, lo) >= delta_t)) {
-      for (int k = first; k <= m; ++k) {
-        tw[k * kTileStride + j] = 0.f;
-        if (tidx != nullptr) tidx[k * kTileStride + j] = -1;
-      }
-    }
-    ++m;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2: fused pass 1 -> vote [P] f32 and, for TSA2, the packed neighbor
-// words [P, W] (W = ceil(C/32), bit j of word c0/32 = candidate c0 + j
-// matched after the refine).
-//
-// Bound: operations (the sweep); it writes 4*P*(1 + W) bytes instead of
-// K1's 8*P*C.  Design: one block per reference row walks every candidate
-// tile in ascending order: sweep, refine, then one thread per point adds
-// the tile's 32 refined weights to its running vote and builds the tile's
-// word.  So vote[p] is the sum over c in ascending order, one rounded add
-// at a time, starting from +0.0 (the plain version's order), with no
-// atomics; each word is written whole by one thread.
-// ---------------------------------------------------------------------------
-// One candidate tile of K2 / K11 for the row at row0: sweep, refine, then
-// the thread of point m adds the tile's 32 refined weights to acc[m] in
-// ascending candidate order and writes the tile's word, after zeroing the
-// row's words [w_from, c0 / 32) (tiles K11 skips; K2 passes w_from =
-// c0 / 32).  Every thread calls it: it synchronizes.
-__device__ __forceinline__ void vote_tile(SweepSmem& sm,
-                                          const JoinOperands& op, int M,
-                                          float delta_t, long long row0,
-                                          int c0, float* tw, float* acc,
-                                          int* __restrict__ words, int W,
-                                          int w_from) {
-  const int tid = threadIdx.y * K1_TC + threadIdx.x;
-  sweep_row_tile(sm, op, row0, M, c0, tw, nullptr);
-  if (threadIdx.y == 0) refine_tile(tw, nullptr, op.rt + row0, M, delta_t);
-  __syncthreads();
-  const int nc = min(K1_TC, op.C - c0);
-  for (int m = tid; m < M; m += kThreads) {
-    float a = acc[m];
-    uint32_t word = 0u;
-    for (int j = 0; j < nc; ++j) {
-      const float w = tw[m * kTileStride + j];
-      a = __fadd_rn(a, w);
-      word |= (w > 0.f ? 1u : 0u) << j;
-    }
-    acc[m] = a;
-    if (words != nullptr) {
-      int* row = words + (size_t)(row0 + m) * W;
-      for (int k = w_from; k < c0 / K1_TC; ++k) row[k] = 0;
-      row[c0 / K1_TC] = (int)word;
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-stjoin_vote_fused_kernel(JoinOperands op, int M, float delta_t,
-                         float* __restrict__ vote, int* __restrict__ words,
-                         int W) {
+// K10 <- stjoin_pallas_pruned: K1 over the live (64-point block, 32-
+// candidate tile) pairs of the index's plan (the plans are described with
+// K11-K13 below).  The wrapper fills best_w with 0 and best_idx with
+// -1 first (two memsets), then one block per live pair writes its 64 x 32
+// outputs.  Four blocks per SM, K1's occupancy: left free, ptxas gives
+// this kernel 80 registers (K1: 64), which fits only three.
+__global__ void __launch_bounds__(kThreads, 4)
+stjoin_best_match_pruned_kernel(JoinOperands op, long long P,
+                                const int2* __restrict__ pairs,
+                                float* __restrict__ out_w,
+                                int* __restrict__ out_idx) {
   __shared__ SweepSmem sm;
-  extern __shared__ float dyn[];
-  float* tw = dyn;                        // [M][33]
-  float* acc = dyn + M * kTileStride;     // [M]
-  const int tid = threadIdx.y * K1_TC + threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * M;
-  for (int m = tid; m < M; m += kThreads) acc[m] = 0.f;
-
-  for (int c0 = 0; c0 < op.C; c0 += K1_TC)
-    vote_tile(sm, op, M, delta_t, row0, c0, tw, acc, words, W, c0 / K1_TC);
-  for (int m = tid; m < M; m += kThreads) vote[row0 + m] = acc[m];
-}
-
-// The scatter of one (row t, tile of candidates from c0) block of K4 and
-// K7 into shared memory: blk[j][i*ms + k] (padded to ms*ms + 1 per
-// candidate) sums, in ascending m, the refined weights of row t's point m
-// whose ref slot is t*ms + i and whose matched point of candidate c0 + j
-// has the slot (c0 + j)*ms + k.  Every thread calls it: it synchronizes.
-__device__ __forceinline__ void sim_block(SweepSmem& sm,
-                                          const JoinOperands& op, int M,
-                                          float delta_t,
-                                          const int* __restrict__ ref_gid,
-                                          const int* __restrict__ cand_gid,
-                                          int ms, long long t, int c0,
-                                          float* dyn) {
-  const int bs = ms * ms + 1;                             // padded block
-  float* tw = dyn;                                        // [M][33]
-  int* tidx = reinterpret_cast<int*>(dyn + M * kTileStride);  // [M][33]
-  float* blk = dyn + 2 * M * kTileStride;                 // [32][bs]
-  const int tid = threadIdx.y * K1_TC + threadIdx.x;
-  const long long row0 = t * M;
-  for (int e = tid; e < K1_TC * bs; e += kThreads) blk[e] = 0.f;
-
-  sweep_row_tile(sm, op, row0, M, c0, tw, tidx);
-  if (threadIdx.y == 0) {
-    refine_tile(tw, tidx, op.rt + row0, M, delta_t);
-    const int j = threadIdx.x, c = c0 + j;
-    if (c < op.C) {
-      float* b = blk + j * bs;
-      for (int m = 0; m < M; ++m) {
-        const float w = tw[m * kTileStride + j];
-        if (!(w > 0.f)) continue;
-        const int src = ref_gid[row0 + m];
-        const int dst = cand_gid[(size_t)c * op.Mc + tidx[m * kTileStride + j]];
-        const long long i = (long long)src - t * ms;      // sentinels fall
-        const long long k = (long long)dst - (long long)c * ms;  // outside
-        if (i < 0 || i >= ms || k < 0 || k >= ms) continue;
-        b[i * ms + k] = __fadd_rn(b[i * ms + k], w);
-      }
-    }
-  }
-  __syncthreads();
+  const int2 e = pairs[blockIdx.x];
+  best_match_block(sm, op, P, (long long)e.x * K1_PTS, e.y * K1_TC, out_w,
+                   out_idx);
 }
 
 // ---------------------------------------------------------------------------
-// K4: fused pass 2 -> raw [T*ms, C*ms] f32, the un-normalized similarity
-// scatter: raw[ref_gid[p], cand_gid[c, idx]] += w for every refined match.
+// The time-window sweep shared by the fused passes K2, K4, K7 and their
+// pruned twins K11-K13.
 //
-// The slot maps are block-structured: ref_gid of row t lies in
-// [t*ms, (t+1)*ms) or is the sentinel T*ms, cand_gid of candidate c in
-// [c*ms, (c+1)*ms) or the sentinel C*ms (the wrapper checks this).  So
-// the work of one (row t, candidate c) pair writes one ms x ms block of
-// raw and nothing else.
+// A block of 32 x 8 threads sweeps 32 (reference row t, candidate c) pairs,
+// one per lane: K2, K4 and K11-K12 the pairs of one row against a tile of
+// 32 candidates (the tile is one packed TSA2 word), K7 / K13 those and, in
+// their reverse blocks, a few rows against the few candidates that own a
+// panel slot.  The sweep leaves each lane's best match per reference point
+// m -- weight (0 = none) and, where slot maps are given, the match's cell
+// in the pair's ms x ms block -- in [M][33] tiles of shared memory, for the
+// consumers: K2's vote and words, the similarity scatter of K4 and K7.
 //
-// Bound: bytes (every cell of raw written once).  Design: one block per
-// (row t, tile of 32 candidates): sweep with argmax, refine, then lane j
-// owns candidate c0 + j and walks m in ascending order, adding each
-// weight into its ms x ms block in shared memory (sim_block) -- each cell
-// sums in the reference's flat (t, m, c) order, one rounded add at a time
-// from +0.0, without atomics.  Finally the block writes its [ms, 32*ms]
-// slab of raw whole (zeros included), so raw needs no zero fill.
-// ---------------------------------------------------------------------------
-// One (row t, tile from c0) block of K4 / K12: sim_block, then the block
-// writes its [ms, 32*ms] slab of raw whole (zeros included).
-__device__ __forceinline__ void sim_fused_block(
-    SweepSmem& sm, const JoinOperands& op, int M, float delta_t,
-    const int* __restrict__ ref_gid, const int* __restrict__ cand_gid,
-    int ms, long long n_dst, long long t, int c0, float* dyn,
-    float* __restrict__ raw) {
-  sim_block(sm, op, M, delta_t, ref_gid, cand_gid, ms, t, c0, dyn);
-  const int bs = ms * ms + 1;
-  const float* blk = dyn + 2 * M * kTileStride;
-  const int tid = threadIdx.y * K1_TC + threadIdx.x;
-  const int ncols = min(K1_TC, op.C - c0) * ms;
-  for (int e = tid; e < ms * ncols; e += kThreads) {
-    const int i = e / ncols, col = e % ncols;
-    const int cl = col / ms, k = col % ms;
-    raw[(size_t)(t * ms + i) * n_dst + (size_t)c0 * ms + col] =
-        blk[cl * bs + i * ms + k];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-stjoin_sim_fused_kernel(JoinOperands op, int M, unsigned T, float delta_t,
-                        const int* __restrict__ ref_gid,
-                        const int* __restrict__ cand_gid, int ms,
-                        long long n_dst, float* __restrict__ raw) {
-  __shared__ SweepSmem sm;
-  extern __shared__ float dyn[];
-  // linear grid, as K1's: row x % T of candidate tile x / T
-  const unsigned x = blockIdx.x;
-  sim_fused_block(sm, op, M, delta_t, ref_gid, cand_gid, ms, n_dst,
-                  (int)(x % T), (int)(x / T) * K1_TC, dyn, raw);
-}
-
-// ---------------------------------------------------------------------------
-// K7: fused pass 2 for one panel of slots [p0, p0 + panel), in both
-// orientations: fwd[i, j] = raw[p0 + i, j] ([panel, C*ms]) and
-// rev[i, j] = raw[j, p0 + i] ([panel, T*ms]), bit for bit K4's cells.
-//
-// With the block slot maps only few pairs reach a panel: fwd needs the
-// rows t_lo..t_hi that own a panel slot against every candidate, rev
-// every row against the candidates c_lo..c_hi that own one (rev[i, j]
-// comes from the pair (row j / ms, candidate (p0 + i) / ms)).  The TPU
-// kernel re-sweeps all T*C pairs per panel; this one sweeps about
-// 2 * (panel / ms + 1) * T pairs of trajectories.
-//
-// Bound: bytes (the two slabs written once, 2 * panel * S * 4); the pairs
-// with |dt| <= eps_t are about 1% of the point pairs of those
-// trajectories.  Design:
-// - One (reference row t, candidate c) pair per lane, 32 per block.
-//   Forward blocks: a row that owns a panel slot against a tile of 32
-//   candidates.  Reverse blocks: the n_lane panel candidates of one
-//   32-candidate tile against per_block = 32 / n_lane rows, so with 16
-//   panel candidates (ms = 8, panel = 128) every lane has a live pair.
-// - An exact time-window skip (panel_sweep).  Thread (lane j, warp w)
-//   takes, per pass of 64 points, the group of 8 consecutive points
-//   64s + 8w .. 64s + 8w + 7 of its lane's row: points close in time, with
-//   bounds [p_min, p_max] over its valid times.  The wrapper gives the
-//   min / max time over the valid points of each chunk of 8 candidate
-//   points ([C, ceil(Mc/8)], once per dispatch).  A thread skips chunk k
-//   iff the group or the chunk holds no valid time, or
+// Bound: the pairs with |dt| <= eps_t are about 1% of the point pairs of
+// the swept trajectories at dsc_brest (2.66e9 of 2.75e11 for all T x C).
+// Design:
+// - An exact time-window skip.  Thread (lane j, warp w) takes, per pass of
+//   64 points, the group of 8 consecutive points 64s + 8w .. 64s + 8w + 7
+//   of its lane's row: points close in time, with bounds [p_min, p_max]
+//   over their valid times.  The wrapper gives the min / max time over the
+//   valid points of each chunk of 8 candidate points ([C, ceil(Mc/8)],
+//   stjoin/ref.py::chunk_time_bounds, once per call or dispatch).  A thread
+//   skips chunk k iff the group or the chunk holds no valid time, or
 //   __fsub_rn(q_min, p_max) > eps_t, or __fsub_rn(p_min, q_max) > eps_t:
-//   the pair test's own IEEE subtraction, and rounding is monotone and
-//   odd, so every pair of a skipped chunk has |fl(pt - qt)| > eps_t and
-//   fails the test (a NaN bound never skips).  Each lane walks only its
-//   own kept chunks (the set bits of a mask) in ascending index.
+//   the pair test's own IEEE subtraction, and rounding is monotone and odd,
+//   so every pair of a skipped chunk has |fl(pt - qt)| > eps_t and fails
+//   the test (a NaN bound never skips).  Each lane walks only its own kept
+//   chunks (the set bits of a mask) in ascending index.
 // - Per kept chunk, the cylinder test of its 8 x 8 pairs sets a mask; the
-//   IEEE square root and division of the weight then run per lane over
-//   its own passes, in ascending index with a strict '>', so (best,
-//   argmax) is sweep_best's bit for bit.  (Inside the test loop a warp
-//   would run that branch for every pair that any of its lanes passes.)
+//   IEEE square root and division of the weight then run per lane over its
+//   own passes, in ascending index with a strict '>', so (best, argmax) is
+//   sweep_best's bit for bit.  (Inside the test loop a warp would run that
+//   branch for every pair that any of its lanes passes.)
 // - The block stages its lanes' candidates in shared memory, a window of
 //   wp points at a time (the whole trajectory when Mc <= wp: once per
-//   block; a reverse block's rows read one copy), as x, y and t with
-//   t = NaN where the point is invalid, so the pair test needs no flags;
-//   the reference points of a pair that cannot match (invalid, same
-//   trajectory, dead lane) carry t = NaN too.
-// - The sweep's epilogue maps each match through the slot maps to its
-//   cell of the pair's ms x ms block, with all 256 threads, so the scatter
-//   (one warp) reads only shared memory.  Then refine_tile on each lane's
-//   own row and sim_block's scatter: lane j adds its weights in ascending
-//   m into its block, one rounded add at a time from +0.0, no atomics.
-//   Every cell sums the same weights in the same order as K4's raw; a
-//   block writes only the cells whose slot lies inside the panel (a panel
-//   may split a trajectory's slots), and between them the blocks write
-//   every cell of both slabs.
-// - stats (optional): the (group, chunk) pairs tested and skipped, summed
-//   per warp and added with integer atomics (exact, any order); the plain
-//   mirror is stjoin/ref.py::panel_skip_counts_ref.
+//   sweep; a reverse block's rows read one copy), as x, y and t with t =
+//   NaN where the point is invalid, so the pair test needs no flags; the
+//   reference points of a pair that cannot match (invalid, same
+//   trajectory, dead lane) carry t = NaN too.  The launcher picks the
+//   widest window (128, 64 or 32 points) whose shared memory fits the
+//   card's opt-in limit and refuses a row too long for any.
+// - stats (optional): the (group, chunk) pairs tested and skipped, counted
+//   per thread over the whole block, summed per warp and added with 64-bit
+//   integer atomics once per block (exact, any order); the plain mirror is
+//   stjoin/ref.py::panel_skip_counts_ref over the pairs of the launch
+//   (stjoin/ops.py::fused_pairs, SimPanelSweep.pairs).
 // ---------------------------------------------------------------------------
+constexpr int kTileStride = K1_TC + 1;
 constexpr int kChunk = 8;                  // candidate points per chunk
 constexpr int kGroup = 8;                  // reference points per group
 constexpr int kPassPts = kGroup * K1_TY;   // reference points per pass
@@ -480,7 +273,7 @@ constexpr int kPassPts = kGroup * K1_TY;   // reference points per pass
 struct PanelArgs {
   int M, ms, p0, panel;
   float delta_t;
-  const int* ref_gid;
+  const int* ref_gid;      // slot maps (K4, K7, K12, K13; null for K2, K11)
   const int* cand_gid;
   const float* chunk_lo;   // [C, nch]: min / max time over each chunk's
   const float* chunk_hi;   // valid points, (+inf, -inf) where it has none
@@ -490,7 +283,7 @@ struct PanelArgs {
   int c_lo, c_hi;          // the candidates that own a panel slot
   int n_lane, per_block;   // reverse blocks: candidates per row, rows
   long long n_src, n_dst;
-  int* stats;              // [2]: (group, chunk) pairs swept, skipped
+  unsigned long long* stats;   // [2]: (group, chunk) pairs swept, skipped
   float* fwd;
   float* rev;
 };
@@ -501,15 +294,10 @@ __host__ __device__ inline int panel_bound_stride(int wp) {
   return (wp / kChunk) | 1;
 }
 
-// Dynamic shared memory of K7 / K13 in floats: the [M][33] weights and
-// indices, then the staged window (x, y, t and the chunk bounds), which
-// the ms x ms blocks of the scatter reuse once the sweep is done.
-__host__ __device__ inline long long panel_smem_floats(int M, int ms,
-                                                        int wp) {
-  const long long tile = 3LL * K1_TC * panel_tile_stride(wp)
-                         + 2LL * K1_TC * panel_bound_stride(wp);
-  const long long blk = (long long)K1_TC * (ms * ms + 1);
-  return 2LL * M * kTileStride + (tile > blk ? tile : blk);
+// floats of the staged window: x, y, t and the chunk bounds
+__host__ __device__ inline long long window_floats(int wp) {
+  return 3LL * K1_TC * panel_tile_stride(wp)
+         + 2LL * K1_TC * panel_bound_stride(wp);
 }
 
 // The block's pairs: lane j's row (-1: no pair) and candidate, and the
@@ -528,6 +316,34 @@ struct PanelTile {
   float* lo;
   float* hi;
 };
+
+// The window at `base` (window_floats(wp) floats).
+__device__ __forceinline__ PanelTile panel_tile(float* base, int wp) {
+  const int S7 = panel_tile_stride(wp), SB = panel_bound_stride(wp);
+  return PanelTile{base, base + K1_TC * S7, base + 2 * K1_TC * S7,
+                   base + 3 * K1_TC * S7, base + 3 * K1_TC * S7 + K1_TC * SB};
+}
+
+// (group, chunk) pairs a thread tested and skipped
+struct SweepCounts {
+  unsigned swept, skipped;
+};
+
+// Every thread of the block calls it, once, at the end.
+__device__ __forceinline__ void flush_stats(unsigned long long* stats,
+                                            const SweepCounts& n) {
+  if (stats == nullptr) return;
+  unsigned long long sw = n.swept, sk = n.skipped;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sw += __shfl_down_sync(0xffffffffu, sw, off);
+    sk += __shfl_down_sync(0xffffffffu, sk, off);
+  }
+  if (threadIdx.x == 0 && sw > 0) {
+    atomicAdd(stats, sw);
+    atomicAdd(stats + 1, sk);
+  }
+}
 
 // Stage candidate points [w0, w0 + wp) and their chunk bounds of every
 // live lane that reads its own copy (L.t[j] >= 0, L.s[j] == j); padding
@@ -573,15 +389,16 @@ __device__ __forceinline__ void panel_stage(const JoinOperands& op,
   }
 }
 
-// The sweep of K7 / K13: leaves lane j's weights (0 = no match) in tw
-// [m][33], as sweep_row_tile does for K4, and in tidx [m][33] the cell
-// of each match in the pair's ms x ms block (-1 = none): K4's winning
-// index, mapped through the slot maps.  Every thread calls it: it
-// synchronizes.
+// The sweep: leaves lane j's weights (0 = no match) in tw [m][33] and, if
+// tidx is given, in tidx [m][33] the cell of each match in the pair's
+// ms x ms block (-1 = none): the winning index mapped through the slot
+// maps.  Adds the thread's (group, chunk) counts to n.  Every thread calls
+// it: it synchronizes.
 __device__ __forceinline__ void panel_sweep(const JoinOperands& op,
                                             const PanelArgs& a,
                                             const PanelLanes& L, float* tw,
-                                            int* tidx, const PanelTile& s) {
+                                            int* tidx, const PanelTile& s,
+                                            SweepCounts& n) {
   const int j = threadIdx.x, M = a.M;
   const int S7 = panel_tile_stride(a.wp), SB = panel_bound_stride(a.wp);
   const bool live = L.t[j] >= 0;
@@ -594,7 +411,6 @@ __device__ __forceinline__ void panel_sweep(const JoinOperands& op,
   const float* qx = s.x + row * S7;
   const float* qy = s.y + row * S7;
   const float* qt = s.t + row * S7;
-  int n_swept = 0, n_skipped = 0;
   if (one_window) {
     panel_stage(op, a, 0, L, s);
     __syncthreads();
@@ -638,8 +454,8 @@ __device__ __forceinline__ void panel_sweep(const JoinOperands& op,
         }
       }
       if (counted) {
-        n_swept += nchw;
-        n_skipped += nchw - __popc(keep);
+        n.swept += nchw;
+        n.skipped += nchw - __popc(keep);
       }
       while (keep != 0u) {                        // ascending chunks
         const int k = __ffs(keep) - 1;
@@ -681,38 +497,202 @@ __device__ __forceinline__ void panel_sweep(const JoinOperands& op,
         }
       }
     }
-    // the cell of each match in the pair's ms x ms block (-1: none, or a
-    // slot outside it: a sentinel), so the scatter reads no global memory
 #pragma unroll
     for (int r = 0; r < kGroup; ++r) {
       const int m = mb + r;
       if (m < M) {
-        const long long i = (live ? a.ref_gid[row0 + m] : 0)
-                            - (long long)t_j * ms;
-        const long long k =
-            (live ? a.cand_gid[(size_t)c_j * op.Mc + arg[r]] : 0)
-            - (long long)c_j * ms;
         const bool matched = best[r] > 0.f;
         tw[m * kTileStride + j] = matched ? best[r] : 0.f;
-        tidx[m * kTileStride + j] =
-            matched && i >= 0 && i < ms && k >= 0 && k < ms ? (int)(i * ms + k)
-                                                        : -1;
+        if (tidx != nullptr) {
+          // the cell of the match in the pair's ms x ms block (-1: none, or
+          // a slot outside it: a sentinel), so the scatter reads no global
+          // memory
+          const long long i = (live ? a.ref_gid[row0 + m] : 0)
+                              - (long long)t_j * ms;
+          const long long k =
+              (live ? a.cand_gid[(size_t)c_j * op.Mc + arg[r]] : 0)
+              - (long long)c_j * ms;
+          tidx[m * kTileStride + j] =
+              matched && i >= 0 && i < ms && k >= 0 && k < ms
+                  ? (int)(i * ms + k) : -1;
+        }
       }
-    }
-  }
-  if (a.stats != nullptr) {
-    n_swept = __reduce_add_sync(0xffffffffu, n_swept);
-    n_skipped = __reduce_add_sync(0xffffffffu, n_skipped);
-    if (j == 0 && n_swept > 0) {
-      atomicAdd(a.stats, n_swept);
-      atomicAdd(a.stats + 1, n_skipped);
     }
   }
   __syncthreads();
 }
 
+// The delta_t run refine (DTJ's Refine step) of lane j's pair, over the
+// weights (and cells) the sweep left for it: a run is a maximal streak of
+// consecutive matched m; it survives iff max(t) - min(t) over the run is
+// >= delta_t, exactly the test of repro_torch.core.geometry.filter_delta_t.
+// delta_t <= 0 keeps every run.  Called by the 32 threads of threadIdx.y
+// == 0; the caller synchronizes afterwards.
+__device__ __forceinline__ void refine_tile(float* tw, int* tidx,
+                                            const float* __restrict__ rt_row,
+                                            int M, float delta_t) {
+  if (!(delta_t > 0.f)) return;
+  const int j = threadIdx.x;
+  int m = 0;
+  while (m < M) {
+    if (!(tw[m * kTileStride + j] > 0.f)) {
+      ++m;
+      continue;
+    }
+    const int first = m;
+    float lo = rt_row[m], hi = lo;
+    while (m + 1 < M && tw[(m + 1) * kTileStride + j] > 0.f) {
+      ++m;
+      lo = fminf(lo, rt_row[m]);
+      hi = fmaxf(hi, rt_row[m]);
+    }
+    if (!(__fsub_rn(hi, lo) >= delta_t)) {
+      for (int k = first; k <= m; ++k) {
+        tw[k * kTileStride + j] = 0.f;
+        if (tidx != nullptr) tidx[k * kTileStride + j] = -1;
+      }
+    }
+    ++m;
+  }
+}
+
+// Lane j's pair: row t against candidate first + o, live up to last.
+__device__ __forceinline__ void panel_lane(PanelLanes& L, bool live,
+                                           long long t, int first, int last,
+                                           int o) {
+  const int c = first + o;
+  live = live && c <= last;
+  L.t[threadIdx.x] = live ? (int)t : -1;
+  L.c[threadIdx.x] = live ? c : 0;
+}
+
+// ---------------------------------------------------------------------------
+// K2: fused pass 1 -> vote [P] f32 and, for TSA2, the packed neighbor
+// words [P, W] (W = ceil(C/32), bit j of word c0/32 = candidate c0 + j
+// matched after the refine).  K11 is the same kernel over a plan's tiles.
+//
+// Bound: operations (the pair tests of the sweep); it writes 4*P*(1 + W)
+// bytes instead of K1's 8*P*C.  Design: one block per reference row walks
+// its candidate tiles in ascending order.  Per tile, lane j takes the row
+// against candidate c0 + j: panel_sweep (weights only), refine_tile, then
+// the thread of point m adds the tile's 32 refined weights to its running
+// vote and builds the tile's word.  So vote[p] is the sum over c in
+// ascending order, one rounded add at a time from +0.0 (the plain
+// version's order), with no atomics; each word is written whole by one
+// thread.  The running vote of point m lives in the padding column 32 of
+// its row of the weight tile, so a block needs M*33 floats besides the
+// window: rows of up to 1,652 points fit (with a 32-point window).
+// Three blocks an SM (70.8 KB of shared memory each at M = 128; ptxas then
+// gives 80 registers and a 16-byte spill): on an H100 SXM at dsc_brest
+// this ran in 38.2 ms, against 46.9 ms with two blocks (90 registers) and
+// 75.8 ms with the next tile staged by cp.async into a second window
+// during the sweep (one block an SM); tools/panel_kernel_ms.py, in turns.
+//
+// K11 <- stjoin_vote_fused_pruned_flat: the row's K planned tiles
+// (ascending, -1 padded) instead of all.  Vote: a skipped tile has only
+// +0.0 weights, and adding +0.0 to a running sum that started at +0.0 and
+// only ever adds non-negative weights changes no bit, so skipping those
+// adds leaves vote bitwise K2's.  Words: the thread of point m writes 0
+// into the words of the tiles skipped before each planned tile and after
+// the last one, so every word is written once, by one thread, without
+// atomics or a fill.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads, 3)
+stjoin_vote_fused_kernel(JoinOperands op, PanelArgs a,
+                         const int* __restrict__ tile_ids, int K,
+                         float* __restrict__ vote, int* __restrict__ words,
+                         int W) {
+  extern __shared__ float dyn[];
+  __shared__ PanelLanes L;
+  const int M = a.M, tid = threadIdx.y * K1_TC + threadIdx.x;
+  float* tw = dyn;                     // [M][33]; column 32: the vote
+  const PanelTile s = panel_tile(dyn + M * kTileStride, a.wp);
+  const long long t = blockIdx.x, row0 = t * M;
+  const int* tiles = tile_ids == nullptr ? nullptr : tile_ids + t * K;
+  const int n_tiles = tiles == nullptr ? (op.C + K1_TC - 1) / K1_TC : K;
+  for (int m = tid; m < M; m += kThreads) tw[m * kTileStride + K1_TC] = 0.f;
+  SweepCounts n{0u, 0u};
+  int w_from = 0;
+  for (int q = 0; q < n_tiles; ++q) {
+    const int jt = tiles == nullptr ? q : tiles[q];
+    if (jt < 0) break;
+    const int c0 = jt * K1_TC;
+    if (threadIdx.y == 0) {
+      panel_lane(L, true, t, c0, min(op.C, c0 + K1_TC) - 1, threadIdx.x);
+      L.s[threadIdx.x] = threadIdx.x;
+    }
+    __syncthreads();          // and the last tile's votes have read tw
+    panel_sweep(op, a, L, tw, nullptr, s, n);
+    if (threadIdx.y == 0) refine_tile(tw, nullptr, op.rt + row0, M,
+                                      a.delta_t);
+    __syncthreads();
+    const int nc = min(K1_TC, op.C - c0);
+    for (int m = tid; m < M; m += kThreads) {
+      float* r = tw + m * kTileStride;
+      float acc = r[K1_TC];
+      uint32_t word = 0u;
+      for (int j = 0; j < nc; ++j) {
+        acc = __fadd_rn(acc, r[j]);
+        word |= (r[j] > 0.f ? 1u : 0u) << j;
+      }
+      r[K1_TC] = acc;
+      if (words != nullptr) {
+        int* wrow = words + (size_t)(row0 + m) * W;
+        for (int k = w_from; k < jt; ++k) wrow[k] = 0;
+        wrow[jt] = (int)word;
+      }
+    }
+    w_from = jt + 1;
+  }
+  for (int m = tid; m < M; m += kThreads) {
+    vote[row0 + m] = tw[m * kTileStride + K1_TC];
+    if (words != nullptr) {
+      int* wrow = words + (size_t)(row0 + m) * W;
+      for (int k = w_from; k < W; ++k) wrow[k] = 0;
+    }
+  }
+  flush_stats(a.stats, n);
+}
+
+// ---------------------------------------------------------------------------
+// K7: fused pass 2 for one panel of slots [p0, p0 + panel), in both
+// orientations: fwd[i, j] = raw[p0 + i, j] ([panel, C*ms]) and
+// rev[i, j] = raw[j, p0 + i] ([panel, T*ms]).  K4 is the same kernel's
+// forward blocks over every row: the panel [0, T*ms), fwd = raw.
+//
+// raw [T*ms, C*ms] f32 is the un-normalized similarity scatter:
+// raw[ref_gid[p], cand_gid[c, idx]] += w for every refined match.  The
+// slot maps are block-structured: ref_gid of row t lies in [t*ms,
+// (t+1)*ms) or is the sentinel T*ms, cand_gid of candidate c in [c*ms,
+// (c+1)*ms) or the sentinel C*ms (the wrapper checks this).  So the work
+// of one (row t, candidate c) pair writes one ms x ms block of raw and
+// nothing else, and only few pairs reach a panel: fwd needs the rows
+// t_lo..t_hi that own a panel slot against every candidate, rev every row
+// against the candidates c_lo..c_hi that own one (rev[i, j] comes from the
+// pair (row j / ms, candidate (p0 + i) / ms)).  The TPU kernel re-sweeps
+// all T*C pairs per panel; this one sweeps about 2 * (panel / ms + 1) * T
+// pairs of trajectories.
+//
+// Bound: bytes (the two slabs written once, 2 * panel * S * 4; K4: raw,
+// T*ms * C*ms * 4).  Design:
+// - One (reference row t, candidate c) pair per lane, 32 per block.
+//   Forward blocks: a row that owns a panel slot against a tile of 32
+//   candidates.  Reverse blocks: the n_lane panel candidates of one
+//   32-candidate tile against per_block = 32 / n_lane rows, so with 16
+//   panel candidates (ms = 8, panel = 128) every lane has a live pair.
+// - panel_sweep with the slot maps: the weights and cells of each lane.
+// - Then refine_tile on each lane's own row and the scatter: lane j adds
+//   its weights in ascending m into its ms x ms block in shared memory
+//   (reusing the window), one rounded add at a time from +0.0, no atomics:
+//   every cell sums the same weights in the same order as the plain
+//   version (the materialize path's scatter).  A block writes only the
+//   cells whose slot lies inside the panel (a panel may split a
+//   trajectory's slots), whole, zeros included, and between them the
+//   blocks write every cell of both slabs, so neither needs a zero fill.
+// ---------------------------------------------------------------------------
+
 // Lane j (of warp 0): refine its pair's row, then add its weights in
-// ascending m into its ms x ms block, as sim_block does.
+// ascending m into its ms x ms block.
 __device__ __forceinline__ void panel_scatter(const JoinOperands& op,
                                               const PanelArgs& a,
                                               const PanelLanes& L, float* tw,
@@ -773,36 +753,26 @@ __device__ __forceinline__ void panel_write(const JoinOperands& op,
   }
 }
 
-// Lane j's pair: row t against candidate first + o, live up to last.
-__device__ __forceinline__ void panel_lane(PanelLanes& L, bool live,
-                                           long long t, int first, int last,
-                                           int o) {
-  const int c = first + o;
-  live = live && c <= last;
-  L.t[threadIdx.x] = live ? (int)t : -1;
-  L.c[threadIdx.x] = live ? c : 0;
-}
-
-// One block of K7 / K13 once the lane tables are set: sweep, refine and
-// scatter, write.
+// One block of K4 / K7 / K12 / K13 once the lane tables are set: sweep,
+// refine and scatter, write, then the block's skip counts.
 __device__ __forceinline__ void panel_block(const JoinOperands& op,
                                             const PanelArgs& a, bool forward,
                                             PanelLanes& L, float* dyn) {
-  const int S7 = panel_tile_stride(a.wp), SB = panel_bound_stride(a.wp);
   float* tw = dyn;                                            // [M][33]
   int* tidx = reinterpret_cast<int*>(dyn + a.M * kTileStride);  // [M][33]
   float* tile = dyn + 2 * a.M * kTileStride;
-  const PanelTile s{tile, tile + K1_TC * S7, tile + 2 * K1_TC * S7,
-                    tile + 3 * K1_TC * S7, tile + 3 * K1_TC * S7 + K1_TC * SB};
+  const PanelTile s = panel_tile(tile, a.wp);
   if (threadIdx.y == 0) {
     const int j = threadIdx.x, o = forward ? j : j % a.n_lane;
     L.s[j] = L.t[o] >= 0 && L.c[o] == L.c[j] ? o : j;
   }
   __syncthreads();
-  panel_sweep(op, a, L, tw, tidx, s);
+  SweepCounts n{0u, 0u};
+  panel_sweep(op, a, L, tw, tidx, s, n);
   if (threadIdx.y == 0) panel_scatter(op, a, L, tw, tidx, tile);
   __syncthreads();
   panel_write(op, a, forward, L, tile);
+  flush_stats(a.stats, n);
 }
 
 // Forward blocks: row t_lo + b / ntc against tile b % ntc.  Reverse
@@ -842,93 +812,19 @@ stjoin_sim_panel_fused_kernel(JoinOperands op, PanelArgs a, int T, int t_lo,
 // port's plans use the dense kernels' own blocks: 64 reference points x
 // 32 candidates for K10 (K1's block), one reference row x 32 candidates
 // for K11-K13 (K2's, K4's and K7's block), so a tile is one packed TSA2
-// word.  Each pruned kernel runs its dense kernel's block body (the same
-// __device__ functions) on the planned tiles only, so a kept tile's
-// output is its dense kernel's, bit for bit; a skipped tile's output is
-// what the dense kernel writes for a tile without a match: (0, -1), a
-// zero word, zero cells.  Blocks are launched only for live entries: the
-// wrapper passes the plan's live (block, tile) pairs as a flat int2 list
-// (row-major, or tile-major for K13's reverse blocks).  The candidate
-// operands are read in place through the tile ids (the TPU kernels gather
-// them to [nRb, K, bc, Mc] first).
+// word.  Each pruned kernel runs its dense kernel's block body on the
+// planned tiles only (K11 is K2's kernel with the row's tile list, K12
+// K13's forward blocks), so a kept tile's output is its dense kernel's,
+// bit for bit; a skipped tile's output is what the dense kernel writes for
+// a tile without a match: (0, -1), a zero word, zero cells.  Blocks are
+// launched only for live entries: the wrapper passes the plan's live
+// (block, tile) pairs as a flat int2 list (row-major, or tile-major for
+// K13's reverse blocks).  The candidate operands are read in place through
+// the tile ids (the TPU kernels gather them to [nRb, K, bc, Mc] first).
 //
 // Bound: that of the dense kernel over the kept pairs' share of the work;
 // the outputs are still written whole.
-// ---------------------------------------------------------------------------
-
-// K10 <- stjoin_pallas_pruned: K1 over the live (64-point block, 32-
-// candidate tile) pairs.  The wrapper fills best_w with 0 and best_idx
-// with -1 first (two memsets), then one block per live pair writes its
-// 64 x 32 outputs.  Four blocks per SM, K1's occupancy: left free, ptxas
-// gives this kernel 80 registers (K1: 64), which fits only three.
-__global__ void __launch_bounds__(kThreads, 4)
-stjoin_best_match_pruned_kernel(JoinOperands op, long long P,
-                                const int2* __restrict__ pairs,
-                                float* __restrict__ out_w,
-                                int* __restrict__ out_idx) {
-  __shared__ SweepSmem sm;
-  const int2 e = pairs[blockIdx.x];
-  best_match_block(sm, op, P, (long long)e.x * K1_PTS, e.y * K1_TC, out_w,
-                   out_idx);
-}
-
-// K11 <- stjoin_vote_fused_pruned_flat: K2's block per reference row,
-// walking only the row's K planned tiles (ascending, -1 padded).  Vote:
-// a skipped tile has only +0.0 weights, and adding +0.0 to a running sum
-// that started at +0.0 and only ever adds non-negative weights changes no
-// bit, so skipping those adds leaves vote bitwise K2's.  Words: the
-// thread of point m writes 0 into the words of the tiles skipped before
-// each planned tile and after the last one, so every word is written
-// once, by one thread, without atomics or a fill.
-__global__ void __launch_bounds__(kThreads)
-stjoin_vote_fused_pruned_kernel(JoinOperands op, int M, float delta_t,
-                                const int* __restrict__ tile_ids, int K,
-                                float* __restrict__ vote,
-                                int* __restrict__ words, int W) {
-  __shared__ SweepSmem sm;
-  extern __shared__ float dyn[];
-  float* tw = dyn;                        // [M][33]
-  float* acc = dyn + M * kTileStride;     // [M]
-  const int tid = threadIdx.y * K1_TC + threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * M;
-  const int* tiles = tile_ids + (size_t)blockIdx.x * K;
-  for (int m = tid; m < M; m += kThreads) acc[m] = 0.f;
-
-  int w_from = 0;
-  for (int s = 0; s < K; ++s) {
-    const int j = tiles[s];
-    if (j < 0) break;
-    vote_tile(sm, op, M, delta_t, row0, j * K1_TC, tw, acc, words, W,
-              w_from);
-    w_from = j + 1;
-  }
-  for (int m = tid; m < M; m += kThreads) {
-    vote[row0 + m] = acc[m];
-    if (words != nullptr) {
-      int* row = words + (size_t)(row0 + m) * W;
-      for (int k = w_from; k < W; ++k) row[k] = 0;
-    }
-  }
-}
-
-// K12 <- stjoin_sim_fused_pruned_flat: K4's block for each live (row,
-// 32-candidate tile) pair.  K4 writes every cell of raw; here the cells
-// of skipped pairs are the wrapper's zero fill (+0.0, what K4 writes for
-// a pair without a match).
-__global__ void __launch_bounds__(kThreads)
-stjoin_sim_fused_pruned_kernel(JoinOperands op, int M, float delta_t,
-                               const int* __restrict__ ref_gid,
-                               const int* __restrict__ cand_gid, int ms,
-                               long long n_dst,
-                               const int2* __restrict__ pairs,
-                               float* __restrict__ raw) {
-  __shared__ SweepSmem sm;
-  extern __shared__ float dyn[];
-  const int2 e = pairs[blockIdx.x];
-  sim_fused_block(sm, op, M, delta_t, ref_gid, cand_gid, ms, n_dst, e.x,
-                  e.y * K1_TC, dyn, raw);
-}
-
+//
 // K13 <- stjoin_sim_panel_fused_pruned_flat: K7 over the plan.  Forward
 // blocks: K7's forward blocks of the rows t_lo..t_hi that own a panel
 // slot, for their planned tiles only (fwd_pairs: the plan's row-major
@@ -938,7 +834,9 @@ stjoin_sim_fused_pruned_kernel(JoinOperands op, int M, float delta_t,
 // panel's candidates inside its entry's tile.  A cell's sum does not
 // depend on how the pairs are grouped into blocks (each lane owns one), so
 // every written cell is K7's; the rest are the wrapper's zero fill of both
-// slabs.
+// slabs.  K12 <- stjoin_sim_fused_pruned_flat is its forward blocks over
+// every planned entry, the panel [0, T*ms) (K4 over the plan).
+// ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads, 2)
 stjoin_sim_panel_fused_pruned_kernel(JoinOperands op, PanelArgs a,
                                      const int2* __restrict__ fwd_pairs,
@@ -1234,34 +1132,74 @@ int rows_per_split(int S, int n_split) {
   return (S + n_split - 1) / n_split;
 }
 
-// The launch set-up of K7 / K13: the reverse lanes (n_lane panel
-// candidates of one tile per row, per_block rows a block), the staged
-// window wp (the widest of 128, 64 and 32 points whose shared memory fits
-// the card, no wider than Mc needs) and the dynamic shared memory.
-int panel_setup(PanelArgs& a, int Mc, const void* kernel, int* smem) {
-  a.n_lane = 0;
-  for (int j = a.c_lo / K1_TC; j <= a.c_hi / K1_TC; ++j)
-    a.n_lane = max(a.n_lane, min(a.c_hi, j * K1_TC + K1_TC - 1)
-                                 - max(a.c_lo, j * K1_TC) + 1);
-  a.per_block = K1_TC / a.n_lane;
+// The staged window of the time-window sweep: the widest of 128, 64 and
+// 32 candidate points (no wider than Mc needs) whose dynamic shared
+// memory -- `rows` floats of the [M][33] tiles, then the window or, if
+// larger, `reuse` floats that the block keeps there once the sweep is done
+// -- fits the card's opt-in limit beside the static lane table.  Sets
+// a.wp, *smem and the kernel's limit; a row too long for even 32 points is
+// refused (cudaErrorInvalidValue, which the wrapper raises).
+int sweep_setup(PanelArgs& a, int Mc, long long rows, long long reuse,
+                const void* kernel, int* smem) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
+  const auto bytes = [&](int wp) {
+    const long long w = window_floats(wp);
+    return (rows + (w > reuse ? w : reuse)) * (long long)sizeof(float);
+  };
   int need = K1_TC;                        // a power of two >= Mc
   while (need < Mc && need < 128) need *= 2;
   a.wp = 0;
-  for (int wp = 128; wp >= 32 && a.wp == 0; wp /= 2) {
-    const long long bytes = panel_smem_floats(a.M, a.ms, wp) * 4
-                            + (long long)sizeof(PanelLanes);
-    if (bytes <= optin) a.wp = min(wp, need);
-  }
+  for (int wp = 128; wp >= 32 && a.wp == 0; wp /= 2)
+    if (bytes(wp) + (long long)sizeof(PanelLanes) <= optin)
+      a.wp = min(wp, need);
   if (a.wp == 0) return (int)cudaErrorInvalidValue;
-  *smem = (int)(panel_smem_floats(a.M, a.ms, a.wp) * sizeof(float));
+  *smem = (int)bytes(a.wp);
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+}
+
+// The launch set-up of K4, K7, K12 and K13: the reverse lanes (n_lane
+// panel candidates of one tile per row, per_block rows a block), then the
+// window beside the weights and cells [M][33], reused by the ms x ms blocks
+// of the scatter.
+int panel_setup(PanelArgs& a, int Mc, const void* kernel, int* smem) {
+  a.n_lane = 0;
+  for (int j = a.c_lo / K1_TC; j <= a.c_hi / K1_TC; ++j)
+    a.n_lane = max(a.n_lane, min(a.c_hi, j * K1_TC + K1_TC - 1)
+                                 - max(a.c_lo, j * K1_TC) + 1);
+  a.per_block = K1_TC / a.n_lane;
+  return sweep_setup(a, Mc, 2LL * a.M * kTileStride,
+                     (long long)K1_TC * (a.ms * a.ms + 1), kernel, smem);
+}
+
+// K2 / K11: the time-window sweep's arguments without slot maps, and the
+// window beside the [M][33] weights (and votes).
+int vote_setup(PanelArgs& a, int M, int Mc, float delta_t,
+               const float* chunk_lo, const float* chunk_hi,
+               unsigned long long* stats, int* smem) {
+  a = PanelArgs{M, 0, 0, 0, delta_t, nullptr, nullptr, chunk_lo, chunk_hi,
+                (Mc + kChunk - 1) / kChunk, 0, 0, 0, 0, 0, 0, 0, stats,
+                nullptr, nullptr};
+  return sweep_setup(a, Mc, (long long)M * kTileStride, 0,
+                     (const void*)stjoin_vote_fused_kernel, smem);
+}
+
+// K4 / K12: the panel [0, T*ms) written into raw, forward blocks only.
+int sim_setup(PanelArgs& a, int T, int M, int C, int Mc, int ms,
+              float delta_t, const int* ref_gid, const int* cand_gid,
+              const float* chunk_lo, const float* chunk_hi,
+              unsigned long long* stats, float* raw, const void* kernel,
+              int* smem) {
+  if ((long long)T * ms > INT_MAX) return (int)cudaErrorInvalidValue;
+  a = PanelArgs{M, ms, 0, T * ms, delta_t, ref_gid, cand_gid, chunk_lo,
+                chunk_hi, (Mc + kChunk - 1) / kChunk, 0, 0, C - 1, 0, 0,
+                (long long)T * ms, (long long)C * ms, stats, raw, nullptr};
+  return panel_setup(a, Mc, kernel, smem);
 }
 
 }  // namespace
@@ -1291,18 +1229,21 @@ int stjoin_vote_fused(const float* rx, const float* ry, const float* rt,
                       const int* rid, const uint8_t* rok, const float* cx,
                       const float* cy, const float* ct, const int* cid,
                       const uint8_t* cok, int T, int M, int C, int Mc,
-                      float eps_sp, float eps_t, float delta_t, float* vote,
-                      int* words, int W, cudaStream_t stream) {
+                      float eps_sp, float eps_t, float delta_t,
+                      const float* chunk_lo, const float* chunk_hi,
+                      unsigned long long* stats, float* vote, int* words,
+                      int W, cudaStream_t stream) {
+  // the wrapper checks the chunk bounds' shape [C, ceil(Mc / 8)]
   if (T > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    const int smem = M * (kTileStride + 1) * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        stjoin_vote_fused_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+    PanelArgs a;
+    int smem = 0;
+    const int err = vote_setup(a, M, Mc, delta_t, chunk_lo, chunk_hi, stats,
+                               &smem);
+    if (err != 0) return err;
     stjoin_vote_fused_kernel<<<T, dim3(K1_TC, K1_TY), smem, stream>>>(
-        op, M, delta_t, vote, words, W);
+        op, a, nullptr, 0, vote, words, W);
   }
   return (int)cudaGetLastError();
 }
@@ -1312,23 +1253,26 @@ int stjoin_sim_fused(const float* rx, const float* ry, const float* rt,
                      const float* cy, const float* ct, const int* cid,
                      const uint8_t* cok, const int* ref_gid,
                      const int* cand_gid, int T, int M, int C, int Mc, int ms,
-                     float eps_sp, float eps_t, float delta_t, float* raw,
+                     float eps_sp, float eps_t, float delta_t,
+                     const float* chunk_lo, const float* chunk_hi,
+                     unsigned long long* stats, float* raw,
                      cudaStream_t stream) {
   if (T > 0 && C > 0 && ms > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    const int smem =
-        (2 * M * kTileStride + K1_TC * (ms * ms + 1)) * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        stjoin_sim_fused_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    const long long blocks = (long long)T * ((C + K1_TC - 1) / K1_TC);
+    const void* kernel = (const void*)stjoin_sim_panel_fused_kernel;
+    PanelArgs a;
+    int smem = 0;
+    const int err = sim_setup(a, T, M, C, Mc, ms, delta_t, ref_gid,
+                              cand_gid, chunk_lo, chunk_hi, stats, raw,
+                              kernel, &smem);
+    if (err != 0) return err;
+    const int ntc = (C + K1_TC - 1) / K1_TC;
+    const long long blocks = (long long)T * ntc;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    stjoin_sim_fused_kernel<<<(unsigned)blocks, dim3(K1_TC, K1_TY), smem,
-                              stream>>>(op, M, (unsigned)T, delta_t, ref_gid,
-                                        cand_gid, ms, (long long)C * ms,
-                                        raw);
+    stjoin_sim_panel_fused_kernel<<<(unsigned)blocks, dim3(K1_TC, K1_TY),
+                                    smem, stream>>>(op, a, T, 0, ntc, blocks,
+                                                    0, 0);
   }
   return (int)cudaGetLastError();
 }
@@ -1341,8 +1285,8 @@ int stjoin_sim_panel_fused(const float* rx, const float* ry,
                            const int* cand_gid, int T, int M, int C, int Mc,
                            int ms, int p0, int panel, float eps_sp,
                            float eps_t, float delta_t, const float* chunk_lo,
-                           const float* chunk_hi, int* stats, float* fwd,
-                           float* rev, cudaStream_t stream) {
+                           const float* chunk_hi, unsigned long long* stats,
+                           float* fwd, float* rev, cudaStream_t stream) {
   // the wrapper checks 0 <= p0, p0 + panel <= min(T, C) * ms and the chunk
   // bounds' shape [C, ceil(Mc / 8)]
   if (T > 0 && C > 0 && ms > 0 && panel > 0) {
@@ -1394,19 +1338,20 @@ int stjoin_vote_fused_pruned(const float* rx, const float* ry,
                              const float* cy, const float* ct, const int* cid,
                              const uint8_t* cok, int T, int M, int C, int Mc,
                              float eps_sp, float eps_t, float delta_t,
-                             float* vote, int* words, int W,
-                             const int* tile_ids, int K,
+                             const float* chunk_lo, const float* chunk_hi,
+                             unsigned long long* stats, float* vote,
+                             int* words, int W, const int* tile_ids, int K,
                              cudaStream_t stream) {
   if (T > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    const int smem = M * (kTileStride + 1) * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        stjoin_vote_fused_pruned_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    stjoin_vote_fused_pruned_kernel<<<T, dim3(K1_TC, K1_TY), smem, stream>>>(
-        op, M, delta_t, tile_ids, K, vote, words, W);
+    PanelArgs a;
+    int smem = 0;
+    const int err = vote_setup(a, M, Mc, delta_t, chunk_lo, chunk_hi, stats,
+                               &smem);
+    if (err != 0) return err;
+    stjoin_vote_fused_kernel<<<T, dim3(K1_TC, K1_TY), smem, stream>>>(
+        op, a, tile_ids, K, vote, words, W);
   }
   return (int)cudaGetLastError();
 }
@@ -1418,21 +1363,25 @@ int stjoin_sim_fused_pruned(const float* rx, const float* ry,
                             const uint8_t* cok, const int* ref_gid,
                             const int* cand_gid, int T, int M, int C, int Mc,
                             int ms, float eps_sp, float eps_t, float delta_t,
-                            const int* pairs, long long n_pairs, float* raw,
+                            const int* pairs, long long n_pairs,
+                            const float* chunk_lo, const float* chunk_hi,
+                            unsigned long long* stats, float* raw,
                             cudaStream_t stream) {
   if (n_pairs > 0 && ms > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    const int smem =
-        (2 * M * kTileStride + K1_TC * (ms * ms + 1)) * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        stjoin_sim_fused_pruned_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    stjoin_sim_fused_pruned_kernel<<<(unsigned)n_pairs, dim3(K1_TC, K1_TY),
-                                     smem, stream>>>(
-        op, M, delta_t, ref_gid, cand_gid, ms, (long long)C * ms,
-        reinterpret_cast<const int2*>(pairs), raw);
+    const void* kernel = (const void*)stjoin_sim_panel_fused_pruned_kernel;
+    PanelArgs a;
+    int smem = 0;
+    const int err = sim_setup(a, T, M, C, Mc, ms, delta_t, ref_gid,
+                              cand_gid, chunk_lo, chunk_hi, stats, raw,
+                              kernel, &smem);
+    if (err != 0) return err;
+    if (n_pairs > INT_MAX) return (int)cudaErrorInvalidValue;
+    stjoin_sim_panel_fused_pruned_kernel<<<(unsigned)n_pairs,
+                                           dim3(K1_TC, K1_TY), smem,
+                                           stream>>>(
+        op, a, reinterpret_cast<const int2*>(pairs), n_pairs, nullptr, 0);
   }
   return (int)cudaGetLastError();
 }
@@ -1449,8 +1398,9 @@ int stjoin_sim_panel_fused_pruned(const float* rx, const float* ry,
                                   long long n_fwd, const int* rev_pairs,
                                   long long n_rev, int c_lo, int c_hi,
                                   const float* chunk_lo,
-                                  const float* chunk_hi, int* stats,
-                                  float* fwd, float* rev,
+                                  const float* chunk_hi,
+                                  unsigned long long* stats, float* fwd,
+                                  float* rev,
                                   cudaStream_t stream) {
   // the wrapper checks 0 <= p0, p0 + panel <= min(T, C) * ms and the chunk
   // bounds, and passes c_lo = p0 / ms, c_hi = min(C - 1, (p0 + panel - 1)

@@ -7,7 +7,11 @@ for many panels, ``sim_panel_sweep`` / ``prepare_sim_panel``: operands,
 checks and the chunk time bounds once, then one launch per panel), and
 their index-pruned variants: ``plan_join_index`` /
 ``best_match_join_pruned`` and ``plan_fused_tiles`` with the ``tile_ids=``
-plans of the fused passes).
+plans of the fused passes).  The fused kernels count, on request
+(``stats=``), the (group, chunk) pairs their time-window skip tests and
+skips; ``fused_pairs`` / ``fused_skip_counts`` (K2, K4, K11, K12) and
+``SimPanelSweep.pairs`` / ``skip_counts`` (K7, K13) give the plain
+mirror's counts.
 
 Dispatch is on the tensors' device: CUDA tensors launch the CUDA kernels
 (``csrc/dsc_kernels.cu``: ``stjoin_best_match``, ``stjoin_vote_fused``,
@@ -43,14 +47,16 @@ from repro_torch.kernels.stjoin.ref import (chunk_time_bounds,
                                             stjoin_sim_panel_fused_ref,
                                             stjoin_vote_fused_ref)
 
-# shared memory an sm_90 block can opt into, less the sweep's static
-# candidate staging (the K2 / K4 row tiles are dynamic shared memory)
-_DYN_SMEM_MAX = 232448 - 13728
 # the port's tile geometry: K1's block of 64 reference points x 32
 # candidates (K10), and the block of K2, K4 and K7, one reference row x
 # 32 candidates (K11-K13; a candidate tile is then one packed TSA2 word)
 JOIN_BP, JOIN_BC = 64, 32
 FUSED_ROWS, FUSED_BC = 1, 32
+# the time-window skip of the fused passes K2, K4, K7 and K11-K13:
+# candidate points per chunk of the bounds and reference points per group
+# (kChunk and kGroup of dsc_kernels.cu)
+PANEL_CHUNK = 8
+PANEL_GROUP = 8
 
 
 def _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid, cid):
@@ -406,25 +412,86 @@ def _plain_tiles(plan: FusedTilePlan | None, M: int):
     return None if plan is None else (plan.tile_ids, plan.rows * M, plan.bc)
 
 
-def _check_fused(name, ref_ops, cand_ops, M: int, smem: int):
-    """Operand checks of K2 / K4; ``smem`` is the kernel's dynamic shared
-    memory (the ``[M][33]`` row tile(s) of ``dsc_kernels.cu``)."""
+def _check_fused(name, ref_ops, cand_ops, **more):
+    """Operand checks of the fused passes on the card: every operand (and
+    ``more``: name -> (tensor, dtype)) on one CUDA device.  The launchers
+    refuse a row too long for one block's shared memory themselves
+    (``RuntimeError``)."""
     f, i, b = torch.float32, torch.int32, torch.bool
-    dev = check_cuda_operands(
+    return check_cuda_operands(
         name, ref_x=(ref_ops[0], f), ref_y=(ref_ops[1], f),
         ref_t=(ref_ops[2], f), ref_id=(ref_ops[3], i), ref_ok=(ref_ops[4], b),
         cand_x=(cand_ops[0], f), cand_y=(cand_ops[1], f),
         cand_t=(cand_ops[2], f), cand_id=(cand_ops[3], i),
-        cand_ok=(cand_ops[4], b))
-    if smem > _DYN_SMEM_MAX:
-        raise ValueError(f"{name}: the row tile ({smem} bytes for M={M}) "
-                         "exceeds one block's shared memory")
-    return dev
+        cand_ok=(cand_ops[4], b), **more)
+
+
+def _check_stats(name: str, stats, dev) -> None:
+    """``stats`` of a fused pass: ``None``, or (on the card, ``dev``) an
+    int64 tensor of 2 on that device, to which the kernel adds the (group,
+    chunk) pairs it tested and those it skipped.  The plain versions
+    (``dev`` None) sweep no groups and refuse it."""
+    if stats is not None and not (
+            dev is not None and stats.dtype == torch.int64
+            and stats.numel() == 2 and stats.device == dev):
+        raise ValueError(f"{name}: stats must be an int64 tensor of 2 on "
+                         "the operands' CUDA device")
+
+
+def _chunk_args(cand_ops, stats):
+    """The launch arguments of the time-window skip: the candidates' chunk
+    time bounds (built once per call; kept alive by the caller) and the
+    ``stats`` pointer."""
+    lo, hi = chunk_time_bounds(cand_ops[2], cand_ops[4], PANEL_CHUNK)
+    return (lo, hi), (lo.data_ptr(), hi.data_ptr(),
+                      None if stats is None else stats.data_ptr())
+
+
+def _entry_pairs(entries: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The (row t, candidate c) pairs of live plan entries ``[n, 2]`` (row
+    t, tile j): the tile's candidates in ``[lo, hi]``, ``[m, 2]`` int64."""
+    e = entries.long()
+    c = e[:, 1:] * FUSED_BC + torch.arange(FUSED_BC, device=e.device)
+    keep = (c >= lo) & (c <= hi)
+    t = e[:, :1].expand_as(c)
+    return torch.stack([t[keep], c[keep]], dim=1)
+
+
+def fused_pairs(T: int, C: int, tile_ids=None, *, device=None):
+    """The (reference row t, candidate c) pairs one launch of K2 / K4 sweeps
+    (every row against every candidate), or of K11 / K12 with the plan
+    ``tile_ids`` (each row against the candidates of its planned tiles),
+    ``[n, 2]`` int64; the kernels' ``stats`` count the (group, chunk) pairs
+    of these (``panel_skip_counts_ref``)."""
+    if tile_ids is None:
+        return torch.cartesian_prod(torch.arange(T, device=device),
+                                    torch.arange(C, device=device)
+                                    ).view(-1, 2)
+    if (tile_ids.rows, tile_ids.bc) != (FUSED_ROWS, FUSED_BC):
+        raise _geometry_error("fused_pairs", dict(rows=tile_ids.rows,
+                                                  bc=tile_ids.bc),
+                              dict(rows=FUSED_ROWS, bc=FUSED_BC))
+    return _entry_pairs(tile_ids.by_row[0], 0, C - 1)
+
+
+def fused_skip_counts(rt, rvalid, ct, cvalid, eps_t, *, tile_ids=None):
+    """``(swept, skipped)`` (group, chunk) pairs of one launch of K2 / K4
+    (K11 / K12 with the plan ``tile_ids``) on ``[T, M]`` / ``[C, Mc]``
+    times, from the plain mirror ``panel_skip_counts_ref`` over
+    ``fused_pairs``: what the kernels' ``stats`` must hold."""
+    T, M = rt.shape
+    lo, hi = chunk_time_bounds(ct.contiguous(), cvalid.contiguous(),
+                               PANEL_CHUNK)
+    return panel_skip_counts_ref(
+        rt.reshape(-1), rvalid.reshape(-1), M, lo, hi, eps_t,
+        fused_pairs(T, ct.shape[0], tile_ids, device=rt.device),
+        group=PANEL_GROUP)
 
 
 def stjoin_vote_fused_arrays(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid,
                              cid, eps_sp, eps_t, delta_t=0.0, *,
-                             tile_ids=None, with_masks: bool = True):
+                             tile_ids=None, with_masks: bool = True,
+                             stats=None):
     """Fused pass 1 on raw arrays: ``(vote [T, M], words [T, M, ceil(C/32)])``.
 
     Subsumes ``voting.point_voting`` and ``voting.neighbor_mask_packed``
@@ -432,7 +499,9 @@ def stjoin_vote_fused_arrays(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid,
     bit patterns, bits past C zero.  ``with_masks=False`` (TSA1) returns
     ``(vote, None)`` and writes no words.  ``tile_ids`` (a
     ``plan_fused_tiles`` plan) sweeps only the planned tiles (K11); the
-    output is identical.
+    output is identical.  ``stats``: see ``_check_stats`` (the mirror is
+    ``fused_skip_counts``).  A row too long for one block's shared memory
+    is refused by the launcher (``RuntimeError``).
     """
     T, M = rx.shape
     C, Mc = cx.shape
@@ -442,18 +511,21 @@ def stjoin_vote_fused_arrays(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid,
     ref_ops, cand_ops = _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct,
                                        cvalid, cid)
     if not rx.is_cuda:
+        _check_stats(name, stats, None)
         vote, words = stjoin_vote_fused_ref(
             *ref_ops, *cand_ops, eps_sp, eps_t, delta_t, M=M,
             with_words=with_masks, tiles=_plain_tiles(plan, M))
     else:
-        dev = _check_fused(name, ref_ops, cand_ops, M, M * 34 * 4)
+        dev = _check_fused(name, ref_ops, cand_ops)
+        _check_stats(name, stats, dev)
         W = -(-C // 32)
         vote = torch.empty((T * M,), dtype=torch.float32, device=dev)
         words = (torch.empty((T * M, W), dtype=torch.int32, device=dev)
                  if with_masks else None)
+        bounds, skip = _chunk_args(cand_ops, stats)
         args = (*(t.data_ptr() for t in ref_ops),
                 *(t.data_ptr() for t in cand_ops), T, M, C, Mc,
-                *_eps(eps_sp, eps_t, delta_t), vote.data_ptr(),
+                *_eps(eps_sp, eps_t, delta_t), *skip, vote.data_ptr(),
                 None if words is None else words.data_ptr(), W)
         if plan is None:
             launch(name, *args, device=dev)
@@ -466,7 +538,7 @@ def stjoin_vote_fused_arrays(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid,
 
 def stjoin_vote_fused(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
                       eps_t, delta_t=0.0, *, use_index: bool = False,
-                      with_masks: bool = True):
+                      with_masks: bool = True, stats=None):
     """Batch-level fused pass 1 (vote sums + packed neighbor words);
     ``use_index=True`` plans the tiles (``plan_fused_tiles``) and sweeps
     only the survivors."""
@@ -478,7 +550,7 @@ def stjoin_vote_fused(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
     return stjoin_vote_fused_arrays(
         ref.x, ref.y, ref.t, ref.valid, ref.traj_id, cand.x, cand.y, cand.t,
         cand.valid, cand.traj_id, eps_sp, eps_t, delta_t,
-        tile_ids=tile_ids, with_masks=with_masks)
+        tile_ids=tile_ids, with_masks=with_masks, stats=stats)
 
 
 def _check_block_slots(ref_gid, cand_gid, ms: int, n_src: int, n_dst: int,
@@ -501,7 +573,8 @@ def _check_block_slots(ref_gid, cand_gid, ms: int, n_src: int, n_dst: int,
 
 def stjoin_sim_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct,
                             cvalid, cid, cand_gid, n_src: int, n_dst: int,
-                            eps_sp, eps_t, delta_t=0.0, *, tile_ids=None):
+                            eps_sp, eps_t, delta_t=0.0, *, tile_ids=None,
+                            stats=None):
     """Fused pass 2 on raw arrays: raw similarity scatter ``[n_src, n_dst]``.
 
     ``ref_gid [T, M]``: destination row of each ref point (``n_src`` =
@@ -512,7 +585,9 @@ def stjoin_sim_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct,
     likewise for candidates), which lets each (row, candidate) pair own
     one ``ms x ms`` block of ``raw``; anything else raises.  ``tile_ids``
     (a ``plan_fused_tiles`` plan) sweeps only the planned tiles (K12); the
-    output is identical.
+    output is identical.  ``stats``: see ``_check_stats`` (the mirror is
+    ``fused_skip_counts``).  A row too long for one block's shared memory
+    is refused by the launcher (``RuntimeError``).
     """
     T, M = rx.shape
     C, Mc = cx.shape
@@ -524,37 +599,38 @@ def stjoin_sim_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct,
     ref_gid = ref_gid.to(torch.int32).contiguous()
     cand_gid = cand_gid.to(torch.int32).contiguous()
     if not rx.is_cuda:
+        _check_stats(name, stats, None)
         return stjoin_sim_fused_ref(
             *ref_ops, ref_gid.view(-1), *cand_ops, cand_gid, eps_sp, eps_t,
             delta_t, M=M, n_src=n_src, n_dst=n_dst,
             tiles=_plain_tiles(plan, M))
     ms = n_src // max(T, 1)
     _check_block_slots(ref_gid, cand_gid, ms, n_src, n_dst, name=name)
-    dev = _check_fused(name, ref_ops, cand_ops, M,
-                       (2 * M * 33 + 32 * (ms * ms + 1)) * 4)
-    check_cuda_operands(name, ref_x=(ref_ops[0], torch.float32),
-                        ref_gid=(ref_gid, torch.int32),
-                        cand_gid=(cand_gid, torch.int32))
+    dev = _check_fused(name, ref_ops, cand_ops,
+                       ref_gid=(ref_gid, torch.int32),
+                       cand_gid=(cand_gid, torch.int32))
+    _check_stats(name, stats, dev)
+    bounds, skip = _chunk_args(cand_ops, stats)
     args = (*(t.data_ptr() for t in ref_ops),
             *(t.data_ptr() for t in cand_ops), ref_gid.data_ptr(),
             cand_gid.data_ptr(), T, M, C, Mc, ms,
             *_eps(eps_sp, eps_t, delta_t))
     if plan is None:
         raw = torch.empty((n_src, n_dst), dtype=torch.float32, device=dev)
-        launch(name, *args, raw.data_ptr(), device=dev)
+        launch(name, *args, *skip, raw.data_ptr(), device=dev)
         return raw
     # the cells of skipped pairs: the +0.0 K4 writes for a pair without a
     # match
     raw = torch.zeros((n_src, n_dst), dtype=torch.float32, device=dev)
     pairs, _ = plan.by_row
-    launch(name, *args, pairs.data_ptr(), pairs.shape[0], raw.data_ptr(),
-           device=dev)
+    launch(name, *args, pairs.data_ptr(), pairs.shape[0], *skip,
+           raw.data_ptr(), device=dev)
     return raw
 
 
 def stjoin_sim_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
                      ref_sub_local, cand_sub_local, max_subs: int, eps_sp,
-                     eps_t, delta_t=0.0, *, tile_ids=None):
+                     eps_t, delta_t=0.0, *, tile_ids=None, stats=None):
     """Batch-level fused pass 2: un-normalized ``raw [S_ref, S_cand]``.
 
     Ref point (r, m) scatters into row ``r * max_subs + sub_local[r, m]``;
@@ -566,13 +642,9 @@ def stjoin_sim_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
         ref.x, ref.y, ref.t, ref.valid, ref.traj_id,
         slot_ids(ref_sub_local, max_subs, n_src), cand.x, cand.y, cand.t,
         cand.valid, cand.traj_id, slot_ids(cand_sub_local, max_subs, n_dst),
-        n_src, n_dst, eps_sp, eps_t, delta_t, tile_ids=tile_ids)
+        n_src, n_dst, eps_sp, eps_t, delta_t, tile_ids=tile_ids,
+        stats=stats)
 
-
-# K7 / K13's time-window skip: candidate points per chunk of the bounds
-# and reference points per group (kChunk and kGroup of dsc_kernels.cu)
-PANEL_CHUNK = 8
-PANEL_GROUP = 8
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SimPanelSweep:
@@ -649,15 +721,9 @@ class SimPanelSweep:
             raise _geometry_error(self.name, dict(rows=self.plan.rows,
                                                   bc=self.plan.bc),
                                   dict(rows=FUSED_ROWS, bc=FUSED_BC))
-        out = []
-        for entries, lo, hi in zip(self._plan_slices(t_lo, t_hi, c_lo, c_hi),
-                                   (0, c_lo), (C - 1, c_hi)):
-            e = entries.long()
-            c = e[:, 1:] * FUSED_BC + ar(0, FUSED_BC)
-            keep = (c >= lo) & (c <= hi)
-            t = e[:, :1].expand_as(c)
-            out.append(torch.stack([t[keep], c[keep]], dim=1))
-        return torch.cat(out)
+        fwd, rev = self._plan_slices(t_lo, t_hi, c_lo, c_hi)
+        return torch.cat([_entry_pairs(fwd, 0, C - 1),
+                          _entry_pairs(rev, c_lo, c_hi)])
 
     def skip_counts(self, p0, *, panel: int) -> tuple[int, int]:
         """``(swept, skipped)`` (group, chunk) pairs of the panel's kernel,
@@ -669,18 +735,12 @@ class SimPanelSweep:
             group=PANEL_GROUP)
 
     def __call__(self, p0, *, panel: int, stats=None):
-        """One panel: ``(fwd, rev)``.  ``stats``: an int32 CUDA tensor of 2
-        on the operands' device to which the kernel adds the (group,
-        chunk) pairs it tested and those it skipped; the plain version
-        sweeps no groups and refuses it."""
+        """One panel: ``(fwd, rev)``.  ``stats``: see ``_check_stats``
+        (the mirror is ``skip_counts``)."""
         p0 = int(p0)
         ms, t_lo, t_hi, c_lo, c_hi = self._geometry(p0, panel)
-        if stats is not None and not (
-                self.on_card and stats.dtype == torch.int32
-                and stats.numel() == 2
-                and stats.device == self.ref_gid.device):
-            raise ValueError(f"{self.name}: stats must be an int32 tensor "
-                             "of 2 on the operands' CUDA device")
+        _check_stats(self.name, stats,
+                     self.ref_gid.device if self.on_card else None)
         T, M, C, Mc = self.shape
         if not self.on_card:
             return stjoin_sim_panel_fused_ref(
@@ -746,14 +806,9 @@ def prepare_sim_panel(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct, cvalid,
     on_card = any(a.is_cuda for a in (*ref_ops, *cand_ops, ref_gid,
                                       cand_gid))
     if on_card:
-        f, i, b = torch.float32, torch.int32, torch.bool
-        check_cuda_operands(
-            name, ref_x=(ref_ops[0], f), ref_y=(ref_ops[1], f),
-            ref_t=(ref_ops[2], f), ref_id=(ref_ops[3], i),
-            ref_ok=(ref_ops[4], b), cand_x=(cand_ops[0], f),
-            cand_y=(cand_ops[1], f), cand_t=(cand_ops[2], f),
-            cand_id=(cand_ops[3], i), cand_ok=(cand_ops[4], b),
-            ref_gid=(ref_gid, i), cand_gid=(cand_gid, i))
+        _check_fused(name, ref_ops, cand_ops,
+                     ref_gid=(ref_gid, torch.int32),
+                     cand_gid=(cand_gid, torch.int32))
         _check_block_slots(ref_gid, cand_gid, n_src // max(T, 1), n_src,
                            n_dst, name=name)
     plan = _resolve_plan(tile_ids, name, on_card, T, C, rx.device)

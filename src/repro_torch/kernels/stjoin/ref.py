@@ -260,8 +260,8 @@ def chunk_time_bounds(t, ok, chunk: int):
     """``(lo, hi)`` ``[R, ceil(N / chunk)]`` f32: the min and max time over
     the valid points of each run of ``chunk`` consecutive points of each
     row of ``t [R, N]`` (NaN times count as invalid); ``(+inf, -inf)``
-    where a run holds none.  K7 and K13 take these of the candidates as
-    their chunk bounds; the same reduction over groups of reference points
+    where a run holds none.  The fused kernels (K2, K4, K7, K11-K13) take
+    these of the candidates as their chunk bounds; the same reduction over groups of reference points
     gives the groups' bounds (``panel_skip_ref``)."""
     R, N = t.shape
     n = -(-N // chunk)
@@ -277,8 +277,8 @@ def chunk_time_bounds(t, ok, chunk: int):
 
 
 def panel_skip_ref(g_lo, g_hi, c_lo, c_hi, eps_t):
-    """The time-window skip of K7 / K13, ``[..., groups, chunks]`` bool:
-    true where a group of reference points with time bounds ``(g_lo,
+    """The time-window skip of the fused kernels, ``[..., groups, chunks]``
+    bool: true where a group of reference points with time bounds ``(g_lo,
     g_hi) [..., G]`` and a chunk of candidate points with ``(c_lo, c_hi)
     [..., K]`` cannot hold a pair with ``|t_p - t_q| <= eps_t``: either
     holds no valid time (lo > hi), or ``c_lo - g_hi > eps_t``, or ``g_lo -
@@ -297,11 +297,11 @@ _SKIP_ROWS = 16384
 def panel_skip_counts_ref(ref_t, ref_ok, M: int, chunk_lo, chunk_hi, eps_t,
                           pairs, *, group: int):
     """``(swept, skipped)``: the (reference group, candidate chunk) pairs
-    that K7 / K13 test and those they skip over the (row t, candidate c)
-    ``pairs [n, 2]`` they sweep, from the reference points' flat times
-    ``ref_t`` / ``ref_ok`` (rows of ``M``, groups of ``group`` consecutive
-    points) and the candidates' chunk bounds.  The kernels' ``stats`` must
-    equal these."""
+    that the fused kernels test and those they skip over the (row t,
+    candidate c) ``pairs [n, 2]`` they sweep, from the reference points'
+    flat times ``ref_t`` / ``ref_ok`` (rows of ``M``, groups of ``group``
+    consecutive points) and the candidates' chunk bounds.  The kernels'
+    ``stats`` must equal these."""
     T = ref_t.shape[0] // M
     g_lo, g_hi = chunk_time_bounds(ref_t.view(T, M), ref_ok.view(T, M),
                                    group)

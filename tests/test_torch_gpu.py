@@ -160,59 +160,6 @@ def test_run_dsc_kernel_plan_matches_cpu(cuda, mode):
     assert torch.equal(g.seg.sub_local.cpu(), c.seg.sub_local)
 
 
-def _fused_case(cuda, n, M, C, Mc, eps_sp):
-    """A reference batch and (for C != n) a separate candidate batch."""
-    ref, _ = ais_like(n_vessels=n, max_points=M, seed=n, device=cuda)
-    cand = ref if C == n else ais_like(n_vessels=C, max_points=Mc,
-                                       seed=C, device=cuda)[0]
-    arrays = lambda b: (b.x, b.y, b.t, b.valid, b.traj_id)
-    return ref, cand, arrays(ref) + arrays(cand)
-
-
-@pytest.mark.parametrize("n,M,C,Mc,eps_sp,delta_t", [
-    (10, 40, 10, 40, 15.0, 0.0), (37, 70, 37, 70, 8.0, 300.0),
-    (9, 130, 45, 20, 20.0, 200.0)])
-def test_k2_matches_plain(cuda, n, M, C, Mc, eps_sp, delta_t):
-    ref, cand, arrs = _fused_case(cuda, n, M, C, Mc, eps_sp)
-    ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
-    for with_masks in (True, False):
-        before = kernels.LAUNCHES["stjoin_vote_fused"]
-        kv, kw = stjoin_ops.stjoin_vote_fused_arrays(
-            *arrs, eps_sp, 120.0, delta_t, with_masks=with_masks)
-        assert kernels.LAUNCHES["stjoin_vote_fused"] == before + 1
-        pv, pw = stjoin_vote_fused_ref(*ref_ops, *cand_ops, eps_sp, 120.0,
-                                       delta_t, M=M, with_words=with_masks)
-        assert torch.equal(kv.view(-1), pv)
-        if with_masks:
-            assert torch.equal(kw.view(pw.shape), pw)
-            assert bool((pw != 0).any())
-        else:
-            assert kw is None
-
-
-@pytest.mark.parametrize("n,M,C,Mc,eps_sp,delta_t", [
-    (10, 40, 10, 40, 15.0, 0.0), (37, 70, 37, 70, 8.0, 300.0),
-    (9, 130, 45, 20, 20.0, 200.0)])
-def test_k4_matches_plain(cuda, n, M, C, Mc, eps_sp, delta_t):
-    ref, cand, arrs = _fused_case(cuda, n, M, C, Mc, eps_sp)
-    rng = np.random.default_rng(n)
-    ms = 4
-    rsub = torch.from_numpy(rng.integers(-1, ms, (n, M)).astype(np.int32))
-    csub = torch.from_numpy(rng.integers(-1, ms, (C, Mc)).astype(np.int32))
-    before = kernels.LAUNCHES["stjoin_sim_fused"]
-    raw = stjoin_ops.stjoin_sim_fused(ref, cand, rsub.to(cuda),
-                                      csub.to(cuda), ms, eps_sp, 120.0,
-                                      delta_t)
-    assert kernels.LAUNCHES["stjoin_sim_fused"] == before + 1
-    ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
-    plain = stjoin_sim_fused_ref(
-        *ref_ops, slot_ids(rsub, ms, n * ms).view(-1).to(cuda), *cand_ops,
-        slot_ids(csub, ms, C * ms).to(cuda), eps_sp, 120.0, delta_t, M=M,
-        n_src=n * ms, n_dst=C * ms)
-    assert torch.equal(raw, plain)
-    assert bool((plain > 0).any())
-
-
 def _retime(tb, times, seed=0):
     """The batch with adversarial times: ``"grid60"`` rounds them to
     multiples of 60 s (pairs exactly 0 or 60 s apart), ``"epoch"`` adds
@@ -234,11 +181,145 @@ def _retime(tb, times, seed=0):
                            traj_id=tb.traj_id)
 
 
+def _fused_case(cuda, n, M, C, Mc, times="ais"):
+    """A reference batch and (for C != n) a separate candidate batch, with
+    the times of ``_retime``."""
+    ref, _ = ais_like(n_vessels=n, max_points=M, seed=n, device=cuda)
+    cand = ref if C == n else ais_like(n_vessels=C, max_points=Mc,
+                                       seed=C, device=cuda)[0]
+    ref = _retime(ref, times, seed=n)
+    cand = ref if C == n else _retime(cand, times, seed=C)
+    arrays = lambda b: (b.x, b.y, b.t, b.valid, b.traj_id)
+    return ref, cand, arrays(ref) + arrays(cand)
+
+
+def _fused_stats(ref, cand, eps_t, plan=None):
+    """An int64 ``stats`` tensor for one fused launch, and the plain
+    mirror's ``(swept, skipped)`` of that launch."""
+    want = stjoin_ops.fused_skip_counts(ref.t, ref.valid, cand.t, cand.valid,
+                                        eps_t, tile_ids=plan)
+    return torch.zeros(2, dtype=torch.int64, device=ref.x.device), want
+
+
+# (n, M, C, Mc, eps_sp, eps_t, delta_t, times): times on a 60 s grid with
+# eps_t = 60 (pairs exactly eps_t apart), epoch-sized (float32 spacing
+# 128 s), unsorted rows (chunks span the whole row); M = 130 and Mc = 150
+# stage the candidates in two windows of 128 points
+FUSED_CASES = [
+    (10, 40, 10, 40, 15.0, 120.0, 0.0, "ais"),
+    (37, 70, 37, 70, 8.0, 120.0, 300.0, "ais"),
+    (9, 130, 45, 20, 20.0, 120.0, 200.0, "ais"),
+    (37, 50, 37, 50, 10.0, 60.0, 0.0, "grid60"),
+    (12, 45, 40, 150, 15.0, 120.0, 200.0, "epoch"),
+    (35, 33, 35, 33, 10.0, 120.0, 200.0, "unsorted")]
+
+
+@pytest.mark.parametrize("n,M,C,Mc,eps_sp,eps_t,delta_t,times", FUSED_CASES)
+def test_k2_matches_plain(cuda, n, M, C, Mc, eps_sp, eps_t, delta_t, times):
+    """K2's vote and words bitwise its plain version; its skip counts equal
+    the plain mirror's over every (row, candidate) pair."""
+    ref, cand, arrs = _fused_case(cuda, n, M, C, Mc, times)
+    ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
+    for with_masks in (True, False):
+        stats, want = _fused_stats(ref, cand, eps_t)
+        before = kernels.LAUNCHES["stjoin_vote_fused"]
+        kv, kw = stjoin_ops.stjoin_vote_fused_arrays(
+            *arrs, eps_sp, eps_t, delta_t, with_masks=with_masks,
+            stats=stats)
+        assert kernels.LAUNCHES["stjoin_vote_fused"] == before + 1
+        assert stats.tolist() == list(want)
+        assert 0 < want[1] < want[0]
+        pv, pw = stjoin_vote_fused_ref(*ref_ops, *cand_ops, eps_sp, eps_t,
+                                       delta_t, M=M, with_words=with_masks)
+        assert torch.equal(kv.view(-1), pv)
+        if with_masks:
+            assert torch.equal(kw.view(pw.shape), pw)
+            assert bool((pw != 0).any())
+        else:
+            assert kw is None
+
+
+def _k4_case(cuda, n, M, C, Mc, ms, times="ais"):
+    ref, cand, arrs = _fused_case(cuda, n, M, C, Mc, times)
+    rng = np.random.default_rng(n)
+    rsub = torch.from_numpy(rng.integers(-1, ms, (n, M)).astype(np.int32))
+    csub = torch.from_numpy(rng.integers(-1, ms, (C, Mc)).astype(np.int32))
+    return ref, cand, arrs, rsub.to(cuda), csub.to(cuda)
+
+
+def _k4_plain(arrs, rsub, csub, ms, eps, M):
+    ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
+    n, C = rsub.shape[0], csub.shape[0]
+    return stjoin_sim_fused_ref(
+        *ref_ops, slot_ids(rsub, ms, n * ms).view(-1), *cand_ops,
+        slot_ids(csub, ms, C * ms), *eps, M=M, n_src=n * ms, n_dst=C * ms)
+
+
+@pytest.mark.parametrize("n,M,C,Mc,eps_sp,eps_t,delta_t,times", FUSED_CASES)
+def test_k4_matches_plain(cuda, n, M, C, Mc, eps_sp, eps_t, delta_t, times):
+    """K4's raw bitwise its plain version; its skip counts equal the plain
+    mirror's over every (row, candidate) pair."""
+    ms = 4
+    ref, cand, arrs, rsub, csub = _k4_case(cuda, n, M, C, Mc, ms, times)
+    stats, want = _fused_stats(ref, cand, eps_t)
+    before = kernels.LAUNCHES["stjoin_sim_fused"]
+    raw = stjoin_ops.stjoin_sim_fused(ref, cand, rsub, csub, ms, eps_sp,
+                                      eps_t, delta_t, stats=stats)
+    assert kernels.LAUNCHES["stjoin_sim_fused"] == before + 1
+    assert stats.tolist() == list(want)
+    assert 0 < want[1] < want[0]
+    plain = _k4_plain(arrs, rsub, csub, ms, (eps_sp, eps_t, delta_t), M)
+    assert torch.equal(raw, plain)
+    assert bool((plain > 0).any())
+
+
+@pytest.mark.parametrize("kernel,M", [("K2", 1608), ("K4", 796)])
+def test_k2_k4_longest_rows(cuda, kernel, M):
+    """The longest rows K2 (M = 1,608) and K4 (M = 796 at ms = 8) took
+    before the time-window sweep still run, bitwise their plain versions
+    (the launcher picks a 32-point window)."""
+    n, C, Mc, ms = 3, 40, 70, 8
+    ref, cand, arrs, rsub, csub = _k4_case(cuda, n, M, C, Mc, ms)
+    eps = (20.0, 120.0, 300.0)
+    if kernel == "K2":
+        kv, kw = stjoin_ops.stjoin_vote_fused_arrays(*arrs, *eps)
+        ref_ops, cand_ops = stjoin_ops._flat_operands(*arrs)
+        pv, pw = stjoin_vote_fused_ref(*ref_ops, *cand_ops, *eps, M=M)
+        assert torch.equal(kv.view(-1), pv)
+        assert torch.equal(kw.view(pw.shape), pw)
+        assert bool((pv > 0).any())
+    else:
+        raw = stjoin_ops.stjoin_sim_fused(ref, cand, rsub, csub, ms, *eps)
+        plain = _k4_plain(arrs, rsub, csub, ms, eps, M)
+        assert torch.equal(raw, plain)
+        assert bool((plain > 0).any())
+
+
+@pytest.mark.parametrize("kernel,M", [("K2", 1700), ("K4", 900)])
+def test_k2_k4_refuse_rows_past_shared_memory(cuda, kernel, M):
+    """Rows past the longest that fits one block's shared memory with a
+    32-point window (K2: 1,652 points, K4: 826 at ms = 8) are refused by
+    the launcher (``RuntimeError``) without a launch; the card stays
+    usable."""
+    ms = 8
+    ref, cand, arrs, rsub, csub = _k4_case(cuda, 2, M, 5, 20, ms)
+    name = "stjoin_vote_fused" if kernel == "K2" else "stjoin_sim_fused"
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(RuntimeError, match=name):
+        if kernel == "K2":
+            stjoin_ops.stjoin_vote_fused_arrays(*arrs, 10.0, 120.0)
+        else:
+            stjoin_ops.stjoin_sim_fused(ref, cand, rsub, csub, ms, 10.0,
+                                        120.0)
+    assert kernels.LAUNCHES == before
+    torch.cuda.synchronize()
+
+
 def _panel_stats(tb, sub, ms, eps, p0, Sb, want_skipped, **kw):
     """One panel through the public wrapper with ``stats`` and through a
     prepared sweep: the counts equal the plain mirror's, the two runs are
     bitwise equal; returns ``(fwd, rev, swept, skipped)``."""
-    stats = torch.zeros(2, dtype=torch.int32, device=tb.x.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=tb.x.device)
     fwd, rev = stjoin_ops.stjoin_sim_panel_fused(
         tb, tb, sub, sub, ms, *eps, p0=p0, panel=Sb, stats=stats, **kw)
     sweep = stjoin_ops.sim_panel_sweep(tb, tb, sub, sub, ms, *eps, **kw)
@@ -312,7 +393,7 @@ def test_k7_refuses_mixed_devices(cuda, on_cpu):
     ``stats`` tensor off the operands' card."""
     tb, _ = ais_like(n_vessels=6, max_points=20, seed=6, device=cuda)
     sub = torch.zeros((6, 20), dtype=torch.int32, device=cuda)
-    stats = torch.zeros(2, dtype=torch.int32, device=cuda)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
     if on_cpu == "batch":
         tb = TrajectoryBatch(x=tb.x.cpu(), y=tb.y.cpu(), t=tb.t.cpu(),
                              valid=tb.valid.cpu(), traj_id=tb.traj_id.cpu())
@@ -466,12 +547,16 @@ def test_k11_matches_k2_and_plain(cuda, delta_t):
     assert 0 < kept < plan.tile_ids.shape[0] * 4
     arrs = (tb.x, tb.y, tb.t, tb.valid, tb.traj_id) * 2
     ref_ops, cand_ops = _flat(tb)
-    M = tb.x.shape[1]
+    T, M = tb.x.shape
     for with_masks in (True, False):
+        stats, want = _fused_stats(tb, tb, LANE_EPS[1], plan)
         before = kernels.LAUNCHES["stjoin_vote_fused_pruned"]
         kv, kw = stjoin_ops.stjoin_vote_fused_arrays(
-            *arrs, *LANE_EPS, delta_t, tile_ids=plan, with_masks=with_masks)
+            *arrs, *LANE_EPS, delta_t, tile_ids=plan, with_masks=with_masks,
+            stats=stats)
         assert kernels.LAUNCHES["stjoin_vote_fused_pruned"] == before + 1
+        assert stats.tolist() == list(want)
+        assert want[0] < T * T * (-(-M // 8)) ** 2
         dv, dw = stjoin_ops.stjoin_vote_fused_arrays(
             *arrs, *LANE_EPS, delta_t, with_masks=with_masks)
         pv, pw = stjoin_vote_fused_ref(
@@ -498,10 +583,13 @@ def test_k12_matches_k4_and_plain(cuda, delta_t):
     T, M = tb.x.shape
     sub = torch.from_numpy(rng.integers(-1, ms, (T, M)).astype(np.int32))
     sub = sub.to(cuda)
+    stats, want = _fused_stats(tb, tb, LANE_EPS[1], plan)
     before = kernels.LAUNCHES["stjoin_sim_fused_pruned"]
     raw = stjoin_ops.stjoin_sim_fused(tb, tb, sub, sub, ms, *LANE_EPS,
-                                      delta_t, tile_ids=plan)
+                                      delta_t, tile_ids=plan, stats=stats)
     assert kernels.LAUNCHES["stjoin_sim_fused_pruned"] == before + 1
+    assert stats.tolist() == list(want)
+    assert want[0] < T * T * (-(-M // 8)) ** 2
     dense = stjoin_ops.stjoin_sim_fused(tb, tb, sub, sub, ms, *LANE_EPS,
                                         delta_t)
     assert torch.equal(raw, dense)

@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
-"""K7 and K13 (the top-K panel passes) timed alone on one CUDA card, for
-the port in a given ``src`` directory, so that two versions of the port
-can be held against each other within one run:
+"""The fused join passes timed alone on one CUDA card, for the port in a
+given ``src`` directory, so that two versions of the port can be held
+against each other within one run (parent, change, change, parent):
 
     python3 tools/panel_kernel_ms.py [--src DIR] [--label NAME]
+                                     [--only fused|panels]
 
 ``--src`` defaults to this checkout's ``src``; the kernels build beside
 it at first use.  Data and parameters are ``chip_smoke.brest_batch``'s
-(dsc_brest: 4,096 AIS-like vessels x 128 points).  K7 runs on the
-launcher's layout, K13 lane-sorted with the index's plan, each on the
-middle panel of the top-K stream, with the segmentation of one
-``run_dsc`` call of its path (that call's wall and similarity stage are
-reported too).
+(dsc_brest: 4,096 AIS-like vessels x 128 points).
+
+``fused``: K2 and K4 (the dense fused passes) on the launcher's layout,
+K11 and K12 lane-sorted with the index's plan, each on the inputs of one
+``run_dsc`` call of its dense fused path (that call's wall, join_vote
+and similarity stages are reported too): CUDA events around 3 calls of
+the public wrapper (the kernel, and this version's chunk time bounds or
+checks), and a digest of each output (the sum of its 32-bit patterns as
+int64), which two versions must share.
+
+``panels``: K7 on the launcher's layout, K13 lane-sorted with the index's
+plan, each on the middle panel of the top-K stream, with the
+segmentation of one ``run_dsc`` call of its path (that call's wall and
+similarity stage are reported too).
 
 "Alone" is ``chip_smoke.graph_ms`` of the panel's launch with its
 operands prepared once and no slot-map check (K13 with the two zero
@@ -113,11 +123,54 @@ def measure(cs, batch, params, path):
                 clusters=int(out.result.is_rep.sum()))
 
 
+def digest(t) -> int:
+    """The sum of a 32-bit tensor's bit patterns, as int64: equal outputs
+    give equal digests."""
+    return int(t.contiguous().view(torch.int32).long().sum())
+
+
+def fused_measure(cs, batch, params, path):
+    """One ``run_dsc`` call of the dense fused ``path``, then its join_vote
+    and similarity passes (K2 and K4, or K11 and K12 with the index) on
+    that call's inputs, timed and digested."""
+    from repro_torch.core.dsc import plan_fused_tile_ids, run_dsc
+    from repro_torch.kernels.stjoin import ops as sj
+    plan = cs.kernel_plan(path)
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_dsc(batch, params, plan=plan, device=batch.x.device,
+                  stage_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = params.max_subtrajs_per_traj
+    eps = (params.eps_sp, params.eps_t, params.delta_t)
+    tiles = plan_fused_tile_ids(batch, params, plan)
+    arrs = (batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2
+    sub = out.seg.sub_local
+    vote = lambda: sj.stjoin_vote_fused_arrays(*arrs, *eps, tile_ids=tiles)
+    sim = lambda: sj.stjoin_sim_fused(batch, batch, sub, sub, ms, *eps,
+                                      tile_ids=tiles)
+    v, w = vote()
+    sums = dict(vote=digest(v), words=digest(w))
+    del v, w
+    sums["raw"] = digest(sim())
+    names = ("K11", "K12") if tiles is not None else ("K2", "K4")
+    return dict(path=path, wall_s=wall, join_vote_ms=times["join_vote"],
+                similarity_ms=times["similarity"],
+                clusters=int(out.result.is_rep.sum()), digest=sums,
+                **{names[0]: cs.time_ms(vote, reps=3),
+                   names[1]: cs.time_ms(sim, reps=3)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory of the port to time")
     ap.add_argument("--label", default="", help="a name for the JSON line")
+    ap.add_argument("--only", choices=("fused", "panels"),
+                    help="time only the dense fused passes or only the "
+                         "top-K panel passes (default: both)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_kernel_ms: no CUDA device is available",
@@ -130,12 +183,17 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = cs.gpu_line()
     kernels.library()
-    k7 = measure(cs, *cs.brest_batch(4096, dev), "fused_topk")
-    k13 = measure(cs, *cs.brest_batch(4096, dev, sort_by_lane=True),
-                  "fused_topk+index")
+    brest = cs.brest_batch(4096, dev)
+    lanes = cs.brest_batch(4096, dev, sort_by_lane=True)
+    res = dict(label=args.label, src=args.src, card=card)
+    if args.only != "panels":
+        res["fused"] = fused_measure(cs, *brest, "fused")
+        res["fused+index"] = fused_measure(cs, *lanes, "fused+index")
+    if args.only != "fused":
+        res["K7"] = measure(cs, *brest, "fused_topk")
+        res["K13"] = measure(cs, *lanes, "fused_topk+index")
     print(card)
-    print(json.dumps(dict(label=args.label, src=args.src, card=card,
-                          K7=k7, K13=k13)))
+    print(json.dumps(res))
     return 0
 
 
