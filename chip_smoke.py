@@ -26,10 +26,12 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
 5. Each kernel against its plain PyTorch version on the card, on its main
    path's full-size inputs: integer / boolean outputs equal, float outputs
    bitwise equal.  Times the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call.  K2's and K4's
-   (group, chunk) skip counts equal the plain mirror's; the pair slots
-   they evaluate are printed beside those of every pair and the needed
-   ones, with ptxas' registers and spills.
+   PyTorch call computes the same function, that call.  The chunk time
+   bounds every join kernel's sweep reads, built by their own kernel,
+   bitwise the plain version's.  K1's, K2's and K4's (group, chunk) skip
+   counts equal the plain mirrors' (K1's, over flattened groups, equal
+   K2's at M = 128); the pair slots they evaluate are printed beside those
+   of every pair and the needed ones, with ptxas' registers and spills.
 6. The fused path at ``dsc_sis`` (8192 vessels x 128 points, S = 65,536;
    the same generator and parameters): launch counts, sanity checks,
    stage times and peak memory; then K2 and K4 on its inputs, timed and
@@ -59,7 +61,9 @@ Index pruning (``use_index=True``, the pruned kernels K10-K13):
   parity step);
 * dsc_brest as the launcher lays it out (after the brest main paths): the
   three pruned paths, each launching exactly its kernels; labels, ``sim``
-  and the top-K lists equal to the unpruned runs'; then K10 bitwise K1,
+  and the top-K lists equal to the unpruned runs'; then K10 bitwise K1
+  (its skip counts equal to the plain mirror's over the plan; timed with
+  and without the two fills it no longer needs),
   K11 bitwise K2 (vote and words), K12 bitwise K4 (the skip counts of
   both equal to the plain mirror's over the plan), K13 bitwise K7 on
   every panel, and the skip counts of both equal to the plain mirror's on
@@ -147,8 +151,9 @@ CSRC = "src/repro_torch/kernels/csrc/"
 # the source of each kernel outside dsc_kernels.cu
 SOURCES = {"lcss_wavefront": "lcss_kernels.cu",
            "flash_attention_fwd": "attention_kernels.cu"}
-# the kernels each main path launches, and no other
-PATH_KERNELS = {
+# the kernels each main path launches, and no other (every path's join
+# reads the chunk time bounds, which replace no TPU kernel)
+PATH_KERNELS = {path: {"chunk_time_bounds", *names} for path, names in {
     "materialize": {"stjoin_best_match", "jaccard_window", "round_scan",
                     "claim_max"},
     "fused": {"stjoin_vote_fused", "jaccard_window", "stjoin_sim_fused",
@@ -165,7 +170,7 @@ PATH_KERNELS = {
     "fused_topk+index": {"stjoin_vote_fused_pruned", "jaccard_window",
                          "stjoin_sim_panel_fused_pruned", "topk_round_scan",
                          "topk_claim_max"},
-}
+}.items()}
 PRUNED_PATHS = ("materialize", "fused", "fused_topk")
 LABELS = ("member_of", "is_rep", "is_outlier")
 
@@ -603,8 +608,17 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
     rng = f"rows [0, {n_plain})"
 
     # ---- K10 against K1 and its plain version -----------------------------
+    stats = torch.zeros(2, dtype=torch.int64, device=batch.x.device)
     kw, ki = sj.stjoin_best_match_pruned(*ref_ops, *cand_ops, join_ids,
-                                         *eps[:2])
+                                         *eps[:2], stats=stats)
+    mirror = sj.join_skip_counts(batch.t, batch.valid, batch.t, batch.valid,
+                                 params.eps_t, tile_ids=join_ids)
+    kept_pairs = kept_window_pairs(batch, params.eps_t, join_ids, sj.JOIN_BP,
+                                   sj.JOIN_BC)
+    live, _ = sj._live_pairs(join_ids)
+    log(f"{name}: K10 {live.shape[0]} planned (block, tile) pairs; "
+        + sweep_skips(stats, mirror, live.shape[0] * sj.JOIN_BP * sj.JOIN_BC
+                      * Mc, K1_OPS_PER_PAIR * kept_pairs, "K10"))
     dw, di = sj.stjoin_best_match(*ref_ops, *cand_ops, *eps[:2])
     check(torch.equal(kw, dw) and torch.equal(ki, di),
           f"{name}: K10 not bitwise K1")
@@ -624,19 +638,22 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
         reps=3)
     ms1 = time_ms(lambda: sj.stjoin_best_match(
         *ref_ops, *cand_ops, *eps[:2], out_w=kw, out_idx=ki), reps=3)
-    log(f"{name}: K10 {ms:.3f} ms (its two fills included), K1 {ms1:.3f} "
-        "ms, on the same inputs")
+    # K10 writes every output itself; the two fills of [P, C] a wrapper
+    # would add before it, timed alone on the same outputs
+    fills = time_ms(lambda: (kw.zero_(), ki.fill_(-1)), reps=3)
+    log(f"{name}: K10 {ms:.3f} ms (no fills: it writes every output), with "
+        f"the two fills of its outputs {ms + fills:.3f} ms (fills alone "
+        f"{fills:.3f} ms); K1 {ms1:.3f} ms, on the same inputs")
     if timed:
-        live, _ = sj._live_pairs(join_ids)
-        pairs = kept_window_pairs(batch, params.eps_t, join_ids, sj.JOIN_BP,
-                                  sj.JOIN_BC)
+        K = join_ids.shape[1]           # a row shorter than K reads its -1
+        short = int(((join_ids >= 0).sum(1) < K).sum())
         nbytes = (read_bytes(*live_reads(live, sj.JOIN_BP, sj.JOIN_BC, P,
                                          C), Mc)
-                  + 8 * live.shape[0] + 8 * P * C)
+                  + 4 * (live.shape[0] + short) + 8 * P * C)
         kernel_row(rows, "stjoin_best_match_pruned", launches, err, ms,
-                   plain, bound_ms(nbytes, K1_OPS_PER_PAIR * pairs))
-        log(f"  K10: {live.shape[0]} live entries, {pairs} needed pairs in "
-            "kept tiles; library none")
+                   plain, bound_ms(nbytes, K1_OPS_PER_PAIR * kept_pairs))
+        log(f"  K10: {live.shape[0]} live entries, {kept_pairs} needed "
+            "pairs in kept tiles; library none")
     del kw, ki
     # the materialize join stage's join, whole (plan, fills, K10 / K1), in
     # turns: dense, index, index, dense
@@ -646,7 +663,7 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
         jms[idx] += time_ms(lambda: join[idx](batch, batch, *eps[:2]),
                             reps=2) / 2
     log(f"{name}: the join, whole wrapper: with the index {jms[True]:.3f} "
-        f"ms (plan, two fills, K10), dense {jms[False]:.3f} ms (K1)")
+        f"ms (plan, K10), dense {jms[False]:.3f} ms (K1)")
 
     # ---- K11 against K2, K12 against K4 -----------------------------------
     stats = torch.zeros(2, dtype=torch.int64, device=batch.x.device)
@@ -658,7 +675,7 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
     needed = K1_OPS_PER_PAIR * kept_window_pairs(
         batch, params.eps_t, fplan.tile_ids, M, fplan.bc)
     log(f"{name}: K11 {n_pairs} (row, candidate) pairs planned; "
-        + fused_skips(stats, mirror, n_pairs * M * Mc, needed, "K11"))
+        + sweep_skips(stats, mirror, n_pairs * M * Mc, needed, "K11"))
     dv, dwords = sj.stjoin_vote_fused_arrays(*arrs, *eps)
     check(torch.equal(kv, dv) and torch.equal(kwords, dwords),
           f"{name}: K11 vote / words not bitwise K2's")
@@ -666,7 +683,7 @@ def phase_pruned_kernels(batch, params, sub, join_ids, fplan, launches,
     stats.zero_()
     raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps,
                               tile_ids=fplan, stats=stats)
-    log(f"{name}: K12 " + fused_skips(stats, mirror, n_pairs * M * Mc,
+    log(f"{name}: K12 " + sweep_skips(stats, mirror, n_pairs * M * Mc,
                                       needed, "K12"))
     draw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps)
     check(torch.equal(raw, draw), f"{name}: K12 raw not bitwise K4's")
@@ -879,6 +896,10 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
               f"{mode}: a [S, S] matrix was built (peak {peak} B)")
     else:
         want = {"round_scan": out.rounds}
+    # the chunk bounds: once per join call (K2 and K4 each), once per
+    # top-K dispatch
+    want["chunk_time_bounds"] = (1 + ("fused" in mode)
+                                 * (out.dispatches if "_topk" in mode else 1))
     for k in ran - set(want):
         want[k] = 1
     check(all(launches[k] == n for k, n in want.items()),
@@ -933,20 +954,40 @@ def phase_kernels(batch, params, out, launches, rows):
     from repro_torch.kernels.cluster.ref import (claim_max_ref,
                                                  round_scan_ref)
     from repro_torch.kernels.jaccard.ops import window_jaccard
-    from repro_torch.kernels.stjoin.ops import stjoin_best_match
-    from repro_torch.kernels.stjoin.ref import stjoin_ref
+    from repro_torch.kernels.stjoin import ops as sj
+    from repro_torch.kernels.stjoin.ref import chunk_time_bounds, stjoin_ref
     T, M = batch.x.shape
     C, Mc = T, M
     P = T * M
+
+    # ---- the chunk time bounds every sweep reads: kernel and plain -------
+    lo, hi = sj.chunk_time_bounds(batch.t, batch.valid)
+    plo, phi = chunk_time_bounds(batch.t, batch.valid, sj.PANEL_CHUNK)
+    check(torch.equal(lo, plo) and torch.equal(hi, phi),
+          "chunk time bounds: the kernel's differ from the plain version's")
+    b_ms = time_ms(lambda: sj.chunk_time_bounds(batch.t, batch.valid),
+                   reps=20)
+    b_plain = time_ms(lambda: chunk_time_bounds(batch.t, batch.valid,
+                                                sj.PANEL_CHUNK), reps=20)
+    log(f"  chunk time bounds [{C}, {lo.shape[1]}]: bitwise the plain "
+        f"version; kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms")
+    del lo, hi, plo, phi
 
     # ---- K1: the full [P, C] join, kernel and plain ----------------------
     ref_ops = (batch.x.reshape(-1), batch.y.reshape(-1), batch.t.reshape(-1),
                batch.traj_id[:, None].expand(T, M).reshape(-1).contiguous(),
                batch.valid.reshape(-1), batch.x, batch.y, batch.t,
                batch.traj_id, batch.valid, params.eps_sp, params.eps_t)
-    kw, ki = stjoin_best_match(*ref_ops)
-    ms = time_ms(lambda: stjoin_best_match(*ref_ops, out_w=kw, out_idx=ki),
-                 reps=3)
+    stats = torch.zeros(2, dtype=torch.int64, device=batch.x.device)
+    kw, ki = sj.stjoin_best_match(*ref_ops, stats=stats)
+    mirror = sj.join_skip_counts(batch.t, batch.valid, batch.t, batch.valid,
+                                 params.eps_t)
+    k2_mirror = sj.fused_skip_counts(batch.t, batch.valid, batch.t,
+                                     batch.valid, params.eps_t)
+    check(list(mirror) == list(k2_mirror),
+          f"K1's mirror {mirror} differs from K2's {k2_mirror} at M = {M}")
+    ms = time_ms(lambda: sj.stjoin_best_match(*ref_ops, out_w=kw,
+                                              out_idx=ki), reps=3)
     plain_out = []
     k1_plain = time_ms(lambda: plain_out.append(stjoin_ref(*ref_ops)),
                        reps=1, warmup=0)
@@ -959,10 +1000,10 @@ def phase_kernels(batch, params, out, launches, rows):
     kernel_row(rows, "stjoin_best_match", launches, err, ms, k1_plain,
                bound_ms(join_input_bytes(P, C, Mc) + 8 * P * C,
                         K1_OPS_PER_PAIR * needed))
-    sweep_ms = K1_OPS_PER_PAIR * P * C * Mc / F32_OPS_PER_S * 1e3
-    log(f"  K1 pairs swept={P * C * Mc} needed (|dt| <= eps_t)={needed} "
-        f"matched (p, c)={matched}; the full sweep's f32 floor "
-        f"{sweep_ms:.4f} ms")
+    log("  K1 " + sweep_skips(stats, mirror, P * C * Mc,
+                              K1_OPS_PER_PAIR * needed, "K1")
+        + f" (the same counts as K2's at M = {M}); matched (p, c)={matched};"
+        f" ptxas {PTXAS.get(SWEEP_PTXAS['stjoin_best_match'], NOT_BUILT)}")
 
     # ---- K3: the packed TSA2 words of that join --------------------------
     from repro_torch.core.types import JoinResult
@@ -1054,7 +1095,7 @@ def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
     kv, kw = sj.stjoin_vote_fused_arrays(*arrs, *eps, stats=stats)
     mirror = sj.fused_skip_counts(batch.t, batch.valid, batch.t, batch.valid,
                                   params.eps_t)
-    log("  K2 " + fused_skips(stats, mirror, P * C * Mc, ops, "K2"))
+    log("  K2 " + sweep_skips(stats, mirror, P * C * Mc, ops, "K2"))
     ms = time_ms(lambda: sj.stjoin_vote_fused_arrays(*arrs, *eps), reps=3)
     plain_out = []
     tail = time_ms(lambda: plain_out.append(vote_words_ref(
@@ -1070,14 +1111,14 @@ def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
                bound_ms(join_input_bytes(P, C, Mc) + P * 4 + P * W * 4, ops))
     log(f"  K2 plain = K1 plain {k1_plain:.1f} ms + refine, vote and words "
         f"{tail:.1f} ms; full-sweep floor {sweep_ms:.4f} ms; library none; "
-        f"ptxas {PTXAS.get(FUSED_PTXAS['stjoin_vote_fused'], 'not built in this run')}")
+        f"ptxas {PTXAS.get(SWEEP_PTXAS['stjoin_vote_fused'], NOT_BUILT)}")
     del kv, kw, pv, pwords
 
     # ---- K4: the raw similarity scatter ----------------------------------
     sub = fout.seg.sub_local
     stats.zero_()
     raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps, stats=stats)
-    log("  K4 " + fused_skips(stats, mirror, P * C * Mc, ops, "K4"))
+    log("  K4 " + sweep_skips(stats, mirror, P * C * Mc, ops, "K4"))
     ms = time_ms(lambda: sj.stjoin_sim_fused(batch, batch, sub, sub, ms_,
                                              *eps), reps=3)
     w_r, i_r = run_refine(pw, pi, ref_t, M, params.delta_t)
@@ -1095,15 +1136,15 @@ def phase_fused_kernels(batch, params, fout, launches, pw, pi, k1_plain,
     log(f"  K4 plain = K1 plain {k1_plain:.1f} ms + refine and scatter "
         f"{tail:.1f} ms; {int((praw > 0).sum())} nonzero cells of {S * S}; "
         f"full-sweep floor {sweep_ms:.4f} ms; library none; ptxas "
-        f"{PTXAS.get(FUSED_PTXAS['stjoin_sim_fused'], 'not built in this run')}")
+        f"{PTXAS.get(SWEEP_PTXAS['stjoin_sim_fused'], NOT_BUILT)}")
     return raw
 
 
-def fused_skips(stats, mirror, pair_slots: int, ops: int, what: str) -> str:
-    """The (group, chunk) pairs a K2 / K4 / K11 / K12 launch tested and
-    skipped (``stats``), held equal to the plain mirror, and the pair slots
-    the kept ones hold against every pair of the launch and the f32
-    operations the needed pairs take, as a log phrase."""
+def sweep_skips(stats, mirror, pair_slots: int, ops: int, what: str) -> str:
+    """The (group, chunk) pairs a K1 / K2 / K4 / K10 / K11 / K12 launch
+    tested and skipped (``stats``), held equal to the plain mirror, and the
+    pair slots the kept ones hold against every pair of the launch and the
+    pairs needed (``ops``: their f32 operations), as a log phrase."""
     swept, skipped = stats.tolist()
     check([swept, skipped] == list(mirror),
           f"{what}: swept / skipped {swept} / {skipped} (group, chunk) "
@@ -1113,7 +1154,8 @@ def fused_skips(stats, mirror, pair_slots: int, ops: int, what: str) -> str:
             f"the mirror; {100 * (swept - skipped) / max(swept, 1):.2f}% "
             f"kept), {slots} pair slots evaluated of {pair_slots} "
             f"({pair_slots / max(slots, 1):.1f}x fewer), "
-            f"{ops // K1_OPS_PER_PAIR} needed")
+            f"{ops // K1_OPS_PER_PAIR} needed "
+            f"({max(slots, 1) / max(ops // K1_OPS_PER_PAIR, 1):.1f}x those)")
 
 
 def phase_fused_head(batch, params, sub, report, name: str, n_plain: int):
@@ -1577,10 +1619,12 @@ def kernel_name(line: str) -> str | None:
 # ptxas' registers and spills of each kernel instantiation, by name (empty
 # when the library was already built)
 PTXAS: dict[str, str] = {}
-# the kernel instantiation each fused launcher runs (K4 / K12 launch the
-# forward blocks of K7's / K13's kernel, K11 K2's kernel)
-FUSED_PTXAS = {"stjoin_vote_fused": "stjoin_vote_fused_kernel",
+# the kernel instantiation each sweeping launcher runs (K4 / K12 launch the
+# forward blocks of K7's / K13's kernel, K10 K1's kernel, K11 K2's kernel)
+SWEEP_PTXAS = {"stjoin_best_match": "stjoin_best_match_kernel",
+               "stjoin_vote_fused": "stjoin_vote_fused_kernel",
                "stjoin_sim_fused": "stjoin_sim_panel_fused_kernel"}
+NOT_BUILT = "not built in this run"
 
 
 def log_ptxas(build_log: str) -> None:

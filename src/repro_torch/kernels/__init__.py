@@ -8,7 +8,8 @@ Each kernel package mirrors ``repro.kernels``:
            JAX package against
 
 The kernels live in ``csrc/``: ``dsc_kernels.cu`` (the DSC pipeline,
-K1-K13), ``lcss_kernels.cu`` (K14) and ``attention_kernels.cu`` (K15),
+K1-K13, and the chunk time bounds their sweep reads),
+``lcss_kernels.cu`` (K14) and ``attention_kernels.cu`` (K15),
 each a translation unit with a plain C interface.  At first use each is
 compiled by its own ``nvcc`` for ``sm_90a`` (all started together) and the
 objects are linked into one library under
@@ -50,16 +51,17 @@ LAUNCHES = {"stjoin_best_match": 0, "stjoin_vote_fused": 0,
             "stjoin_best_match_pruned": 0, "stjoin_vote_fused_pruned": 0,
             "stjoin_sim_fused_pruned": 0,
             "stjoin_sim_panel_fused_pruned": 0, "lcss_wavefront": 0,
-            "flash_attention_fwd": 0}
+            "flash_attention_fwd": 0, "chunk_time_bounds": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # ref x, y, t, id, ok; cand x, y, t, id, ok; P, C, Mc; eps_sp, eps_t;
-    # best_w, best_idx; stream
+    # chunk time bounds lo, hi; skip counts (NULL: none); best_w, best_idx;
+    # stream
     "stjoin_best_match": [_P] * 10 + [ctypes.c_longlong, _I, _I,
-                                      ctypes.c_float, ctypes.c_float,
-                                      _P, _P, _P],
+                                      ctypes.c_float, ctypes.c_float]
+                         + [_P] * 3 + [_P, _P, _P],
     # ref x, y, t, id, ok; cand x, y, t, id, ok; T, M, C, Mc; eps_sp,
     # eps_t, delta_t; chunk time bounds lo, hi; skip counts (NULL: none);
     # vote, words (NULL for TSA1), W; stream
@@ -73,12 +75,14 @@ _SIGNATURES = {
     # time bounds lo, hi; skip counts (NULL: none); fwd, rev; stream
     "stjoin_sim_panel_fused": [_P] * 12 + [_I] * 7 + [ctypes.c_float] * 3
                               + [_P] * 3 + [_P, _P, _P],
-    # the K1 operands, P, C, Mc, eps_sp, eps_t; live (block, tile) pairs,
-    # their count; best_w, best_idx; stream
+    # the K1 operands, P, C, Mc, eps_sp, eps_t; tile_ids, K; chunk bounds
+    # lo, hi; skip counts; best_w, best_idx; stream
     "stjoin_best_match_pruned": [_P] * 10 + [ctypes.c_longlong, _I, _I,
                                              ctypes.c_float, ctypes.c_float,
-                                             _P, ctypes.c_longlong,
-                                             _P, _P, _P],
+                                             _P, _I] + [_P] * 3
+                                + [_P, _P, _P],
+    # t, ok; R, N, chunk; lo, hi; stream
+    "chunk_time_bounds": [_P, _P, ctypes.c_longlong, _I, _I, _P, _P, _P],
     # the K2 operands up to W; tile_ids, K; stream
     "stjoin_vote_fused_pruned": [_P] * 10 + [_I] * 4
                                 + [ctypes.c_float] * 3 + [_P] * 3

@@ -23,9 +23,12 @@
 //   stjoin_sim_panel_fused_pruned
 //                      <- repro/kernels/stjoin/stjoin.py  stjoin_sim_panel_fused_pruned_flat
 //
-// (C launchers; stjoin_vote_fused and its pruned twin launch one kernel,
-// stjoin_sim_fused the forward blocks of stjoin_sim_panel_fused's kernel,
-// stjoin_sim_fused_pruned those of its pruned twin's.)
+// (C launchers; stjoin_best_match and its pruned twin launch one kernel,
+// as do stjoin_vote_fused and its pruned twin; stjoin_sim_fused the
+// forward blocks of stjoin_sim_panel_fused's kernel, stjoin_sim_fused_pruned
+// those of its pruned twin's.  chunk_time_bounds, which replaces no TPU
+// kernel, builds the chunk time bounds that every join kernel's sweep
+// reads.)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (never --use_fast_math).  The arithmetic below also spells out the
@@ -43,38 +46,10 @@
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// The best-match sweep of K1 and K10 (the fused passes run the time-window
-// sweep further down, panel_sweep, with the same matches, weights and
-// indices).
-//
-// For every (reference point p, candidate trajectory c): the best weight
-// 1 - sqrt(d2)/eps_sp over c's points inside the (eps_sp, eps_t) cylinder,
-// same-trajectory pairs skipped, the first point index winning a tie.
-//
-// Bound: operations (about seven f32 instructions per (point, candidate
-// point) pair).  Design: a block of 32 x 8 threads owns 64 reference
-// points x 32 candidates.  threadIdx.x walks candidates; each thread keeps
-// 8 reference points (p0 + threadIdx.y + 8k) in registers, and the block
-// stages 32 candidate points of its 32 candidates at a time in shared
-// memory ([point][candidate], padded, so both the staging stores and the
-// per-point reads are conflict-free).  The candidate points are walked in
-// index order with a strict '>', so the first index wins ties exactly as
-// argmax does in the reference.
-// ---------------------------------------------------------------------------
-constexpr int K1_TC = 32;    // candidates per block (threadIdx.x)
-constexpr int K1_TY = 8;     // thread rows per block (threadIdx.y)
-constexpr int K1_NP = 8;     // reference points per thread
-constexpr int K1_MCH = 32;   // candidate points staged per chunk
-constexpr int K1_PTS = K1_TY * K1_NP;   // reference points per sweep
+// The blocks of the join kernels: 32 candidates (one per lane) x 8 warps.
+constexpr int K1_TC = 32;    // candidates per block (threadIdx.x): a tile
+constexpr int K1_TY = 8;     // warps per block (threadIdx.y)
 constexpr int kThreads = K1_TC * K1_TY;
-
-struct SweepSmem {
-  float x[K1_MCH][K1_TC + 1];
-  float y[K1_MCH][K1_TC + 1];
-  float t[K1_MCH][K1_TC + 1];
-  uint8_t ok[K1_MCH][K1_TC + 1];
-};
 
 struct JoinOperands {
   const float* rx;
@@ -91,177 +66,55 @@ struct JoinOperands {
   float eps_sp, eps_t;
 };
 
-// Every thread of the block must call it: it synchronizes.  Reference
-// points p0 + threadIdx.y + 8k below p_end, candidates c0 + threadIdx.x
-// below C.  Returns the running (max, argmax) per point; best = -1 where
-// nothing matched.
-__device__ __forceinline__ void sweep_best(SweepSmem& sm,
-                                           const JoinOperands& op,
-                                           long long p0, long long p_end,
-                                           int c0, float (&best)[K1_NP],
-                                           int (&arg)[K1_NP]) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = c0 + tx;
-  const bool c_in = c < op.C;
-  const int my_cid = c_in ? op.cid[c] : 0;
-  const float eps2 = __fmul_rn(op.eps_sp, op.eps_sp);
-
-  float px[K1_NP], py[K1_NP], pt[K1_NP];
-  bool live[K1_NP];
-#pragma unroll
-  for (int k = 0; k < K1_NP; ++k) {
-    const long long p = p0 + ty + (long long)k * K1_TY;
-    const bool in = p < p_end;
-    px[k] = in ? op.rx[p] : 0.f;
-    py[k] = in ? op.ry[p] : 0.f;
-    pt[k] = in ? op.rt[p] : 0.f;
-    live[k] = in && c_in && op.rok[p] && op.rid[p] != my_cid;
-    best[k] = -1.f;
-    arg[k] = 0;
-  }
-
-  for (int m0 = 0; m0 < op.Mc; m0 += K1_MCH) {
-    // stage: consecutive threads read consecutive points of one candidate
-    for (int e = ty * K1_TC + tx; e < K1_MCH * K1_TC; e += kThreads) {
-      const int cl = e / K1_MCH, mm = e % K1_MCH;
-      const int cc = c0 + cl, m = m0 + mm;
-      const bool ld = cc < op.C && m < op.Mc;
-      const size_t g = (size_t)cc * op.Mc + m;
-      sm.x[mm][cl] = ld ? op.cx[g] : 0.f;
-      sm.y[mm][cl] = ld ? op.cy[g] : 0.f;
-      sm.t[mm][cl] = ld ? op.ct[g] : 0.f;
-      sm.ok[mm][cl] = ld ? op.cok[g] : 0;
-    }
-    __syncthreads();
-    const int mend = min(K1_MCH, op.Mc - m0);
-    for (int mm = 0; mm < mend; ++mm) {
-      const float qx = sm.x[mm][tx], qy = sm.y[mm][tx], qt = sm.t[mm][tx];
-      const bool qok = sm.ok[mm][tx] != 0;
-#pragma unroll
-      for (int k = 0; k < K1_NP; ++k) {
-        const float dx = __fsub_rn(px[k], qx);
-        const float dy = __fsub_rn(py[k], qy);
-        const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        const float dt = fabsf(__fsub_rn(pt[k], qt));
-        if (live[k] && qok && d2 <= eps2 && dt <= op.eps_t) {
-          const float w =
-              __fsub_rn(1.f, __fdiv_rn(__fsqrt_rn(d2), op.eps_sp));
-          if (w > best[k]) {
-            best[k] = w;
-            arg[k] = m0 + mm;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K1: dense best-match join -> best_w / best_idx [P, C].
+// The time-window sweep shared by every join kernel: K1 and the fused
+// passes K2, K4, K7, and their pruned twins K10-K13.
 //
-// Bound: operations of the sweep against 8*P*C bytes of output.  Design:
-// one sweep per block (64 points x 32 candidates); each warp writes 32
-// consecutive outputs of one row.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void best_match_block(SweepSmem& sm,
-                                                 const JoinOperands& op,
-                                                 long long P, long long p0,
-                                                 int c0,
-                                                 float* __restrict__ out_w,
-                                                 int* __restrict__ out_idx) {
-  float best[K1_NP];
-  int arg[K1_NP];
-  sweep_best(sm, op, p0, P, c0, best, arg);
-
-  const int c = c0 + threadIdx.x;
-  if (c >= op.C) return;
-#pragma unroll
-  for (int k = 0; k < K1_NP; ++k) {
-    const long long p = p0 + threadIdx.y + (long long)k * K1_TY;
-    if (p < P) {
-      const size_t o = (size_t)p * op.C + c;
-      out_w[o] = best[k] > 0.f ? best[k] : 0.f;
-      out_idx[o] = best[k] > 0.f ? arg[k] : -1;
-    }
-  }
-}
-
-// The grid is linear (x has a 2^31 - 1 limit, y only 65535): block x is
-// point block x % n_pb of candidate tile x / n_pb, the order of the former
-// 2-D grid.  32-bit index math (the launcher keeps the grid below 2^31): a
-// 64-bit division took K1 from 64 to 80 registers.
-__global__ void __launch_bounds__(kThreads)
-stjoin_best_match_kernel(JoinOperands op, long long P, unsigned n_pb,
-                         float* __restrict__ out_w,
-                         int* __restrict__ out_idx) {
-  __shared__ SweepSmem sm;
-  const unsigned x = blockIdx.x;
-  best_match_block(sm, op, P, (long long)(x % n_pb) * K1_PTS,
-                   (int)(x / n_pb) * K1_TC, out_w, out_idx);
-}
-
-// K10 <- stjoin_pallas_pruned: K1 over the live (64-point block, 32-
-// candidate tile) pairs of the index's plan (the plans are described with
-// K11-K13 below).  The wrapper fills best_w with 0 and best_idx with
-// -1 first (two memsets), then one block per live pair writes its 64 x 32
-// outputs.  Four blocks per SM, K1's occupancy: left free, ptxas gives
-// this kernel 80 registers (K1: 64), which fits only three.
-__global__ void __launch_bounds__(kThreads, 4)
-stjoin_best_match_pruned_kernel(JoinOperands op, long long P,
-                                const int2* __restrict__ pairs,
-                                float* __restrict__ out_w,
-                                int* __restrict__ out_idx) {
-  __shared__ SweepSmem sm;
-  const int2 e = pairs[blockIdx.x];
-  best_match_block(sm, op, P, (long long)e.x * K1_PTS, e.y * K1_TC, out_w,
-                   out_idx);
-}
-
-// ---------------------------------------------------------------------------
-// The time-window sweep shared by the fused passes K2, K4, K7 and their
-// pruned twins K11-K13.
-//
-// A block of 32 x 8 threads sweeps 32 (reference row t, candidate c) pairs,
-// one per lane: K2, K4 and K11-K12 the pairs of one row against a tile of
-// 32 candidates (the tile is one packed TSA2 word), K7 / K13 those and, in
+// For every (reference point p, candidate trajectory c) a sweep finds the
+// best weight 1 - sqrt(d2)/eps_sp over c's points inside the (eps_sp,
+// eps_t) cylinder, same-trajectory pairs skipped, the first point index
+// winning a tie.  A block of 32 x 8 threads sweeps 32 candidates, one per
+// lane, against groups of 8 consecutive reference points, one per warp:
+// K1 / K10 one block of 64 flattened points against a tile of 32
+// candidates (join_tile below); K2, K4 and K11-K12 the pairs of one row
+// against a tile (the tile is one packed TSA2 word), K7 / K13 those and, in
 // their reverse blocks, a few rows against the few candidates that own a
-// panel slot.  The sweep leaves each lane's best match per reference point
-// m -- weight (0 = none) and, where slot maps are given, the match's cell
-// in the pair's ms x ms block -- in [M][33] tiles of shared memory, for the
-// consumers: K2's vote and words, the similarity scatter of K4 and K7.
+// panel slot (panel_sweep, which leaves each lane's best match per
+// reference point m -- weight (0 = none) and, where slot maps are given,
+// the match's cell in the pair's ms x ms block -- in [M][33] tiles of
+// shared memory, for the consumers: K2's vote and words, the similarity
+// scatter of K4 and K7).
 //
 // Bound: the pairs with |dt| <= eps_t are about 1% of the point pairs of
 // the swept trajectories at dsc_brest (2.66e9 of 2.75e11 for all T x C).
-// Design:
-// - An exact time-window skip.  Thread (lane j, warp w) takes, per pass of
-//   64 points, the group of 8 consecutive points 64s + 8w .. 64s + 8w + 7
-//   of its lane's row: points close in time, with bounds [p_min, p_max]
-//   over their valid times.  The wrapper gives the min / max time over the
-//   valid points of each chunk of 8 candidate points ([C, ceil(Mc/8)],
-//   stjoin/ref.py::chunk_time_bounds, once per call or dispatch).  A thread
-//   skips chunk k iff the group or the chunk holds no valid time, or
-//   __fsub_rn(q_min, p_max) > eps_t, or __fsub_rn(p_min, q_max) > eps_t:
-//   the pair test's own IEEE subtraction, and rounding is monotone and odd,
-//   so every pair of a skipped chunk has |fl(pt - qt)| > eps_t and fails
-//   the test (a NaN bound never skips).  Each lane walks only its own kept
-//   chunks (the set bits of a mask) in ascending index.
-// - Per kept chunk, the cylinder test of its 8 x 8 pairs sets a mask; the
-//   IEEE square root and division of the weight then run per lane over its
-//   own passes, in ascending index with a strict '>', so (best, argmax) is
-//   sweep_best's bit for bit.  (Inside the test loop a warp would run that
-//   branch for every pair that any of its lanes passes.)
+// Design (sweep_window, one window of one group against one lane):
+// - An exact time-window skip.  A group's points are close in time, with
+//   bounds [p_min, p_max] over their valid times.  The wrapper gives the
+//   min / max time over the valid points of each chunk of 8 candidate
+//   points ([C, ceil(Mc/8)], chunk_bounds_kernel below, once per call or
+//   dispatch).  A thread skips chunk k iff the group or the chunk holds no
+//   valid time, or __fsub_rn(q_min, p_max) > eps_t, or __fsub_rn(p_min,
+//   q_max) > eps_t: the pair test's own IEEE subtraction, and rounding is
+//   monotone and odd, so every pair of a skipped chunk has |fl(pt - qt)| >
+//   eps_t and fails the test (a NaN bound never skips).  Each lane walks
+//   only its own kept chunks (the set bits of a mask) in ascending index.
+// - Per kept chunk, the cylinder test of its 8 x 8 pairs sets a mask
+//   (same-trajectory points masked out); the IEEE square root and division
+//   of the weight then run per lane over its own passes, in ascending index
+//   with a strict '>', so (best, argmax) is the plain version's bit for
+//   bit.  (Inside the test loop a warp would run that branch for every
+//   pair that any of its lanes passes.)
 // - The block stages its lanes' candidates in shared memory, a window of
-//   wp points at a time (the whole trajectory when Mc <= wp: once per
-//   sweep; a reverse block's rows read one copy), as x, y and t with t =
-//   NaN where the point is invalid, so the pair test needs no flags; the
-//   reference points of a pair that cannot match (invalid, same
-//   trajectory, dead lane) carry t = NaN too.  The launcher picks the
-//   widest window (128, 64 or 32 points) whose shared memory fits the
-//   card's opt-in limit and refuses a row too long for any.
+//   wp points at a time (the whole trajectory when Mc <= wp; a reverse
+//   block's rows read one copy), as x, y and t with t = NaN where the
+//   point is invalid, so the pair test needs no flags; invalid reference
+//   points carry t = NaN too.  The launcher picks the widest window (128,
+//   64 or 32 points) whose shared memory fits the card's opt-in limit and
+//   refuses a shape too large for any.
 // - stats (optional): the (group, chunk) pairs tested and skipped, counted
 //   per thread over the whole block, summed per warp and added with 64-bit
-//   integer atomics once per block (exact, any order); the plain mirror is
+//   integer atomics once per block (exact, any order); the plain mirrors
+//   are stjoin/ops.py::join_skip_counts (K1, K10) and
 //   stjoin/ref.py::panel_skip_counts_ref over the pairs of the launch
 //   (stjoin/ops.py::fused_pairs, SimPanelSweep.pairs).
 // ---------------------------------------------------------------------------
@@ -345,15 +198,15 @@ __device__ __forceinline__ void flush_stats(unsigned long long* stats,
   }
 }
 
-// Stage candidate points [w0, w0 + wp) and their chunk bounds of every
-// live lane that reads its own copy (L.t[j] >= 0, L.s[j] == j); padding
-// has t = NaN and empty bounds.  Each thread issues the loads of four
-// points before it stores them (wp is a power of two >= 32, so 32 * wp
-// is a multiple of 4 * 256).
-__device__ __forceinline__ void panel_stage(const JoinOperands& op,
-                                            const PanelArgs& a, int w0,
-                                            const PanelLanes& L,
-                                            const PanelTile& s) {
+// Stage candidate points [w0, w0 + wp) and their chunk bounds for every
+// lane jl with cand(jl) >= 0 (the candidate that lane's staged row holds;
+// -1: nothing to stage); padding has t = NaN and empty bounds.  Each
+// thread issues the loads of four points before it stores them (wp is a
+// power of two >= 32, so 32 * wp is a multiple of 4 * 256).
+template <class Cand>
+__device__ __forceinline__ void stage_window(const JoinOperands& op,
+                                             const PanelArgs& a, int w0,
+                                             Cand cand, const PanelTile& s) {
   const int S7 = panel_tile_stride(a.wp), SB = panel_bound_stride(a.wp);
   const int lg = __ffs(a.wp) - 1;
   const int tid = threadIdx.y * K1_TC + threadIdx.x;
@@ -364,8 +217,9 @@ __device__ __forceinline__ void panel_stage(const JoinOperands& op,
     for (int u = 0; u < 4; ++u) {
       const int e = e0 + u * kThreads;
       const int jl = e >> lg, mm = e & (a.wp - 1), m = w0 + mm;
-      const bool ld = L.t[jl] >= 0 && L.s[jl] == jl && m < op.Mc;
-      const size_t g = (size_t)L.c[jl] * op.Mc + m;
+      const int c = cand(jl);
+      const bool ld = c >= 0 && m < op.Mc;
+      const size_t g = (size_t)max(c, 0) * op.Mc + m;
       vx[u] = ld ? op.cx[g] : 0.f;
       vy[u] = ld ? op.cy[g] : 0.f;
       const float t = ld ? op.ct[g] : 0.f;
@@ -382,18 +236,278 @@ __device__ __forceinline__ void panel_stage(const JoinOperands& op,
   const int k0 = w0 / kChunk, nk = a.wp / kChunk;
   for (int e = tid; e < K1_TC * nk; e += kThreads) {
     const int jl = e / nk, k = e % nk;
-    const bool ld = L.t[jl] >= 0 && L.s[jl] == jl && k0 + k < a.nch;
-    const size_t g = (size_t)L.c[jl] * a.nch + k0 + k;
+    const int c = cand(jl);
+    const bool ld = c >= 0 && k0 + k < a.nch;
+    const size_t g = (size_t)max(c, 0) * a.nch + k0 + k;
     s.lo[jl * SB + k] = ld ? a.chunk_lo[g] : CUDART_INF_F;
     s.hi[jl * SB + k] = ld ? a.chunk_hi[g] : -CUDART_INF_F;
   }
 }
 
-// The sweep: leaves lane j's weights (0 = no match) in tw [m][33] and, if
-// tidx is given, in tidx [m][33] the cell of each match in the pair's
-// ms x ms block (-1 = none): the winning index mapped through the slot
-// maps.  Adds the thread's (group, chunk) counts to n.  Every thread calls
-// it: it synchronizes.
+// A group of up to 8 consecutive reference points in registers: x, y, t
+// (NaN where the point is invalid or missing) and the bounds [p_min,
+// p_max] of its valid times.
+struct Group {
+  float px[kGroup], py[kGroup], pt[kGroup];
+  float p_min, p_max;
+};
+
+// Points p .. p + n - 1 (n <= 0: an empty group).
+__device__ __forceinline__ void load_group(const JoinOperands& op,
+                                           long long p, int n, Group& g) {
+  g.p_min = CUDART_INF_F;
+  g.p_max = -CUDART_INF_F;
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r) {
+    const bool in = r < n;
+    const float t = in && op.rok[p + r] ? op.rt[p + r] : CUDART_NAN_F;
+    g.p_min = fminf(g.p_min, t);                  // fminf drops a NaN
+    g.p_max = fmaxf(g.p_max, t);
+    g.px[r] = in ? op.rx[p + r] : 0.f;
+    g.py[r] = in ? op.ry[p + r] : 0.f;
+    g.pt[r] = t;
+  }
+}
+
+// The group's points that may match candidate trajectory my_cid (the
+// others are the same trajectory), as a mask over sweep_window's hit bits:
+// bits 8(r % 4) .. 8(r % 4) + 7 of word r / 4 for each such point r.
+__device__ __forceinline__ void other_traj(const JoinOperands& op,
+                                           long long p, int n, int my_cid,
+                                           uint32_t (&allow)[2]) {
+  allow[0] = allow[1] = 0u;
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r)
+    if (r < n && op.rid[p + r] != my_cid)
+      allow[r / 4] |= 0xffu << (8 * (r % 4));
+}
+
+// The one-pass body of every sweep: one window of the lane's staged
+// candidate (qx, qy, qt its points there, lo / hi its chunk bounds; w0 the
+// window's first point, nchw its chunks) against the group, into the
+// running (best, arg) per point (best = -1 where nothing matched yet).
+// counted: the (group, candidate) pair exists; its (group, chunk) pairs go
+// into n.
+__device__ __forceinline__ void sweep_window(
+    const JoinOperands& op, const Group& g, const uint32_t (&allow)[2],
+    const float* qx, const float* qy, const float* qt, const float* lo,
+    const float* hi, int w0, int nchw, bool counted, float (&best)[kGroup],
+    int (&arg)[kGroup], SweepCounts& n) {
+  const float eps2 = __fmul_rn(op.eps_sp, op.eps_sp);
+  uint32_t keep = 0u;
+  if (counted && !(g.p_min > g.p_max)) {
+    for (int k = 0; k < nchw; ++k) {
+      const float q_lo = lo[k], q_hi = hi[k];
+      const bool skip = q_lo > q_hi || __fsub_rn(q_lo, g.p_max) > op.eps_t
+                        || __fsub_rn(g.p_min, q_hi) > op.eps_t;
+      keep |= (skip ? 0u : 1u) << k;
+    }
+  }
+  if (counted) {
+    n.swept += nchw;
+    n.skipped += nchw - __popc(keep);
+  }
+  while (keep != 0u) {                            // ascending chunks
+    const int k = __ffs(keep) - 1;
+    keep &= keep - 1u;
+    // the cylinder test of all 8 x 8 pairs, then the weight of each pair
+    // that passes, per lane: a warp steps through the passes of its
+    // busiest lane, not through every pair some lane passes
+    uint32_t hit[2] = {0u, 0u};         // bit 8(r % 4) + mm: pair (r, mm)
+#pragma unroll
+    for (int mm = 0; mm < kChunk; ++mm) {
+      const int q = k * kChunk + mm;
+      const float cx = qx[q], cy = qy[q], ct = qt[q];
+#pragma unroll
+      for (int r = 0; r < kGroup; ++r) {
+        const float dx = __fsub_rn(g.px[r], cx);
+        const float dy = __fsub_rn(g.py[r], cy);
+        const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+        const float dt = fabsf(__fsub_rn(g.pt[r], ct));
+        if (d2 <= eps2 && dt <= op.eps_t)
+          hit[r / 4] |= 1u << (8 * (r % 4) + mm);
+      }
+    }
+    hit[0] &= allow[0];
+    hit[1] &= allow[1];
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r) {
+      uint32_t h = (hit[r / 4] >> (8 * (r % 4))) & 0xffu;
+      while (h != 0u) {                           // ascending points
+        const int q = k * kChunk + __ffs(h) - 1;
+        h &= h - 1u;
+        const float dx = __fsub_rn(g.px[r], qx[q]);
+        const float dy = __fsub_rn(g.py[r], qy[q]);
+        const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+        const float w = __fsub_rn(1.f, __fdiv_rn(__fsqrt_rn(d2), op.eps_sp));
+        if (w > best[r]) {
+          best[r] = w;
+          arg[r] = w0 + q;
+        }
+      }
+    }
+  }
+}
+
+// The chunks of the window at w0: ceil(min(wp, Mc - w0) / 8).
+__device__ __forceinline__ int window_chunks(const JoinOperands& op,
+                                             const PanelArgs& a, int w0) {
+  return (min(a.wp, op.Mc - w0) + kChunk - 1) / kChunk;
+}
+
+// ---------------------------------------------------------------------------
+// K1: dense best-match join -> best_w / best_idx [P, C], (0, -1) where
+// nothing matched.  K10 is the same kernel over a plan's tiles.
+//
+// Bound: bytes (8*P*C of output; the pairs the join needs are about 1% of
+// the P*C*Mc point pairs at dsc_brest).  Design: one block per 64
+// consecutive flattened reference points walks the candidate tiles in
+// ascending order.  Warp w keeps the group p0 + 8w .. p0 + 8w + 7 in
+// registers for the whole block (a group may straddle two rows: its
+// bounds are its own valid times, so the skip stays exact and only skips
+// less; the same-trajectory test stays per point).  Per tile, lane j takes
+// candidate c0 + j: the block stages the tile window by window, each lane
+// sweeps its candidate (sweep_window), and each thread writes its 8 (best,
+// arg) from registers: every warp store is 32 consecutive outputs of one
+// point.  64-bit index math only for the output offset.
+//
+// K10 <- stjoin_pallas_pruned: the block's K planned tiles (ascending,
+// unique, -1 padded: the wrapper checks) instead of all, and (0, -1)
+// written into the tiles skipped before each planned tile and after the
+// last, so every output is written once, by one thread, with no fill.
+// ---------------------------------------------------------------------------
+
+// (0, -1) into the outputs of points p .. p + n - 1 for candidates
+// [c_from, c_to), lane j taking c_from + j, c_from + j + 32, ...
+__device__ __forceinline__ void join_clear(long long p, int n, int C,
+                                           int c_from, int c_to,
+                                           float* __restrict__ out_w,
+                                           int* __restrict__ out_idx) {
+  for (int c = c_from + threadIdx.x; c < c_to; c += K1_TC)
+    for (int r = 0; r < n; ++r) {
+      const long long o = (p + r) * C + c;
+      out_w[o] = 0.f;
+      out_idx[o] = -1;
+    }
+}
+
+// The block's group against the tile of candidates c0 .. c0 + 31: stage,
+// sweep, write.  Every thread of the block calls it: it synchronizes.
+__device__ __forceinline__ void join_tile(const JoinOperands& op,
+                                          const PanelArgs& a,
+                                          const PanelTile& s, const Group& g,
+                                          long long p, int n, int c0,
+                                          float* __restrict__ out_w,
+                                          int* __restrict__ out_idx,
+                                          SweepCounts& cnt) {
+  const int j = threadIdx.x;
+  const int S7 = panel_tile_stride(a.wp), SB = panel_bound_stride(a.wp);
+  const int c = c0 + j;
+  const bool c_in = c < op.C;
+  uint32_t allow[2];
+  other_traj(op, p, n, c_in ? op.cid[c] : 0, allow);
+  float best[kGroup];
+  int arg[kGroup];
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r) {
+    best[r] = -1.f;
+    arg[r] = 0;
+  }
+  for (int w0 = 0; w0 < op.Mc; w0 += a.wp) {
+    __syncthreads();                  // every lane has read the last window
+    stage_window(op, a, w0, [&](int jl) {
+      return c0 + jl < op.C ? c0 + jl : -1;
+    }, s);
+    __syncthreads();
+    sweep_window(op, g, allow, s.x + j * S7, s.y + j * S7, s.t + j * S7,
+                 s.lo + j * SB, s.hi + j * SB, w0, window_chunks(op, a, w0),
+                 c_in && n > 0, best, arg, cnt);
+  }
+  if (!c_in) return;
+#pragma unroll
+  for (int r = 0; r < kGroup; ++r) {
+    if (r < n) {
+      const long long o = (p + r) * op.C + c;
+      const bool matched = best[r] > 0.f;
+      out_w[o] = matched ? best[r] : 0.f;
+      out_idx[o] = matched ? arg[r] : -1;
+    }
+  }
+}
+
+// Four blocks an SM (53.9 KB of shared memory each with a 128-point
+// window; ptxas then gives 64 registers and a 96-byte spill): on an H100
+// SXM at dsc_brest K1 ran in 42.7-43.0 ms, against 45.2 with three blocks
+// (80 registers) and 45.8 with one block per (64-point block, tile) pair,
+// K10 lane-sorted in 30.6-31.0 against 32.0-32.2 and 37.7-38.2 (that
+// grid over the plan's live pairs after two fills of the outputs);
+// tools/panel_kernel_ms.py --only join, in turns.
+__global__ void __launch_bounds__(kThreads, 4)
+stjoin_best_match_kernel(JoinOperands op, PanelArgs a, long long P,
+                         const int* __restrict__ tile_ids, int K,
+                         float* __restrict__ out_w,
+                         int* __restrict__ out_idx) {
+  extern __shared__ float dyn[];
+  const PanelTile s = panel_tile(dyn, a.wp);
+  const long long p = (long long)blockIdx.x * kPassPts
+                      + threadIdx.y * kGroup;   // the warp's group
+  const int n = (int)min((long long)kGroup, P - p);   // <= 0: none
+  Group g;
+  load_group(op, p, n, g);
+  const int* tiles = tile_ids == nullptr ? nullptr
+                                         : tile_ids + (long long)blockIdx.x * K;
+  const int n_tiles = tiles == nullptr ? (op.C + K1_TC - 1) / K1_TC : K;
+  SweepCounts cnt{0u, 0u};
+  int c_from = 0;
+  for (int q = 0; q < n_tiles; ++q) {
+    const int jt = tiles == nullptr ? q : tiles[q];
+    if (jt < 0) break;
+    const int c0 = jt * K1_TC;
+    join_clear(p, n, op.C, c_from, c0, out_w, out_idx);
+    join_tile(op, a, s, g, p, n, c0, out_w, out_idx, cnt);
+    c_from = c0 + K1_TC;
+  }
+  join_clear(p, n, op.C, c_from, op.C, out_w, out_idx);
+  flush_stats(a.stats, cnt);
+}
+
+// ---------------------------------------------------------------------------
+// The chunk time bounds of the sweep (plain version:
+// stjoin/ref.py::chunk_time_bounds): per row r of t [R, N] and run k of
+// `chunk` consecutive points, the min and max over the valid non-NaN
+// times, (+inf, -inf) where the run holds none.  One thread per (row,
+// run); a min and a max are exact, so the bounds are the plain version's
+// bit for bit.  Built on the card, the bounds cost a sweeping call no
+// torch operation (a process's first such call would load their modules).
+// ---------------------------------------------------------------------------
+__global__ void chunk_bounds_kernel(const float* __restrict__ t,
+                                    const uint8_t* __restrict__ ok,
+                                    long long runs, int N, int chunk, int n,
+                                    float* __restrict__ lo,
+                                    float* __restrict__ hi) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= runs) return;
+  const long long r = e / n;
+  const int k = (int)(e - r * n);
+  float a = CUDART_INF_F, b = -CUDART_INF_F;
+  for (int m = k * chunk; m < min(N, k * chunk + chunk); ++m) {
+    const float v = t[r * N + m];
+    if (ok[r * N + m] && v == v) {
+      a = v < a ? v : a;
+      b = v > b ? v : b;
+    }
+  }
+  lo[e] = a;
+  hi[e] = b;
+}
+
+// The sweep of K2, K4, K7, K11-K13: leaves lane j's weights (0 = no match)
+// in tw [m][33] and, if tidx is given, in tidx [m][33] the cell of each
+// match in the pair's ms x ms block (-1 = none): the winning index mapped
+// through the slot maps.  Thread (lane j, warp w) takes, per pass of 64
+// points, the group 64s + 8w .. 64s + 8w + 7 of its lane's row.  Adds the
+// thread's (group, chunk) counts to n.  Every thread calls it: it
+// synchronizes.
 __device__ __forceinline__ void panel_sweep(const JoinOperands& op,
                                             const PanelArgs& a,
                                             const PanelLanes& L, float* tw,
@@ -405,97 +519,40 @@ __device__ __forceinline__ void panel_sweep(const JoinOperands& op,
   const int t_j = live ? L.t[j] : 0, c_j = L.c[j], ms = a.ms;
   const long long row0 = (long long)t_j * M;
   const int my_cid = live ? op.cid[c_j] : 0;
-  const float eps2 = __fmul_rn(op.eps_sp, op.eps_sp);
   const bool one_window = op.Mc <= a.wp;
   const int row = L.s[j];                  // the staged copy it reads
-  const float* qx = s.x + row * S7;
-  const float* qy = s.y + row * S7;
-  const float* qt = s.t + row * S7;
+  const auto stage = [&](int w0) {         // each live lane's own copy
+    stage_window(op, a, w0, [&](int jl) {
+      return L.t[jl] >= 0 && L.s[jl] == jl ? L.c[jl] : -1;
+    }, s);
+  };
   if (one_window) {
-    panel_stage(op, a, 0, L, s);
+    stage(0);
     __syncthreads();
   }
   for (int m0 = 0; m0 < M; m0 += kPassPts) {
     const int mb = m0 + threadIdx.y * kGroup;     // this thread's group
-    float px[kGroup], py[kGroup], pt[kGroup], best[kGroup];
+    const int np = live ? M - mb : 0;
+    Group g;
+    uint32_t allow[2];
+    load_group(op, row0 + mb, np, g);
+    other_traj(op, row0 + mb, np, my_cid, allow);
+    float best[kGroup];
     int arg[kGroup];
-    float p_min = CUDART_INF_F, p_max = -CUDART_INF_F;
 #pragma unroll
     for (int r = 0; r < kGroup; ++r) {
-      const int m = mb + r;
-      const long long p = row0 + m;
-      const bool in = live && m < M;
-      const float t = in ? op.rt[p] : 0.f;
-      const bool ok = in && op.rok[p];
-      const float tp = ok ? t : CUDART_NAN_F;
-      p_min = fminf(p_min, tp);                   // fminf drops a NaN
-      p_max = fmaxf(p_max, tp);
-      px[r] = in ? op.rx[p] : 0.f;
-      py[r] = in ? op.ry[p] : 0.f;
-      pt[r] = ok && op.rid[p] != my_cid ? tp : CUDART_NAN_F;
       best[r] = -1.f;
       arg[r] = 0;
     }
-    const bool counted = live && mb < M;
     for (int w0 = 0; w0 < op.Mc; w0 += a.wp) {
       if (!one_window) {
         __syncthreads();
-        panel_stage(op, a, w0, L, s);
+        stage(w0);
         __syncthreads();
       }
-      const int nchw = (min(a.wp, op.Mc - w0) + kChunk - 1) / kChunk;
-      uint32_t keep = 0u;
-      if (counted && !(p_min > p_max)) {
-        for (int k = 0; k < nchw; ++k) {
-          const float lo = s.lo[row * SB + k], hi = s.hi[row * SB + k];
-          const bool skip = lo > hi || __fsub_rn(lo, p_max) > op.eps_t
-                            || __fsub_rn(p_min, hi) > op.eps_t;
-          keep |= (skip ? 0u : 1u) << k;
-        }
-      }
-      if (counted) {
-        n.swept += nchw;
-        n.skipped += nchw - __popc(keep);
-      }
-      while (keep != 0u) {                        // ascending chunks
-        const int k = __ffs(keep) - 1;
-        keep &= keep - 1u;
-        // the cylinder test of all 8 x 8 pairs, then the weight of each
-        // pair that passes, per lane: a warp steps through the passes of
-        // its busiest lane, not through every pair some lane passes
-        uint32_t hit[2] = {0u, 0u};             // bit 8r + mm of pair (r, mm)
-#pragma unroll
-        for (int mm = 0; mm < kChunk; ++mm) {
-          const int q = k * kChunk + mm;
-          const float cx = qx[q], cy = qy[q], ct = qt[q];
-#pragma unroll
-          for (int r = 0; r < kGroup; ++r) {
-            const float dx = __fsub_rn(px[r], cx);
-            const float dy = __fsub_rn(py[r], cy);
-            const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-            const float dt = fabsf(__fsub_rn(pt[r], ct));
-            if (d2 <= eps2 && dt <= op.eps_t)
-              hit[r / 4] |= 1u << (8 * (r % 4) + mm);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < kGroup; ++r) {
-          uint32_t h = (hit[r / 4] >> (8 * (r % 4))) & 0xffu;
-          while (h != 0u) {                       // ascending points
-            const int q = k * kChunk + __ffs(h) - 1;
-            h &= h - 1u;
-            const float dx = __fsub_rn(px[r], qx[q]);
-            const float dy = __fsub_rn(py[r], qy[q]);
-            const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-            const float w =
-                __fsub_rn(1.f, __fdiv_rn(__fsqrt_rn(d2), op.eps_sp));
-            if (w > best[r]) {
-              best[r] = w;
-              arg[r] = w0 + q;
-            }
-          }
-        }
-      }
+      sweep_window(op, g, allow, s.x + row * S7, s.y + row * S7,
+                   s.t + row * S7, s.lo + row * SB, s.hi + row * SB, w0,
+                   window_chunks(op, a, w0), np > 0, best, arg, n);
     }
 #pragma unroll
     for (int r = 0; r < kGroup; ++r) {
@@ -813,14 +870,16 @@ stjoin_sim_panel_fused_kernel(JoinOperands op, PanelArgs a, int T, int t_lo,
 // 32 candidates for K10 (K1's block), one reference row x 32 candidates
 // for K11-K13 (K2's, K4's and K7's block), so a tile is one packed TSA2
 // word.  Each pruned kernel runs its dense kernel's block body on the
-// planned tiles only (K11 is K2's kernel with the row's tile list, K12
-// K13's forward blocks), so a kept tile's output is its dense kernel's,
-// bit for bit; a skipped tile's output is what the dense kernel writes for
-// a tile without a match: (0, -1), a zero word, zero cells.  Blocks are
-// launched only for live entries: the wrapper passes the plan's live
-// (block, tile) pairs as a flat int2 list (row-major, or tile-major for
-// K13's reverse blocks).  The candidate operands are read in place through
-// the tile ids (the TPU kernels gather them to [nRb, K, bc, Mc] first).
+// planned tiles only (K10 and K11 are K1's and K2's kernels with the
+// block's tile list, K12 K13's forward blocks), so a kept tile's output is
+// its dense kernel's, bit for bit; a skipped tile's output is what the
+// dense kernel writes for a tile without a match: (0, -1), a zero word,
+// zero cells.  K10 and K11 write those themselves; K12 and K13 launch
+// blocks only for live entries (the wrapper passes the plan's live (block,
+// tile) pairs as a flat int2 list, row-major, or tile-major for K13's
+// reverse blocks) over a zero fill.  The candidate operands are read in
+// place through the tile ids (the TPU kernels gather them to [nRb, K, bc,
+// Mc] first).
 //
 // Bound: that of the dense kernel over the kept pairs' share of the work;
 // the outputs are still written whole.
@@ -1189,6 +1248,34 @@ int vote_setup(PanelArgs& a, int M, int Mc, float delta_t,
                      (const void*)stjoin_vote_fused_kernel, smem);
 }
 
+// K1 / K10: the time-window sweep's arguments and the window alone.
+int join_setup(PanelArgs& a, int Mc, const float* chunk_lo,
+               const float* chunk_hi, unsigned long long* stats, int* smem) {
+  a = PanelArgs{0, 0, 0, 0, 0.f, nullptr, nullptr, chunk_lo, chunk_hi,
+                (Mc + kChunk - 1) / kChunk, 0, 0, 0, 0, 0, 0, 0, stats,
+                nullptr, nullptr};
+  return sweep_setup(a, Mc, 0, 0, (const void*)stjoin_best_match_kernel,
+                     smem);
+}
+
+// K1 over every tile (tile_ids null) or K10 over a plan: one block per 64
+// reference points.
+int join_launch(const JoinOperands& op, long long P, const int* tile_ids,
+                int K, const float* chunk_lo, const float* chunk_hi,
+                unsigned long long* stats, float* out_w, int* out_idx,
+                cudaStream_t stream) {
+  PanelArgs a;
+  int smem = 0;
+  const int err = join_setup(a, op.Mc, chunk_lo, chunk_hi, stats, &smem);
+  if (err != 0) return err;
+  const long long blocks = (P + kPassPts - 1) / kPassPts;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  stjoin_best_match_kernel<<<(unsigned)blocks, dim3(K1_TC, K1_TY), smem,
+                             stream>>>(op, a, P, tile_ids, K, out_w,
+                                       out_idx);
+  return (int)cudaGetLastError();
+}
+
 // K4 / K12: the panel [0, T*ms) written into raw, forward blocks only.
 int sim_setup(PanelArgs& a, int T, int M, int C, int Mc, int ms,
               float delta_t, const int* ref_gid, const int* cand_gid,
@@ -1210,17 +1297,15 @@ int stjoin_best_match(const float* rx, const float* ry, const float* rt,
                       const int* rid, const uint8_t* rok, const float* cx,
                       const float* cy, const float* ct, const int* cid,
                       const uint8_t* cok, long long P, int C, int Mc,
-                      float eps_sp, float eps_t, float* out_w, int* out_idx,
-                      cudaStream_t stream) {
+                      float eps_sp, float eps_t, const float* chunk_lo,
+                      const float* chunk_hi, unsigned long long* stats,
+                      float* out_w, int* out_idx, cudaStream_t stream) {
+  // the wrapper checks the chunk bounds' shape [C, ceil(Mc / 8)]
   if (P > 0 && C > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    const long long n_pb = (P + K1_PTS - 1) / K1_PTS;
-    const long long blocks = n_pb * ((C + K1_TC - 1) / K1_TC);
-    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    stjoin_best_match_kernel<<<(unsigned)blocks, dim3(K1_TC, K1_TY), 0,
-                               stream>>>(op, P, (unsigned)n_pb, out_w,
-                                         out_idx);
+    return join_launch(op, P, nullptr, 0, chunk_lo, chunk_hi, stats, out_w,
+                       out_idx, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -1319,15 +1404,18 @@ int stjoin_best_match_pruned(const float* rx, const float* ry,
                              const uint8_t* rok, const float* cx,
                              const float* cy, const float* ct, const int* cid,
                              const uint8_t* cok, long long P, int C, int Mc,
-                             float eps_sp, float eps_t, const int* pairs,
-                             long long n_pairs, float* out_w, int* out_idx,
-                             cudaStream_t stream) {
-  if (n_pairs > 0) {
+                             float eps_sp, float eps_t, const int* tile_ids,
+                             int K, const float* chunk_lo,
+                             const float* chunk_hi,
+                             unsigned long long* stats, float* out_w,
+                             int* out_idx, cudaStream_t stream) {
+  // the wrapper checks tile_ids [ceil(P / 64), K]: ids in [-1, ceil(C /
+  // 32)), ascending and unique per row, -1 only after the last id
+  if (P > 0 && C > 0) {
     const JoinOperands op{rx, ry, rt, rid, rok, cx, cy, ct, cid, cok,
                           C, Mc, eps_sp, eps_t};
-    stjoin_best_match_pruned_kernel<<<(unsigned)n_pairs, dim3(K1_TC, K1_TY),
-                                      0, stream>>>(
-        op, P, reinterpret_cast<const int2*>(pairs), out_w, out_idx);
+    return join_launch(op, P, tile_ids, K, chunk_lo, chunk_hi, stats, out_w,
+                       out_idx, stream);
   }
   return (int)cudaGetLastError();
 }
@@ -1422,6 +1510,21 @@ int stjoin_sim_panel_fused_pruned(const float* rx, const float* ry,
                                            stream>>>(
         op, a, reinterpret_cast<const int2*>(fwd_pairs), n_fwd,
         reinterpret_cast<const int2*>(rev_pairs), n_rev);
+  }
+  return (int)cudaGetLastError();
+}
+
+int chunk_time_bounds(const float* t, const uint8_t* ok, long long R, int N,
+                      int chunk, float* lo, float* hi, cudaStream_t stream) {
+  // the wrapper checks chunk >= 1
+  const int n = (N + chunk - 1) / chunk;
+  const long long runs = R * n;
+  if (runs > 0) {
+    const int threads = 256;
+    const long long blocks = (runs + threads - 1) / threads;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    chunk_bounds_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+        t, ok, runs, N, chunk, n, lo, hi);
   }
   return (int)cudaGetLastError();
 }

@@ -7,13 +7,14 @@ orientations, for ``sim_mode="topk"``; replaces
 ``stjoin_sim_panel_fused_flat``), and their index-pruned twins for
 ``use_index=True``: K10 (replaces ``stjoin_pallas_pruned``), K11, K12
 and K13 (replace ``stjoin_*_fused_pruned_flat``), which run the same
-block bodies over the tiles a plan keeps.  K1 and K10 run one
-best-match sweep; the fused passes K2, K4, K7 and K11-K13 run a sweep of
-their own that skips, per group of 8 consecutive reference points, the
-chunks of 8 candidate points whose valid times all lie farther than eps_t
-(``ref.chunk_time_bounds``, ``ref.panel_skip_ref``), with the same
-matches, weights and indices (K4 and K12 are the forward blocks of K7's
-and K13's kernel over every row; K11 is K2's kernel over a plan).
+block bodies over the tiles a plan keeps.  All of them run one sweep
+that skips, per group of 8 consecutive reference points (K1 / K10: of
+the flattened points), the chunks of 8 candidate points whose valid times
+all lie farther than eps_t (``ref.chunk_time_bounds``, built on the card
+by ``ops.chunk_time_bounds``; ``ref.panel_skip_ref``), with the same
+matches, weights and indices (K10 and K11 are K1's and K2's kernels over
+a plan; K4 and K12 are the forward blocks of K7's and K13's kernel over
+every row).
 
 Numerics of the sweep, which the CUDA kernels, their plain versions
 (``ref.py``) and the Pallas kernels share:

@@ -7,16 +7,18 @@ for many panels, ``sim_panel_sweep`` / ``prepare_sim_panel``: operands,
 checks and the chunk time bounds once, then one launch per panel), and
 their index-pruned variants: ``plan_join_index`` /
 ``best_match_join_pruned`` and ``plan_fused_tiles`` with the ``tile_ids=``
-plans of the fused passes).  The fused kernels count, on request
-(``stats=``), the (group, chunk) pairs their time-window skip tests and
-skips; ``fused_pairs`` / ``fused_skip_counts`` (K2, K4, K11, K12) and
-``SimPanelSweep.pairs`` / ``skip_counts`` (K7, K13) give the plain
-mirror's counts.
+plans of the fused passes).  Every join kernel counts, on request
+(``stats=``), the (group, chunk) pairs its time-window skip tests and
+skips; ``join_skip_counts`` (K1, K10), ``fused_pairs`` /
+``fused_skip_counts`` (K2, K4, K11, K12) and ``SimPanelSweep.pairs`` /
+``skip_counts`` (K7, K13) give the plain mirror's counts.  The skip reads
+the candidates' chunk time bounds, built by ``chunk_time_bounds``.
 
 Dispatch is on the tensors' device: CUDA tensors launch the CUDA kernels
 (``csrc/dsc_kernels.cu``: ``stjoin_best_match``, ``stjoin_vote_fused``,
 ``stjoin_sim_fused``, ``stjoin_sim_panel_fused`` and their ``*_pruned``
-twins K10-K13), CPU tensors take the plain versions in ``ref.py``.
+twins K10-K13, and ``chunk_time_bounds``), CPU tensors take the plain
+versions in ``ref.py``.
 The dense kernels need no padding and no tile geometry: the TPU's
 row-aligned blocks and word-aligned candidate blocks are a tiling
 constraint of the Pallas kernels, not part of the contract.  A tile plan
@@ -40,23 +42,27 @@ from repro_torch.core.similarity import slot_ids
 from repro_torch.core.types import JoinResult, TrajectoryBatch, f32
 from repro_torch.index import grid as gridx
 from repro_torch.kernels import check_cuda_operands, launch
-from repro_torch.kernels.stjoin.ref import (chunk_time_bounds,
+from repro_torch.kernels.stjoin.ref import (chunk_time_bounds as
+                                            chunk_time_bounds_ref,
                                             panel_skip_counts_ref,
+                                            panel_skip_ref,
                                             stjoin_pruned_ref, stjoin_ref,
                                             stjoin_sim_fused_ref,
                                             stjoin_sim_panel_fused_ref,
-                                            stjoin_vote_fused_ref)
+                                            stjoin_vote_fused_ref, tile_keep)
 
 # the port's tile geometry: K1's block of 64 reference points x 32
 # candidates (K10), and the block of K2, K4 and K7, one reference row x
 # 32 candidates (K11-K13; a candidate tile is then one packed TSA2 word)
 JOIN_BP, JOIN_BC = 64, 32
 FUSED_ROWS, FUSED_BC = 1, 32
-# the time-window skip of the fused passes K2, K4, K7 and K11-K13:
-# candidate points per chunk of the bounds and reference points per group
-# (kChunk and kGroup of dsc_kernels.cu)
+# the time-window skip of every join kernel: candidate points per chunk of
+# the bounds and reference points per group (kChunk and kGroup of
+# dsc_kernels.cu)
 PANEL_CHUNK = 8
 PANEL_GROUP = 8
+# elements of one [groups, C, 1, chunks] skip test of ``join_skip_counts``
+_SKIP_ELEMENTS = 1 << 24
 
 
 def _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid, cid):
@@ -74,41 +80,73 @@ def _eps(*v):
     return tuple(float(f32(x, "cpu")) for x in v)
 
 
-def stjoin_best_match(ref_x, ref_y, ref_t, ref_id, ref_ok,
-                      cand_x, cand_y, cand_t, cand_id, cand_ok, eps_sp,
-                      eps_t, *, out_w=None, out_idx=None):
-    """``(best_w [P, C] f32, best_idx [P, C] i32)`` — the K1 contract.
+def chunk_time_bounds(t, ok, chunk: int = PANEL_CHUNK):
+    """``(lo, hi)`` ``[R, ceil(N / chunk)]`` f32 of ``t [R, N]`` and ``ok``:
+    the sweep's chunk time bounds (``ref.chunk_time_bounds``, bit for bit).
+    On the card one launch of the ``chunk_time_bounds`` kernel, so a
+    sweeping call runs no torch operation for them; on the CPU the plain
+    version."""
+    if not t.is_cuda:
+        return chunk_time_bounds_ref(t, ok, chunk)
+    name = "chunk_time_bounds"
+    dev = check_cuda_operands(name, t=(t, torch.float32), ok=(ok, torch.bool))
+    if t.dim() != 2 or ok.shape != t.shape or chunk < 1:
+        raise ValueError(f"{name}: t and ok must be one [R, N] shape and "
+                         "chunk >= 1")
+    R, N = t.shape
+    lo = torch.empty((R, -(-N // chunk)), dtype=torch.float32, device=dev)
+    hi = torch.empty_like(lo)
+    launch(name, t.data_ptr(), ok.data_ptr(), R, N, chunk, lo.data_ptr(),
+           hi.data_ptr(), device=dev)
+    return lo, hi
 
-    ``out_w`` / ``out_idx`` may name ``[P, C]`` views to write into.
-    """
-    if not ref_x.is_cuda:
-        w, idx = stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok, cand_x,
-                            cand_y, cand_t, cand_id, cand_ok, eps_sp, eps_t)
-        if out_w is not None:
-            out_w.copy_(w)
-            out_idx.copy_(idx)
-            return out_w, out_idx
-        return w, idx
-    P = ref_x.shape[0]
-    C, Mc = cand_x.shape
-    f, i, b = torch.float32, torch.int32, torch.bool
-    dev = check_cuda_operands(
-        "stjoin_best_match", ref_x=(ref_x, f), ref_y=(ref_y, f),
-        ref_t=(ref_t, f), ref_id=(ref_id, i), ref_ok=(ref_ok, b),
-        cand_x=(cand_x, f), cand_y=(cand_y, f), cand_t=(cand_t, f),
-        cand_id=(cand_id, i), cand_ok=(cand_ok, b))
+
+def _check_join(name, ops, out_w, out_idx):
+    """Operand and output checks of K1 / K10 on the card: every operand on
+    one CUDA device, ``[P, C]`` outputs there (allocated when not given).
+    Returns ``(device, out_w, out_idx)``."""
+    f, i = torch.float32, torch.int32
+    dev = _check_fused(name, ops[:5], ops[5:])
+    P, C = ops[0].shape[0], ops[5].shape[0]
     if out_w is None:
         out_w = torch.empty((P, C), dtype=f, device=dev)
         out_idx = torch.empty((P, C), dtype=i, device=dev)
-    check_cuda_operands("stjoin_best_match", ref_x=(ref_x, f),
-                        out_w=(out_w, f), out_idx=(out_idx, i))
+    check_cuda_operands(name, ref_x=(ops[0], f), out_w=(out_w, f),
+                        out_idx=(out_idx, i))
     if out_w.shape != (P, C) or out_idx.shape != (P, C):
-        raise ValueError("stjoin_best_match: outputs must be [P, C]")
+        raise ValueError(f"{name}: outputs must be [P, C]")
+    return dev, out_w, out_idx
+
+
+def _into(w, idx, out_w, out_idx):
+    """A plain version's result, copied into the outputs when given."""
+    if out_w is None:
+        return w, idx
+    out_w.copy_(w)
+    out_idx.copy_(idx)
+    return out_w, out_idx
+
+
+def stjoin_best_match(ref_x, ref_y, ref_t, ref_id, ref_ok,
+                      cand_x, cand_y, cand_t, cand_id, cand_ok, eps_sp,
+                      eps_t, *, out_w=None, out_idx=None, stats=None):
+    """``(best_w [P, C] f32, best_idx [P, C] i32)`` — the K1 contract.
+
+    ``out_w`` / ``out_idx`` may name ``[P, C]`` views to write into.
+    ``stats``: see ``_check_stats`` (the mirror is ``join_skip_counts``).
+    """
+    name = "stjoin_best_match"
     ops = (ref_x, ref_y, ref_t, ref_id, ref_ok, cand_x, cand_y, cand_t,
            cand_id, cand_ok)
-    launch("stjoin_best_match", *(t.data_ptr() for t in ops), P, C, Mc,
-           *_eps(eps_sp, eps_t), out_w.data_ptr(), out_idx.data_ptr(),
-           device=dev)
+    if not ref_x.is_cuda:
+        _check_stats(name, stats, None)
+        return _into(*stjoin_ref(*ops, eps_sp, eps_t), out_w, out_idx)
+    dev, out_w, out_idx = _check_join(name, ops, out_w, out_idx)
+    _check_stats(name, stats, dev)
+    bounds, skip = _chunk_args(ops[5:], stats)
+    launch(name, *(t.data_ptr() for t in ops), ref_x.shape[0],
+           *cand_x.shape, *_eps(eps_sp, eps_t), *skip, out_w.data_ptr(),
+           out_idx.data_ptr(), device=dev)
     return out_w, out_idx
 
 
@@ -214,6 +252,20 @@ def _id_range(tile_ids: torch.Tensor) -> tuple[int, int]:
     return int(tile_ids.min()), int(tile_ids.max())
 
 
+def _check_ascending(name: str, tile_ids) -> tuple[int, int]:
+    """A join plan K10 walks in order: each row's ids ascending and
+    unique, -1 only after the last id (``_compact``'s plans).  Returns the
+    ids' (min, max), read with the check in one host sync."""
+    a = tile_ids.long()
+    bad = (a[:, 1:] >= 0) & ((a[:, :-1] < 0) | (a[:, 1:] <= a[:, :-1]))
+    lo, hi, n_bad = (torch.stack([a.min(), a.max(), bad.sum()]).tolist()
+                     if a.numel() else (-1, -1, 0))
+    if n_bad:
+        raise ValueError(f"{name}: each row of tile_ids must list ascending, "
+                         "unique ids, -1 only after the last")
+    return lo, hi
+
+
 def _check_tile_ids(name: str, tile_ids, n_blocks: int, n_tiles: int, dev,
                     id_range=None):
     """A plan the kernels can read: ``[n_blocks, K >= 1]`` int32 on the
@@ -235,46 +287,72 @@ def _check_tile_ids(name: str, tile_ids, n_blocks: int, n_tiles: int, dev,
 def stjoin_best_match_pruned(ref_x, ref_y, ref_t, ref_id, ref_ok,
                              cand_x, cand_y, cand_t, cand_id, cand_ok,
                              tile_ids, eps_sp, eps_t, *, bp: int = JOIN_BP,
-                             bc: int = JOIN_BC, out_w=None, out_idx=None):
+                             bc: int = JOIN_BC, out_w=None, out_idx=None,
+                             stats=None):
     """K10: ``(best_w [P, C] f32, best_idx [P, C] i32)`` of K1 over the
     (block of ``bp`` points, tile of ``bc`` candidates) pairs that
-    ``tile_ids [ceil(P / bp), K]`` names; ``(0, -1)`` elsewhere."""
-    if not ref_x.is_cuda:
-        w, idx = stjoin_pruned_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
-                                   cand_x, cand_y, cand_t, cand_id, cand_ok,
-                                   tile_ids, eps_sp, eps_t, bp=bp, bc=bc)
-        if out_w is not None:
-            out_w.copy_(w)
-            out_idx.copy_(idx)
-            return out_w, out_idx
-        return w, idx
+    ``tile_ids [ceil(P / bp), K]`` names; ``(0, -1)`` elsewhere.  Each
+    row of the plan must list ascending, unique ids, -1 only after the
+    last (``ValueError`` otherwise, on either device): the kernel walks
+    them in order.  ``stats``: see ``_check_stats`` (the mirror is
+    ``join_skip_counts``)."""
     name = "stjoin_best_match_pruned"
-    _check_join_geometry(name, bp, bc)
-    P = ref_x.shape[0]
-    C, Mc = cand_x.shape
-    f, i, b = torch.float32, torch.int32, torch.bool
-    dev = check_cuda_operands(
-        name, ref_x=(ref_x, f), ref_y=(ref_y, f), ref_t=(ref_t, f),
-        ref_id=(ref_id, i), ref_ok=(ref_ok, b), cand_x=(cand_x, f),
-        cand_y=(cand_y, f), cand_t=(cand_t, f), cand_id=(cand_id, i),
-        cand_ok=(cand_ok, b))
-    _check_tile_ids(name, tile_ids, -(-P // bp), -(-C // bc), dev)
-    if out_w is None:
-        out_w = torch.empty((P, C), dtype=f, device=dev)
-        out_idx = torch.empty((P, C), dtype=i, device=dev)
-    check_cuda_operands(name, ref_x=(ref_x, f), out_w=(out_w, f),
-                        out_idx=(out_idx, i))
-    if out_w.shape != (P, C) or out_idx.shape != (P, C):
-        raise ValueError(f"{name}: outputs must be [P, C]")
-    pairs, _ = _live_pairs(tile_ids)
-    out_w.zero_()
-    out_idx.fill_(-1)
     ops = (ref_x, ref_y, ref_t, ref_id, ref_ok, cand_x, cand_y, cand_t,
            cand_id, cand_ok)
+    if not ref_x.is_cuda:
+        _check_stats(name, stats, None)
+        _check_ascending(name, tile_ids)
+        return _into(*stjoin_pruned_ref(*ops, tile_ids, eps_sp, eps_t,
+                                        bp=bp, bc=bc), out_w, out_idx)
+    _check_join_geometry(name, bp, bc)
+    dev, out_w, out_idx = _check_join(name, ops, out_w, out_idx)
+    _check_stats(name, stats, dev)
+    P = ref_x.shape[0]
+    C, Mc = cand_x.shape
+    _check_tile_ids(name, tile_ids, -(-P // bp), -(-C // bc), dev,
+                    _check_ascending(name, tile_ids))
+    bounds, skip = _chunk_args(ops[5:], stats)
     launch(name, *(t.data_ptr() for t in ops), P, C, Mc,
-           *_eps(eps_sp, eps_t), pairs.data_ptr(), pairs.shape[0],
-           out_w.data_ptr(), out_idx.data_ptr(), device=dev)
+           *_eps(eps_sp, eps_t), tile_ids.data_ptr(), tile_ids.shape[1],
+           *skip, out_w.data_ptr(), out_idx.data_ptr(), device=dev)
     return out_w, out_idx
+
+
+def join_skip_counts(rt, rok, ct, cok, eps_t, *, tile_ids=None):
+    """``(swept, skipped)`` (group, chunk) pairs of one launch of K1 (K10
+    with the join plan ``tile_ids``, in the port's geometry) on reference
+    times ``rt`` / ``rok`` (flattened: the groups are runs of 8
+    consecutive flattened points, which may straddle rows) and candidate
+    times ``ct`` / ``cok [C, Mc]``: every (group, candidate) pair, or those
+    of the plan's kept (block, tile) pairs, each with its ceil(Mc / 8)
+    chunks; a pair is skipped by ``ref.panel_skip_ref``.  What the kernels'
+    ``stats`` must hold."""
+    g_lo, g_hi = (b[0] for b in chunk_time_bounds_ref(
+        rt.reshape(1, -1), rok.reshape(1, -1), PANEL_GROUP))
+    c_lo, c_hi = chunk_time_bounds_ref(ct.contiguous(), cok.contiguous(),
+                                       PANEL_CHUNK)
+    C, nch = c_lo.shape
+    G = g_lo.shape[0]
+    dev = g_lo.device
+    per_block = JOIN_BP // PANEL_GROUP
+    keep = None if tile_ids is None else \
+        tile_keep(tile_ids, -(-C // JOIN_BC))[:, torch.div(
+            torch.arange(C, device=dev), JOIN_BC, rounding_mode="floor")]
+    step = max(1, _SKIP_ELEMENTS // max(C * nch, 1))
+    swept = skipped = 0
+    for g0 in range(0, G, step):
+        g = slice(g0, g0 + step)
+        n = panel_skip_ref(g_lo[g, None, None], g_hi[g, None, None], c_lo,
+                           c_hi, eps_t).sum((-2, -1))        # [groups, C]
+        if keep is None:
+            swept += n.numel() * nch
+            skipped += int(n.sum())
+        else:
+            k = keep[torch.div(torch.arange(g0, g0 + n.shape[0], device=dev),
+                               per_block, rounding_mode="floor")]
+            swept += int(k.sum()) * nch
+            skipped += int(n[k].sum())
+    return swept, skipped
 
 
 def best_match_join_pruned(ref: TrajectoryBatch, cand: TrajectoryBatch,
@@ -413,7 +491,7 @@ def _plain_tiles(plan: FusedTilePlan | None, M: int):
 
 
 def _check_fused(name, ref_ops, cand_ops, **more):
-    """Operand checks of the fused passes on the card: every operand (and
+    """Operand checks of the join kernels on the card: every operand (and
     ``more``: name -> (tensor, dtype)) on one CUDA device.  The launchers
     refuse a row too long for one block's shared memory themselves
     (``RuntimeError``)."""
@@ -427,7 +505,7 @@ def _check_fused(name, ref_ops, cand_ops, **more):
 
 
 def _check_stats(name: str, stats, dev) -> None:
-    """``stats`` of a fused pass: ``None``, or (on the card, ``dev``) an
+    """``stats`` of a join kernel: ``None``, or (on the card, ``dev``) an
     int64 tensor of 2 on that device, to which the kernel adds the (group,
     chunk) pairs it tested and those it skipped.  The plain versions
     (``dev`` None) sweep no groups and refuse it."""
@@ -440,9 +518,9 @@ def _check_stats(name: str, stats, dev) -> None:
 
 def _chunk_args(cand_ops, stats):
     """The launch arguments of the time-window skip: the candidates' chunk
-    time bounds (built once per call; kept alive by the caller) and the
-    ``stats`` pointer."""
-    lo, hi = chunk_time_bounds(cand_ops[2], cand_ops[4], PANEL_CHUNK)
+    time bounds (built once per call by ``chunk_time_bounds``; kept alive
+    by the caller) and the ``stats`` pointer."""
+    lo, hi = chunk_time_bounds(cand_ops[2], cand_ops[4])
     return (lo, hi), (lo.data_ptr(), hi.data_ptr(),
                       None if stats is None else stats.data_ptr())
 
@@ -480,8 +558,8 @@ def fused_skip_counts(rt, rvalid, ct, cvalid, eps_t, *, tile_ids=None):
     times, from the plain mirror ``panel_skip_counts_ref`` over
     ``fused_pairs``: what the kernels' ``stats`` must hold."""
     T, M = rt.shape
-    lo, hi = chunk_time_bounds(ct.contiguous(), cvalid.contiguous(),
-                               PANEL_CHUNK)
+    lo, hi = chunk_time_bounds_ref(ct.contiguous(), cvalid.contiguous(),
+                                   PANEL_CHUNK)
     return panel_skip_counts_ref(
         rt.reshape(-1), rvalid.reshape(-1), M, lo, hi, eps_t,
         fused_pairs(T, ct.shape[0], tile_ids, device=rt.device),
@@ -649,10 +727,11 @@ def stjoin_sim_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
 @dataclasses.dataclass(frozen=True, eq=False)
 class SimPanelSweep:
     """The panel pass 2 of one dispatch: operands flattened, slot maps and
-    plan checked, and the candidates' chunk time bounds built once, for
-    every panel.  ``sweep(p0, panel=Sb)`` gives ``(fwd [panel, n_dst], rev
-    [panel, n_src])`` with ``fwd[i, j] = raw[p0 + i, j]`` and ``rev[i, j] =
-    raw[j, p0 + i]`` of the ``raw`` that ``stjoin_sim_fused_arrays`` builds,
+    plan checked, and the candidates' chunk time bounds built once (at the
+    first panel, after its checks), for every panel.  ``sweep(p0,
+    panel=Sb)`` gives ``(fwd [panel, n_dst], rev [panel, n_src])`` with
+    ``fwd[i, j] = raw[p0 + i, j]`` and ``rev[i, j] = raw[j, p0 + i]`` of
+    the ``raw`` that ``stjoin_sim_fused_arrays`` builds,
     bit for bit: through K7 (or K13 with a plan) on the card, through
     ``stjoin_sim_panel_fused_ref`` on the CPU.  Build it with
     ``prepare_sim_panel`` or ``sim_panel_sweep``; the check of the slot
@@ -668,8 +747,20 @@ class SimPanelSweep:
     n_dst: int
     eps: tuple                 # eps_sp, eps_t, delta_t (f32 values)
     plan: FusedTilePlan | None
-    chunk_lo: torch.Tensor     # [C, ceil(Mc / PANEL_CHUNK)] f32
-    chunk_hi: torch.Tensor
+
+    @functools.cached_property
+    def _bounds(self):
+        return chunk_time_bounds(self.cand_ops[2], self.cand_ops[4])
+
+    @property
+    def chunk_lo(self) -> torch.Tensor:
+        """``[C, ceil(Mc / PANEL_CHUNK)]`` f32: the candidates' chunk
+        bounds (``chunk_time_bounds``)."""
+        return self._bounds[0]
+
+    @property
+    def chunk_hi(self) -> torch.Tensor:
+        return self._bounds[1]
 
     @property
     def name(self) -> str:
@@ -729,10 +820,11 @@ class SimPanelSweep:
         """``(swept, skipped)`` (group, chunk) pairs of the panel's kernel,
         from the plain mirror ``panel_skip_counts_ref``."""
         T, M, _, _ = self.shape
+        lo, hi = chunk_time_bounds_ref(self.cand_ops[2], self.cand_ops[4],
+                                       PANEL_CHUNK)
         return panel_skip_counts_ref(
-            self.ref_ops[2], self.ref_ops[4], M, self.chunk_lo,
-            self.chunk_hi, self.eps[1], self.pairs(p0, panel=panel),
-            group=PANEL_GROUP)
+            self.ref_ops[2], self.ref_ops[4], M, lo, hi, self.eps[1],
+            self.pairs(p0, panel=panel), group=PANEL_GROUP)
 
     def __call__(self, p0, *, panel: int, stats=None):
         """One panel: ``(fwd, rev)``.  ``stats``: see ``_check_stats``
@@ -812,13 +904,10 @@ def prepare_sim_panel(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct, cvalid,
         _check_block_slots(ref_gid, cand_gid, n_src // max(T, 1), n_src,
                            n_dst, name=name)
     plan = _resolve_plan(tile_ids, name, on_card, T, C, rx.device)
-    chunk_lo, chunk_hi = chunk_time_bounds(cand_ops[2], cand_ops[4],
-                                           PANEL_CHUNK)
     return SimPanelSweep(on_card=on_card, ref_ops=ref_ops,
                          cand_ops=cand_ops, ref_gid=ref_gid,
                          cand_gid=cand_gid, n_src=n_src, n_dst=n_dst,
-                         eps=_eps(eps_sp, eps_t, delta_t), plan=plan,
-                         chunk_lo=chunk_lo, chunk_hi=chunk_hi)
+                         eps=_eps(eps_sp, eps_t, delta_t), plan=plan)
 
 
 def sim_panel_sweep(ref: TrajectoryBatch, cand: TrajectoryBatch,

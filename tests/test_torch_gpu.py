@@ -39,8 +39,9 @@ from repro_torch.kernels.stjoin.ref import (stjoin_pruned_ref, stjoin_ref,
 
 pytestmark = pytest.mark.gpu
 
-# the kernels each path of the kernel plan launches, and no other
-PATH_KERNELS = {
+# the kernels each path of the kernel plan launches, and no other (every
+# path's join reads the chunk time bounds)
+PATH_KERNELS = {path: {"chunk_time_bounds", *names} for path, names in {
     "materialize": {"stjoin_best_match", "jaccard_window", "round_scan",
                     "claim_max"},
     "fused": {"stjoin_vote_fused", "jaccard_window", "stjoin_sim_fused",
@@ -57,7 +58,7 @@ PATH_KERNELS = {
     "fused_topk+index": {"stjoin_vote_fused_pruned", "jaccard_window",
                          "stjoin_sim_panel_fused_pruned", "topk_round_scan",
                          "topk_claim_max"},
-}
+}.items()}
 # lane-clustered traffic, rows sorted by lane: the port's plans skip tiles
 LANE_EPS = (3.0, 600.0)
 
@@ -87,20 +88,131 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,M,eps_sp", [(10, 40, 15.0), (37, 70, 8.0)])
-def test_k1_matches_plain(cuda, n, M, eps_sp):
-    tb, _ = ais_like(n_vessels=n, max_points=M, seed=n, device=cuda)
+def _join_batch(cuda, n, M, times="ais", seed=None):
+    tb, _ = ais_like(n_vessels=n, max_points=M, seed=n if seed is None
+                     else seed, device=cuda)
+    return _retime(tb, times, seed=n)
+
+
+def _ties(cuda):
+    """Exact distance ties: every candidate point repeated (the same x, y
+    and t at two indices), and reference points on the candidates' own
+    points, so equal weights compete and the first index must win."""
+    ref = _join_batch(cuda, 12, 24)
+    rep = lambda a: a.repeat_interleave(2, dim=1)
+    cand = TrajectoryBatch(x=rep(ref.x), y=rep(ref.y), t=rep(ref.t),
+                           valid=rep(ref.valid), traj_id=ref.traj_id + 100)
+    return ref, cand
+
+
+# name: (reference batch, candidate batch, eps_sp, eps_t).  P = T * M is
+# no multiple of 64 and C no multiple of 32 unless said; Mc = 1, 129 and
+# 300 stage the candidates in one, two and three windows; eps_t = 0 keeps
+# only chunks holding an exactly equal time, eps_t = inf skips only empty
+# ones (here none: every point valid); all points invalid skips all
+K1_CASES = {
+    "ais_10x40": lambda c: (_join_batch(c, 10, 40),) * 2 + (15.0, 120.0),
+    "ais_37x70": lambda c: (_join_batch(c, 37, 70),) * 2 + (8.0, 120.0),
+    "mc_1": lambda c: (_join_batch(c, 9, 45), _first(_join_batch(c, 70, 20)),
+                       20.0, 120.0),
+    "mc_129": lambda c: (_join_batch(c, 7, 50), _join_batch(c, 45, 129),
+                         15.0, 120.0),
+    "mc_300": lambda c: (_join_batch(c, 5, 37), _join_batch(c, 33, 300),
+                         15.0, 120.0),
+    "eps_t_0": lambda c: (_join_batch(c, 37, 50, "grid60"),) * 2
+                         + (10.0, 0.0),
+    "eps_t_inf": lambda c: (_all_valid(_join_batch(c, 20, 33)),) * 2
+                           + (15.0, float("inf")),
+    "all_invalid": lambda c: (_none_valid(_join_batch(c, 11, 30)),) * 2
+                             + (15.0, 120.0),
+    "ties": lambda c: _ties(c) + (15.0, 120.0),
+    "epoch": lambda c: (_join_batch(c, 12, 45, "epoch"),
+                        _join_batch(c, 40, 150, "epoch"), 15.0, 130.0),
+    "unsorted": lambda c: (_join_batch(c, 35, 33, "unsorted"),) * 2
+                          + (10.0, 120.0),
+}
+
+
+def _first(tb):
+    """Each trajectory's first point only (Mc = 1)."""
+    return TrajectoryBatch(x=tb.x[:, :1].contiguous(),
+                           y=tb.y[:, :1].contiguous(),
+                           t=tb.t[:, :1].contiguous(),
+                           valid=tb.valid[:, :1].contiguous(),
+                           traj_id=tb.traj_id)
+
+
+def _all_valid(tb):
+    return TrajectoryBatch(x=tb.x, y=tb.y, t=tb.t,
+                           valid=torch.ones_like(tb.valid),
+                           traj_id=tb.traj_id)
+
+
+def _none_valid(tb):
+    return TrajectoryBatch(x=tb.x, y=tb.y, t=tb.t,
+                           valid=torch.zeros_like(tb.valid),
+                           traj_id=tb.traj_id)
+
+
+def _join_stats(ref, cand, eps_t, tile_ids=None):
+    """An int64 ``stats`` tensor for one K1 / K10 launch, and the plain
+    mirror's ``(swept, skipped)`` of that launch."""
+    want = stjoin_ops.join_skip_counts(ref.t, ref.valid, cand.t, cand.valid,
+                                       eps_t, tile_ids=tile_ids)
+    return torch.zeros(2, dtype=torch.int64, device=ref.x.device), want
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_k1_matches_plain(cuda, case):
+    """K1 bitwise its plain version; its skip counts equal the plain
+    mirror's (flattened groups of 8 points against every candidate)."""
+    ref, cand, eps_sp, eps_t = K1_CASES[case](cuda)
+    ref_ops, cand_ops = stjoin_ops._flat_operands(
+        ref.x, ref.y, ref.t, ref.valid, ref.traj_id, cand.x, cand.y, cand.t,
+        cand.valid, cand.traj_id)
+    stats, want = _join_stats(ref, cand, eps_t)
     before = kernels.LAUNCHES["stjoin_best_match"]
-    k = best_match_join_kernel(tb, tb, eps_sp, 120.0)
+    w, i = stjoin_ops.stjoin_best_match(*ref_ops, *cand_ops, eps_sp, eps_t,
+                                        stats=stats)
     assert kernels.LAUNCHES["stjoin_best_match"] == before + 1
-    T = tb.num_trajs
-    w, i = stjoin_ref(tb.x.reshape(-1), tb.y.reshape(-1), tb.t.reshape(-1),
-                      tb.traj_id[:, None].expand(T, M).reshape(-1),
-                      tb.valid.reshape(-1), tb.x, tb.y, tb.t, tb.traj_id,
-                      tb.valid, eps_sp, 120.0)
-    assert torch.equal(k.best_idx.view(T * M, -1), i)
-    assert torch.equal(k.best_w.view(T * M, -1), w)
-    assert bool((i >= 0).any())
+    assert stats.tolist() == list(want)
+    pw, pi = stjoin_ref(*ref_ops, *cand_ops, eps_sp, eps_t)
+    assert torch.equal(i, pi) and torch.equal(w, pw)
+    if case == "all_invalid":
+        assert want[1] == want[0] and not bool((pi >= 0).any())
+        return
+    assert bool((pi >= 0).any())
+    if case == "eps_t_inf":
+        assert want[1] == 0
+    else:
+        assert 0 < want[1] < want[0]
+    if case == "ties":               # of two equal copies the first wins
+        assert not bool((pi[pi >= 0] % 2).any())
+    if case.startswith("ais"):       # the batch-level wrapper, one launch
+        k = best_match_join_kernel(ref, ref, eps_sp, eps_t)
+        T, M = ref.x.shape
+        assert torch.equal(k.best_idx.view(T * M, -1), pi)
+        assert torch.equal(k.best_w.view(T * M, -1), pw)
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 8])
+def test_chunk_time_bounds_kernel(cuda, chunk):
+    """The chunk bounds kernel bitwise the plain ``chunk_time_bounds``,
+    with invalid points, NaN times on valid points, runs without a valid
+    time and rows not a multiple of the chunk."""
+    rng = np.random.default_rng(chunk)
+    t = rng.uniform(-50, 3000, (37, 61)).astype(np.float32)
+    ok = rng.uniform(size=t.shape) < 0.7
+    t[3, 5:9] = np.nan
+    ok[4, :] = False
+    ok[5, 10:30] = False
+    tt, okt = torch.from_numpy(t), torch.from_numpy(ok)
+    before = kernels.LAUNCHES["chunk_time_bounds"]
+    lo, hi = stjoin_ops.chunk_time_bounds(tt.to(cuda), okt.to(cuda), chunk)
+    assert kernels.LAUNCHES["chunk_time_bounds"] == before + 1
+    plo, phi = stjoin_ops.chunk_time_bounds(tt, okt, chunk)
+    assert torch.equal(lo.cpu(), plo) and torch.equal(hi.cpu(), phi)
+    assert bool(torch.isinf(plo).any()) and bool(torch.isfinite(plo).any())
 
 
 @pytest.mark.parametrize("w", [1, 7, 45])
@@ -299,8 +411,8 @@ def test_k2_k4_longest_rows(cuda, kernel, M):
 def test_k2_k4_refuse_rows_past_shared_memory(cuda, kernel, M):
     """Rows past the longest that fits one block's shared memory with a
     32-point window (K2: 1,652 points, K4: 826 at ms = 8) are refused by
-    the launcher (``RuntimeError``) without a launch; the card stays
-    usable."""
+    the launcher (``RuntimeError``) without a launch (only the chunk time
+    bounds its sweep would read were built); the card stays usable."""
     ms = 8
     ref, cand, arrs, rsub, csub = _k4_case(cuda, 2, M, 5, 20, ms)
     name = "stjoin_vote_fused" if kernel == "K2" else "stjoin_sim_fused"
@@ -311,6 +423,7 @@ def test_k2_k4_refuse_rows_past_shared_memory(cuda, kernel, M):
         else:
             stjoin_ops.stjoin_sim_fused(ref, cand, rsub, csub, ms, 10.0,
                                         120.0)
+    before["chunk_time_bounds"] += 1
     assert kernels.LAUNCHES == before
     torch.cuda.synchronize()
 
@@ -412,13 +525,15 @@ def test_k7_refuses_mixed_devices(cuda, on_cpu):
 def test_k7_refuses_rows_past_shared_memory(cuda):
     """Rows too long for one block's shared memory (the ``[M][33]`` tiles
     of M = 900 points alone pass the opt-in limit) are refused by the
-    launcher (``RuntimeError``) without a launch; the card stays usable."""
+    launcher (``RuntimeError``) without a launch (only the chunk time
+    bounds its sweep would read were built); the card stays usable."""
     tb, _ = ais_like(n_vessels=2, max_points=900, seed=2, device=cuda)
     sub = torch.zeros((2, 900), dtype=torch.int32, device=cuda)
     sweep = stjoin_ops.sim_panel_sweep(tb, tb, sub, sub, 2, 10.0, 120.0)
     before = dict(kernels.LAUNCHES)
     with pytest.raises(RuntimeError, match="stjoin_sim_panel_fused"):
         sweep(0, panel=2)
+    before["chunk_time_bounds"] += 1
     assert kernels.LAUNCHES == before
     torch.cuda.synchronize()
 
@@ -512,26 +627,79 @@ def _flat(tb):
                                        tb.traj_id) * 2)
 
 
-def test_k10_matches_k1_and_plain(cuda):
-    tb = _lanes(cuda)
-    mask, _, _ = stjoin_ops.plan_join_index(tb, tb, *LANE_EPS)
+def _join_plan(ref, cand, eps):
+    mask, counts, _ = stjoin_ops.plan_join_index(ref, cand, *eps)
     assert 0 < int(mask.sum()) < mask.numel()
+    return stjoin_ops._compact(mask, counts, None, "join")
+
+
+# name: (reference, candidates, whether the plan is the index's own
+# conservative plan, so that K10 equals K1)
+K10_CASES = {"lanes": (lambda c: (_lanes(c),) * 2, True),
+             "windows": (lambda c: (_lanes(c, M=300),) * 2, True),
+             "empty_rows": (lambda c: (_lanes(c),) * 2, False)}
+
+
+@pytest.mark.parametrize("case", sorted(K10_CASES))
+def test_k10_matches_k1_and_plain(cuda, case):
+    """K10 bitwise its plain version over its plan (and K1 where the plan
+    is the index's), its skip counts equal the plain mirror's over the
+    plan's kept (block, tile) pairs.  ``windows``: rows of 300 points, so
+    the candidates are staged in three windows; ``empty_rows`` blanks
+    every third row of the plan (a row of -1 only), so K10 writes (0, -1)
+    over whole rows of blocks."""
+    make, conservative = K10_CASES[case]
+    ref, cand = make(cuda)
+    tile_ids = _join_plan(ref, cand, LANE_EPS)
+    if not conservative:
+        tile_ids[::3] = -1
+    ref_ops, cand_ops = stjoin_ops._flat_operands(
+        ref.x, ref.y, ref.t, ref.valid, ref.traj_id, cand.x, cand.y, cand.t,
+        cand.valid, cand.traj_id)
+    stats, want = _join_stats(ref, cand, LANE_EPS[1], tile_ids)
     before = kernels.LAUNCHES["stjoin_best_match_pruned"]
-    k = stjoin_ops.best_match_join_pruned(tb, tb, *LANE_EPS)
+    kw, ki = stjoin_ops.stjoin_best_match_pruned(
+        *ref_ops, *cand_ops, tile_ids, *LANE_EPS, stats=stats)
     assert kernels.LAUNCHES["stjoin_best_match_pruned"] == before + 1
-    d = best_match_join_kernel(tb, tb, *LANE_EPS)
-    assert torch.equal(k.best_w, d.best_w)
-    assert torch.equal(k.best_idx, d.best_idx)
-    ref_ops, cand_ops = _flat(tb)
-    tile_ids = stjoin_ops._compact(mask, mask.sum(1), None, "join")
+    assert stats.tolist() == list(want)
+    assert 0 < want[1] < want[0]
     w, i = stjoin_pruned_ref(*ref_ops, *cand_ops, tile_ids, *LANE_EPS,
                              bp=stjoin_ops.JOIN_BP, bc=stjoin_ops.JOIN_BC)
-    T, M = tb.x.shape
-    assert torch.equal(k.best_w.view(T * M, -1), w)
-    assert torch.equal(k.best_idx.view(T * M, -1), i)
+    assert torch.equal(kw, w) and torch.equal(ki, i)
     assert bool((i >= 0).any())
-    with pytest.raises(ValueError, match="bp=256, bc=8"):
-        stjoin_ops.best_match_join_pruned(tb, tb, *LANE_EPS, bp=256, bc=8)
+    dw, di = stjoin_ops.stjoin_best_match(*ref_ops, *cand_ops, *LANE_EPS)
+    assert (torch.equal(kw, dw) and torch.equal(ki, di)) == conservative
+    if case == "lanes":              # the batch-level wrapper, its geometry
+        k = stjoin_ops.best_match_join_pruned(ref, ref, *LANE_EPS)
+        T, M = ref.x.shape
+        assert torch.equal(k.best_w.view(T * M, -1), dw)
+        assert torch.equal(k.best_idx.view(T * M, -1), di)
+        with pytest.raises(ValueError, match="bp=256, bc=8"):
+            stjoin_ops.best_match_join_pruned(ref, ref, *LANE_EPS, bp=256,
+                                              bc=8)
+
+
+@pytest.mark.parametrize("fault", ["unsorted", "duplicate", "gap"])
+def test_k10_refuses_unordered_plan(cuda, fault):
+    """K10 walks each row of its plan in order: a row whose ids are not
+    ascending and unique, or with an id after a -1, is refused
+    (``ValueError``) before any launch; the card stays usable."""
+    tb = _lanes(cuda)
+    tile_ids = _join_plan(tb, tb, LANE_EPS)
+    row = int(torch.nonzero((tile_ids >= 0).sum(1) >= 2)[0, 0])
+    if fault == "unsorted":
+        tile_ids[row, :2] = tile_ids[row, :2].flip(0)
+    elif fault == "duplicate":
+        tile_ids[row, 1] = tile_ids[row, 0]
+    else:
+        tile_ids[row, 0] = -1
+    before = dict(kernels.LAUNCHES)
+    ref_ops, cand_ops = _flat(tb)
+    with pytest.raises(ValueError, match="ascending"):
+        stjoin_ops.stjoin_best_match_pruned(*ref_ops, *cand_ops, tile_ids,
+                                            *LANE_EPS)
+    assert kernels.LAUNCHES == before
+    torch.cuda.synchronize()
 
 
 def _fused_plan(tb, **kw):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""The fused join passes timed alone on one CUDA card, for the port in a
-given ``src`` directory, so that two versions of the port can be held
-against each other within one run (parent, change, change, parent):
+"""The join kernels timed alone on one CUDA card, for the port in a given
+``src`` directory, so that two versions of the port can be held against
+each other within one run (parent, change, change, parent):
 
     python3 tools/panel_kernel_ms.py [--src DIR] [--label NAME]
-                                     [--only fused|panels]
+                                     [--only fused|join|panels]
 
 ``--src`` defaults to this checkout's ``src``; the kernels build beside
 it at first use.  Data and parameters are ``chip_smoke.brest_batch``'s
@@ -16,7 +16,15 @@ K11 and K12 lane-sorted with the index's plan, each on the inputs of one
 and similarity stages are reported too): CUDA events around 3 calls of
 the public wrapper (the kernel, and this version's chunk time bounds or
 checks), and a digest of each output (the sum of its 32-bit patterns as
-int64), which two versions must share.
+int64), which two versions must share.  A process's first ``run_dsc``
+call is the ``fused`` one (when it runs), so its join_vote shows what a
+first call costs.
+
+``join``: K1 on the launcher's layout and K10 lane-sorted with the
+index's join plan (built once), each on the inputs of one ``run_dsc``
+call of its materialize path (that call's wall and join_vote are
+reported too): CUDA events around 3 calls of the public wrapper into
+preallocated ``[P, C]`` outputs, and a digest of each output.
 
 ``panels``: K7 on the launcher's layout, K13 lane-sorted with the index's
 plan, each on the middle panel of the top-K stream, with the
@@ -163,14 +171,52 @@ def fused_measure(cs, batch, params, path):
                    names[1]: cs.time_ms(sim, reps=3)})
 
 
+def join_measure(cs, batch, params, path):
+    """One ``run_dsc`` call of the materialize ``path``, then its join
+    kernel (K1, or K10 with the index's plan) on that call's inputs, timed
+    and digested."""
+    from repro_torch.core.dsc import run_dsc
+    from repro_torch.kernels.stjoin import ops as sj
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_dsc(batch, params, plan=cs.kernel_plan(path),
+                  device=batch.x.device, stage_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    clusters = int(out.result.is_rep.sum())
+    del out
+    eps = (params.eps_sp, params.eps_t)
+    ref_ops, cand_ops = sj._flat_operands(
+        *(batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2)
+    P, C = ref_ops[0].shape[0], cand_ops[0].shape[0]
+    dev = batch.x.device
+    w = torch.empty((P, C), dtype=torch.float32, device=dev)
+    i = torch.empty((P, C), dtype=torch.int32, device=dev)
+    if path.endswith("+index"):
+        mask, counts, _ = sj.plan_join_index(batch, batch, *eps)
+        ids = sj._compact(mask, counts, None, "pruned join")
+        name, call = "K10", lambda: sj.stjoin_best_match_pruned(
+            *ref_ops, *cand_ops, ids, *eps, out_w=w, out_idx=i)
+    else:
+        name, call = "K1", lambda: sj.stjoin_best_match(
+            *ref_ops, *cand_ops, *eps, out_w=w, out_idx=i)
+    call()
+    sums = dict(best_w=digest(w), best_idx=digest(i))
+    return dict(path=path, wall_s=wall, join_vote_ms=times["join_vote"],
+                clusters=clusters, digest=sums,
+                **{name: cs.time_ms(call, reps=3)})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory of the port to time")
     ap.add_argument("--label", default="", help="a name for the JSON line")
-    ap.add_argument("--only", choices=("fused", "panels"),
-                    help="time only the dense fused passes or only the "
-                         "top-K panel passes (default: both)")
+    ap.add_argument("--only", choices=("fused", "join", "panels"),
+                    help="time only the dense fused passes, only the "
+                         "materialize join or only the top-K panel passes "
+                         "(default: all three)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_kernel_ms: no CUDA device is available",
@@ -186,10 +232,15 @@ def main(argv=None) -> int:
     brest = cs.brest_batch(4096, dev)
     lanes = cs.brest_batch(4096, dev, sort_by_lane=True)
     res = dict(label=args.label, src=args.src, card=card)
-    if args.only != "panels":
+    if args.only in (None, "fused"):
         res["fused"] = fused_measure(cs, *brest, "fused")
         res["fused+index"] = fused_measure(cs, *lanes, "fused+index")
-    if args.only != "fused":
+    if args.only in (None, "join"):
+        res["materialize"] = join_measure(cs, *brest, "materialize")
+        res["materialize+index"] = join_measure(cs, *lanes,
+                                                "materialize+index")
+        torch.cuda.empty_cache()
+    if args.only in (None, "panels"):
         res["K7"] = measure(cs, *brest, "fused_topk")
         res["K13"] = measure(cs, *lanes, "fused_topk+index")
     print(card)
