@@ -32,10 +32,16 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
    counts equal the plain mirrors' (K1's, over flattened groups, equal
    K2's at M = 128); the pair slots they evaluate are printed beside those
    of every pair and the needed ones, with ptxas' registers and spills.
+   K5 at every round state of the materialize run (recorded by wrapping
+   its wrapper, ``recorded_rounds``): bitwise, timed, with its active rows
+   and bound, and the sums over the run.  (Every main run logs its
+   clustering stage cut by its own events into thresholds, visit order,
+   round loop and claim-max: ``run_dsc``'s ``stage_parts``.)
 6. The fused path at ``dsc_sis`` (8192 vessels x 128 points, S = 65,536;
    the same generator and parameters): launch counts, sanity checks,
-   stage times and peak memory; then K2 and K4 on its inputs, timed and
-   bitwise their plain versions on the first 256 rows.
+   stage times and peak memory; K5 at every round of that run (bitwise,
+   timed); then K2 and K4 on its inputs, timed and bitwise their plain
+   versions on the first 256 rows.
 
 Top-K similarity (``sim_mode="topk"``, the default K = 32 and widening):
 
@@ -81,7 +87,9 @@ The entry points off the DSC paths (after the dsc_sis runs):
   dsc_brest's eps): one launch on the entry point's run; the kernel
   bitwise its sheared plain twin on every pair, the row scan on the first
   pairs, and itself on the swapped pairs; 0 <= weighted <= count <=
-  min(n, m);
+  min(n, m); the cells its time test rejects (no match among them), and
+  its bound beside the former count (the whole weight on every valid
+  cell);
 * attention (``flash_attention``, K15) at the shapes of two models the
   repo supports: smollm-360m prefill (15 heads, 5 KV, hd 64, L = 4096,
   causal) in float32 and bfloat16, a gemma2-2b local layer (8 heads, 4
@@ -104,6 +112,7 @@ card or a directory without the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -854,12 +863,33 @@ def phase_index(dev, report, batch, params, name: str, outs=None):
     return launches, pouts["fused"].seg.sub_local
 
 
+@contextlib.contextmanager
+def recorded_rounds():
+    """Yields a list that collects each clustering round's ``(unresolved,
+    is_rep)``, by wrapping the K5 wrapper that the dense engine imports at
+    each call (``kernels.cluster.ops.cluster_round_scan``); every round
+    still launches K5 through the real wrapper, counted as before."""
+    from repro_torch.kernels.cluster import ops
+    real, states = ops.cluster_round_scan, []
+
+    def record(sim, rank, unresolved, is_rep, alpha):
+        states.append((unresolved.clone(), is_rep.clone()))
+        return real(sim, rank, unresolved, is_rep, alpha)
+
+    ops.cluster_round_scan = record
+    try:
+        yield states
+    finally:
+        ops.cluster_round_scan = real
+
+
 def phase_main(dev, report, mode: str, n_vessels: int = 4096,
-               name: str = "dsc_brest", data=None):
+               name: str = "dsc_brest", data=None, rounds=None):
     """One main path at full size (``data``: its ``(batch, params)``, else
     ``brest_batch(n_vessels)``); launch counts read around it.  Peak
     memory is the run's own: the peak allocation above what was
-    allocated just before it."""
+    allocated just before it.  ``rounds`` (a list, dense paths): filled
+    with each clustering round's ``(unresolved, is_rep)``."""
     from repro_torch import kernels
     from repro_torch.core.dsc import run_dsc
     batch, params = data or brest_batch(n_vessels, dev)
@@ -870,14 +900,20 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    times = {}
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = run_dsc(batch, params, plan=kernel_plan(mode), device=dev,
-                  stage_times=times)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    times, parts = {}, {}
+    with (recorded_rounds() if rounds is not None
+          else contextlib.nullcontext([])) as states:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run_dsc(batch, params, plan=kernel_plan(mode), device=dev,
+                      stage_times=times, stage_parts=parts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    if rounds is not None:
+        check(len(states) == out.rounds,
+              f"{mode}: {len(states)} rounds recorded, {out.rounds} run")
+        rounds.extend(states)
     peak = torch.cuda.max_memory_allocated() - base
     ran = {k for k, n in launches.items() if n > 0}
     check(ran == PATH_KERNELS[mode],
@@ -909,6 +945,16 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
     members = int((~r.is_rep & (r.member_of >= 0)).sum())
     log("stage ms (CUDA events): " + ", ".join(
         f"{k}={v:.3f}" for k, v in times.items()))
+    # the clustering stage cut by the run's own events: the thresholds
+    # (row moments over [S, S] or the lists'), the visit order, the round
+    # loop (a K5 / K8 launch and a host sync a round), the claim-max
+    check(set(parts) == {"cluster.thresholds", "cluster.visit_order",
+                         "cluster.round_loop", "cluster.claim_max"}
+          and sum(parts.values()) <= times["cluster"],
+          f"{mode}: clustering parts {parts} against {times['cluster']} ms")
+    log("clustering stage parts ms (CUDA events): " + ", ".join(
+        f"{k.split('.')[1]}={v:.3f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.3f} of {times['cluster']:.3f}")
     topk_k = None if out.sim_topk is None else out.sim_topk.k
     log(f"main path ({mode}, {name}) wall s={wall:.3f} rounds={out.rounds} "
         f"dispatches={out.dispatches} final_K={topk_k} "
@@ -917,7 +963,7 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
         f"alpha={float(r.alpha_used):.6g} k={float(r.k_used):.6g}")
     log(f"launches: {launches}")
     report[f"{name}_{mode}"] = dict(
-        stage_ms=times, wall_s=wall, rounds=out.rounds,
+        stage_ms=times, stage_parts_ms=parts, wall_s=wall, rounds=out.rounds,
         dispatches=out.dispatches, final_k=topk_k,
         peak_alloc_bytes=peak, clusters=int(r.is_rep.sum()),
         members=members, outliers=int(r.is_outlier.sum()),
@@ -942,10 +988,46 @@ def join_input_bytes(P: int, C: int, Mc: int) -> int:
     return P * (4 * 4 + 1) + C * Mc * (3 * 4 + 1) + C * 4
 
 
-def phase_kernels(batch, params, out, launches, rows):
+def k5_bytes(S: int, active: int) -> int:
+    """K5's bytes: the active rows of [S, S] f32, rank (i32) and the two
+    flags read once, the two outputs written once."""
+    return active * S * 4 + S * 6 + S * 2
+
+
+def k5_rounds(sim, rank, alpha, states, name: str, report) -> list:
+    """K5 at every recorded round state of one run: bitwise its plain
+    version, timed alone (CUDA events, 5 calls), with the round's active
+    rows and byte bound; the sums over the run are logged and reported."""
+    from repro_torch.kernels.cluster.ops import cluster_round_scan
+    from repro_torch.kernels.cluster.ref import round_scan_ref
+    S = sim.shape[0]
+    per = []
+    for k, (unres, rep) in enumerate(states):
+        kb, kc = cluster_round_scan(sim, rank, unres, rep, alpha)
+        pb, pc = round_scan_ref(sim, rank, unres, rep, alpha)
+        check(torch.equal(kb, pb) and torch.equal(kc, pc),
+              f"{name}: K5 differs from the plain version at round {k}")
+        active = int((unres | rep).sum())
+        ms = time_ms(lambda: cluster_round_scan(sim, rank, unres, rep,
+                                                alpha))
+        b, _ = bound_ms(k5_bytes(S, active))
+        per.append(dict(round=k, active=active, ms=ms, bound_ms=b))
+    tot, tot_b = sum(r["ms"] for r in per), sum(r["bound_ms"] for r in per)
+    log(f"  K5 per round ({name}, S={S}; bitwise the plain version at "
+        "every round): " + "; ".join(
+            f"{r['round']}: {r['active']} rows {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f})" for r in per))
+    log(f"  K5 over the run ({name}): {len(per)} rounds {tot:.4f} ms, "
+        f"bound {tot_b:.4f} ms ({tot_b / tot:.1%} of it)")
+    report[f"k5_rounds {name}"] = dict(rounds=per, sum_ms=tot,
+                                       sum_bound_ms=tot_b)
+    return per
+
+
+def phase_kernels(batch, params, out, launches, rows, states, report):
     """K1, K3, K5 and K6 against their plain versions on the materialize
-    path's inputs.  Returns K1's plain output and time for the fused
-    kernels' plain versions."""
+    path's inputs (K5 at every round ``states`` recorded).  Returns K1's
+    plain output and time for the fused kernels' plain versions."""
     from repro_torch.core import voting
     from repro_torch.core.clustering import visit_order
     from repro_torch.core.segmentation import tsa2_signal
@@ -1023,24 +1105,19 @@ def phase_kernels(batch, params, out, launches, rows):
                bound_ms(T * M * W * 4 + T * M * 5))
     del words, masked
 
-    # ---- K5 / K6: the main path's [S, S] matrix and round states ---------
+    # ---- K5 at every round of the main path's run ------------------------
     sim, table, alpha = out.sim, out.table, out.result.alpha_used
     S = sim.shape[0]
     order, rank = visit_order(table)
-    potential = table.valid & (table.voting >= out.result.k_used)
-    states = [(potential.clone(), torch.zeros_like(potential))]
-    b, c = cluster_round_scan(sim, rank, *states[0], alpha)
-    frontier = states[0][0] & (~b | c)
-    states.append((states[0][0] & ~frontier, frontier & ~c))
-    states.append((torch.zeros_like(potential), out.result.is_rep.clone()))
-    for unres, rep in states:
-        kb, kc = cluster_round_scan(sim, rank, unres, rep, alpha)
-        pb, pc = round_scan_ref(sim, rank, unres, rep, alpha)
-        check(torch.equal(kb, pb) and torch.equal(kc, pc),
-              "K5 differs from the plain version")
+    per = k5_rounds(sim, rank, alpha, states, "dsc_brest materialize",
+                    report)
+    # beside the rounds: no row unresolved, the final representatives
+    final = (torch.zeros_like(table.valid), out.result.is_rep.clone())
+    kb, kc = cluster_round_scan(sim, rank, *final, alpha)
+    pb, pc = round_scan_ref(sim, rank, *final, alpha)
+    check(torch.equal(kb, pb) and torch.equal(kc, pc),
+          "K5 differs from the plain version on the final state")
     unres, rep = states[0]
-    active = int((unres | rep).sum())
-    ms = time_ms(lambda: cluster_round_scan(sim, rank, unres, rep, alpha))
     plain = time_ms(lambda: round_scan_ref(sim, rank, unres, rep, alpha),
                     reps=3)
     predf = ((sim > 0.0) & (sim >= alpha)
@@ -1048,9 +1125,9 @@ def phase_kernels(batch, params, out, launches, rows):
     uf = unres.to(torch.float32)
     lib = time_ms(lambda: uf @ predf)
     del predf
-    kernel_row(rows, "round_scan", launches, 0.0, ms, plain,
-               bound_ms(active * S * 4.0 + S * 6 + S * 2), lib)
-    log(f"  K5 timed at round 0: {active} active rows of {S}")
+    kernel_row(rows, "round_scan", launches, 0.0, per[0]["ms"], plain,
+               bound_ms(k5_bytes(S, per[0]["active"])), lib)
+    log(f"  K5 row: round 0, {per[0]['active']} active rows of {S}")
 
     rep = out.result.is_rep
     kw6, ks6 = cluster_assign(sim, rank, rep, table.valid, alpha)
@@ -1337,12 +1414,36 @@ def phase_topk_kernels(batch, params, tout, launches, raw, rows):
         f"{n_valid} valid rows of {S}")
 
 
-# f32 instructions of one LCSS cell: the weight (dx, dy, two products,
-# their sum, the square root, dt, its absolute value, two compares) where
-# both points are valid, the division and subtraction where they match, and
-# one add and three maxima per channel for the DP
-LCSS_OPS_VALID, LCSS_OPS_MATCH, LCSS_OPS_DP = 10, 2, 8
+# f32 instructions that any exact LCSS schedule needs: one maximum a
+# channel on every cell whose points are both valid (a cell that does not
+# match takes max(L[i, j-1], L[i-1, j]): lcss_kernels.cu::lcss_pair; a
+# row or column whose point is invalid matches nothing and, L being
+# non-decreasing along both axes, copies the row above or the column
+# before exactly, with no arithmetic) and the time test there (dt and its
+# compare); the rest of the weight (dx, dy, two products, their sum, the
+# square root, its compare) where the time test passes; the division, the
+# subtraction and an add and two maxima a channel where the points match
+LCSS_OPS_CELL, LCSS_OPS_TIME, LCSS_OPS_WEIGHT, LCSS_OPS_MATCH = 2, 2, 7, 8
+# the former count, shown beside: the whole weight on every valid cell
+# (10), the division and subtraction on every match (2), and an add and
+# three maxima a channel on every cell (8)
+LCSS_OPS_VALID_OLD, LCSS_OPS_MATCH_OLD, LCSS_OPS_DP_OLD = 10, 2, 8
 LCSS_PARTNERS = 8          # each trajectory is paired with the next 8 rows
+
+
+def lcss_pairs(dev):
+    """K14's full-width operands: the lane-sorted dsc_brest vessels, each
+    paired with the next ``LCSS_PARTNERS`` rows (mod T); ``(the 8 [B, M]
+    operands, (eps_sp, eps_t))``."""
+    batch, params = brest_batch(4096, dev, sort_by_lane=True)
+    T = batch.num_trajs
+    ri = torch.arange(T, device=dev).repeat_interleave(LCSS_PARTNERS)
+    si = (ri + torch.arange(1, LCSS_PARTNERS + 1, device=dev)
+          .repeat(T)) % T
+    cols = (batch.x, batch.y, batch.t, batch.valid)
+    ops = [c[ri].contiguous() for c in cols] + [c[si].contiguous()
+                                                 for c in cols]
+    return ops, (params.eps_sp, params.eps_t)
 
 
 def phase_lcss(dev, report, rows):
@@ -1355,18 +1456,10 @@ def phase_lcss(dev, report, rows):
     from repro_torch import kernels
     from repro_torch.kernels.lcss import ops as lo
     from repro_torch.kernels.lcss import ref as lr
-    batch, params = brest_batch(4096, dev, sort_by_lane=True)
-    T, M = batch.x.shape
-    ri = torch.arange(T, device=dev).repeat_interleave(LCSS_PARTNERS)
-    si = (ri + torch.arange(1, LCSS_PARTNERS + 1, device=dev)
-          .repeat(T)) % T
-    cols = (batch.x, batch.y, batch.t, batch.valid)
-    ops = [c[ri].contiguous() for c in cols] + [c[si].contiguous()
-                                                 for c in cols]
-    eps = (params.eps_sp, params.eps_t)
-    B = ri.shape[0]
+    ops, eps = lcss_pairs(dev)
+    B, M = ops[0].shape
     log(f"lcss (K14): {B} pairs of lane-sorted dsc_brest vessels, N=M={M}, "
-        f"eps_sp={params.eps_sp:.6g} eps_t={params.eps_t:.6g}")
+        f"eps_sp={eps[0]:.6g} eps_t={eps[1]:.6g}")
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1405,22 +1498,32 @@ def phase_lcss(dev, report, rows):
     wu = lr.match_weights(*ops, *eps)
     matched = int((wu[:, 1] > 0).sum())
     del wu
-    valid_cells = int((n * m).sum())
-    cells = B * M * M
-    op_count = (LCSS_OPS_VALID * valid_cells + LCSS_OPS_MATCH * matched
-                + LCSS_OPS_DP * cells)
+    cnt = lr.prefilter_counts(*ops, *eps)
+    check(cnt["matched"] == matched,
+          f"lcss: the time test keeps {cnt['matched']} matches of {matched}")
+    cells, valid_cells = cnt["cells"], cnt["valid"]
+    op_count = ((LCSS_OPS_CELL + LCSS_OPS_TIME) * valid_cells
+                + LCSS_OPS_WEIGHT * cnt["timed"] + LCSS_OPS_MATCH * matched)
+    old_count = (LCSS_OPS_VALID_OLD * valid_cells
+                 + LCSS_OPS_MATCH_OLD * matched + LCSS_OPS_DP_OLD * cells)
     nbytes = B * 2 * M * 13 + B * 2 * 4
-    kernel_row(rows, "lcss_wavefront", launches, err, ms, plain,
-               bound_ms(nbytes, op_count))
+    bound = bound_ms(nbytes, op_count)
+    check(ms >= bound[0], f"lcss: K14 reads {ms} ms, below its bound")
+    kernel_row(rows, "lcss_wavefront", launches, err, ms, plain, bound)
     nz = int((got[:, 1] > 0).sum())
     log(f"  K14: {cells} cells, {valid_cells} with both points valid, "
-        f"{matched} matching; {nz} of {B} pairs share a point; mean "
-        f"similarity (weighted, count) {sim.mean(0).tolist()}; the entry "
-        f"point's run {wall * 1e3:.3f} ms (host clock); library none")
-    report["lcss"] = dict(pairs=B, N=M, M=M, cells=cells,
-                          valid_cells=valid_cells, matched=matched,
-                          sharing_pairs=nz, ms=ms, plain_ms=plain,
-                          wall_ms=wall * 1e3, launches=launches)
+        f"{cnt['timed']} past the time test ({valid_cells - cnt['timed']} "
+        f"rejected by it; the weight is formed on the rest), {matched} "
+        f"matching; {nz} of {B} pairs share a point; mean similarity "
+        f"(weighted, count) {sim.mean(0).tolist()}; the entry point's run "
+        f"{wall * 1e3:.3f} ms (host clock); library none")
+    log(f"  K14 bound: {op_count} f32 instructions "
+        f"({bound_ms(nbytes, op_count)[0]:.4f} ms); the former count "
+        f"{old_count} ({bound_ms(nbytes, old_count)[0]:.4f} ms)")
+    report["lcss"] = dict(pairs=B, N=M, M=M, **cnt, sharing_pairs=nz,
+                          ms=ms, plain_ms=plain, wall_ms=wall * 1e3,
+                          ops=op_count, ops_old_count=old_count,
+                          launches=launches)
 
 
 # (name, dtype, B, L query, M keys, KV, G, hd, mask, softcap, q scale) at
@@ -1688,7 +1791,9 @@ def main(argv=None) -> int:
     phase_parity_fused(dev)
     phase_parity_topk(dev)
     phase_parity_index(dev)
-    batch, params, out, launches = phase_main(dev, report, "materialize")
+    brest_rounds = []
+    batch, params, out, launches = phase_main(dev, report, "materialize",
+                                              rounds=brest_rounds)
     _, _, fout, flaunches = phase_main(dev, report, "fused")
     same_labels(fout, out, "dsc_brest: fused vs materialize path")
     sim_diff = float((out.sim - fout.sim).abs().max())
@@ -1705,7 +1810,9 @@ def main(argv=None) -> int:
                          outs=dict(materialize=out, fused=fout,
                                    fused_topk=tout))
     rows = []
-    pw, pi, k1_plain = phase_kernels(batch, params, out, launches, rows)
+    pw, pi, k1_plain = phase_kernels(batch, params, out, launches, rows,
+                                     brest_rounds, report)
+    del brest_rounds
     raw = phase_fused_kernels(batch, params, fout, flaunches, pw, pi,
                               k1_plain, rows)
     phase_topk_kernels(batch, params, tout, tlaunches, raw, rows)
@@ -1723,8 +1830,14 @@ def main(argv=None) -> int:
                          rows, name, n_plain=sbatch.num_trajs)
     del sbatch, join_ids, fplan, sub
     torch.cuda.empty_cache()
+    sis_rounds = []
     sbatch, sparams, sout, _ = phase_main(dev, report, "fused",
-                                          n_vessels=8192, name="dsc_sis")
+                                          n_vessels=8192, name="dsc_sis",
+                                          rounds=sis_rounds)
+    from repro_torch.core.clustering import visit_order
+    k5_rounds(sout.sim, visit_order(sout.table)[1], sout.result.alpha_used,
+              sis_rounds, "dsc_sis fused", report)
+    del sis_rounds
     dense_labels = [getattr(sout.result, f).cpu() for f in LABELS]
     sub = sout.seg.sub_local
     del sout

@@ -25,6 +25,8 @@ from the moments the lists carry, bit-equal to the dense thresholds.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core.similarity import sim_row_moments
@@ -138,11 +140,16 @@ def cluster_sequential_topk(topk: TopKSim, table: SubtrajTable,
     return _sequential(table, alpha, k, claim_row)
 
 
+def _no_span(name: str):
+    return contextlib.nullcontext()
+
+
 def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
-            seed_resolved=None, seed_is_rep=None):
+            seed_resolved=None, seed_is_rep=None, span=_no_span):
     """The round loop shared by both representations: ``(result,
     rounds)``.  A Python loop with one host sync per round (the test of
-    whether every slot is resolved)."""
+    whether every slot is resolved).  ``span`` times the parts
+    ``cluster.round_loop`` and ``cluster.claim_max``."""
     S = table.num_slots
     potential = table.valid & (table.voting >= k)
     resolved = ~potential
@@ -151,18 +158,20 @@ def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
         resolved = resolved | seed_resolved
         is_rep = is_rep | (seed_is_rep & seed_resolved & potential)
     rounds = 0
-    while not bool(resolved.all()):
-        unresolved = ~resolved
-        blocked, claimed = scan(unresolved, is_rep)
-        frontier = unresolved & (~blocked | claimed)
-        is_rep = is_rep | (frontier & ~claimed)
-        resolved = resolved | frontier
-        rounds += 1
+    with span("cluster.round_loop"):
+        while not bool(resolved.all()):
+            unresolved = ~resolved
+            blocked, claimed = scan(unresolved, is_rep)
+            frontier = unresolved & (~blocked | claimed)
+            is_rep = is_rep | (frontier & ~claimed)
+            resolved = resolved | frontier
+            rounds += 1
 
-    member_sim, member_of = assign(is_rep)
-    slots = torch.arange(S, dtype=torch.int32, device=potential.device)
-    member_of = torch.where(is_rep, slots, member_of)
-    member_sim = torch.where(is_rep, float("inf"), member_sim)
+    with span("cluster.claim_max"):
+        member_sim, member_of = assign(is_rep)
+        slots = torch.arange(S, dtype=torch.int32, device=potential.device)
+        member_of = torch.where(is_rep, slots, member_of)
+        member_sim = torch.where(is_rep, float("inf"), member_sim)
     result = ClusteringResult(
         member_of=member_of, member_sim=member_sim, is_rep=is_rep,
         is_outlier=table.valid & (member_of < 0), alpha_used=alpha,
@@ -171,17 +180,23 @@ def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
 
 
 def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
-                   *, use_kernel: bool = False, with_rounds: bool = False):
+                   *, use_kernel: bool = False, with_rounds: bool = False,
+                   span=_no_span):
     """Round-parallel Algorithm 4 — label-identical to the oracle.
 
     ``use_kernel=True`` runs each round's scan and the final claim-max
     through the CUDA kernels; the plain path builds the alpha-edge
     predicate once and reduces each round to two 0/1 vector-matrix
     products (exact: the sums are integers below 2^24).
-    ``with_rounds=True`` also returns the number of rounds.
+    ``with_rounds=True`` also returns the number of rounds.  ``span``
+    (a context-manager factory such as ``dsc.StageTimer.stage``) times the
+    parts ``cluster.thresholds``, ``cluster.visit_order``,
+    ``cluster.round_loop`` and ``cluster.claim_max``.
     """
-    alpha, k = resolve_thresholds(params, sim, table)
-    order, rank = visit_order(table)
+    with span("cluster.thresholds"):
+        alpha, k = resolve_thresholds(params, sim, table)
+    with span("cluster.visit_order"):
+        order, rank = visit_order(table)
 
     if use_kernel:
         from repro_torch.kernels.cluster.ops import (cluster_assign,
@@ -205,14 +220,14 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
             return claim_max_ref(sim, order, rank, is_rep, table.valid,
                                  alpha)
 
-    result, rounds = _rounds(table, alpha, k, scan, assign)
+    result, rounds = _rounds(table, alpha, k, scan, assign, span=span)
     return (result, rounds) if with_rounds else result
 
 
 def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
                         params: DSCParams, *, use_kernel: bool = False,
                         with_rounds: bool = False, seed_resolved=None,
-                        seed_is_rep=None):
+                        seed_is_rep=None, span=_no_span):
     """Round-parallel Algorithm 4 over ``[S, K]`` neighbor lists: the
     recurrence and claim-max of ``cluster_rounds``, each reduction over
     the lists.  ``use_kernel=True`` runs them through the CUDA list
@@ -223,10 +238,13 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
     decided, with ``seed_is_rep`` as their verdict.  The seeds must be a
     visit-order prefix of this instance whose rank, potential and list
     rows are unchanged; then the warm run's labels equal a cold run's.
-    The claim-max is always recomputed in full.
+    The claim-max is always recomputed in full.  ``span`` times the parts
+    of ``cluster_rounds``.
     """
-    alpha, k = _topk_thresholds(topk, table, params)
-    _, rank = visit_order(table)
+    with span("cluster.thresholds"):
+        alpha, k = _topk_thresholds(topk, table, params)
+    with span("cluster.visit_order"):
+        _, rank = visit_order(table)
 
     if use_kernel:
         from repro_torch.kernels.cluster.ops import (
@@ -244,17 +262,18 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
 
     result, rounds = _rounds(table, alpha, k, scan, assign,
                              seed_resolved=seed_resolved,
-                             seed_is_rep=seed_is_rep)
+                             seed_is_rep=seed_is_rep, span=span)
     return (result, rounds) if with_rounds else result
 
 
 def cluster(sim, table: SubtrajTable, params: DSCParams,
             engine: str = "rounds", *, use_kernel: bool = False,
-            with_rounds: bool = False):
+            with_rounds: bool = False, span=_no_span):
     """Problem 3 entry point: ``sim`` is the dense ``[S, S]`` matrix or a
     ``TopKSim``; ``engine`` is ``"rounds"`` or the ``"sequential"``
     oracle.  ``with_rounds=True`` returns ``(result, rounds)``; the
-    sequential oracle reports ``rounds = None``.
+    sequential oracle reports ``rounds = None``.  ``span`` times the
+    parts of the rounds engines (``cluster_rounds``).
     """
     if isinstance(sim, TopKSim):
         if engine == "sequential":
@@ -263,14 +282,14 @@ def cluster(sim, table: SubtrajTable, params: DSCParams,
         if engine == "rounds":
             return cluster_rounds_topk(sim, table, params,
                                        use_kernel=use_kernel,
-                                       with_rounds=with_rounds)
+                                       with_rounds=with_rounds, span=span)
         raise ValueError(f"unknown cluster engine {engine!r}")
     if engine == "sequential":
         res = cluster_sequential(sim, table, params)
         return (res, None) if with_rounds else res
     if engine == "rounds":
         return cluster_rounds(sim, table, params, use_kernel=use_kernel,
-                              with_rounds=with_rounds)
+                              with_rounds=with_rounds, span=span)
     raise ValueError(f"unknown cluster engine {engine!r}")
 
 

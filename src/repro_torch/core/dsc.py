@@ -80,7 +80,9 @@ class DSCOutput:
 
 class StageTimer:
     """Per-stage times in ms: CUDA events on the card, the host clock on
-    the CPU.  Read ``times`` after the run (it synchronizes once)."""
+    the CPU.  A name with a dot (``cluster.round_loop``) is a part of a
+    stage.  Read ``times`` and ``parts`` after the run (each synchronizes
+    once)."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -100,16 +102,25 @@ class StageTimer:
             end = time.perf_counter()
         self._marks.append((name, start, end))
 
-    @property
-    def times(self) -> dict[str, float]:
-        """ms per stage name, summed over the times a stage ran."""
+    def _sums(self, parts: bool) -> dict[str, float]:
         if self.cuda:
             torch.cuda.synchronize()
         out: dict[str, float] = {}
         for n, s, e in self._marks:
-            ms = s.elapsed_time(e) if self.cuda else (e - s) * 1e3
-            out[n] = out.get(n, 0.0) + ms
+            if ("." in n) == parts:
+                ms = s.elapsed_time(e) if self.cuda else (e - s) * 1e3
+                out[n] = out.get(n, 0.0) + ms
         return out
+
+    @property
+    def times(self) -> dict[str, float]:
+        """ms per stage name, summed over the times a stage ran."""
+        return self._sums(False)
+
+    @property
+    def parts(self) -> dict[str, float]:
+        """ms per part of a stage (``stage.part``), summed likewise."""
+        return self._sums(True)
 
 
 def _segment_body(batch, params, vote, masks, plan: EnginePlan):
@@ -158,13 +169,13 @@ def _similarity_body(batch, params, join, seg, table, plan: EnginePlan,
                                         ms), None
 
 
-def _cluster_body(simlike, table, params, plan: EnginePlan):
+def _cluster_body(simlike, table, params, plan: EnginePlan, span):
     """Problem 3: ``(result, rounds, overflow)``; ``overflow`` is None on
     the dense path (the certificate exists only for top-K lists)."""
     result, rounds = cluster(simlike, table, params,
                              engine=plan.cluster_engine,
                              use_kernel=plan.cluster_use_kernel,
-                             with_rounds=True)
+                             with_rounds=True, span=span)
     if isinstance(simlike, TopKSim):
         return result, rounds, similarity.topk_overflow(simlike,
                                                         result.alpha_used)
@@ -256,7 +267,8 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
             join = None
         with timer.stage("cluster"):
             result, rounds, overflow = _cluster_body(
-                sim if topk is None else topk, table, params, plan)
+                sim if topk is None else topk, table, params, plan,
+                timer.stage)
         with timer.stage("score"):
             sscr_v, rmse_v = _score_body(result, sim, params)
         dispatches += 1
@@ -282,6 +294,7 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
 def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
             plan: EnginePlan | None = None, device=None,
             stage_times: dict | None = None,
+            stage_parts: dict | None = None,
             on_overflow: str = "widen") -> DSCOutput:
     """Run the full DSC pipeline on one device.
 
@@ -290,7 +303,10 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
     the batch is moved there if it lies elsewhere, and asking for the card
     where there is none raises.  ``stage_times``, when given, is filled
     with the time of each stage in ms (CUDA events on the card), summed
-    over the dispatches.
+    over the dispatches; ``stage_parts`` likewise with the parts that a
+    stage times: the rounds engines' ``cluster.thresholds``,
+    ``cluster.visit_order``, ``cluster.round_loop`` and
+    ``cluster.claim_max``.
 
     ``sim_mode="topk"`` keeps per-row top-K lists instead of the
     ``[S, S]`` matrix, with K = ``plan.sim_topk`` (default 32, clamped to
@@ -315,6 +331,8 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
     out = _run_stages(batch, params, plan, timer, on_overflow)
     if stage_times is not None:
         stage_times.update(timer.times)
+    if stage_parts is not None:
+        stage_parts.update(timer.parts)
     return out
 
 

@@ -101,9 +101,8 @@ _SIGNATURES = {
                                      + [_I, _I] + [_P] * 3 + [_P, _P, _P],
     # masks, T, M, W, w, d, stream
     "jaccard_window": [_P, _I, _I, _I, _I, _P, _P],
-    # sim, rank, unresolved, is_rep, alpha, S, n_split, blocked, claimed,
-    # stream
-    "round_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _I, _P, _P, _P],
+    # sim, rank, unresolved, is_rep, alpha, S, blocked, claimed, stream
+    "round_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P],
     # sim, rank, is_rep, valid, alpha, S, scratch_w, scratch_rank,
     # scratch_slot, n_split, best_w, best_slot, stream
     "claim_max": [_P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P, _I,
@@ -114,7 +113,7 @@ _SIGNATURES = {
     # ids, sims, rank, is_rep, valid, alpha, S, K, best_w, best_slot,
     # stream
     "topk_claim_max": [_P] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P],
-    # rx, ry, rt, rv, sx, sy, st, sv; B, N, M; eps_sp, eps_t; diagonal
+    # rx, ry, rt, rv, sx, sy, st, sv; B, N, M; eps_sp, eps_t; carried-row
     # scratch (NULL: shared memory); scores; stream
     "lcss_wavefront": [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 2
                       + [_P, _P, _P],

@@ -19,7 +19,7 @@ from repro_torch.kernels.cluster.ref import (claim_max_ref, round_scan_ref,
 
 
 def _n_split(S: int) -> int:
-    """Row slices of the [S, S] sweep: enough blocks to fill the card at
+    """Row slices of K6's [S, S] sweep: enough blocks to fill the card at
     full size (S = 32768: 256 column blocks x 16), one when S is small."""
     return 16 if S >= 4096 else 1
 
@@ -36,7 +36,7 @@ def cluster_round_scan(sim, rank, unresolved, is_rep, alpha):
     claimed = torch.zeros((S,), dtype=torch.bool, device=dev)
     launch("round_scan", *(t.data_ptr() for t in (sim, rank, unresolved,
                                                   is_rep)),
-           float(f32(alpha, "cpu")), S, _n_split(S), blocked.data_ptr(),
+           float(f32(alpha, "cpu")), S, blocked.data_ptr(),
            claimed.data_ptr(), device=dev)
     return blocked, claimed
 

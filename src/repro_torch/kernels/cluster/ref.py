@@ -7,6 +7,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.types import f32
+
+# K5's schedule (csrc/dsc_kernels.cu, round_scan_kernel): threads a block,
+# columns a thread, rows staged a pass, rows loaded before their tests
+SCAN_THREADS, SCAN_GROUP, SCAN_CHUNK, SCAN_UNROLL = 128, 4, 1024, 4
+
 
 def round_scan_ref(sim, rank, unresolved, is_rep, alpha):
     """One round's eligibility scan over the full matrix.
@@ -19,6 +25,50 @@ def round_scan_ref(sim, rank, unresolved, is_rep, alpha):
     blocked = (pred & unresolved[:, None]).any(dim=0)
     claimed = (pred & is_rep[:, None]).any(dim=0)
     return blocked, claimed
+
+
+def round_scan_schedule_ref(sim, rank, unresolved, is_rep, alpha,
+                            n_split: int):
+    """K5's schedule, plainly (the kernel's mirror; ``round_scan_ref`` is the
+    contract): ``n_split`` row slices of ``ceil(S / n_split)`` rows, each
+    staged ``SCAN_CHUNK`` rows at a time and compacted to its active rows
+    (either flag set) in row order as ``(u << 2 | flags, rank[u])``; the
+    list is read ``SCAN_UNROLL`` rows at a time, then a row at a time for
+    the tail, over groups of ``SCAN_GROUP`` columns, the last group cut at
+    ``S`` (its missing columns read 0: no edge).  Returns ``(blocked,
+    claimed)``, each OR-ed from bit 0 / bit 1 of the listed flags."""
+    S = sim.shape[0]
+    dev = sim.device
+    G = -(-S // SCAN_GROUP)
+    pad = G * SCAN_GROUP - S
+    low = torch.full((pad,), torch.iinfo(torch.int32).min, dtype=torch.int32,
+                     device=dev)
+    rs = torch.cat([rank.to(torch.int32), low]).view(G, SCAN_GROUP)
+    alpha = f32(alpha, dev)
+    flags = unresolved.to(torch.int32) | (is_rep.to(torch.int32) << 1)
+    hit = torch.zeros((2, G, SCAN_GROUP), dtype=torch.bool, device=dev)
+    rows = -(-S // n_split)
+    for u0 in range(0, S, rows):
+        u1 = min(S, u0 + rows)
+        for base in range(u0, u1, SCAN_CHUNK):
+            f = flags[base:min(base + SCAN_CHUNK, u1)]
+            listed = torch.nonzero(f).flatten()
+            uf = ((base + listed).to(torch.int32) << 2) | f[listed]
+            rk = rank[(uf >> 2).long()].to(torch.int32)
+            n = uf.shape[0]
+            whole = n - n % SCAN_UNROLL
+            steps = [(k, SCAN_UNROLL) for k in range(0, whole, SCAN_UNROLL)]
+            steps += [(k, 1) for k in range(whole, n)]
+            for k, width in steps:
+                uk = uf[k:k + width]
+                v = torch.nn.functional.pad(sim[(uk >> 2).long()], (0, pad))
+                v = v.view(width, G, SCAN_GROUP)
+                pred = ((v > 0.0) & (v >= alpha)
+                        & (rk[k:k + width, None, None] < rs))
+                for bit in range(2):
+                    fk = ((uk[:, None, None] >> bit) & 1).bool()
+                    hit[bit] |= (pred & fk).any(0)
+    return hit[0].flatten()[:S], hit[1].flatten()[:S]
 
 
 def claim_max_ref(sim, order, rank, is_rep, valid, alpha):

@@ -975,37 +975,127 @@ __global__ void jaccard_window_kernel(const uint32_t* __restrict__ masks,
 //   sim[u, s] > 0 && sim[u, s] >= alpha && rank[u] < rank[s]
 // masked by unresolved[u] (-> blocked[s]) and by is_rep[u] (-> claimed[s]).
 //
-// Bound: bytes (one read of the rows of the [S, S] matrix whose mask bits
-// are set).  Design: one thread per column walks a slice of the rows, so
-// a warp reads 32 consecutive floats of row u; rows with neither mask bit
-// are skipped (the test is uniform across the warp).  The rows are split
-// over gridDim.y slices to fill the card; a slice that finds a predicate
-// stores 1 into the zeroed output, and every such store writes the same
-// value, so the OR needs no atomics and is exact.
+// Bound: bytes, one read of the rows whose mask bits are set (7,056 of
+// 32,768 at dsc_brest's round 0).  The card reaches its rate only with
+// about 25 KB of loads in flight per SM; a thread that tests its row's
+// flags before each 4-byte load keeps one load in flight.  So:
+// * a block of SCAN_THREADS threads owns SCAN_COLS consecutive columns, 4
+//   a thread, and one slice of the rows (gridDim.y slices, sized by the
+//   launcher from the SM count: about 32 blocks an SM, at least
+//   SCAN_THREADS rows a slice).  It stages its slice SCAN_CHUNK rows at a
+//   time, compacting the active rows (either flag set) in row order with
+//   warp ballots into a shared list of (u << 2 | flags, rank[u]); no flag
+//   load and no branch remains per row, and rank keeps all its 32 bits;
+// * each thread reads its 4 columns of SCAN_UNROLL listed rows before it
+//   tests any of them (a warp reads 512 contiguous bytes of a row), so
+//   SCAN_UNROLL x 16 bytes a thread are in flight;
+// * rows are 16-byte aligned when S % 4 == 0 (and sim is): one float4 a
+//   row (VEC); otherwise four scalar loads, the last group of a row cut at
+//   column S.  The launcher picks the instantiation by shape.
+// A slice that finds a predicate stores 1 into the zeroed output; every
+// such store writes the same value, so the OR needs no atomics and is
+// exact.  cluster/ref.py::round_scan_schedule_ref is the schedule's plain
+// mirror.
 // ---------------------------------------------------------------------------
-__global__ void round_scan_kernel(const float* __restrict__ sim,
-                                  const int* __restrict__ rank,
-                                  const uint8_t* __restrict__ unresolved,
-                                  const uint8_t* __restrict__ is_rep,
-                                  float alpha, int S, int rows_per_split,
-                                  uint8_t* __restrict__ blocked,
-                                  uint8_t* __restrict__ claimed) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
+constexpr int SCAN_THREADS = 128;
+constexpr int SCAN_COLS = 4 * SCAN_THREADS;
+constexpr int SCAN_CHUNK = 1024;
+constexpr int SCAN_UNROLL = 4;   // 2.6% ahead of 8 over a run (PERF.md)
+
+// Columns c0 .. c0 + 3 of one row; a column at or past S reads 0, which
+// is no edge (0 > 0 is false).
+template <bool VEC>
+__device__ __forceinline__ float4 scan_load(const float* __restrict__ row,
+                                            int c0, int S) {
+  if (VEC) return __ldg(reinterpret_cast<const float4*>(row + c0));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c0 < S) v.x = __ldg(row + c0);
+  if (c0 + 1 < S) v.y = __ldg(row + c0 + 1);
+  if (c0 + 2 < S) v.z = __ldg(row + c0 + 2);
+  if (c0 + 3 < S) v.w = __ldg(row + c0 + 3);
+  return v;
+}
+
+// ORs the listed row's flags f into bits 2q (blocked) and 2q + 1
+// (claimed) of `hit` for each of the thread's columns q with an alpha-edge
+// from the row (of rank rk).
+__device__ __forceinline__ void scan_test(float4 v, int rk, unsigned f,
+                                          float alpha, const int (&rs)[4],
+                                          unsigned& hit) {
+  const float c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (c[q] > 0.f && c[q] >= alpha && rk < rs[q]) hit |= f << (2 * q);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(SCAN_THREADS)
+round_scan_kernel(const float* __restrict__ sim,
+                  const int* __restrict__ rank,
+                  const uint8_t* __restrict__ unresolved,
+                  const uint8_t* __restrict__ is_rep, float alpha, int S,
+                  int rows_per_split, uint8_t* __restrict__ blocked,
+                  uint8_t* __restrict__ claimed) {
+  __shared__ int list_u[SCAN_CHUNK];
+  __shared__ int list_e[SCAN_CHUNK];
+  __shared__ int warp_n[SCAN_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * SCAN_COLS + 4 * threadIdx.x;
+  int rs[4];     // a column past S has no predecessor
+#pragma unroll
+  for (int q = 0; q < 4; ++q) rs[q] = c0 + q < S ? rank[c0 + q] : INT_MIN;
   const int u0 = blockIdx.y * rows_per_split;
   const int u1 = min(S, u0 + rows_per_split);
-  const int rs = rank[s];
-  bool b = false, c = false;
-  for (int u = u0; u < u1; ++u) {
-    const bool fu = unresolved[u] != 0, fr = is_rep[u] != 0;
-    if (!(fu || fr)) continue;
-    const float v = sim[(size_t)u * S + s];
-    const bool pred = v > 0.f && v >= alpha && rank[u] < rs;
-    b |= pred && fu;
-    c |= pred && fr;
+  unsigned hit = 0;
+  for (int base = u0; base < u1; base += SCAN_CHUNK) {
+    // compaction: the chunk's active rows, in row order
+    int n = 0;
+    for (int k = 0; k < SCAN_CHUNK; k += SCAN_THREADS) {
+      const int u = base + k + threadIdx.x;
+      int f = 0;
+      if (u < u1) f = (unresolved[u] != 0) | ((is_rep[u] != 0) << 1);
+      const unsigned bal = __ballot_sync(0xffffffffu, f != 0);
+      if (lane == 0) warp_n[warp] = __popc(bal);
+      __syncthreads();
+      int at = n, total = 0;
+#pragma unroll
+      for (int w = 0; w < SCAN_THREADS / 32; ++w) {
+        at += w < warp ? warp_n[w] : 0;
+        total += warp_n[w];
+      }
+      if (f) {
+        const int i = at + __popc(bal & ((1u << lane) - 1u));
+        list_u[i] = (u << 2) | f;
+        list_e[i] = rank[u];
+      }
+      n += total;
+      __syncthreads();
+    }
+    // the sweep over the listed rows
+    if (c0 < S) {
+      int k = 0;
+      for (; k + SCAN_UNROLL <= n; k += SCAN_UNROLL) {
+        float4 v[SCAN_UNROLL];
+#pragma unroll
+        for (int q = 0; q < SCAN_UNROLL; ++q)
+          v[q] = scan_load<VEC>(sim + (size_t)(list_u[k + q] >> 2) * S,
+                                c0, S);
+#pragma unroll
+        for (int q = 0; q < SCAN_UNROLL; ++q)
+          scan_test(v[q], list_e[k + q], list_u[k + q] & 3, alpha, rs, hit);
+      }
+      for (; k < n; ++k)
+        scan_test(scan_load<VEC>(sim + (size_t)(list_u[k] >> 2) * S, c0, S),
+                  list_e[k], list_u[k] & 3, alpha, rs, hit);
+    }
+    __syncthreads();     // the next chunk rewrites the list
   }
-  if (b) blocked[s] = 1;
-  if (c) claimed[s] = 1;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if ((hit >> (2 * q)) & 1u) blocked[c0 + q] = 1;
+    if ((hit >> (2 * q + 1)) & 1u) claimed[c0 + q] = 1;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1542,13 +1632,30 @@ int jaccard_window(const uint32_t* masks, int T, int M, int W, int w,
 }
 
 int round_scan(const float* sim, const int* rank, const uint8_t* unresolved,
-               const uint8_t* is_rep, float alpha, int S, int n_split,
-               uint8_t* blocked, uint8_t* claimed, cudaStream_t stream) {
+               const uint8_t* is_rep, float alpha, int S, uint8_t* blocked,
+               uint8_t* claimed, cudaStream_t stream) {
   if (S > 0) {
-    const dim3 grid((S + kColThreads - 1) / kColThreads, n_split);
-    round_scan_kernel<<<grid, kColThreads, 0, stream>>>(
-        sim, rank, unresolved, is_rep, alpha, S, rows_per_split(S, n_split),
-        blocked, claimed);
+    // u << 2 in the row list must not overflow
+    if (S > (INT_MAX >> 2)) return (int)cudaErrorInvalidValue;
+    int dev = 0, n_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return (int)err;
+    // about 32 blocks an SM (four waves of eight) over the column blocks,
+    // at least SCAN_THREADS rows a slice
+    const int col_blocks = (S + SCAN_COLS - 1) / SCAN_COLS;
+    const int n_split = max(1, min(S / SCAN_THREADS, 32 * n_sm / col_blocks));
+    const dim3 grid(col_blocks, n_split);
+    const int rows = rows_per_split(S, n_split);
+    if (S % 4 == 0 && (reinterpret_cast<uintptr_t>(sim) & 15) == 0) {
+      round_scan_kernel<true><<<grid, SCAN_THREADS, 0, stream>>>(
+          sim, rank, unresolved, is_rep, alpha, S, rows, blocked, claimed);
+    } else {
+      round_scan_kernel<false><<<grid, SCAN_THREADS, 0, stream>>>(
+          sim, rank, unresolved, is_rep, alpha, S, rows, blocked, claimed);
+    }
   }
   return (int)cudaGetLastError();
 }

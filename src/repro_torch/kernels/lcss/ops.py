@@ -3,13 +3,14 @@
 
 ``lcss_scores`` / ``lcss_similarity`` move their operands to ``device``
 (``None`` = the card) and call ``lcss_wavefront``: on CUDA tensors it
-launches the ``lcss_wavefront`` kernel (``csrc/lcss_kernels.cu``), which
-forms the match weights in registers and never builds the sheared tensor;
-on CPU tensors it takes the plain versions of the TPU kernel's two steps
-(``ref.shear_weights`` then ``ref.lcss_wavefront_ref``).  Both give the
-same scores bit for bit.  Pairs too long for the kernel's shared memory
-(``smem_bytes`` above the card's opt-in limit) keep its diagonals in a
-global scratch that the wrapper allocates.
+launches the ``lcss_wavefront`` kernel (``csrc/lcss_kernels.cu``: one warp
+a pair, the DP in registers, the weights formed there behind an exact
+time test; the sheared tensor is never built); on CPU tensors it takes
+the plain versions of the TPU kernel's two steps (``ref.shear_weights``
+then ``ref.lcss_wavefront_ref``).  Both give the same scores bit for bit.
+Pairs of more than one strip of rows (N > 128) carry a strip's bottom row
+to the next, in shared memory while ``smem_bytes`` fits the card's opt-in
+limit, else in a global scratch that the wrapper allocates.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import functools
 import torch
 
 from repro_torch.kernels import check_cuda_operands, launch, resolve_device
-from repro_torch.kernels.lcss.ref import (lcss_wavefront_ref, normalize,
-                                          shear_weights)
+from repro_torch.kernels.lcss.ref import (LCSS_WARPS, lcss_wavefront_ref,
+                                          normalize, shear_weights,
+                                          strip_rows)
 
 
 def lcss_wavefront(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t):
@@ -42,8 +44,8 @@ def lcss_wavefront(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t):
                              f"[{B}, {n}]")
     scores = torch.empty((B, 2), dtype=f, device=dev)
     scratch = None
-    if smem_bytes(N, M) > _smem_optin(dev.index or 0):
-        scratch = torch.empty(B * 6 * N, dtype=f, device=dev)
+    if smem_bytes(N, M) > _smem_optin(dev.index):
+        scratch = torch.empty(B * 2 * M, dtype=f, device=dev)
     launch("lcss_wavefront", rx.data_ptr(), ry.data_ptr(), rt.data_ptr(),
            rv.data_ptr(), sx.data_ptr(), sy.data_ptr(), st.data_ptr(),
            sv.data_ptr(), B, N, M, float(eps_sp), float(eps_t),
@@ -53,11 +55,15 @@ def lcss_wavefront(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t):
 
 
 def smem_bytes(N: int, M: int) -> int:
-    """Shared memory of one K14 block (``lcss_kernels.cu::lcss_smem_bytes``):
-    three diagonals of both channels and both sequences' points, in
-    floats.  Past the card's opt-in limit the diagonals go to a global
-    scratch of ``6 N`` floats a pair."""
-    return 4 * (10 * N + 4 * M)
+    """Shared memory of one K14 block (``lcss_kernels.cu``): the ring of 64
+    candidate points of each of its ``LCSS_WARPS`` warps and, when the rows
+    take more than one strip, each warp's carried row (2 x M floats).  Past
+    the card's opt-in limit the carried rows go to a global scratch of
+    ``2 M`` floats a pair."""
+    ring = LCSS_WARPS * 64 * 16
+    if N <= 32 * strip_rows(N):
+        return ring
+    return ring + LCSS_WARPS * 2 * M * 4
 
 
 @functools.lru_cache(maxsize=None)

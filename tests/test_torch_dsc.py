@@ -156,6 +156,32 @@ def test_stage_times_and_summary(fig1):
     assert s["clusters"] == js["clusters"] and s["outliers"] == js["outliers"]
 
 
+CLUSTER_PARTS = {"cluster.thresholds", "cluster.visit_order",
+                 "cluster.round_loop", "cluster.claim_max"}
+
+
+@pytest.mark.parametrize("plan", [
+    EnginePlan(), EnginePlan(sim_mode="topk", sim_topk=2),
+    EnginePlan(cluster_engine="sequential")], ids=["dense", "topk",
+                                                  "sequential"])
+def test_stage_parts(fig1, plan):
+    """The rounds engines time the parts of the clustering stage; the
+    parts lie inside the stage and leave ``stage_times`` as it was; the
+    sequential oracle times none."""
+    jb, _ = fig1
+    times, parts = {}, {}
+    tdsc.run_dsc(_port(jb), DSCParams(**FIG1, segmentation="tsa2"),
+                 plan=plan, device="cpu", stage_times=times,
+                 stage_parts=parts)
+    assert list(times) == list(tdsc.STAGES)
+    if plan.cluster_engine == "sequential":
+        assert parts == {}
+    else:
+        assert set(parts) == CLUSTER_PARTS
+        assert all(v >= 0.0 for v in parts.values())
+        assert sum(parts.values()) <= times["cluster"]
+
+
 def test_groundtruth_recovery(fig1):
     """Port of ``tests/test_system.py::test_groundtruth_recovery``: near-
     perfect purity of the port's clusters w.r.t. the leg ground truth."""

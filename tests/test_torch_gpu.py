@@ -23,6 +23,7 @@ from repro_torch.kernels.cluster.ops import (cluster_assign,
                                              cluster_round_scan,
                                              topk_cluster_assign,
                                              topk_cluster_round_scan)
+from repro_torch.kernels.cluster.ref import claim_max_ref, round_scan_ref
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import (flash_attention_ref,
                                                kernel_tolerance,
@@ -226,25 +227,64 @@ def test_k3_matches_plain(cuda, w):
     assert torch.equal(k, p)
 
 
-@pytest.mark.parametrize("S", [200, 5000])
-def test_k5_k6_match_plain(cuda, S):
-    rng = np.random.default_rng(S)
-    sim = (rng.integers(1, 5, (S, S)) / 4 * (rng.uniform(size=(S, S)) > 0.5)
-           ).astype(np.float32)
-    sim = np.maximum(sim, sim.T)
-    np.fill_diagonal(sim, 0.0)
-    rank = rng.permutation(S).astype(np.int32)
-    unres = rng.uniform(size=S) < 0.4
-    rep = ~unres & (rng.uniform(size=S) < 0.5)
-    valid = rng.uniform(size=S) < 0.9
-    cpu = [torch.from_numpy(a) for a in (sim, rank, unres, rep, valid)]
-    gpu = [a.to(cuda) for a in cpu]
-    kb, kc = cluster_round_scan(*gpu[:4], 0.5)
-    pb, pc = cluster_round_scan(*cpu[:4], 0.5)
-    assert torch.equal(kb.cpu(), pb) and torch.equal(kc.cpu(), pc)
-    kw, ks = cluster_assign(gpu[0], gpu[1], gpu[3], gpu[4], 0.5)
-    pw, ps = cluster_assign(cpu[0], cpu[1], cpu[3], cpu[4], 0.5)
-    assert torch.equal(kw.cpu(), pw) and torch.equal(ks.cpu(), ps)
+def _k5_instance(cuda, S, state, seed):
+    """A symmetric matrix of weights in {0.25, 0.5, 0.75, 1} (ties, and
+    alpha = 0.5 on entries), made on the card from a seed, with a round
+    state: ``mixed`` (40% unresolved, half the rest representatives),
+    ``sparse`` (about 10% of the rows active, as at dsc_brest's round 0),
+    ``all`` (every row active, some with both flags) or ``none``."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=cuda)
+    sim = torch.where(rand(S, S) > 0.5, (rand(S, S) * 4).ceil() / 4, 0.0)
+    sim = torch.maximum(sim, sim.T)
+    sim.fill_diagonal_(0.0)
+    rank = torch.randperm(S, generator=g, device=cuda).to(torch.int32)
+    p_unres, p_rep = {"mixed": (0.4, 0.5), "sparse": (0.07, 0.03),
+                      "all": (0.5, 1.0), "none": (0.0, 0.0)}[state]
+    unres = rand(S) < p_unres
+    rep = (~unres | (rand(S) < 0.2)) if state == "all" else \
+        (~unres & (rand(S) < p_rep))
+    valid = rand(S) < 0.9
+    return sim, rank, unres, rep, valid
+
+
+# (S, state): S % 4 == 0 takes the float4 kernel, else the scalar one
+# (and S = 200 again through a misaligned view); 32768 is dsc_brest's S;
+# 4097_wide spreads the ranks over the int32 range (K5 only: K6's plain
+# version reads rank as a visit position)
+K5_CASES = [(200, "mixed"), (5000, "mixed"), (4097, "mixed"),
+            (5001, "mixed"), (32768, "sparse"), (200, "all"), (4097, "all"),
+            (5001, "none"), (32768, "none"), ("200_offset", "mixed"),
+            ("4097_wide", "mixed")]
+
+
+@pytest.mark.parametrize("S,state", K5_CASES)
+def test_k5_k6_match_plain(cuda, S, state):
+    """K5 (one launch) and K6 equal to their plain versions on the card."""
+    offset, wide = S == "200_offset", S == "4097_wide"
+    S = {"200_offset": 200, "4097_wide": 4097}.get(S, S)
+    sim, rank, unres, rep, valid = _k5_instance(cuda, S, state, S)
+    if wide:
+        rank = ((rank.long() - S // 2) * (2 ** 31 // S)).to(torch.int32)
+        assert int(rank.abs().max()) >= 2 ** 29
+    if offset:      # rows no longer 16-byte aligned although S % 4 == 0
+        buf = torch.empty(S * S + 1, device=cuda)
+        buf[1:] = sim.flatten()
+        sim = buf[1:].view(S, S)
+        assert sim.data_ptr() % 16 != 0
+    before = kernels.LAUNCHES["round_scan"]
+    kb, kc = cluster_round_scan(sim, rank, unres, rep, 0.5)
+    assert kernels.LAUNCHES["round_scan"] == before + 1
+    pb, pc = round_scan_ref(sim, rank, unres, rep, 0.5)
+    assert torch.equal(kb, pb) and torch.equal(kc, pc)
+    assert bool(kb.any()) == (state != "none")
+    if wide:
+        return
+    kw, ks = cluster_assign(sim, rank, rep, valid, 0.5)
+    order = torch.empty_like(rank)
+    order[rank.long()] = torch.arange(S, dtype=rank.dtype, device=cuda)
+    pw, ps = claim_max_ref(sim, order, rank, rep, valid, 0.5)
+    assert torch.equal(kw, pw) and torch.equal(ks, ps)
 
 
 @pytest.mark.parametrize("mode", sorted(PATH_KERNELS))
@@ -833,11 +873,19 @@ def _lcss_pairs(cuda, B, N, M, seed, p_valid=0.9):
 
 @pytest.mark.parametrize("B,N,M,p_valid", [
     (64, 128, 128, 0.9), (37, 33, 17, 0.9), (20, 1, 40, 1.0),
-    (20, 40, 1, 1.0), (9, 300, 70, 0.8), (5, 16, 16, 0.0)])
+    (20, 40, 1, 1.0), (9, 300, 70, 0.8), (5, 16, 16, 0.0),
+    (13, 1, 1, 1.0), (21, 33, 128, 0.9), (22, 128, 33, 0.9),
+    (11, 129, 128, 0.9), (10, 128, 129, 0.9), (7, 300, 129, 0.9),
+    (6, 129, 300, 0.9), (3, 1, 300, 1.0), (5, 300, 1, 1.0),
+    (2, 129, 7300, 0.9), (3, 200, 1500, 0.9), (2, 129, 1536, 0.9)])
 def test_k14_matches_plain(cuda, B, N, M, p_valid):
     """K14 bitwise its sheared plain twin and the row scan, and on the
-    transposed pairs; N != M, N = 1, M = 1, more rows than threads, and
-    all-invalid pairs (score 0)."""
+    transposed pairs; N != M, N = 1, M = 1, one strip of rows (N <= 128)
+    and more (N = 129, 300: the carried row), a B not a multiple of the
+    block's pairs, all-invalid pairs (score 0), carried rows under 48 KB
+    that take the block past it beside the static rings (M = 1500, 1536),
+    and a pair whose carried rows do not fit shared memory (N = 129,
+    M = 7300: global scratch)."""
     ops, eps_sp, eps_t = _lcss_pairs(cuda, B, N, M, B + N + M, p_valid)
     before = kernels.LAUNCHES["lcss_wavefront"]
     got = lcss_ops.lcss_wavefront(*ops, eps_sp, eps_t)
@@ -845,8 +893,9 @@ def test_k14_matches_plain(cuda, B, N, M, p_valid):
     twin = lcss_ref.lcss_wavefront_ref(lcss_ref.shear_weights(*ops, eps_sp,
                                                               eps_t))
     assert torch.equal(got, twin)
-    if N * M <= 1200:
-        assert torch.equal(got, lcss_ref.lcss_ref(*ops, eps_sp, eps_t))
+    assert torch.equal(got, lcss_ref.lcss_ref(*ops, eps_sp, eps_t))
+    if M == 7300:
+        assert lcss_ops.smem_bytes(N, M) > lcss_ops._smem_optin(0)
     swapped = lcss_ops.lcss_wavefront(*ops[4:], *ops[:4], eps_sp, eps_t)
     assert torch.equal(got, swapped)
     assert bool((got[:, 0] >= 0).all()) and bool((got[:, 0] <= got[:, 1]).all())
@@ -1077,11 +1126,12 @@ def test_k15_bitwise_repeatable(cuda, case):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("B,N,M", [(2, 4300, 4300), (3, 5000, 300)])
+@pytest.mark.parametrize("B,N,M", [(2, 4300, 4300), (3, 5000, 300),
+                                   (2, 300, 8000)])
 def test_k14_long_pairs(cuda, B, N, M):
-    """K14 bitwise its sheared twin and the row scan for pairs at and past
-    the shared-memory limit (the diagonals then live in a global
-    scratch)."""
+    """K14 bitwise its sheared twin and the row scan for long pairs: many
+    strips of rows, their carried rows in shared memory and, at M = 8000,
+    past its limit (a global scratch)."""
     ops, eps_sp, eps_t = _lcss_pairs(cuda, B, N, M, N + M)
     got = lcss_ops.lcss_wavefront(*ops, eps_sp, eps_t)
     assert torch.equal(got, lcss_ref.lcss_ref(*ops, eps_sp, eps_t))

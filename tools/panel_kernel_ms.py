@@ -4,7 +4,9 @@
 each other within one run (parent, change, change, parent):
 
     python3 tools/panel_kernel_ms.py [--src DIR] [--label NAME]
-                                     [--only fused|join|panels]
+                                     [--only PART [PART ...]]
+
+(PART: fused, join, panels, cluster or lcss; all five by default.)
 
 ``--src`` defaults to this checkout's ``src``; the kernels build beside
 it at first use.  Data and parameters are ``chip_smoke.brest_batch``'s
@@ -31,6 +33,18 @@ plan, each on the middle panel of the top-K stream, with the
 segmentation of one ``run_dsc`` call of its path (that call's wall and
 similarity stage are reported too).
 
+``cluster``: K5 at every round of one ``run_dsc`` call of the
+materialize path (its round states recorded by
+``chip_smoke.recorded_rounds``; that call's wall and cluster stage are
+reported too), on that call's ``[S, S]`` matrix: CUDA events around 10
+calls of the public wrapper a round, and a digest of each round's
+output.
+
+``lcss``: K14 at full width (``chip_smoke.lcss_pairs``: 32,768 pairs of
+128 x 128 points): CUDA events around 10 calls of ``lcss_wavefront``, and
+a digest of the scores; the same with eps_t = -1 (the time test rejects
+every cell: the DP alone) and eps_t = inf (every valid cell passes it).
+
 "Alone" is ``chip_smoke.graph_ms`` of the panel's launch with its
 operands prepared once and no slot-map check (K13 with the two zero
 fills of its slabs): through ``prepare_sim_panel``'s prepared call where
@@ -48,6 +62,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+PARTS = ("fused", "join", "panels", "cluster", "lcss")
 
 
 def panel_call(sj, batch, sub, ms, eps, p0, Sb, plan):
@@ -132,9 +147,54 @@ def measure(cs, batch, params, path):
 
 
 def digest(t) -> int:
-    """The sum of a 32-bit tensor's bit patterns, as int64: equal outputs
-    give equal digests."""
+    """The sum of a 32-bit tensor's bit patterns (of a bool tensor: its set
+    positions, from 1), as int64: equal outputs give equal digests."""
+    if t.dtype == torch.bool:
+        return int((torch.nonzero(t.flatten()) + 1).sum())
     return int(t.contiguous().view(torch.int32).long().sum())
+
+
+def cluster_measure(cs, batch, params):
+    """One ``run_dsc`` call of the materialize path, its round states
+    recorded, then K5 alone at every round on that call's matrix."""
+    from repro_torch.core.clustering import visit_order
+    from repro_torch.core.dsc import run_dsc
+    from repro_torch.kernels.cluster.ops import cluster_round_scan
+    times = {}
+    with cs.recorded_rounds() as states:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_dsc(batch, params, plan=cs.kernel_plan("materialize"),
+                      device=batch.x.device, stage_times=times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sim, alpha = out.sim, out.result.alpha_used
+    _, rank = visit_order(out.table)
+    rounds = []
+    for unres, rep in states:
+        call = lambda: cluster_round_scan(sim, rank, unres, rep, alpha)
+        b, c = call()
+        rounds.append(dict(active=int((unres | rep).sum()),
+                           ms=cs.time_ms(call, reps=10),
+                           digest=[digest(b), digest(c)]))
+    return dict(wall_s=wall, cluster_ms=times["cluster"],
+                clusters=int(out.result.is_rep.sum()), rounds=rounds,
+                K5_sum_ms=sum(r["ms"] for r in rounds))
+
+
+def lcss_measure(cs, dev):
+    """K14 alone at full width, timed and digested; then at the same
+    points with eps_t = -1 (every cell rejected by the time test: the DP
+    alone) and eps_t = inf (every valid cell past it)."""
+    from repro_torch.kernels.lcss import ops as lo
+    ops, (eps_sp, eps_t) = cs.lcss_pairs(dev)
+    res = dict(pairs=ops[0].shape[0])
+    for name, et in (("K14", eps_t), ("K14_no_cell_timed", -1.0),
+                     ("K14_every_cell_timed", float("inf"))):
+        call = lambda: lo.lcss_wavefront(*ops, eps_sp, et)
+        res[name + "_digest"] = digest(call())
+        res[name] = cs.time_ms(call, reps=10)
+    return res
 
 
 def fused_measure(cs, batch, params, path):
@@ -213,10 +273,11 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory of the port to time")
     ap.add_argument("--label", default="", help="a name for the JSON line")
-    ap.add_argument("--only", choices=("fused", "join", "panels"),
-                    help="time only the dense fused passes, only the "
-                         "materialize join or only the top-K panel passes "
-                         "(default: all three)")
+    ap.add_argument("--only", nargs="+", default=PARTS, choices=PARTS,
+                    help="time only these parts: the dense fused passes, "
+                         "the materialize join, the top-K panel passes, K5 "
+                         "over the clustering rounds, K14 (default: all "
+                         "five)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_kernel_ms: no CUDA device is available",
@@ -232,17 +293,22 @@ def main(argv=None) -> int:
     brest = cs.brest_batch(4096, dev)
     lanes = cs.brest_batch(4096, dev, sort_by_lane=True)
     res = dict(label=args.label, src=args.src, card=card)
-    if args.only in (None, "fused"):
+    if "fused" in args.only:
         res["fused"] = fused_measure(cs, *brest, "fused")
         res["fused+index"] = fused_measure(cs, *lanes, "fused+index")
-    if args.only in (None, "join"):
+    if "join" in args.only:
         res["materialize"] = join_measure(cs, *brest, "materialize")
         res["materialize+index"] = join_measure(cs, *lanes,
                                                 "materialize+index")
         torch.cuda.empty_cache()
-    if args.only in (None, "panels"):
+    if "panels" in args.only:
         res["K7"] = measure(cs, *brest, "fused_topk")
         res["K13"] = measure(cs, *lanes, "fused_topk+index")
+    if "cluster" in args.only:
+        res["cluster"] = cluster_measure(cs, *brest)
+        torch.cuda.empty_cache()
+    if "lcss" in args.only:
+        res["lcss"] = lcss_measure(cs, dev)
     print(card)
     print(json.dumps(res))
     return 0
