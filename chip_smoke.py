@@ -36,12 +36,17 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
    its wrapper, ``recorded_rounds``): bitwise, timed, with its active rows
    and bound, and the sums over the run.  (Every main run logs its
    clustering stage cut by its own events into thresholds, visit order,
-   round loop and claim-max: ``run_dsc``'s ``stage_parts``.)
+   round loop and claim-max: ``run_dsc``'s ``stage_parts``.)  K3 on the
+   raw words (the kernel never reads an invalid position's), bitwise the
+   plain version on the masked words, timed with its bound.  (A
+   materialize run returns its cube in ``DSCOutput.join``: checked, then
+   dropped.)
 6. The fused path at ``dsc_sis`` (8192 vessels x 128 points, S = 65,536;
    the same generator and parameters): launch counts, sanity checks,
    stage times and peak memory; K5 at every round of that run (bitwise,
    timed); then K2 and K4 on its inputs, timed and bitwise their plain
-   versions on the first 256 rows.
+   versions on the first 256 rows, and K3 on K2's words, bitwise and timed
+   with its bound.
 
 Top-K similarity (``sim_mode="topk"``, the default K = 32 and widening):
 
@@ -56,7 +61,10 @@ Top-K similarity (``sim_mode="topk"``, the default K = 32 and widening):
 * K7 (one panel, bitwise against its plain version and against K4's
   ``raw``; its (group, chunk) skip counts equal to the plain mirror's;
   timed alone from a CUDA graph, per prepared call and through the public
-  wrapper), K8 and K9 against their plain versions (in step 5);
+  wrapper), K8 against its plain version, and K9 at every dispatch's K
+  (each dispatch's claim-max inputs recorded on the host by
+  ``recorded_claims`` in a second run of the path): bitwise, timed, with
+  its bound, and the sums (in step 5);
 * the fused top-K path at ``dsc_sis``: labels equal to the dense dsc_sis
   run's (after step 6).
 
@@ -883,6 +891,35 @@ def recorded_rounds():
         ops.cluster_round_scan = real
 
 
+@contextlib.contextmanager
+def recorded_claims():
+    """Yields a list that collects each top-K dispatch's claim-max inputs
+    ``(ids, sims, rank, is_rep, valid, alpha)``, copied to the host, by
+    wrapping the K9 wrapper that the top-K engine imports at each call
+    (``kernels.cluster.ops.topk_cluster_assign``); every dispatch still
+    launches K9 through the real wrapper, counted as before."""
+    from repro_torch.kernels.cluster import ops
+    real, calls = ops.topk_cluster_assign, []
+
+    def record(ids, sims, rank, is_rep, valid, alpha):
+        calls.append((*(t.cpu() for t in (ids, sims, rank, is_rep, valid)),
+                      float(alpha)))
+        return real(ids, sims, rank, is_rep, valid, alpha)
+
+    ops.topk_cluster_assign = record
+    try:
+        yield calls
+    finally:
+        ops.topk_cluster_assign = real
+
+
+def k9_bytes(valid, K: int) -> int:
+    """K9's bytes: the valid rows' ids and sims (8 bytes an entry), rank,
+    is_rep and valid (6 bytes a row), the two outputs (8 bytes a row)."""
+    S = valid.shape[0]
+    return int(valid.sum()) * K * 8 + S * 6 + S * 8
+
+
 def phase_main(dev, report, mode: str, n_vessels: int = 4096,
                name: str = "dsc_brest", data=None, rounds=None):
     """One main path at full size (``data``: its ``(batch, params)``, else
@@ -941,6 +978,15 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
     check(all(launches[k] == n for k, n in want.items()),
           f"{mode} path: launches {launches}, expected {want}")
     check_output(out, batch, params)
+    # materialize mode returns its cube (held to the end of the run, so in
+    # its peak); no later phase reads it, so it goes here
+    if mode.startswith("materialize"):
+        check(out.join is not None
+              and out.join.best_w.shape == (T, M, batch.num_trajs),
+              f"{mode}: DSCOutput.join is not the [T, M, C] cube")
+    else:
+        check(out.join is None, f"{mode}: DSCOutput.join is not None")
+    out.join = None
     r = out.result
     members = int((~r.is_rep & (r.member_of >= 0)).sum())
     log("stage ms (CUDA events): " + ", ".join(
@@ -1024,18 +1070,44 @@ def k5_rounds(sim, rank, alpha, states, name: str, report) -> list:
     return per
 
 
+def k3_check(words, valid, w: int, name: str):
+    """K3 on one path's TSA2 words: bitwise its plain version (the masked
+    words through ``tsa2_signal``), timed through the wrapper on the raw
+    words (the kernel never reads an invalid position's words), with its
+    byte bound: the valid positions' words, the flags and ``d``.  Returns
+    ``(ms, plain_ms, max_abs_err, bound)``."""
+    from repro_torch.core.segmentation import tsa2_signal
+    from repro_torch.kernels.jaccard.ops import slab_plan, window_jaccard
+    from repro_torch import kernels
+    T, M, W = words.shape
+    kd = window_jaccard(words, valid, w=w)
+    masked = torch.where(valid[..., None], words, 0)
+    pd = tsa2_signal(masked, w)
+    err = float((kd - pd).abs().max())
+    check(torch.equal(kd, pd), f"{name}: K3 d not bitwise (max err {err})")
+    ms = time_ms(lambda: window_jaccard(words, valid, w=w), reps=10)
+    plain = time_ms(lambda: tsa2_signal(masked, w), reps=3)
+    n_valid = int(valid.sum())
+    bound = bound_ms(n_valid * W * 4 + T * M * 5)
+    J, spill = slab_plan(M, W, kernels.smem_optin(0))
+    log(f"  K3 ({name}): [{T}, {M}, {W}] words, {n_valid} valid positions, "
+        f"w={w}, slab {J} columns{' (global scratch)' if spill else ''}; "
+        f"bitwise the plain version; {ms:.4f} ms through the wrapper, "
+        f"plain {plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+        f"{bound[0] / ms:.1%} of it)")
+    return ms, plain, err, bound
+
+
 def phase_kernels(batch, params, out, launches, rows, states, report):
     """K1, K3, K5 and K6 against their plain versions on the materialize
     path's inputs (K5 at every round ``states`` recorded).  Returns K1's
     plain output and time for the fused kernels' plain versions."""
     from repro_torch.core import voting
     from repro_torch.core.clustering import visit_order
-    from repro_torch.core.segmentation import tsa2_signal
     from repro_torch.kernels.cluster.ops import (cluster_assign,
                                                  cluster_round_scan)
     from repro_torch.kernels.cluster.ref import (claim_max_ref,
                                                  round_scan_ref)
-    from repro_torch.kernels.jaccard.ops import window_jaccard
     from repro_torch.kernels.stjoin import ops as sj
     from repro_torch.kernels.stjoin.ref import chunk_time_bounds, stjoin_ref
     T, M = batch.x.shape
@@ -1092,18 +1164,10 @@ def phase_kernels(batch, params, out, launches, rows, states, report):
     words = voting.neighbor_mask_packed(
         JoinResult(best_w=kw.view(T, M, C), best_idx=ki.view(T, M, C)))
     del kw, ki
-    masked = torch.where(batch.valid[..., None], words, 0)
-    kd = window_jaccard(words, batch.valid, w=params.w)
-    pd = tsa2_signal(masked, params.w)
-    err = float((kd - pd).abs().max())
-    check(torch.equal(kd, pd), f"K3 d not bitwise (max err {err})")
-    ms = time_ms(lambda: window_jaccard(masked, batch.valid, w=params.w),
-                 reps=10)
-    plain = time_ms(lambda: tsa2_signal(masked, params.w), reps=3)
-    W = words.shape[-1]
-    kernel_row(rows, "jaccard_window", launches, err, ms, plain,
-               bound_ms(T * M * W * 4 + T * M * 5))
-    del words, masked
+    ms, plain, err, bound = k3_check(words, batch.valid, params.w,
+                                     "dsc_brest")
+    kernel_row(rows, "jaccard_window", launches, err, ms, plain, bound)
+    del words
 
     # ---- K5 at every round of the main path's run ------------------------
     sim, table, alpha = out.sim, out.table, out.result.alpha_used
@@ -1259,7 +1323,11 @@ def phase_fused_head(batch, params, sub, report, name: str, n_plain: int):
           and torch.equal(kw.view(T * M, -1)[:nP], pw),
           f"{name}: K2 vote / words not bitwise the plain version on rows "
           f"[0, {n_plain})")
-    del kv, kw, pv, pw
+    del pv, pw
+    k3 = k3_check(kw.view(T, M, -1), batch.valid, params.w, name)
+    report[f"{name}_k3"] = dict(zip(("ms", "plain_ms", "max_abs_err",
+                                     "bound_ms"), k3[:3] + k3[3][:1]))
+    del kv, kw
     raw = sj.stjoin_sim_fused(batch, batch, sub, sub, ms_, *eps)
     ms4 = time_ms(lambda: sj.stjoin_sim_fused(batch, batch, sub, sub, ms_,
                                               *eps), reps=3)
@@ -1298,9 +1366,10 @@ def phase_topk_kernels(batch, params, tout, launches, raw, rows):
     """K7, K8 and K9 against their plain versions on the fused top-K
     path's inputs: K7 on one panel (also bitwise against K4's ``raw``, its
     skip counts against the plain mirror; timed alone from a CUDA graph,
-    per prepared call and per call of the public wrapper), K8 and K9 on
-    the final lists.  No single PyTorch call computes any of
-    them: K7 is a best match, a run refine and a keyed scatter in two
+    per prepared call and per call of the public wrapper), K8 on the final
+    lists, K9 at every dispatch's lists (recorded in a second run; returns
+    its per-dispatch times).  No single PyTorch call computes any of them:
+    K7 is a best match, a run refine and a keyed scatter in two
     orientations; K8 and K9 gather rank and state at the list ids and
     reduce each row by a predicate or a two-key (weight, rank) order."""
     from repro_torch.core.clustering import visit_order
@@ -1395,23 +1464,63 @@ def phase_topk_kernels(batch, params, tout, launches, raw, rows):
                bound_ms(S * K * 8.0 + S * 6 + S * 2))
     log(f"  K8 timed at round 0 on the final lists, K={K}")
 
-    rep = tout.result.is_rep
-    kw, ks = topk_cluster_assign(tk.ids, tk.sims, rank, rep, table.valid,
-                                 alpha)
-    pw, ps = topk_claim_max_ref(tk.ids, tk.sims, rank, rep, table.valid,
-                                alpha)
-    err = float((kw - pw).abs().max())
-    check(torch.equal(ks, ps), "K9 best_slot differs")
-    check(torch.equal(kw, pw), f"K9 best_w not bitwise (max err {err})")
-    ms = time_ms(lambda: topk_cluster_assign(tk.ids, tk.sims, rank, rep,
-                                             table.valid, alpha))
-    plain = time_ms(lambda: topk_claim_max_ref(tk.ids, tk.sims, rank, rep,
-                                               table.valid, alpha), reps=3)
-    n_valid = int(table.valid.sum())   # K9 reads only valid rows' lists
-    kernel_row(rows, "topk_claim_max", launches, err, ms, plain,
-               bound_ms(n_valid * K * 8.0 + S * 6 + S * 8))
-    log(f"  K9 timed on the final {int(rep.sum())} representatives, K={K}, "
-        f"{n_valid} valid rows of {S}")
+    return k9_dispatches(batch, params, tout, launches, rows)
+
+
+def k9_dispatches(batch, params, tout, launches, rows):
+    """K9 at every dispatch's K of the fused top-K path: a second run of
+    the path records each dispatch's claim-max inputs on the host (the
+    main run's wall and peak stay its own; the last dispatch's inputs are
+    the main run's final lists and representatives).  Each bitwise its
+    plain version, timed with its bound; the sums logged, the final K's
+    row added.  Returns the per-dispatch times."""
+    from repro_torch.core.dsc import run_dsc
+    from repro_torch.kernels.cluster.ops import topk_cluster_assign
+    from repro_torch.kernels.cluster.ref import topk_claim_max_ref
+    tk, S = tout.sim_topk, tout.table.num_slots
+    with recorded_claims() as calls:
+        again = run_dsc(batch, params, plan=kernel_plan("fused_topk"),
+                        device=batch.x.device)
+    same_labels(again, tout, "dsc_brest: the recorded fused top-K run")
+    check(len(calls) == tout.dispatches,
+          f"K9: {len(calls)} claim-max calls recorded, "
+          f"{tout.dispatches} dispatches run")
+    del again
+    per, dev = [], batch.x.device
+    for i, call in enumerate(calls):
+        ids, sims, rank_, rep, valid = (t.to(dev) for t in call[:5])
+        a = call[5]
+        if i == len(calls) - 1:
+            check(torch.equal(ids, tk.ids) and torch.equal(sims, tk.sims)
+                  and torch.equal(rep, tout.result.is_rep),
+                  "K9: the last recorded dispatch is not the main run's")
+        kw, ks = topk_cluster_assign(ids, sims, rank_, rep, valid, a)
+        pw, ps = topk_claim_max_ref(ids, sims, rank_, rep, valid, a)
+        err = float((kw - pw).abs().max())
+        K = ids.shape[1]
+        check(torch.equal(ks, ps), f"K9 best_slot differs at K={K}")
+        check(torch.equal(kw, pw),
+              f"K9 best_w not bitwise at K={K} (max err {err})")
+        fn = lambda: topk_cluster_assign(ids, sims, rank_, rep, valid, a)
+        ms = time_ms(fn, reps=20)
+        b = bound_ms(k9_bytes(valid, K))
+        per.append(dict(K=K, reps=int(rep.sum()), ms=ms,
+                        device_ms=graph_ms(fn), bound_ms=b[0], err=err))
+    plain = time_ms(lambda: topk_claim_max_ref(ids, sims, rank_, rep, valid,
+                                               a), reps=3)
+    kernel_row(rows, "topk_claim_max", launches, err, ms, plain, b)
+    tot, tot_b = sum(p["ms"] for p in per), sum(p["bound_ms"] for p in per)
+    dev_ms = sum(p["device_ms"] for p in per)
+    log("  K9 at every dispatch (K: ms per call / device ms / bound ms): "
+        + "; ".join(f"{p['K']}: {p['ms']:.4f} / {p['device_ms']:.4f} / "
+                    f"{p['bound_ms']:.4f}" for p in per)
+        + f"; sums {tot:.4f} / {dev_ms:.4f} / {tot_b:.4f} ms (the bound "
+        f"{tot_b / dev_ms:.1%} of the device time); {int(valid.sum())} "
+        f"valid rows of {S}; the row above is the final K={per[-1]['K']} "
+        "(per call: CUDA events around 20 back-to-back wrapper calls; "
+        "device: a CUDA graph of them)")
+    return dict(dispatches=per, sum_ms=tot, sum_device_ms=dev_ms,
+                sum_bound_ms=tot_b)
 
 
 # f32 instructions that any exact LCSS schedule needs: one maximum a
@@ -1815,7 +1924,8 @@ def main(argv=None) -> int:
     del brest_rounds
     raw = phase_fused_kernels(batch, params, fout, flaunches, pw, pi,
                               k1_plain, rows)
-    phase_topk_kernels(batch, params, tout, tlaunches, raw, rows)
+    report["k9_dispatches"] = phase_topk_kernels(batch, params, tout,
+                                                 tlaunches, raw, rows)
     del out, fout, tout, pw, pi, raw
     torch.cuda.empty_cache()
     phase_pruned_kernels(batch, params, sub, join_ids, fplan, {}, rows,

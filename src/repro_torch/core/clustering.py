@@ -144,12 +144,25 @@ def _no_span(name: str):
     return contextlib.nullcontext()
 
 
+def _check_max_rounds(max_rounds: int | None, S: int) -> None:
+    if max_rounds is not None and max_rounds < S:
+        raise ValueError(
+            f"max_rounds={max_rounds} < S={S}: the fixed-trip fallback "
+            "cannot guarantee convergence below S rounds (labels would "
+            "silently be partial); pass max_rounds >= S or use the "
+            "while_loop default")
+
+
 def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
-            seed_resolved=None, seed_is_rep=None, span=_no_span):
+            max_rounds: int | None = None, seed_resolved=None,
+            seed_is_rep=None, span=_no_span):
     """The round loop shared by both representations: ``(result,
     rounds)``.  A Python loop with one host sync per round (the test of
-    whether every slot is resolved).  ``span`` times the parts
-    ``cluster.round_loop`` and ``cluster.claim_max``."""
+    whether every slot is resolved), or (``max_rounds``) a fixed trip of
+    ``max_rounds`` rounds with no sync inside (converged rounds change
+    nothing; ``rounds`` counts those that found a slot unresolved, as the
+    default loop does).  ``span`` times the parts ``cluster.round_loop``
+    and ``cluster.claim_max``."""
     S = table.num_slots
     potential = table.valid & (table.voting >= k)
     resolved = ~potential
@@ -157,15 +170,25 @@ def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
     if seed_resolved is not None:
         resolved = resolved | seed_resolved
         is_rep = is_rep | (seed_is_rep & seed_resolved & potential)
+    def step(resolved, is_rep):
+        unresolved = ~resolved
+        blocked, claimed = scan(unresolved, is_rep)
+        frontier = unresolved & (~blocked | claimed)
+        return resolved | frontier, is_rep | (frontier & ~claimed)
+
     rounds = 0
     with span("cluster.round_loop"):
-        while not bool(resolved.all()):
-            unresolved = ~resolved
-            blocked, claimed = scan(unresolved, is_rep)
-            frontier = unresolved & (~blocked | claimed)
-            is_rep = is_rep | (frontier & ~claimed)
-            resolved = resolved | frontier
-            rounds += 1
+        if max_rounds is None:
+            while not bool(resolved.all()):
+                resolved, is_rep = step(resolved, is_rep)
+                rounds += 1
+        else:
+            live = torch.zeros((), dtype=torch.int64,
+                               device=potential.device)
+            for _ in range(max_rounds):
+                live += (~resolved).any()
+                resolved, is_rep = step(resolved, is_rep)
+            rounds = int(live)
 
     with span("cluster.claim_max"):
         member_sim, member_of = assign(is_rep)
@@ -180,9 +203,14 @@ def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
 
 
 def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
-                   *, use_kernel: bool = False, with_rounds: bool = False,
-                   span=_no_span):
+                   *, max_rounds: int | None = None, use_kernel: bool = False,
+                   with_rounds: bool = False, span=_no_span):
     """Round-parallel Algorithm 4 — label-identical to the oracle.
+
+    ``max_rounds=None`` loops until every slot is resolved (at least one
+    resolves a round, so at most S rounds run).  An integer runs a fixed
+    trip of ``max_rounds`` rounds; ``max_rounds < S`` is refused, since
+    fewer than S rounds cannot guarantee convergence.
 
     ``use_kernel=True`` runs each round's scan and the final claim-max
     through the CUDA kernels; the plain path builds the alpha-edge
@@ -193,6 +221,7 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
     parts ``cluster.thresholds``, ``cluster.visit_order``,
     ``cluster.round_loop`` and ``cluster.claim_max``.
     """
+    _check_max_rounds(max_rounds, table.num_slots)
     with span("cluster.thresholds"):
         alpha, k = resolve_thresholds(params, sim, table)
     with span("cluster.visit_order"):
@@ -220,18 +249,20 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
             return claim_max_ref(sim, order, rank, is_rep, table.valid,
                                  alpha)
 
-    result, rounds = _rounds(table, alpha, k, scan, assign, span=span)
+    result, rounds = _rounds(table, alpha, k, scan, assign,
+                             max_rounds=max_rounds, span=span)
     return (result, rounds) if with_rounds else result
 
 
 def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
-                        params: DSCParams, *, use_kernel: bool = False,
-                        with_rounds: bool = False, seed_resolved=None,
-                        seed_is_rep=None, span=_no_span):
+                        params: DSCParams, *, max_rounds: int | None = None,
+                        use_kernel: bool = False, with_rounds: bool = False,
+                        seed_resolved=None, seed_is_rep=None, span=_no_span):
     """Round-parallel Algorithm 4 over ``[S, K]`` neighbor lists: the
-    recurrence and claim-max of ``cluster_rounds``, each reduction over
-    the lists.  ``use_kernel=True`` runs them through the CUDA list
-    kernels (K8, K9) on CUDA tensors; label-identical either way.
+    recurrence, ``max_rounds`` and claim-max of ``cluster_rounds``, each
+    reduction over the lists.  ``use_kernel=True`` runs them through the
+    CUDA list kernels (K8, K9) on CUDA tensors; label-identical either
+    way.
 
     ``seed_resolved`` / ``seed_is_rep`` ([S] bool) warm-start the
     recurrence from an earlier solve: slots marked resolved enter round 0
@@ -241,6 +272,7 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
     The claim-max is always recomputed in full.  ``span`` times the parts
     of ``cluster_rounds``.
     """
+    _check_max_rounds(max_rounds, table.num_slots)
     with span("cluster.thresholds"):
         alpha, k = _topk_thresholds(topk, table, params)
     with span("cluster.visit_order"):
@@ -261,19 +293,22 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
                          alpha)
 
     result, rounds = _rounds(table, alpha, k, scan, assign,
+                             max_rounds=max_rounds,
                              seed_resolved=seed_resolved,
                              seed_is_rep=seed_is_rep, span=span)
     return (result, rounds) if with_rounds else result
 
 
 def cluster(sim, table: SubtrajTable, params: DSCParams,
-            engine: str = "rounds", *, use_kernel: bool = False,
-            with_rounds: bool = False, span=_no_span):
+            engine: str = "rounds", *, max_rounds: int | None = None,
+            use_kernel: bool = False, with_rounds: bool = False,
+            span=_no_span):
     """Problem 3 entry point: ``sim`` is the dense ``[S, S]`` matrix or a
     ``TopKSim``; ``engine`` is ``"rounds"`` or the ``"sequential"``
-    oracle.  ``with_rounds=True`` returns ``(result, rounds)``; the
-    sequential oracle reports ``rounds = None``.  ``span`` times the
-    parts of the rounds engines (``cluster_rounds``).
+    oracle.  ``max_rounds`` goes to the rounds engines (the sequential
+    oracle ignores it).  ``with_rounds=True`` returns ``(result,
+    rounds)``; the sequential oracle reports ``rounds = None``.  ``span``
+    times the parts of the rounds engines (``cluster_rounds``).
     """
     if isinstance(sim, TopKSim):
         if engine == "sequential":
@@ -281,6 +316,7 @@ def cluster(sim, table: SubtrajTable, params: DSCParams,
             return (res, None) if with_rounds else res
         if engine == "rounds":
             return cluster_rounds_topk(sim, table, params,
+                                       max_rounds=max_rounds,
                                        use_kernel=use_kernel,
                                        with_rounds=with_rounds, span=span)
         raise ValueError(f"unknown cluster engine {engine!r}")
@@ -288,7 +324,8 @@ def cluster(sim, table: SubtrajTable, params: DSCParams,
         res = cluster_sequential(sim, table, params)
         return (res, None) if with_rounds else res
     if engine == "rounds":
-        return cluster_rounds(sim, table, params, use_kernel=use_kernel,
+        return cluster_rounds(sim, table, params, max_rounds=max_rounds,
+                              use_kernel=use_kernel,
                               with_rounds=with_rounds, span=span)
     raise ValueError(f"unknown cluster engine {engine!r}")
 

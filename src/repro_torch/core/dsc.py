@@ -7,14 +7,15 @@ of ``repro.core.dsc``:
 Execution modes (``EnginePlan.mode``):
 
 * ``"materialize"`` — the join cube ``[T, M, C]`` is built on the device
-  and read by voting, the TSA2 words and the similarity scatter; the port
-  drops it right after the similarity stage (at full size it is 17 GB).
-* ``"fused"`` — the cube never exists: the join stage is the fused pass 1
-  (K2: vote sums and packed TSA2 words), the similarity stage re-sweeps
-  the join after segmentation with the fused pass 2 (K4: the raw
-  ``[S, S]`` scatter, or K7: one panel of it at a time).  On CUDA tensors
-  they always run their kernels (``use_kernel`` is a materialize-mode
-  choice, as in the reference); on the CPU their plain versions.
+  and read by voting, the TSA2 words and the similarity scatter, and
+  returned in ``DSCOutput.join`` (at full size it is 17 GB).
+* ``"fused"`` — the cube never exists (``DSCOutput.join is None``): the
+  join stage is the fused pass 1 (K2: vote sums and packed TSA2 words),
+  the similarity stage re-sweeps the join after segmentation with the
+  fused pass 2 (K4: the raw ``[S, S]`` scatter, or K7: one panel of it
+  at a time).  On CUDA tensors they always run their kernels
+  (``use_kernel`` is a materialize-mode choice, as in the reference); on
+  the CPU their plain versions.
 
 Similarity representations (``EnginePlan.sim_mode``):
 
@@ -25,9 +26,7 @@ Similarity representations (``EnginePlan.sim_mode``):
   the clustering result.  ``DSCOutput.sim`` is ``None``.
 
 Both modes run the same stage bodies under the same ``STAGES`` names, in
-``_run_stages`` (the reference's ``_finish`` is folded in so the cube's
-only reference can be dropped as soon as nothing reads it), and
-``DSCOutput`` carries no ``join``.
+``_run_stages`` (the reference's ``_finish`` folded in).
 
 ``EnginePlan.use_index`` prunes candidate tiles with the spatiotemporal
 grid (``repro_torch.index``), losslessly: materialize mode with the
@@ -51,8 +50,8 @@ from repro_torch.core.clustering import (cluster, rmse, rmse_from_result,
                                          sscr, sscr_from_result)
 from repro_torch.core.plan import EnginePlan, resolve_plan
 from repro_torch.core.types import (ClusteringResult, DSCParams,
-                                    SubtrajSegmentation, SubtrajTable,
-                                    TopKSim, TrajectoryBatch)
+                                    JoinResult, SubtrajSegmentation,
+                                    SubtrajTable, TopKSim, TrajectoryBatch)
 from repro_torch.kernels.stjoin import ops as stjoin_ops
 
 STAGES = ("join_vote", "segment", "similarity", "cluster", "score")
@@ -63,6 +62,7 @@ _ON_OVERFLOW = ("raise", "widen", "degrade")
 
 @dataclasses.dataclass
 class DSCOutput:
+    join: JoinResult | None         # [T, M, C] cube; None in fused mode
     vote: torch.Tensor              # [T, M] point voting
     seg: SubtrajSegmentation
     table: SubtrajTable
@@ -248,9 +248,7 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
     score stages run again with K doubled while the certificate fails
     (``on_overflow="widen"``); the join/vote and segmentation stages do
     not read K, so each retry gives what the reference's full re-dispatch
-    gives.  The cube's only reference (materialize mode) is dropped once
-    nothing can read it again: after the dense similarity stage, or after
-    the last top-K dispatch."""
+    gives.  The cube (materialize mode) is returned with the output."""
     with timer.stage("join_vote"):
         join, vote, masks, tiles = _JOIN_VOTE[plan.mode](batch, params, plan)
     with timer.stage("segment"):
@@ -263,8 +261,6 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
         with timer.stage("similarity"):
             sim, topk = _similarity_body(batch, params, join, seg, table,
                                          plan, k, tiles)
-        if topk is None:
-            join = None
         with timer.stage("cluster"):
             result, rounds, overflow = _cluster_body(
                 sim if topk is None else topk, table, params, plan,
@@ -285,7 +281,7 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
                 "exact.  Raise sim_topk or enable sim_topk_retry.")
         k = min(2 * k, S)
         del topk, result
-    return DSCOutput(vote=vote, seg=seg, table=table, sim=sim,
+    return DSCOutput(join=join, vote=vote, seg=seg, table=table, sim=sim,
                      sim_topk=topk, sim_overflow=overflow, result=result,
                      sscr=sscr_v, rmse=rmse_v, rounds=total_rounds,
                      dispatches=dispatches)

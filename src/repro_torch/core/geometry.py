@@ -20,10 +20,11 @@ CHUNK_ELEMENTS = 1 << 27
 
 
 def best_match_join(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
-                    eps_t, *, prune_mask: torch.Tensor | None = None
-                    ) -> JoinResult:
+                    eps_t, *, exclude_same_id: bool = True,
+                    prune_mask: torch.Tensor | None = None) -> JoinResult:
     """Dense best-match spatiotemporal join; ``[T_ref, M_ref, T_cand]``.
-    Pairs of points of the same trajectory id never match.
+    With ``exclude_same_id`` (the default, and the only choice of the join
+    kernels) pairs of points of the same trajectory id never match.
 
     The ``[T, M, C, Mc]`` broadcast is evaluated in chunks of reference
     rows, so the temporaries stay bounded at any batch size.
@@ -48,8 +49,9 @@ def best_match_join(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
         d_sp = sqrt_rn(dx * dx + dy * dy)
         ok = (d_sp <= eps_sp) & (dt <= eps_t)
         ok &= ref.valid[r, :, None, None] & cok
-        same = ref.traj_id[r, None] == cand.traj_id[None, :]
-        ok &= ~same[:, None, :, None]
+        if exclude_same_id:
+            same = ref.traj_id[r, None] == cand.traj_id[None, :]
+            ok &= ~same[:, None, :, None]
         if prune_mask is not None:
             ok &= prune_mask[r, None, :, None]
         w = torch.where(ok, 1.0 - d_sp / eps_sp, 0.0)

@@ -70,10 +70,55 @@ def _window_overlap_counts(masks: torch.Tensor, w: int):
     return inter, union
 
 
-def tsa2_signal(packed_masks: torch.Tensor, w: int) -> torch.Tensor:
-    """TSA2's windowed-Jaccard dissimilarity ``d[n]`` from packed words:
-    the plain version of the Jaccard kernel."""
-    inter, union = _window_overlap_counts(packed_masks, w)
+def _windowed_union(word: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor) -> torch.Tensor:
+    """Bit-plane oracle: the OR of one packed word column ``[T, M, 1]``
+    over the position window ``[lo, hi]``, as ``[T, M, 32]`` bools, from
+    cumulative counts of its 32 bit planes (an OR of 0/1 bits is a count
+    above 0)."""
+    T, M, _ = word.shape
+    k = torch.arange(32, dtype=torch.int32, device=word.device)
+    csum = torch.cumsum((word >> k) & 1, dim=1)                   # [T, M, 32]
+
+    def take(idx):
+        return csum[:, idx.clamp(0, M - 1)]
+
+    hi_v = torch.where((hi >= 0)[None, :, None], take(hi), 0)
+    lo_v = torch.where((lo > 0)[None, :, None], take(lo - 1), 0)
+    return (hi_v - lo_v) > 0
+
+
+def _window_overlap_counts_bitplane(masks: torch.Tensor, w: int):
+    """The counts of ``_window_overlap_counts`` one word at a time through
+    32 bit planes (peak extra memory ``[T, M, 32]``): the reference's
+    retained oracle, a formulation independent of the packed engine."""
+    T, M, W = masks.shape
+    n = torch.arange(M, device=masks.device)
+    inter = torch.zeros((T, M), dtype=torch.int32, device=masks.device)
+    union = torch.zeros_like(inter)
+    for wi in range(W):
+        word = masks[:, :, wi:wi + 1]
+        l1 = _windowed_union(word, n - w, n - 1)
+        l2 = _windowed_union(word, n, n + w - 1)
+        inter += (l1 & l2).sum(dim=-1, dtype=torch.int32)
+        union += (l1 | l2).sum(dim=-1, dtype=torch.int32)
+    return inter, union
+
+
+def tsa2_signal(packed_masks: torch.Tensor, w: int, *,
+                impl: str = "packed") -> torch.Tensor:
+    """TSA2's windowed-Jaccard dissimilarity ``d[n]`` from packed words.
+
+    ``impl="packed"`` is the packed-word engine, the plain version of the
+    Jaccard kernel; ``impl="bitplane"`` the 32x-expanded oracle.  Both
+    give the same integer counts and the same float operations, so the
+    same ``d`` bit for bit."""
+    if impl == "packed":
+        inter, union = _window_overlap_counts(packed_masks, w)
+    elif impl == "bitplane":
+        inter, union = _window_overlap_counts_bitplane(packed_masks, w)
+    else:
+        raise ValueError(f"unknown tsa2 signal impl {impl!r}")
     inter = inter.to(torch.float32)
     union = union.to(torch.float32)
     return torch.where(union > 0, 1.0 - inter / union.clamp_min(1.0), 0.0)
@@ -83,15 +128,16 @@ def tsa2(packed_masks: torch.Tensor, valid: torch.Tensor, w: int, tau,
          max_subs: int = 8, *, use_kernel: bool = False) -> SubtrajSegmentation:
     """Algorithm 3: composition-change segmentation (windowed Jaccard).
 
-    Words at invalid positions are zeroed first, so the plain engine and
-    the kernel see the same sets and agree bit for bit, score included.
+    Words at invalid positions count as zero on both engines, so they see
+    the same sets and agree bit for bit, score included: the plain engine
+    zeroes them here, the kernel's wrapper (``window_jaccard``) in its own
+    plain path or, on the card, in the kernel as the words arrive.
     """
     count = valid.sum(dim=1)
-    packed_masks = torch.where(valid[..., None], packed_masks, 0)
     if use_kernel:
         from repro_torch.kernels.jaccard.ops import window_jaccard
         d = window_jaccard(packed_masks, valid, w=w)
     else:
-        d = tsa2_signal(packed_masks, w)
+        d = tsa2_signal(torch.where(valid[..., None], packed_masks, 0), w)
     cuts = _local_max_cuts(d, valid, w, tau, count)
     return _finalize(cuts, valid, torch.where(valid, d, 0.0), max_subs)

@@ -26,6 +26,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -99,8 +100,9 @@ _SIGNATURES = {
                                      + [ctypes.c_float] * 3
                                      + [_P, ctypes.c_longlong] * 2
                                      + [_I, _I] + [_P] * 3 + [_P, _P, _P],
-    # masks, T, M, W, w, d, stream
-    "jaccard_window": [_P, _I, _I, _I, _I, _P, _P],
+    # masks, valid, T, M, W, w, slab J, scratch (NULL: shared memory),
+    # scratch blocks, d, stream
+    "jaccard_window": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     # sim, rank, unresolved, is_rep, alpha, S, blocked, claimed, stream
     "round_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P],
     # sim, rank, is_rep, valid, alpha, S, scratch_w, scratch_rank,
@@ -148,6 +150,13 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(index: int) -> int:
+    """Bytes of shared memory one block may opt into on card ``index``."""
+    props = torch.cuda.get_device_properties(index)
+    return getattr(props, "shared_memory_per_block_optin", 232448)
 
 
 def reset_launch_counts() -> None:

@@ -12,6 +12,8 @@ from repro_torch.core.types import f32
 # K5's schedule (csrc/dsc_kernels.cu, round_scan_kernel): threads a block,
 # columns a thread, rows staged a pass, rows loaded before their tests
 SCAN_THREADS, SCAN_GROUP, SCAN_CHUNK, SCAN_UNROLL = 128, 4, 1024, 4
+# K9's (topk_claim_max_kernel): entries a group, lanes a row at most
+CLAIM_GROUP, CLAIM_LANES = 4, 32
 
 
 def round_scan_ref(sim, rank, unresolved, is_rep, alpha):
@@ -123,3 +125,62 @@ def topk_claim_max_ref(ids, sims, rank, is_rep, valid, alpha):
     e = r.argmin(dim=1)
     best_slot = safe.gather(1, e[:, None])[:, 0].to(torch.int32)
     return best_w, torch.where(best_w > 0.0, best_slot, -1)
+
+
+def claim_lanes(K: int) -> int:
+    """K9's lanes a row (its launcher's rule): the least power of two
+    covering the row's ``ceil(K / 4)`` groups, at most 32."""
+    G = -(-K // CLAIM_GROUP)
+    L = 1
+    while L < CLAIM_LANES and L < G:
+        L *= 2
+    return L
+
+
+def topk_claim_max_schedule_ref(ids, sims, rank, is_rep, valid, alpha):
+    """K9's schedule, plainly (the kernel's mirror; ``topk_claim_max_ref``
+    is the contract): ``L = claim_lanes(K)`` lanes a row; lane ``l`` reads
+    the groups of 4 entries ``l, l + L, ...`` in order (the last group cut
+    at K: the missing entries are padding, id -1) and keeps a running
+    ``(w, rank, slot)``, replaced by an entry that is an alpha-edge to a
+    representative with ``w`` greater, or equal with a smaller rank; a
+    butterfly over the ``L`` lanes (partners ``l ^ L/2, ..., l ^ 1``)
+    merges them by the same order.  Invalid rows give ``(0.0, -1)``."""
+    S, K = ids.shape
+    dev = ids.device
+    L = claim_lanes(K)
+    G = -(-K // CLAIM_GROUP)
+    n = -(-G // L) * L * CLAIM_GROUP - K
+    pid = torch.nn.functional.pad(ids, (0, n), value=-1)
+    psim = torch.nn.functional.pad(sims, (0, n))
+    # [S, rounds, L, 4] -> each lane's entries in its reading order
+    lane_ids = pid.view(S, -1, L, CLAIM_GROUP).transpose(1, 2).reshape(
+        S, L, -1)
+    lane_sims = psim.view(S, -1, L, CLAIM_GROUP).transpose(1, 2).reshape(
+        S, L, -1)
+    alpha = f32(alpha, dev)
+    aw = torch.zeros((S, L), dtype=torch.float32, device=dev)
+    ar = torch.full((S, L), torch.iinfo(torch.int32).max, dtype=torch.int32,
+                    device=dev)
+    slot = torch.full((S, L), -1, dtype=torch.int32, device=dev)
+    live = valid[:, None]
+    for e in range(lane_ids.shape[2]):
+        u, v = lane_ids[:, :, e], lane_sims[:, :, e]
+        safe = u.clamp(0, S - 1).long()
+        r = rank[safe]
+        take = (live & (u >= 0) & (v > 0.0) & (v >= alpha) & is_rep[safe]
+                & ((v > aw) | ((v == aw) & (r < ar))))
+        aw = torch.where(take, v, aw)
+        ar = torch.where(take, r, ar)
+        slot = torch.where(take, u, slot)
+    off = L // 2
+    while off:
+        p = torch.arange(L, device=dev) ^ off
+        ow, orr, os_ = aw[:, p], ar[:, p], slot[:, p]
+        take = (ow > aw) | ((ow == aw) & (orr < ar))
+        aw = torch.where(take, ow, aw)
+        ar = torch.where(take, orr, ar)
+        slot = torch.where(take, os_, slot)
+        off //= 2
+    best_w = aw[:, 0]
+    return best_w, torch.where(best_w > 0.0, slot[:, 0], -1)

@@ -929,42 +929,160 @@ stjoin_sim_panel_fused_pruned_kernel(JoinOperands op, PanelArgs a,
 //
 // d[t, m] = 1 - popc(l1 & l2) / popc(l1 | l2) with l1 the OR of the packed
 // neighbor words over [m-w, m-1] and l2 over [m, m+w-1] (zeros off the
-// edge), 0 where the union is empty.
+// edge and at invalid positions), 0 where the union is empty.
 //
-// Bound: bytes (one read of the [T, M, W] words).  Design: one warp per
-// (t, m); lanes walk the W words of a row, so every row read is coalesced
-// and the 2w rows a warp ORs are shared with its neighbors through L1.
-// The two counts are integers (exact in f32), so d is bit-identical to
-// the reference's division.
+// Bound: bytes, one read of the words of the valid positions (the
+// [T, M, W] words are 268 MB at dsc_brest) and of valid, one write of d.
+// A warp per (t, m) ORing 2w rows read every word 2w times through the
+// caches, one dependent load in flight a lane.  So:
+// * a block owns one trajectory (blocks walk t by gridDim.x) and stages
+//   its rows in column slabs of J words (J from the launcher, by shape:
+//   the widest of 32, 16, ... 1 whose tiles fit 48 KB) into shared memory,
+//   JW_UNROLL loads a thread issued before any is stored (uint4 when
+//   W % 4 == 0, J % 4 == 0 and the words are 16-byte aligned: VEC;
+//   4-byte loads otherwise).  An invalid position is never read: its row
+//   is stored as zeros, the OR identity, so no masking pass precedes the
+//   kernel;
+// * every word is then combined O(1) times whatever w is (van Herk /
+//   Gil-Werman): with we = min(w, M) and segments [s we, (s+1) we), a
+//   thread per (column, segment) writes the suffix ORs S and, in place,
+//   the prefix ORs P of its segment; then a window [a, a+we-1] is
+//   S[a] | P[a+we-1] (S is 0 left of 0; past M-1, P[M-1] if the segment
+//   of a+we-1 starts before M, else 0): l1[m] = P[m-1] | S[m-we],
+//   l2[m] = S[m] | P[min(m+we-1, M-1)];
+// * a thread per (m, part of the slab's columns) sums the popcounts and
+//   adds them to per-m integer counts in shared memory (integer sums: any
+//   order is exact);
+// * shapes whose tiles pass the card's opt-in shared-memory limit keep
+//   them in a global scratch the wrapper allocates, one per block.
+// The counts are integers (exact in f32), so d is bitwise the plain
+// division.  jaccard/ref.py::jaccard_schedule_ref mirrors the schedule.
 // ---------------------------------------------------------------------------
-__global__ void jaccard_window_kernel(const uint32_t* __restrict__ masks,
-                                      int T, int M, int W, int w,
-                                      float* __restrict__ d) {
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= (long long)T * M) return;   // uniform across the warp
-  const int t = (int)(warp / M), m = (int)(warp % M);
-  const uint32_t* row = masks + (size_t)t * M * W;
-  const int a0 = max(m - w, 0), a1 = m - 1;
-  const int b0 = m, b1 = min(m + w - 1, M - 1);
-  int inter = 0, uni = 0;
-  for (int j = lane; j < W; j += 32) {
-    uint32_t l1 = 0u, l2 = 0u;
-    for (int k = a0; k <= a1; ++k) l1 |= row[(size_t)k * W + j];
-    for (int k = b0; k <= b1; ++k) l2 |= row[(size_t)k * W + j];
-    inter += __popc(l1 & l2);
-    uni += __popc(l1 | l2);
-  }
+constexpr int JW_THREADS = 256;
+constexpr int JW_UNROLL = 4;
+
+// 32-bit words of one block's tiles: the words / prefix ORs and the
+// suffix ORs ([M][J + 1] each), the two counts [M] and the flags [M] bytes
+__host__ __device__ inline size_t jaccard_words(int M, int J) {
+  return (size_t)M * (2 * (J + 1) + 2) + ((size_t)M + 3) / 4;
+}
+
+template <bool VEC>
+__device__ __forceinline__ void jaccard_stage(
+    const uint32_t* __restrict__ row, const uint8_t* ok, int M, int W,
+    int j0, int Jn, int ld, uint32_t* X) {
+  constexpr int E = VEC ? 4 : 1;           // words a load
+  const int per_row = Jn / E;
+  const int n = M * per_row;
+  for (int i0 = threadIdx.x; i0 < n; i0 += JW_THREADS * JW_UNROLL) {
+    uint32_t v[JW_UNROLL][E];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    inter += __shfl_xor_sync(0xffffffffu, inter, off);
-    uni += __shfl_xor_sync(0xffffffffu, uni, off);
+    for (int u = 0; u < JW_UNROLL; ++u) {
+      const int i = i0 + u * JW_THREADS;
+      const int m = i / per_row, q = i - m * per_row;
+      if (i < n && ok[m]) {
+        const uint32_t* src = row + (size_t)m * W + j0 + q * E;
+        if constexpr (VEC) {
+          const uint4 x = *reinterpret_cast<const uint4*>(src);
+          v[u][0] = x.x;
+          v[u][1] = x.y;
+          v[u][2] = x.z;
+          v[u][3] = x.w;
+        } else {
+          v[u][0] = *src;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < E; ++c) v[u][c] = 0u;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < JW_UNROLL; ++u) {
+      const int i = i0 + u * JW_THREADS;
+      if (i < n) {
+        const int m = i / per_row, q = i - m * per_row;
+#pragma unroll
+        for (int c = 0; c < E; ++c) X[m * ld + q * E + c] = v[u][c];
+      }
+    }
   }
-  if (lane == 0) {
-    d[warp] = uni > 0
-        ? __fsub_rn(1.f, __fdiv_rn((float)inter, (float)max(uni, 1)))
-        : 0.f;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(JW_THREADS)
+jaccard_window_kernel(const uint32_t* __restrict__ masks,
+                      const uint8_t* __restrict__ valid, int T, int M, int W,
+                      int w, int J, uint32_t* __restrict__ scratch,
+                      float* __restrict__ d) {
+  extern __shared__ uint32_t jw_smem[];
+  uint32_t* X = scratch ? scratch + blockIdx.x * jaccard_words(M, J)
+                        : jw_smem;
+  const int ld = J + 1;
+  uint32_t* Sf = X + (size_t)M * ld;
+  int* cnt_i = reinterpret_cast<int*>(Sf + (size_t)M * ld);
+  int* cnt_u = cnt_i + M;
+  uint8_t* ok = reinterpret_cast<uint8_t*>(cnt_u + M);
+  const int we = min(w, M);
+  const int tid = threadIdx.x;
+  for (int t = blockIdx.x; t < T; t += gridDim.x) {
+    const uint32_t* row = masks + (size_t)t * M * W;
+    for (int m = tid; m < M; m += JW_THREADS) {
+      cnt_i[m] = 0;
+      cnt_u[m] = 0;
+      ok[m] = valid[(size_t)t * M + m];
+    }
+    if (we > 0) {
+      const int nseg = (M + we - 1) / we;
+      const int parts = max(1, JW_THREADS / M);
+      for (int j0 = 0; j0 < W; j0 += J) {
+        const int Jn = min(J, W - j0);
+        __syncthreads();   // flags staged; the last slab's tiles read
+        jaccard_stage<VEC>(row, ok, M, W, j0, Jn, ld, X);
+        __syncthreads();
+        // suffix ORs into Sf, prefix ORs over X in place, per segment
+        for (int i = tid; i < nseg * Jn; i += JW_THREADS) {
+          const int s = i / Jn, jj = i - s * Jn;
+          const int a = s * we, b = min(M, a + we);
+          uint32_t acc = 0u;
+          for (int k = b - 1; k >= a; --k) {
+            acc |= X[k * ld + jj];
+            Sf[k * ld + jj] = acc;
+          }
+          acc = 0u;
+          for (int k = a; k < b; ++k) {
+            acc |= X[k * ld + jj];
+            X[k * ld + jj] = acc;
+          }
+        }
+        __syncthreads();
+        for (int i = tid; i < M * parts; i += JW_THREADS) {
+          const int part = i / M, m = i - part * M;
+          const int q = m + we - 1;
+          const int pq = q < M ? q : ((q / we) * we <= M - 1 ? M - 1 : -1);
+          int ci = 0, cu = 0;
+          for (int jj = part; jj < Jn; jj += parts) {
+            const uint32_t l1 = (m >= 1 ? X[(m - 1) * ld + jj] : 0u)
+                                | (m >= we ? Sf[(m - we) * ld + jj] : 0u);
+            const uint32_t l2 = Sf[m * ld + jj]
+                                | (pq >= 0 ? X[pq * ld + jj] : 0u);
+            ci += __popc(l1 & l2);
+            cu += __popc(l1 | l2);
+          }
+          if (cu) {
+            atomicAdd(&cnt_i[m], ci);
+            atomicAdd(&cnt_u[m], cu);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    for (int m = tid; m < M; m += JW_THREADS) {
+      const int uni = cnt_u[m];
+      d[(size_t)t * M + m] =
+          uni > 0 ? __fsub_rn(1.f, __fdiv_rn((float)cnt_i[m], (float)uni))
+                  : 0.f;
+    }
+    __syncthreads();   // the counts are read before the next t zeroes them
   }
 }
 
@@ -1221,45 +1339,96 @@ __global__ void topk_round_scan_kernel(const int* __restrict__ ids,
 //
 // Per valid row s: over entries u = ids[s, e] with is_rep[u] and an
 // alpha-edge, the maximum weight, the minimum visit rank among ties;
-// best_slot = -1 where the weight is 0.
+// best_slot = -1 where the weight is 0.  Invalid rows give (0, -1).
 //
-// Bound: bytes (one read of ids and sims).  Design: one warp per row; each
-// lane keeps a running (w, rank, slot) over its entries, then a butterfly
-// of shuffles merges the lanes.  (weight desc, rank asc) is a total order
-// (ranks are distinct), so the merge is exact in any order.
+// Bound: bytes, one read of the valid rows' ids and sims (8 bytes an
+// entry; at dsc_brest's final K = 4,096 about 8,000 of the 32,768 rows).
+// A warp that tested each 8-byte entry before loading the next kept one
+// entry a lane in flight.  So:
+// * a row belongs to L lanes of one warp (L the launcher's: the least
+//   power of two, up to 32, covering the row's ceil(K / 4) groups of 4
+//   entries; so 32 / L rows a warp at small K: 4 at K = 32);
+// * lane l reads groups l, l + L, l + 2L, ... and loads CM_UNROLL of them
+//   (an int4 of ids and a float4 of sims each when K % 4 == 0 and both
+//   are 16-byte aligned: VEC; otherwise four scalar loads of each, the
+//   last group cut at K) before it tests any: 64 bytes a lane in flight;
+// * the test reads is_rep[u] only for an entry that passes the weight
+//   test (and could still win: v >= the lane's best), rank[u] only for a
+//   representative; each lane keeps a running (w, rank, slot);
+// * a butterfly of shuffles over the L lanes merges them.  (w desc,
+//   rank asc) is a total order (ranks are distinct), so the merge is
+//   exact in any order;
+// * an invalid row costs its flag load and the two stores.
+// cluster/ref.py::topk_claim_max_schedule_ref mirrors the schedule.
 // ---------------------------------------------------------------------------
-__global__ void topk_claim_max_kernel(const int* __restrict__ ids,
-                                      const float* __restrict__ sims,
-                                      const int* __restrict__ rank,
-                                      const uint8_t* __restrict__ is_rep,
-                                      const uint8_t* __restrict__ valid,
-                                      float alpha, int S, int K,
-                                      float* __restrict__ best_w,
-                                      int* __restrict__ best_slot) {
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= S) return;                  // uniform across the warp
-  const int s = (int)warp;
+constexpr int CM_THREADS = 256;
+constexpr int CM_UNROLL = 2;   // 4.6% ahead of 4 over a run (PERF.md)
+
+__device__ __forceinline__ void claim_test(int u, float v, float alpha,
+                                           const int* __restrict__ rank,
+                                           const uint8_t* __restrict__ is_rep,
+                                           float& aw, int& ar, int& as) {
+  if (u >= 0 && v > 0.f && v >= alpha && v >= aw && is_rep[u]) {
+    const int r = rank[u];
+    if (v > aw || r < ar) {
+      aw = v;
+      ar = r;
+      as = u;
+    }
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(CM_THREADS)
+topk_claim_max_kernel(const int* __restrict__ ids,
+                      const float* __restrict__ sims,
+                      const int* __restrict__ rank,
+                      const uint8_t* __restrict__ is_rep,
+                      const uint8_t* __restrict__ valid, float alpha, int S,
+                      int K, int L, float* __restrict__ best_w,
+                      int* __restrict__ best_slot) {
+  const long long g = (long long)blockIdx.x * CM_THREADS + threadIdx.x;
+  const long long s = g / L;               // L divides 32: a row's lanes
+  const int lane = (int)(g % L);           // share one warp
+  const bool live = s < S;                 // every lane reaches the merge
   float aw = 0.f;
   int ar = INT_MAX, as = -1;
-  if (valid[s]) {
+  if (live && valid[s]) {
     const size_t base = (size_t)s * K;
-    for (int e = lane; e < K; e += 32) {
-      const int u = ids[base + e];
-      const float v = sims[base + e];
-      if (u >= 0 && v > 0.f && v >= alpha && is_rep[u]) {
-        const int r = rank[u];
-        if (v > aw || (v == aw && r < ar)) {
-          aw = v;
-          ar = r;
-          as = u;
+    const int G = (K + 3) / 4;
+    for (int g0 = lane; g0 < G; g0 += L * CM_UNROLL) {
+      int4 iu[CM_UNROLL];
+      float4 fv[CM_UNROLL];
+#pragma unroll
+      for (int u = 0; u < CM_UNROLL; ++u) {
+        const int gi = g0 + u * L;
+        iu[u] = make_int4(-1, -1, -1, -1);
+        fv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (gi < G) {
+          const size_t e = base + 4 * (size_t)gi;
+          if constexpr (VEC) {
+            iu[u] = *reinterpret_cast<const int4*>(ids + e);
+            fv[u] = *reinterpret_cast<const float4*>(sims + e);
+          } else {
+            const int n = min(4, K - 4 * gi);
+            iu[u].x = ids[e];
+            fv[u].x = sims[e];
+            if (n > 1) { iu[u].y = ids[e + 1]; fv[u].y = sims[e + 1]; }
+            if (n > 2) { iu[u].z = ids[e + 2]; fv[u].z = sims[e + 2]; }
+            if (n > 3) { iu[u].w = ids[e + 3]; fv[u].w = sims[e + 3]; }
+          }
         }
+      }
+#pragma unroll
+      for (int u = 0; u < CM_UNROLL; ++u) {
+        claim_test(iu[u].x, fv[u].x, alpha, rank, is_rep, aw, ar, as);
+        claim_test(iu[u].y, fv[u].y, alpha, rank, is_rep, aw, ar, as);
+        claim_test(iu[u].z, fv[u].z, alpha, rank, is_rep, aw, ar, as);
+        claim_test(iu[u].w, fv[u].w, alpha, rank, is_rep, aw, ar, as);
       }
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = L >> 1; off > 0; off >>= 1) {
     const float ow = __shfl_xor_sync(0xffffffffu, aw, off);
     const int orr = __shfl_xor_sync(0xffffffffu, ar, off);
     const int os = __shfl_xor_sync(0xffffffffu, as, off);
@@ -1269,7 +1438,7 @@ __global__ void topk_claim_max_kernel(const int* __restrict__ ids,
       as = os;
     }
   }
-  if (lane == 0) {
+  if (live && lane == 0) {
     best_w[s] = aw;
     best_slot[s] = aw > 0.f ? as : -1;
   }
@@ -1619,14 +1788,36 @@ int chunk_time_bounds(const float* t, const uint8_t* ok, long long R, int N,
   return (int)cudaGetLastError();
 }
 
-int jaccard_window(const uint32_t* masks, int T, int M, int W, int w,
+int jaccard_window(const uint32_t* masks, const uint8_t* valid, int T,
+                   int M, int W, int w, int J, uint32_t* scratch, int blocks,
                    float* d, cudaStream_t stream) {
-  const long long n = (long long)T * M;
-  if (n > 0) {
-    const int threads = 256;   // 8 warps, one (t, m) each
-    const long long blocks = (n * 32 + threads - 1) / threads;
-    jaccard_window_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-        masks, T, M, W, w, d);
+  // J (a power of two up to 32) and, past the opt-in limit, the scratch of
+  // `blocks` blocks come from the wrapper (jaccard/ops.py::slab_plan)
+  if (J < 1 || J > 32 || (J & (J - 1))) return (int)cudaErrorInvalidValue;
+  if ((long long)T * M > 0) {
+    size_t smem = 0;
+    unsigned grid = (unsigned)T;
+    if (scratch) {
+      grid = (unsigned)min(T, blocks);
+    } else {
+      smem = jaccard_words(M, J) * sizeof(uint32_t);
+    }
+    const bool vec = W % 4 == 0 && J % 4 == 0
+                     && (reinterpret_cast<uintptr_t>(masks) & 15) == 0;
+    const void* fn = vec ? (const void*)jaccard_window_kernel<true>
+                         : (const void*)jaccard_window_kernel<false>;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    if (vec) {
+      jaccard_window_kernel<true><<<grid, JW_THREADS, smem, stream>>>(
+          masks, valid, T, M, W, w, J, scratch, d);
+    } else {
+      jaccard_window_kernel<false><<<grid, JW_THREADS, smem, stream>>>(
+          masks, valid, T, M, W, w, J, scratch, d);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1696,10 +1887,23 @@ int topk_claim_max(const int* ids, const float* sims, const int* rank,
                    int S, int K, float* best_w, int* best_slot,
                    cudaStream_t stream) {
   if (S > 0) {
-    const int threads = 256;   // 8 warps, one list row each
-    const long long blocks = ((long long)S * 32 + threads - 1) / threads;
-    topk_claim_max_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-        ids, sims, rank, is_rep, valid, alpha, S, K, best_w, best_slot);
+    // lanes a row: the least power of two covering its groups, up to 32
+    const int G = (K + 3) / 4;
+    int L = 1;
+    while (L < 32 && L < G) L <<= 1;
+    const long long blocks = ((long long)S * L + CM_THREADS - 1) / CM_THREADS;
+    const bool vec = K % 4 == 0
+                     && ((reinterpret_cast<uintptr_t>(ids)
+                          | reinterpret_cast<uintptr_t>(sims)) & 15) == 0;
+    if (vec) {
+      topk_claim_max_kernel<true><<<(unsigned)blocks, CM_THREADS, 0,
+                                    stream>>>(
+          ids, sims, rank, is_rep, valid, alpha, S, K, L, best_w, best_slot);
+    } else {
+      topk_claim_max_kernel<false><<<(unsigned)blocks, CM_THREADS, 0,
+                                     stream>>>(
+          ids, sims, rank, is_rep, valid, alpha, S, K, L, best_w, best_slot);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -14,11 +14,10 @@ limit, else in a global scratch that the wrapper allocates.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from repro_torch.kernels import check_cuda_operands, launch, resolve_device
+from repro_torch.kernels import (check_cuda_operands, launch, resolve_device,
+                                 smem_optin)
 from repro_torch.kernels.lcss.ref import (LCSS_WARPS, lcss_wavefront_ref,
                                           normalize, shear_weights,
                                           strip_rows)
@@ -44,7 +43,7 @@ def lcss_wavefront(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t):
                              f"[{B}, {n}]")
     scores = torch.empty((B, 2), dtype=f, device=dev)
     scratch = None
-    if smem_bytes(N, M) > _smem_optin(dev.index):
+    if smem_bytes(N, M) > smem_optin(dev.index):
         scratch = torch.empty(B * 2 * M, dtype=f, device=dev)
     launch("lcss_wavefront", rx.data_ptr(), ry.data_ptr(), rt.data_ptr(),
            rv.data_ptr(), sx.data_ptr(), sy.data_ptr(), st.data_ptr(),
@@ -64,12 +63,6 @@ def smem_bytes(N: int, M: int) -> int:
     if N <= 32 * strip_rows(N):
         return ring
     return ring + LCSS_WARPS * 2 * M * 4
-
-
-@functools.lru_cache(maxsize=None)
-def _smem_optin(index: int) -> int:
-    props = torch.cuda.get_device_properties(index)
-    return getattr(props, "shared_memory_per_block_optin", 232448)
 
 
 def _operands(dev, rx, ry, rt, rv, sx, sy, st, sv):

@@ -180,13 +180,19 @@ def _pad_rows(a: torch.Tensor, mult: int, fill) -> torch.Tensor:
     return torch.cat([a, a.new_full((pad, *a.shape[1:]), fill)])
 
 
-def _tile_mask(rboxes, cboxes, eps_sp, eps_t):
+def _tile_mask(rboxes, cboxes, eps_sp, eps_t, use_cells: bool):
     """``(mask [nRb, nCb], counts [nRb] i32, spec)``: the coarse cell test
-    on a grid fitted to the candidate tiles, refined by the exact test."""
-    spec = gridx.fit_grid(cboxes, float(eps_sp), float(eps_t))
-    table = gridx.build_cell_table(spec, cboxes)
-    mask = gridx.candidate_tile_mask(spec, table, rboxes, cboxes, eps_sp,
-                                     eps_t)
+    on a grid fitted to the candidate tiles, refined by the exact test;
+    or (``use_cells=False``) the exact box test of every pair alone, with
+    ``spec`` None."""
+    spec = None
+    if use_cells:
+        spec = gridx.fit_grid(cboxes, float(eps_sp), float(eps_t))
+        table = gridx.build_cell_table(spec, cboxes)
+        mask = gridx.candidate_tile_mask(spec, table, rboxes, cboxes,
+                                         eps_sp, eps_t)
+    else:
+        mask = gridx.exact_pair_mask(rboxes, cboxes, eps_sp, eps_t)
     return mask, mask.sum(dim=1).to(torch.int32), spec
 
 
@@ -204,11 +210,14 @@ def _compact(mask, counts, max_tiles: int | None, what: str):
 
 
 def plan_join_index(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
-                    eps_t, *, bp: int = JOIN_BP, bc: int = JOIN_BC):
+                    eps_t, *, bp: int = JOIN_BP, bc: int = JOIN_BC,
+                    use_cells: bool = True):
     """Candidate-tile mask of the join, host-driven (the grid is fitted
     from the data): ``(mask [nRb, nCb] bool, counts [nRb] i32, spec)`` for
     blocks of ``bp`` flattened reference points and tiles of ``bc``
-    candidate trajectories (both padded with invalid points)."""
+    candidate trajectories (both padded with invalid points).
+    ``use_cells=False`` skips the grid and tests every pair of boxes
+    exactly (``spec`` is then None); the kept tiles are the same."""
     flat = lambda a, f: _pad_rows(a.reshape(-1), bp, f)
     rboxes = gridx.point_block_boxes(flat(ref.x, 0.0), flat(ref.y, 0.0),
                                      flat(ref.t, 0.0), flat(ref.valid, False),
@@ -217,7 +226,7 @@ def plan_join_index(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
     cboxes = gridx.traj_block_boxes(pad(cand.x, 0.0), pad(cand.y, 0.0),
                                     pad(cand.t, 0.0), pad(cand.valid, False),
                                     bc)
-    return _tile_mask(rboxes, cboxes, eps_sp, eps_t)
+    return _tile_mask(rboxes, cboxes, eps_sp, eps_t, use_cells)
 
 
 def _geometry_error(name: str, got, want) -> ValueError:
@@ -358,14 +367,16 @@ def join_skip_counts(rt, rok, ct, cok, eps_t, *, tile_ids=None):
 def best_match_join_pruned(ref: TrajectoryBatch, cand: TrajectoryBatch,
                            eps_sp, eps_t, *, bp: int = JOIN_BP,
                            bc: int = JOIN_BC, max_tiles: int | None = None,
+                           use_cells: bool = True,
                            return_stats: bool = False):
     """Index-pruned best-match join through K10; bit-identical to the
-    dense join.  Plans on the host (the grid is fitted from the data),
-    compacts the surviving tiles to a static width K (``max_tiles`` or the
-    widest list) and sweeps only those.  Raises if ``max_tiles`` is too
-    small to keep every survivor.  ``return_stats=True`` also returns the
-    ``PruneStats``."""
-    mask, counts, _ = plan_join_index(ref, cand, eps_sp, eps_t, bp=bp, bc=bc)
+    dense join.  Plans on the host (the grid is fitted from the data;
+    ``use_cells`` as in ``plan_join_index``), compacts the surviving tiles
+    to a static width K (``max_tiles`` or the widest list) and sweeps only
+    those.  Raises if ``max_tiles`` is too small to keep every survivor.
+    ``return_stats=True`` also returns the ``PruneStats``."""
+    mask, counts, _ = plan_join_index(ref, cand, eps_sp, eps_t, bp=bp, bc=bc,
+                                      use_cells=use_cells)
     tile_ids = _compact(mask, counts, max_tiles, "pruned join")
     T, M = ref.x.shape
     C = cand.x.shape[0]
@@ -441,6 +452,7 @@ class FusedTilePlan:
 
 def plan_fused_tiles(rx, ry, rt, rvalid, cx, cy, ct, cvalid, eps_sp, eps_t,
                      *, rows: int = FUSED_ROWS, bc: int = FUSED_BC,
+                     use_cells: bool = True,
                      max_tiles: int | None = None) -> FusedTilePlan:
     """Host-driven candidate-tile plan for the fused passes on raw
     ``[T, M]`` / ``[C, Mc]`` arrays: the two-stage pruning of
@@ -448,7 +460,8 @@ def plan_fused_tiles(rx, ry, rt, rvalid, cx, cy, ct, cvalid, eps_sp, eps_t,
     to whole blocks) and tiles of ``bc`` candidates (the candidates padded
     to a multiple of 32, as the reference pads them).  ``rows`` is clamped
     to ``[1, T]`` and ``bc`` to a divisor of 32, as the reference's
-    ``_fused_geometry`` does.  Raises if ``max_tiles`` would drop a
+    ``_fused_geometry`` does.  ``use_cells=False`` tests every pair of
+    boxes exactly, without the grid.  Raises if ``max_tiles`` would drop a
     survivor.
     """
     T, M = rx.shape
@@ -461,7 +474,7 @@ def plan_fused_tiles(rx, ry, rt, rvalid, cx, cy, ct, cvalid, eps_sp, eps_t,
     pad = lambda a, f: _pad_rows(a, 32, f)
     cboxes = gridx.traj_block_boxes(pad(cx, 0.0), pad(cy, 0.0),
                                     pad(ct, 0.0), pad(cvalid, False), bc)
-    mask, counts, _ = _tile_mask(rboxes, cboxes, eps_sp, eps_t)
+    mask, counts, _ = _tile_mask(rboxes, cboxes, eps_sp, eps_t, use_cells)
     tile_ids = _compact(mask, counts, max_tiles, "fused pruned sweep")
     return FusedTilePlan(tile_ids=tile_ids, rows=rows, bc=bc)
 
@@ -616,15 +629,17 @@ def stjoin_vote_fused_arrays(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid,
 
 def stjoin_vote_fused(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
                       eps_t, delta_t=0.0, *, use_index: bool = False,
+                      use_cells: bool = True, max_tiles: int | None = None,
                       with_masks: bool = True, stats=None):
     """Batch-level fused pass 1 (vote sums + packed neighbor words);
-    ``use_index=True`` plans the tiles (``plan_fused_tiles``) and sweeps
-    only the survivors."""
+    ``use_index=True`` plans the tiles (``plan_fused_tiles``, with
+    ``use_cells`` and ``max_tiles``) and sweeps only the survivors."""
     tile_ids = None
     if use_index:
         tile_ids = plan_fused_tiles(
             ref.x, ref.y, ref.t, ref.valid, cand.x, cand.y, cand.t,
-            cand.valid, eps_sp, eps_t)
+            cand.valid, eps_sp, eps_t, use_cells=use_cells,
+            max_tiles=max_tiles)
     return stjoin_vote_fused_arrays(
         ref.x, ref.y, ref.t, ref.valid, ref.traj_id, cand.x, cand.y, cand.t,
         cand.valid, cand.traj_id, eps_sp, eps_t, delta_t,

@@ -42,11 +42,14 @@ PACK_ROWS = 8192
 
 def stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
                cand_x, cand_y, cand_t, cand_id, cand_ok, eps_sp, eps_t, *,
-               chunk_elements: int = CHUNK_ELEMENTS):
+               pair_mask=None, chunk_elements: int = CHUNK_ELEMENTS):
     """Returns ``(best_w [P, C] f32, best_idx [P, C] i32)``.
 
     Reference points ``[P]`` against candidate trajectories ``[C, Mc]``.
-    The ``[P, C, Mc]`` broadcast runs in chunks of reference points.
+    ``pair_mask``: optional ``[P, C]`` bool candidate-pruning mask from
+    the index; pairs masked False are skipped, so a conservative mask
+    leaves the output unchanged.  The ``[P, C, Mc]`` broadcast runs in
+    chunks of reference points.
     """
     P = ref_x.shape[0]
     C, Mc = cand_x.shape
@@ -65,6 +68,8 @@ def stjoin_ref(ref_x, ref_y, ref_t, ref_id, ref_ok,
         ok = (d2 <= eps2) & (dt <= eps_t)
         ok &= ref_ok[p, None, None] & cand_ok[None]
         ok &= ref_id[p, None, None] != cand_id[None, :, None]
+        if pair_mask is not None:
+            ok &= pair_mask[p, :, None]
         w = torch.where(ok, 1.0 - sqrt_rn(d2) / eps_sp, -1.0)
         bw = w.amax(dim=-1)
         arg = w.argmax(dim=-1)

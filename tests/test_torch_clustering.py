@@ -13,7 +13,7 @@ from repro.core.types import SubtrajTable as JTable
 from repro.kernels.cluster.cluster import assign_pallas, round_scan_pallas
 from repro.kernels.cluster.ops import plan_tiles
 from repro_torch.core import clustering as tcl
-from repro_torch.core.types import DSCParams, SubtrajTable
+from repro_torch.core.types import DSCParams, SubtrajTable, TopKSim
 from repro_torch.kernels.cluster.ops import cluster_assign, cluster_round_scan
 
 torch.set_num_threads(1)
@@ -142,3 +142,62 @@ def test_scores_match_reference():
     np.testing.assert_allclose(
         float(tcl.rmse(tres, torch.from_numpy(sim), 0.3)),
         float(jcl.rmse(jres, jnp.asarray(sim), 0.3)), rtol=1e-6)
+
+
+def _dsc_inputs(scenario, sim_mode):
+    """The reference's similarity (dense matrix or top-K lists), table
+    and parameters after its ``run_dsc`` on fig1 or ``ais_like``, handed
+    to both packages as the same numpy arrays."""
+    from repro.core import dsc as jdsc
+    from repro.data import synthetic as jsyn
+    if scenario == "fig1":
+        jb = jsyn.figure1_scenario(n_per_route=4, points_per_leg=24,
+                                   seed=0)[0]
+        kw = dict(eps_sp=0.42, eps_t=1.0, w=6, tau=0.15)
+    else:
+        jb = jsyn.ais_like(n_vessels=24, max_points=96, seed=1)[0]
+        diam, mean_dt = jsyn.default_dsc_params_for(jb)
+        kw = dict(eps_sp=0.15 * diam, eps_t=mean_dt, w=12, tau=0.4)
+    kw.update(delta_t=0.0, alpha_sigma=-1.0, k_sigma=-1.0,
+              segmentation="tsa2")
+    jo = jdsc.run_dsc(jb, JParams(**kw), sim_mode=sim_mode)
+    as_t = lambda cls, obj: cls(**{
+        f: torch.from_numpy(np.array(getattr(obj, f)))
+        for f in cls.__dataclass_fields__})
+    if sim_mode == "dense":
+        jsim, tsim = jo.sim, torch.from_numpy(np.array(jo.sim))
+    else:
+        jsim, tsim = jo.sim_topk, as_t(TopKSim, jo.sim_topk)
+    return (jsim, jo.table, JParams(**kw)), (tsim, as_t(SubtrajTable,
+                                                         jo.table),
+                                             DSCParams(**kw))
+
+
+@pytest.mark.parametrize("sim_mode", ["dense", "topk"])
+@pytest.mark.parametrize("scenario", ["fig1", "ais"])
+def test_max_rounds_matches_reference(scenario, sim_mode):
+    """``max_rounds=`` on ``cluster`` (both engines, plain and kernel
+    plans): the fixed trip of S rounds gives the reference's labels and
+    the rounds of the default loop; ``max_rounds < S`` is refused with the
+    reference's message, word for word, by ``cluster``,
+    ``cluster_rounds`` and ``cluster_rounds_topk``."""
+    (jsim, jt, jp), (tsim, tt, tp) = _dsc_inputs(scenario, sim_mode)
+    S = tt.num_slots
+    jres = jcl.cluster(jsim, jt, jp, max_rounds=S)
+    _, jn = (jcl.cluster_rounds if sim_mode == "dense"
+             else jcl.cluster_rounds_topk)(jsim, jt, jp, with_rounds=True)
+    for use_kernel in (False, True):
+        tres, n = tcl.cluster(tsim, tt, tp, max_rounds=S,
+                              use_kernel=use_kernel, with_rounds=True)
+        _assert_labels(jres, tres)
+        assert n == int(jn) >= 1
+    _assert_labels(jres, tcl.cluster(tsim, tt, tp, engine="sequential",
+                                     max_rounds=S))
+    with pytest.raises(ValueError) as jerr:
+        jcl.cluster(jsim, jt, jp, max_rounds=S - 1)
+    engine = (tcl.cluster_rounds if sim_mode == "dense"
+              else tcl.cluster_rounds_topk)
+    for fn in (tcl.cluster, engine):
+        with pytest.raises(ValueError) as terr:
+            fn(tsim, tt, tp, max_rounds=S - 1)
+        assert str(terr.value) == str(jerr.value)

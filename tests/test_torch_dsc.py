@@ -94,6 +94,31 @@ def test_run_dsc_matches_reference(scenario, plan):
     assert int(to.result.is_rep.sum()) >= 1
 
 
+@pytest.mark.parametrize("mode", ["materialize", "fused"])
+@pytest.mark.parametrize("scenario", ["fig1_tsa2", "ais"])
+def test_join_field(scenario, mode):
+    """``DSCOutput.join``: the cube in materialize mode, equal to the
+    reference's; None in fused mode.  Indices are equal; weights agree to
+    2.4e-7: under ``jit`` XLA's CPU compiler contracts the reference's
+    ``dx*dx + dy*dy`` into an FMA, so single weights sit one ulp of 1.0
+    apart (measured: 120 of 27,648 on fig1, 160 of 55,296 on ais, each
+    1.19e-7), as in ``tests/test_torch_join.py``."""
+    jb, kw = _scenario(scenario)
+    jo = jdsc.run_dsc(jb, JParams(**kw), mode=mode)
+    to = tdsc.run_dsc(_port(jb), DSCParams(**kw), device="cpu",
+                      plan=EnginePlan(mode=mode))
+    _compare(jo, to)
+    if mode == "fused":
+        assert jo.join is None and to.join is None
+        return
+    assert np.array_equal(np.asarray(jo.join.best_idx),
+                          to.join.best_idx.numpy())
+    np.testing.assert_allclose(to.join.best_w.numpy(),
+                               np.asarray(jo.join.best_w), rtol=0,
+                               atol=2.4e-7)
+    assert bool((to.join.best_idx >= 0).any())
+
+
 def test_plan_object_equals_flags_and_sequential_engine(fig1):
     """The kernel plan, the default plan (``plan=None``) and the
     sequential engine give the same labels; a bad engine name raises."""

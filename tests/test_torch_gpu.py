@@ -17,18 +17,20 @@ from repro_torch.core.plan import EnginePlan
 from repro_torch.core.similarity import (plan_panel, slot_ids,
                                          topk_from_dense, topk_reduce_rows)
 from repro_torch.core.types import DSCParams, TrajectoryBatch
-from repro_torch.core.windows import pack_bits
 from repro_torch.data.synthetic import ais_like, figure1_scenario
 from repro_torch.kernels.cluster.ops import (cluster_assign,
                                              cluster_round_scan,
                                              topk_cluster_assign,
                                              topk_cluster_round_scan)
-from repro_torch.kernels.cluster.ref import claim_max_ref, round_scan_ref
+from repro_torch.kernels.cluster.ref import (claim_max_ref, round_scan_ref,
+                                             topk_claim_max_schedule_ref)
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import (flash_attention_ref,
                                                kernel_tolerance,
                                                tile_class_ref)
+from repro_torch.kernels.jaccard import ops as jaccard_ops
 from repro_torch.kernels.jaccard.ops import window_jaccard
+from repro_torch.kernels.jaccard.ref import jaccard_schedule_ref
 from repro_torch.kernels.lcss import ops as lcss_ops
 from repro_torch.kernels.lcss import ref as lcss_ref
 from repro_torch.kernels.stjoin import ops as stjoin_ops
@@ -216,15 +218,45 @@ def test_chunk_time_bounds_kernel(cuda, chunk):
     assert bool(torch.isinf(plo).any()) and bool(torch.isfinite(plo).any())
 
 
-@pytest.mark.parametrize("w", [1, 7, 45])
-def test_k3_matches_plain(cuda, w):
-    rng = np.random.default_rng(w)
-    bits = torch.from_numpy(rng.uniform(size=(6, 40, 200)) < 0.3)
-    valid = torch.from_numpy(rng.uniform(size=(6, 40)) < 0.8).to(cuda)
-    m = pack_bits(bits).to(cuda)
+# (T, M, W, w, share of valid rows, words a view is offset by): the
+# original three cases; the shape edges (W = 1, W not a multiple of 4 or
+# 32, w = 1 and w > M, M = 1 and in the hundreds); a dsc-like trajectory
+# block; every row invalid; slab loops past shared memory (M = 300: 19
+# slabs of 16 columns; M = 5000: one column, past the 48 KB default; M =
+# 12000: past the opt-in limit, the global scratch); a misaligned view
+K3_CARD = ([(6, 40, 7, w, 0.8, 0) for w in (1, 7, 45)]
+           + [(5, M, W, w if w else M + 3, 0.8, 0)
+              for W in (1, 7, 33, 128) for M in (1, 40, 130)
+              for w in (1, 20, 0)]
+           + [(64, 128, 128, 20, 0.8, 0), (5, 130, 33, 7, 0.0, 0),
+              (3, 300, 300, 20, 0.8, 0), (3, 5000, 4, 20, 0.8, 0),
+              (3, 12000, 3, 50, 0.8, 0), (4, 128, 128, 20, 0.8, 1)])
+
+
+@pytest.mark.parametrize("T,M,W,w,p_valid,offset", K3_CARD)
+def test_k3_matches_plain(cuda, T, M, W, w, p_valid, offset):
+    """K3 bitwise its plain version (the masked words through
+    ``tsa2_signal``) and the schedule's mirror, one launch, on raw words
+    whose invalid rows hold garbage (the kernel never reads them)."""
+    rng = np.random.default_rng(T * M * W + w)
+    raw = rng.integers(0, 2 ** 32, T * M * W + offset, dtype=np.uint64)
+    raw = np.where(rng.uniform(size=raw.shape) < 0.5, raw, 0)
+    store = torch.from_numpy(raw.astype(np.uint32).view(np.int32)).to(cuda)
+    m = store[offset:].view(T, M, W)
+    valid = torch.from_numpy(rng.uniform(size=(T, M)) < p_valid).to(cuda)
+    before = kernels.LAUNCHES["jaccard_window"]
     k = window_jaccard(m, valid, w=w)
-    p = tseg.tsa2_signal(torch.where(valid[..., None], m, 0), w)
+    assert kernels.LAUNCHES["jaccard_window"] == before + 1
+    masked = torch.where(valid[..., None], m, 0)
+    p = tseg.tsa2_signal(masked, w)
     assert torch.equal(k, p)
+    if M * W <= 4096:
+        J = jaccard_ops.slab_plan(M, W, kernels.smem_optin(0))[0]
+        assert torch.equal(k, jaccard_schedule_ref(m, valid, w, J))
+    if p_valid == 0.0:
+        assert not bool(k.any())
+    elif M > 1:
+        assert bool((k > 0).any())
 
 
 def _k5_instance(cuda, S, state, seed):
@@ -591,14 +623,30 @@ def _lists(rng, S, K, cuda):
             torch.from_numpy(sims).to(cuda))
 
 
-@pytest.mark.parametrize("S,K", [(300, 7), (5000, 64)])
-def test_k8_k9_match_plain(cuda, S, K):
-    rng = np.random.default_rng(S)
+@pytest.mark.parametrize("S,K,case", [
+    (300, 7, "plain"), (5000, 64, "plain"), (5000, 4096, "plain"),
+    (3000, 130, "plain"), (1000, 32, "plain"), (700, 1, "plain"),
+    (1000, 256, "misaligned"), (1000, 7, "misaligned"),
+    (1000, 256, "no_reps"), (1000, 256, "invalid")])
+def test_k8_k9_match_plain(cuda, S, K, case):
+    """K8 and K9 bitwise their plain versions (K9 also its schedule's
+    mirror), one launch each: K from 1 to 4,096 (K % 4 != 0 takes K9's
+    scalar groups, K = 32 four rows a warp), lists that are views one
+    entry off 16-byte alignment, no representatives, every row
+    invalid."""
+    rng = np.random.default_rng(S + K)
     ids, sims = _lists(rng, S, K, cuda)
+    if case == "misaligned":
+        ids = torch.cat([ids.new_zeros(1), ids.flatten()])[1:].view(S, K)
+        sims = torch.cat([sims.new_zeros(1), sims.flatten()])[1:].view(S, K)
+        assert ids.data_ptr() % 16 and sims.data_ptr() % 16
     rank = torch.from_numpy(rng.permutation(S).astype(np.int32)).to(cuda)
     unres = torch.from_numpy(rng.uniform(size=S) < 0.4).to(cuda)
     rep = ~unres & torch.from_numpy(rng.uniform(size=S) < 0.5).to(cuda)
-    valid = torch.from_numpy(rng.uniform(size=S) < 0.9).to(cuda)
+    if case == "no_reps":
+        rep = torch.zeros_like(rep)
+    valid = torch.from_numpy(rng.uniform(size=S) < (
+        0.0 if case == "invalid" else 0.9)).to(cuda)
     before = dict(kernels.LAUNCHES)
     kb, kc = topk_cluster_round_scan(ids, sims, rank, unres, rep, 0.4)
     kw, ks = topk_cluster_assign(ids, sims, rank, rep, valid, 0.4)
@@ -609,7 +657,12 @@ def test_k8_k9_match_plain(cuda, S, K):
     pw, ps = topk_cluster_assign(*cpu[:3], cpu[4], cpu[5], 0.4)
     assert torch.equal(kb.cpu(), pb) and torch.equal(kc.cpu(), pc)
     assert torch.equal(kw.cpu(), pw) and torch.equal(ks.cpu(), ps)
-    assert bool(pb.any()) and bool(pc.any()) and bool((ps >= 0).any())
+    mw, ms = topk_claim_max_schedule_ref(ids, sims, rank, rep, valid, 0.4)
+    assert torch.equal(kw, mw) and torch.equal(ks, ms)
+    if case in ("no_reps", "invalid"):
+        assert not bool(kw.any()) and bool((ks == -1).all())
+    else:
+        assert bool(pb.any()) and bool(pc.any()) and bool((ps >= 0).any())
 
 
 def test_topk_tie_order_on_card(cuda):
@@ -895,7 +948,7 @@ def test_k14_matches_plain(cuda, B, N, M, p_valid):
     assert torch.equal(got, twin)
     assert torch.equal(got, lcss_ref.lcss_ref(*ops, eps_sp, eps_t))
     if M == 7300:
-        assert lcss_ops.smem_bytes(N, M) > lcss_ops._smem_optin(0)
+        assert lcss_ops.smem_bytes(N, M) > kernels.smem_optin(0)
     swapped = lcss_ops.lcss_wavefront(*ops[4:], *ops[:4], eps_sp, eps_t)
     assert torch.equal(got, swapped)
     assert bool((got[:, 0] >= 0).all()) and bool((got[:, 0] <= got[:, 1]).all())

@@ -476,3 +476,76 @@ def test_run_dsc_use_index_matches_reference(case, mode):
         assert to.sim_overflow is None and jo.sim_overflow is None
         assert torch.equal(to.sim, dense.sim)
     assert int(to.result.is_rep.sum()) >= 1
+
+
+def _scenario_batch(name):
+    """fig1 or ``ais_like`` at the sizes of ``tests/test_torch_dsc.py``,
+    with that file's eps."""
+    if name == "fig1":
+        jb = jsyn.figure1_scenario(n_per_route=4, points_per_leg=24,
+                                   seed=0)[0]
+        return jb, _port(jb), (0.42, 1.0)
+    jb = jsyn.ais_like(n_vessels=24, max_points=96, seed=1)[0]
+    diam, mean_dt = jsyn.default_dsc_params_for(jb)
+    return jb, _port(jb), (0.15 * diam, mean_dt)
+
+
+@pytest.mark.parametrize("use_cells", [True, False])
+@pytest.mark.parametrize("case", ["fig1", "ais"])
+def test_use_cells_and_max_tiles_match_reference(case, use_cells):
+    """``use_cells=`` of ``plan_join_index``, ``best_match_join_pruned``,
+    ``plan_fused_tiles`` and ``stjoin_vote_fused``, and ``max_tiles=`` of
+    ``stjoin_vote_fused``: masks, counts and kept tiles equal to the
+    reference's at its geometry (``use_cells=False`` is the exact box
+    test alone, with no grid spec); the join and the vote pass equal to
+    the reference's and bitwise the port's unpruned ones; a ``max_tiles``
+    that drops a tile is refused by both."""
+    jb, tb, eps = _scenario_batch(case)
+    jm, jn, jspec = jops.plan_join_index(jb, jb, *eps, use_cells=use_cells,
+                                         **JAX_JOIN)
+    tm, tn, tspec = tops.plan_join_index(tb, tb, *eps, use_cells=use_cells,
+                                         **JAX_JOIN)
+    assert np.array_equal(_np(jm), _np(tm)) and np.array_equal(_np(jn),
+                                                               _np(tn))
+    if use_cells:
+        assert jspec.__dict__ == tspec.__dict__
+    else:
+        assert jspec is None and tspec is None
+    jout = jops.best_match_join_pruned(jb, jb, *eps, use_cells=use_cells,
+                                       **JAX_JOIN)
+    tout = tops.best_match_join_pruned(tb, tb, *eps, use_cells=use_cells)
+    dense = tops.best_match_join_kernel(tb, tb, *eps)
+    assert torch.equal(tout.best_w, dense.best_w)
+    assert torch.equal(tout.best_idx, dense.best_idx)
+    assert np.array_equal(_np(jout.best_idx), _np(tout.best_idx))
+    np.testing.assert_allclose(_np(tout.best_w), _np(jout.best_w), rtol=0,
+                               atol=PALLAS_K1_ATOL)
+    M = tb.x.shape[1]
+    fkw = dict(rows=2048 // M, bc=JAX_FUSED_BC)
+    arrays = lambda b: (b.x, b.y, b.t, b.valid) * 2
+    jp = jops.plan_fused_tiles(*arrays(jb), *eps, use_cells=use_cells,
+                               **fkw)
+    tp = tops.plan_fused_tiles(*arrays(tb), *eps, use_cells=use_cells,
+                               **fkw)
+    assert np.array_equal(_np(jp.tile_ids), _np(tp.tile_ids))
+    # each at its own geometry (the reference's refuses a width past its
+    # tile count, so both take their widest list)
+    own = tops.plan_fused_tiles(*arrays(tb), *eps, use_cells=use_cells)
+    jv, jw = jops.stjoin_vote_fused(jb, jb, *eps, use_index=True,
+                                    use_cells=use_cells,
+                                    max_tiles=jp.tile_ids.shape[1])
+    tv, tw = tops.stjoin_vote_fused(tb, tb, *eps, use_index=True,
+                                    use_cells=use_cells,
+                                    max_tiles=own.tile_ids.shape[1])
+    dv, dw = tops.stjoin_vote_fused(tb, tb, *eps)
+    assert torch.equal(tv, dv) and torch.equal(tw, dw)
+    np.testing.assert_allclose(_np(tv), _np(jv), rtol=0, atol=ATOL)
+    assert np.array_equal(_np(tw).view(np.uint32), _np(jw))
+    small = jp.tile_ids.shape[1] - 1
+    assert small >= 1
+    with pytest.raises(ValueError, match="max_tiles"):
+        jops.stjoin_vote_fused(jb, jb, *eps, use_index=True,
+                               use_cells=use_cells, max_tiles=small)
+    with pytest.raises(ValueError, match="max_tiles"):
+        tops.plan_fused_tiles(*arrays(tb), *eps, use_cells=use_cells,
+                              max_tiles=small, **fkw)

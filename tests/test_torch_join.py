@@ -152,3 +152,44 @@ def test_index_join_matches_reference():
                                     delta_t)
         assert torch.equal(t.best_w, d.best_w)
         assert torch.equal(t.best_idx, d.best_idx)
+
+
+@pytest.mark.parametrize("exclude", [True, False])
+@pytest.mark.parametrize("case", ["fig1", "ais"])
+def test_best_match_join_exclude_same_id(case, exclude):
+    """``best_match_join(exclude_same_id=)``: bitwise the reference's
+    either way; with ``False`` a trajectory matches its own points."""
+    jb, eps_sp, eps_t = CASES[case]
+    j = jgeo.best_match_join(jb, jb, eps_sp, eps_t, exclude_same_id=exclude)
+    t = tgeo.best_match_join(_port(jb), _port(jb), eps_sp, eps_t,
+                             exclude_same_id=exclude)
+    _assert_join(j, t)
+    T = t.best_idx.shape[0]
+    own = t.best_idx[torch.arange(T), :, torch.arange(T)]
+    assert bool((own >= 0).any()) != exclude
+
+
+@pytest.mark.parametrize("case", ["fig1", "ais"])
+def test_stjoin_ref_pair_mask(case):
+    """``stjoin_ref(pair_mask=)``: a seeded [P, C] mask drops its pairs,
+    bitwise the reference's oracle; an all-True mask changes nothing."""
+    from repro.kernels.stjoin.ref import stjoin_ref as jref
+    jb, eps_sp, eps_t = CASES[case]
+    T, M = jb.x.shape
+    ja = (jb.x.reshape(-1), jb.y.reshape(-1), jb.t.reshape(-1),
+          np.repeat(np.asarray(jb.traj_id), M), jb.valid.reshape(-1),
+          jb.x, jb.y, jb.t, jb.traj_id, jb.valid)
+    ta = [torch.from_numpy(np.array(a)) for a in ja]
+    mask = np.random.default_rng(5).uniform(size=(T * M, T)) < 0.6
+    jw, ji = jref(*ja, np.float32(eps_sp), np.float32(eps_t),
+                  pair_mask=mask)
+    tw, ti = stjoin_ref(*ta, eps_sp, eps_t,
+                        pair_mask=torch.from_numpy(mask))
+    assert np.array_equal(np.asarray(ji), ti.numpy())
+    assert np.array_equal(np.asarray(jw), tw.numpy())
+    assert bool((ti[torch.from_numpy(~mask)] == -1).all())
+    fw, fi = stjoin_ref(*ta, eps_sp, eps_t)
+    aw, ai = stjoin_ref(*ta, eps_sp, eps_t,
+                        pair_mask=torch.ones((T * M, T), dtype=torch.bool))
+    assert torch.equal(fw, aw) and torch.equal(fi, ai)
+    assert not torch.equal(fi, ti)

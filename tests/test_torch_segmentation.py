@@ -88,3 +88,43 @@ def test_bit_expanded_oracle(w):
     assert np.array_equal(j, t.numpy())
     assert np.array_equal(tseg.tsa2_signal(_words_i32(words), w).numpy(),
                           t.numpy())
+
+
+def _scenario_words(name):
+    """The reference's packed TSA2 words (masked by validity) and validity
+    of fig1 or ``ais_like``, from its plain join."""
+    from repro.core import geometry as jgeo
+    from repro.core import voting as jvote
+    from repro.data import synthetic as jsyn
+    if name == "fig1":
+        jb = jsyn.figure1_scenario(n_per_route=4, points_per_leg=24,
+                                   seed=0)[0]
+        eps = (0.42, 1.0)
+    else:
+        jb = jsyn.ais_like(n_vessels=24, max_points=96, seed=1)[0]
+        diam, mean_dt = jsyn.default_dsc_params_for(jb)
+        eps = (0.15 * diam, mean_dt)
+    words = jvote.neighbor_mask_packed(jgeo.subtrajectory_join(jb, jb, *eps))
+    valid = np.asarray(jb.valid)
+    return np.where(valid[..., None], _words_u32(words), 0), valid
+
+
+@pytest.mark.parametrize("w", [1, 6, 20])
+@pytest.mark.parametrize("case", ["fig1", "ais"])
+def test_tsa2_signal_impls_match_reference(case, w):
+    """``tsa2_signal(impl=)``: the packed engine and the 32x-expanded
+    bit-plane oracle give the reference's ``d`` bit for bit, each equal to
+    the other; an unknown name raises the reference's ``ValueError``."""
+    words, _ = _scenario_words(case)
+    outs = []
+    for impl in ("packed", "bitplane"):
+        j = np.asarray(jseg.tsa2_signal(jnp.asarray(words), w, impl=impl))
+        t = tseg.tsa2_signal(_words_i32(words), w, impl=impl).numpy()
+        assert np.array_equal(j, t), impl
+        outs.append(t)
+    assert np.array_equal(*outs) and bool((outs[0] > 0).any())
+    with pytest.raises(ValueError) as jerr:
+        jseg.tsa2_signal(jnp.asarray(words), w, impl="dense")
+    with pytest.raises(ValueError) as terr:
+        tseg.tsa2_signal(_words_i32(words), w, impl="dense")
+    assert str(terr.value) == str(jerr.value)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""The join kernels timed alone on one CUDA card, for the port in a given
+"""The port's kernels timed alone on one CUDA card, for the port in a given
 ``src`` directory, so that two versions of the port can be held against
 each other within one run (parent, change, change, parent):
 
     python3 tools/panel_kernel_ms.py [--src DIR] [--label NAME]
                                      [--only PART [PART ...]]
 
-(PART: fused, join, panels, cluster or lcss; all five by default.)
+(PART: fused, join, panels, cluster, lcss, jaccard or lists; all seven
+by default.)
 
 ``--src`` defaults to this checkout's ``src``; the kernels build beside
 it at first use.  Data and parameters are ``chip_smoke.brest_batch``'s
@@ -45,6 +46,19 @@ output.
 a digest of the scores; the same with eps_t = -1 (the time test rejects
 every cell: the DP alone) and eps_t = inf (every valid cell passes it).
 
+``jaccard``: K3 through the public wrapper on the TSA2 words of the
+fused path (K2's, raw), at dsc_brest and at dsc_sis (8,192 vessels),
+each after one ``run_dsc`` call of that path (its wall and segment stage
+are reported too): CUDA events around 10 calls, and a digest of ``d``.
+
+``lists``: K9 through the public wrapper at every dispatch's K of one
+``run_dsc`` call of the fused top-K path at dsc_brest (each dispatch's
+claim-max inputs recorded on the host by ``chip_smoke.recorded_claims``,
+so that call's wall and cluster stage include the copies): CUDA events
+around 20 calls a dispatch and around a CUDA graph of them (the device
+time: a small K's call is bound by the host), a digest of each output,
+and the sums.
+
 "Alone" is ``chip_smoke.graph_ms`` of the panel's launch with its
 operands prepared once and no slot-map check (K13 with the two zero
 fills of its slabs): through ``prepare_sim_panel``'s prepared call where
@@ -62,7 +76,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("fused", "join", "panels", "cluster", "lcss")
+PARTS = ("fused", "join", "panels", "cluster", "lcss", "jaccard", "lists")
 
 
 def panel_call(sj, batch, sub, ms, eps, p0, Sb, plan):
@@ -197,6 +211,61 @@ def lcss_measure(cs, dev):
     return res
 
 
+def jaccard_measure(cs, batch, params):
+    """One ``run_dsc`` call of the fused path, then K3 through the public
+    wrapper on that path's TSA2 words (K2's), timed and digested."""
+    from repro_torch.core.dsc import run_dsc
+    from repro_torch.kernels.jaccard.ops import window_jaccard
+    from repro_torch.kernels.stjoin import ops as sj
+    times = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_dsc(batch, params, plan=cs.kernel_plan("fused"),
+                  device=batch.x.device, stage_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    clusters = int(out.result.is_rep.sum())
+    del out
+    T, M = batch.x.shape
+    arrs = (batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2
+    eps = (params.eps_sp, params.eps_t, params.delta_t)
+    words = sj.stjoin_vote_fused_arrays(*arrs, *eps)[1].view(T, M, -1)
+    call = lambda: window_jaccard(words, batch.valid, w=params.w)
+    return dict(T=T, wall_s=wall, segment_ms=times["segment"],
+                clusters=clusters, digest=digest(call()),
+                K3=cs.time_ms(call, reps=10))
+
+
+def lists_measure(cs, batch, params):
+    """One ``run_dsc`` call of the fused top-K path with each dispatch's
+    claim-max inputs recorded, then K9 at every dispatch's K, timed and
+    digested."""
+    from repro_torch.core.dsc import run_dsc
+    from repro_torch.kernels.cluster.ops import topk_cluster_assign
+    times = {}
+    dev = batch.x.device
+    with cs.recorded_claims() as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_dsc(batch, params, plan=cs.kernel_plan("fused_topk"),
+                      device=dev, stage_times=times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    clusters = int(out.result.is_rep.sum())
+    del out
+    per = []
+    for rec in calls:
+        ops, alpha = [t.to(dev) for t in rec[:5]], rec[5]
+        fn = lambda: topk_cluster_assign(*ops, alpha)
+        w, slot = fn()
+        per.append(dict(K=ops[0].shape[1], ms=cs.time_ms(fn, reps=20),
+                        device_ms=cs.graph_ms(fn),
+                        digest=[digest(w), digest(slot)]))
+    return dict(wall_s=wall, cluster_ms=times["cluster"], clusters=clusters,
+                dispatches=per, K9_sum_ms=sum(p["ms"] for p in per),
+                K9_sum_device_ms=sum(p["device_ms"] for p in per))
+
+
 def fused_measure(cs, batch, params, path):
     """One ``run_dsc`` call of the dense fused ``path``, then its join_vote
     and similarity passes (K2 and K4, or K11 and K12 with the index) on
@@ -276,8 +345,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+", default=PARTS, choices=PARTS,
                     help="time only these parts: the dense fused passes, "
                          "the materialize join, the top-K panel passes, K5 "
-                         "over the clustering rounds, K14 (default: all "
-                         "five)")
+                         "over the clustering rounds, K14, K3, K9 at every "
+                         "top-K dispatch (default: all seven)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_kernel_ms: no CUDA device is available",
@@ -309,6 +378,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "lcss" in args.only:
         res["lcss"] = lcss_measure(cs, dev)
+    if "lists" in args.only:
+        res["lists"] = lists_measure(cs, *brest)
+    if "jaccard" in args.only:
+        res["jaccard"] = jaccard_measure(cs, *brest)
+        del brest, lanes
+        torch.cuda.empty_cache()
+        res["jaccard_sis"] = jaccard_measure(cs, *cs.brest_batch(8192, dev))
     print(card)
     print(json.dumps(res))
     return 0
