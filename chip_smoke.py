@@ -34,7 +34,10 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
    of every pair and the needed ones, with ptxas' registers and spills.
    K5 at every round state of the materialize run (recorded by wrapping
    its wrapper, ``recorded_rounds``): bitwise, timed, with its active rows
-   and bound, and the sums over the run.  (Every main run logs its
+   and bound, and the sums over the run.  K6 on the run's final
+   representatives and on a seeded half of the rows: bitwise its plain
+   twin, timed per call and as device time (a CUDA graph), with its bound
+   and the floor of one launch.  (Every main run logs its
    clustering stage cut by its own events into thresholds, visit order,
    round loop and claim-max: ``run_dsc``'s ``stage_parts``.)  K3 on the
    raw words (the kernel never reads an invalid position's), bitwise the
@@ -44,7 +47,8 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
 6. The fused path at ``dsc_sis`` (8192 vessels x 128 points, S = 65,536;
    the same generator and parameters): launch counts, sanity checks,
    stage times and peak memory; K5 at every round of that run (bitwise,
-   timed); then K2 and K4 on its inputs, timed and bitwise their plain
+   timed) and K6 on its final representatives (bitwise, timed as at
+   dsc_brest); then K2 and K4 on its inputs, timed and bitwise their plain
    versions on the first 256 rows, and K3 on K2's words, bitwise and timed
    with its bound.
 
@@ -1070,6 +1074,51 @@ def k5_rounds(sim, rank, alpha, states, name: str, report) -> list:
     return per
 
 
+def k6_bytes(R: int, n_valid: int, S: int) -> int:
+    """K6's bytes: the representative rows' valid columns of [S, S] f32
+    and their ranks, is_rep and valid (a byte a slot), the two outputs."""
+    return 4 * R * n_valid + 4 * R + 2 * S + 8 * S
+
+
+def launch_floor_ms() -> float:
+    """Device time of one near-empty kernel (``torch.cuda._sleep(0)``),
+    replayed from a CUDA graph as ``graph_ms`` replays a wrapper: the floor
+    of a launch, which K6's two kernels pay twice."""
+    return graph_ms(lambda: torch.cuda._sleep(0))
+
+
+def k6_check(sim, rank, rep, valid, alpha, name: str, report) -> dict:
+    """K6 on one instance: bit for bit its plain twin
+    (``cluster_assign_ref``), timed per call through the wrapper (CUDA
+    events around 20 back-to-back calls) and as device time (a CUDA graph
+    of 20 calls), with its byte bound and the launch floor."""
+    from repro_torch.kernels.cluster.ops import cluster_assign
+    from repro_torch.kernels.cluster.ref import cluster_assign_ref
+    kw, ks = cluster_assign(sim, rank, rep, valid, alpha)
+    pw, ps = cluster_assign_ref(sim, rank, rep, valid, alpha)
+    err = float((kw - pw).abs().max())
+    check(torch.equal(ks, ps), f"K6 ({name}): best_slot differs")
+    check(torch.equal(kw.view(torch.int32), pw.view(torch.int32)),
+          f"K6 ({name}): best_w not bitwise (max err {err})")
+    S = sim.shape[0]
+    R, n_valid = int(rep.sum()), int(valid.sum())
+    call = lambda: cluster_assign(sim, rank, rep, valid, alpha)
+    res = dict(R=R, S=S, ms=time_ms(call, reps=20), device_ms=graph_ms(call),
+               plain_ms=time_ms(lambda: cluster_assign_ref(
+                   sim, rank, rep, valid, alpha), reps=3),
+               bound_ms=bound_ms(k6_bytes(R, n_valid, S))[0],
+               floor_ms=launch_floor_ms(), claimed=int((ks >= 0).sum()),
+               err=err)
+    log(f"  K6 ({name}): R={R} of S={S} rows, {res['claimed']} columns "
+        f"claimed; bitwise the plain twin; {res['ms']:.4f} ms per call, "
+        f"{res['device_ms']:.4f} ms device (CUDA graph), plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms (bytes; "
+        f"{res['bound_ms'] / res['device_ms']:.1%} of the device time), "
+        f"launch floor {res['floor_ms']:.4f} ms a kernel")
+    report[f"k6 {name}"] = res
+    return res
+
+
 def k3_check(words, valid, w: int, name: str):
     """K3 on one path's TSA2 words: bitwise its plain version (the masked
     words through ``tsa2_signal``), timed through the wrapper on the raw
@@ -1104,10 +1153,8 @@ def phase_kernels(batch, params, out, launches, rows, states, report):
     plain output and time for the fused kernels' plain versions."""
     from repro_torch.core import voting
     from repro_torch.core.clustering import visit_order
-    from repro_torch.kernels.cluster.ops import (cluster_assign,
-                                                 cluster_round_scan)
-    from repro_torch.kernels.cluster.ref import (claim_max_ref,
-                                                 round_scan_ref)
+    from repro_torch.kernels.cluster.ops import cluster_round_scan
+    from repro_torch.kernels.cluster.ref import round_scan_ref
     from repro_torch.kernels.stjoin import ops as sj
     from repro_torch.kernels.stjoin.ref import chunk_time_bounds, stjoin_ref
     T, M = batch.x.shape
@@ -1172,7 +1219,7 @@ def phase_kernels(batch, params, out, launches, rows, states, report):
     # ---- K5 at every round of the main path's run ------------------------
     sim, table, alpha = out.sim, out.table, out.result.alpha_used
     S = sim.shape[0]
-    order, rank = visit_order(table)
+    _, rank = visit_order(table)
     per = k5_rounds(sim, rank, alpha, states, "dsc_brest materialize",
                     report)
     # beside the rounds: no row unresolved, the final representatives
@@ -1193,19 +1240,15 @@ def phase_kernels(batch, params, out, launches, rows, states, report):
                bound_ms(k5_bytes(S, per[0]["active"])), lib)
     log(f"  K5 row: round 0, {per[0]['active']} active rows of {S}")
 
-    rep = out.result.is_rep
-    kw6, ks6 = cluster_assign(sim, rank, rep, table.valid, alpha)
-    pw6, ps6 = claim_max_ref(sim, order, rank, rep, table.valid, alpha)
-    err = float((kw6 - pw6).abs().max())
-    check(torch.equal(ks6, ps6), "K6 best_slot differs")
-    check(torch.equal(kw6, pw6), f"K6 best_w not bitwise (max err {err})")
-    n_rep = int(rep.sum())
-    ms = time_ms(lambda: cluster_assign(sim, rank, rep, table.valid, alpha))
-    plain = time_ms(lambda: claim_max_ref(sim, order, rank, rep, table.valid,
-                                          alpha), reps=3)
-    kernel_row(rows, "claim_max", launches, err, ms, plain,
-               bound_ms(n_rep * S * 4.0 + S * 6 + S * 8))
-    log(f"  K6 timed on the final {n_rep} representative rows")
+    # ---- K6 on the final representatives, then on half the rows ---------
+    k6 = k6_check(sim, rank, out.result.is_rep, table.valid, alpha,
+                  "dsc_brest materialize, final reps", report)
+    kernel_row(rows, "claim_max", launches, k6["err"], k6["ms"],
+               k6["plain_ms"], (k6["bound_ms"], "bytes"))
+    g = torch.Generator(device=sim.device).manual_seed(0)
+    half = torch.rand(S, generator=g, device=sim.device) < 0.5
+    k6_check(sim, rank, half, table.valid, alpha,
+             "dsc_brest matrix, R = S/2 (seeded rows)", report)
     return pw, pi, k1_plain
 
 
@@ -1945,9 +1988,12 @@ def main(argv=None) -> int:
                                           n_vessels=8192, name="dsc_sis",
                                           rounds=sis_rounds)
     from repro_torch.core.clustering import visit_order
-    k5_rounds(sout.sim, visit_order(sout.table)[1], sout.result.alpha_used,
-              sis_rounds, "dsc_sis fused", report)
+    srank = visit_order(sout.table)[1]
+    k5_rounds(sout.sim, srank, sout.result.alpha_used, sis_rounds,
+              "dsc_sis fused", report)
     del sis_rounds
+    k6_check(sout.sim, srank, sout.result.is_rep, sout.table.valid,
+             sout.result.alpha_used, "dsc_sis fused, final reps", report)
     dense_labels = [getattr(sout.result, f).cpu() for f in LABELS]
     sub = sout.seg.sub_local
     del sout

@@ -105,10 +105,13 @@ _SIGNATURES = {
     "jaccard_window": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
     # sim, rank, unresolved, is_rep, alpha, S, blocked, claimed, stream
     "round_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P],
-    # sim, rank, is_rep, valid, alpha, S, scratch_w, scratch_rank,
-    # scratch_slot, n_split, best_w, best_slot, stream
-    "claim_max": [_P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P, _I,
-                  _P, _P, _P],
+    # sim, rank, is_rep, valid, alpha on the card (NULL: the next), alpha,
+    # S, scratch, its int32 words, best_w, best_slot, stream
+    "claim_max": [_P] * 5 + [ctypes.c_float, _I, _P, _I, _P, _P, _P],
+    # S -> int32 words of claim_max's scratch (negative: a CUDA error)
+    "claim_max_scratch": [_I],
+    # S, R -> the slices of K6's list of R rows (negative: a CUDA error)
+    "claim_max_slices": [_I, _I],
     # ids, sims, rank, unresolved, is_rep, alpha, S, K, blocked, claimed,
     # stream
     "topk_round_scan": [_P] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P],

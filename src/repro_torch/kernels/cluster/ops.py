@@ -9,19 +9,27 @@ no padding; CPU tensors take the plain versions in ``ref.py``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.types import f32
-from repro_torch.kernels import check_cuda_operands, launch
-from repro_torch.kernels.cluster.ref import (claim_max_ref, round_scan_ref,
+from repro_torch.kernels import check_cuda_operands, launch, library
+from repro_torch.kernels.cluster.ref import (cluster_assign_ref,
+                                             round_scan_ref,
                                              topk_claim_max_ref,
                                              topk_round_scan_ref)
 
 
-def _n_split(S: int) -> int:
-    """Row slices of K6's [S, S] sweep: enough blocks to fill the card at
-    full size (S = 32768: 256 column blocks x 16), one when S is small."""
-    return 16 if S >= 4096 else 1
+@functools.lru_cache(maxsize=None)
+def _claim_scratch(device: int, S: int) -> int:
+    """int32 words of K6's scratch on card ``device`` (its launcher's
+    rule: the row list, the slice counters and the slices' partials)."""
+    with torch.cuda.device(device):
+        n = library().claim_max_scratch(S)
+    if n < 0:
+        raise RuntimeError(f"claim_max: scratch query failed: error {-n}")
+    return n
 
 
 def cluster_round_scan(sim, rank, unresolved, is_rep, alpha):
@@ -42,25 +50,28 @@ def cluster_round_scan(sim, rank, unresolved, is_rep, alpha):
 
 
 def cluster_assign(sim, rank, is_rep, valid, alpha):
-    """(best_w [S], best_slot [S]) — final claim-max over rep rows."""
+    """(best_w [S], best_slot [S]) — final claim-max over rep rows: per
+    valid column the maximum weight, then the minimum rank, then the
+    lowest row, for any int32 ``rank``."""
     if not sim.is_cuda:
-        order = torch.empty_like(rank)
-        order[rank.long()] = torch.arange(rank.shape[0], dtype=rank.dtype)
-        return claim_max_ref(sim, order, rank, is_rep, valid, alpha)
+        return cluster_assign_ref(sim, rank, is_rep, valid, alpha)
     S = sim.shape[0]
     dev = check_cuda_operands(
         "claim_max", sim=(sim, torch.float32), rank=(rank, torch.int32),
         is_rep=(is_rep, torch.bool), valid=(valid, torch.bool))
-    n = _n_split(S)
-    part_w = torch.empty((n, S), dtype=torch.float32, device=dev)
-    part_rank = torch.empty((n, S), dtype=torch.int32, device=dev)
-    part_slot = torch.empty((n, S), dtype=torch.int32, device=dev)
+    # a threshold on the card is read there: no host sync
+    if torch.is_tensor(alpha) and alpha.device == dev:
+        alpha_t, alpha_v = alpha.to(torch.float32), 0.0
+    else:
+        alpha_t, alpha_v = None, float(f32(alpha, "cpu"))
+    n = _claim_scratch(dev.index, S)
+    scratch = torch.empty((n,), dtype=torch.int32, device=dev)
     best_w = torch.empty((S,), dtype=torch.float32, device=dev)
     best_slot = torch.empty((S,), dtype=torch.int32, device=dev)
     launch("claim_max", *(t.data_ptr() for t in (sim, rank, is_rep, valid)),
-           float(f32(alpha, "cpu")), S,
-           *(t.data_ptr() for t in (part_w, part_rank, part_slot)), n,
-           best_w.data_ptr(), best_slot.data_ptr(), device=dev)
+           None if alpha_t is None else alpha_t.data_ptr(), alpha_v, S,
+           scratch.data_ptr(), n, best_w.data_ptr(), best_slot.data_ptr(),
+           device=dev)
     return best_w, best_slot
 
 

@@ -14,6 +14,8 @@ from repro_torch.core.types import f32
 SCAN_THREADS, SCAN_GROUP, SCAN_CHUNK, SCAN_UNROLL = 128, 4, 1024, 4
 # K9's (topk_claim_max_kernel): entries a group, lanes a row at most
 CLAIM_GROUP, CLAIM_LANES = 4, 32
+# K6's (claim_max_kernel): listed representative rows a slice at least
+CLAIM_SPLIT_ROWS = 32
 
 
 def round_scan_ref(sim, rank, unresolved, is_rep, alpha):
@@ -77,16 +79,88 @@ def claim_max_ref(sim, order, rank, is_rep, valid, alpha):
     """Final membership claim-max: per column ``s``, the representative
     row of maximum similarity, minimum rank winning ties.  Returns
     ``(best_w [S] f32, best_slot [S] i32)``; ``(0.0, -1)`` where no
-    representative claims the column."""
+    representative claims the column.  The counterpart of the reference's
+    ``claim_max_ref``, whose ``order`` (the visit order, ``rank``'s
+    inverse) names the winning rank's row; ``cluster_assign_ref`` finds
+    that row without it, for any int32 ``rank``, so ``order`` goes
+    unused."""
+    return cluster_assign_ref(sim, rank, is_rep, valid, alpha)
+
+
+def cluster_assign_ref(sim, rank, is_rep, valid, alpha):
+    """K6's plain twin, for any int32 ``rank`` (duplicates included): per
+    valid column, over the representative rows with an alpha-edge to it,
+    the maximum weight, then the minimum rank among those rows, then the
+    lowest row of that rank; ``(0.0, -1)`` where no representative claims
+    the column.  The reference's ``_assign_kernel`` orders the candidates
+    the same way (strict ``<`` across row blocks, ``argmin`` within one),
+    except for a candidate of rank 2^31 - 1, its sentinel for "no
+    candidate", where its ``argmin`` may name a row that is not one."""
     S = sim.shape[0]
-    claim = (is_rep[:, None] & valid[None, :] & (sim > 0.0) & (sim >= alpha))
-    w = torch.where(claim, sim, 0.0)
+    dev = sim.device
+    rows = torch.nonzero(is_rep).flatten()
+    best_w = torch.zeros((S,), dtype=torch.float32, device=dev)
+    if rows.numel() == 0:
+        return best_w, torch.full((S,), -1, dtype=torch.int32, device=dev)
+    s = sim[rows]                                   # [R, S], rows ascending
+    claim = valid[None, :] & (s > 0.0) & (s >= f32(alpha, dev))
+    w = torch.where(claim, s, 0.0)
     best_w = w.amax(dim=0)
     cand = claim & (w == best_w[None, :])
-    r = torch.where(cand, rank[:, None], S)
-    best_rank = r.amin(dim=0)
-    best_slot = order[best_rank.clamp(0, S - 1)]
-    return best_w, torch.where(best_w > 0.0, best_slot, -1)
+    rk = rank[rows].to(torch.int32)[:, None]
+    best_rank = torch.where(cand, rk, torch.iinfo(torch.int32).max).amin(0)
+    at = cand & (rk == best_rank[None, :])
+    best_slot = torch.where(at, rows[:, None], S).amin(dim=0)
+    return best_w, torch.where(best_w > 0.0, best_slot.to(torch.int32), -1)
+
+
+def claim_max_schedule_ref(sim, rank, is_rep, valid, alpha, n_split: int):
+    """K6's schedule, plainly (the kernel's mirror; ``cluster_assign_ref``
+    is the contract): the representative rows listed in row order as
+    ``(row, rank)``, the list cut into ``claim_splits(R, n_split)`` slices
+    ``[R * y / n, R * (y + 1) / n)``; each slice keeps a running ``(w,
+    rank, slot)`` per column, replaced by a listed row with an alpha-edge
+    to a valid column and ``w`` greater, or equal with a smaller rank; the
+    slices' partials merge in slice order by the same test."""
+    S = sim.shape[0]
+    dev = sim.device
+    rows = torch.nonzero(is_rep).flatten()
+    R = rows.numel()
+    n = claim_splits(R, n_split)
+    alpha = f32(alpha, dev)
+    big = torch.iinfo(torch.int32).max
+
+    def empty():
+        return (torch.zeros((S,), dtype=torch.float32, device=dev),
+                torch.full((S,), big, dtype=torch.int32, device=dev),
+                torch.full((S,), -1, dtype=torch.int32, device=dev))
+
+    def fold(acc, w, r, slot):
+        aw, ar, aslot = acc
+        take = (w > aw) | ((w == aw) & (r < ar))
+        return (torch.where(take, w, aw), torch.where(take, r, ar),
+                torch.where(take, slot, aslot))
+
+    best = empty()
+    for y in range(n):
+        part = empty()
+        for u in rows[R * y // n:R * (y + 1) // n].tolist():
+            v = sim[u]
+            ok = valid & (v > 0.0) & (v >= alpha)
+            part = fold(part, torch.where(ok, v, 0.0),
+                        torch.where(ok, rank[u].to(torch.int32), big),
+                        torch.where(ok, u, -1).to(torch.int32))
+        best = fold(best, *part)
+    best_w = best[0]
+    return best_w, torch.where(best_w > 0.0, best[2], -1)
+
+
+def claim_splits(R: int, n_split: int) -> int:
+    """Slices K6 cuts its list of ``R`` representative rows into (its
+    kernel's rule): one per ``CLAIM_SPLIT_ROWS`` rows, at least one, at
+    most the launcher's ``n_split``.  The card tests hold it against the
+    launcher's own count (``claim_max_slices`` of the kernel library)."""
+    return max(1, min(n_split, -(-R // CLAIM_SPLIT_ROWS)))
 
 
 # Neighbor-list (top-K) variants: row ``s`` of ``ids`` / ``sims`` holds

@@ -1219,74 +1219,244 @@ round_scan_kernel(const float* __restrict__ sim,
 // ---------------------------------------------------------------------------
 // K6: the claim-max over representative rows.
 //
-// Per column s (valid): over rows u with is_rep[u] and an alpha-edge
-// (sim > 0 && sim >= alpha), the maximum weight, the minimum visit rank
-// among ties; best_slot = -1 where the weight is 0.
+// Per valid column s: over the rows u with is_rep[u] and an alpha-edge
+// (sim > 0 && sim >= alpha), the maximum weight, then the minimum rank
+// among those rows, then the lowest row of that rank; best_slot = -1
+// where the weight is 0.  The order (w desc, rank asc, row asc) is total
+// over the rows for any int32 rank, duplicates included: a running
+// (w, rank, slot) replaced only on a greater w, or an equal w with a
+// smaller rank, keeps the lowest row as long as it meets the rows in row
+// order, and the slices below are merged in row order.
 //
-// Bound: bytes (one read of the representative rows of [S, S]).  Design:
-// K5's layout, with a running (w, rank, slot) per column and thread.  Each
-// row slice writes its partial state to scratch; a second pass merges the
-// slices per column.  (weight desc, rank asc) is a total order on the
-// candidates because ranks are distinct, so the merge is exact in any
-// order.
+// Bound: bytes (one read of the R representative rows of [S, S]; R is 8
+// at dsc_brest, so at that size the launch is the floor).  Design:
+// * claim_list_kernel (one block) lists the representative rows in row
+//   order as (u, rank[u]) with their count R, and zeroes the slices'
+//   counters: no thread of the sweep tests a flag per row;
+// * claim_max_kernel: a block of CLAIM_THREADS threads owns CLAIM_COLS
+//   columns, 4 a thread, and one slice of the list.  The grid has the
+//   launcher's n_split slices (from the SM count); the list is cut into
+//   claim_splits(R) of them, one per CLAIM_SPLIT_ROWS rows at least, and
+//   the blocks of the other slices return at once.  A block stages its
+//   slice CLAIM_CHUNK entries at a time into shared memory and reads its
+//   4 columns of CLAIM_UNROLL listed rows before it tests any of them
+//   (float4 when S % 4 == 0 and sim is 16-byte aligned, else K5's scalar
+//   groups); a column past S or not valid is never a candidate;
+// * one slice writes the outputs itself.  Several write partials; the
+//   last of a column block's slices to finish (an integer counter, after
+//   a fence) merges them in slice order with the same strict test.  No
+//   float atomics; the result does not depend on the blocks' timing.
+// cluster/ref.py::claim_max_schedule_ref is the schedule's plain mirror.
 // ---------------------------------------------------------------------------
-__global__ void claim_max_partial_kernel(const float* __restrict__ sim,
-                                         const int* __restrict__ rank,
-                                         const uint8_t* __restrict__ is_rep,
-                                         const uint8_t* __restrict__ valid,
-                                         float alpha, int S,
-                                         int rows_per_split,
-                                         float* __restrict__ part_w,
-                                         int* __restrict__ part_rank,
-                                         int* __restrict__ part_slot) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int u0 = blockIdx.y * rows_per_split;
-  const int u1 = min(S, u0 + rows_per_split);
-  float aw = 0.f;
-  int ar = INT_MAX, as = -1;
-  if (valid[s]) {
-    for (int u = u0; u < u1; ++u) {
-      if (!is_rep[u]) continue;
-      const float v = sim[(size_t)u * S + s];
-      if (v > 0.f && v >= alpha) {
-        const int r = rank[u];
-        if (v > aw || (v == aw && r < ar)) {
-          aw = v;
-          ar = r;
-          as = u;
-        }
-      }
-    }
-  }
-  const size_t o = (size_t)blockIdx.y * S + s;
-  part_w[o] = aw;
-  part_rank[o] = ar;
-  part_slot[o] = as;
+constexpr int LIST_THREADS = 1024;
+constexpr int LIST_ROWS = 64;        // rows a thread, a pass of the list
+constexpr int CLAIM_THREADS = 128;
+constexpr int CLAIM_COLS = 4 * CLAIM_THREADS;
+constexpr int CLAIM_CHUNK = 1024;
+constexpr int CLAIM_UNROLL = 8;
+constexpr int CLAIM_SPLIT_ROWS = 32;
+
+__host__ __device__ __forceinline__ int claim_splits(int R, int n_split) {
+  return max(1, min(n_split, (R + CLAIM_SPLIT_ROWS - 1) / CLAIM_SPLIT_ROWS));
 }
 
-__global__ void claim_max_merge_kernel(const float* __restrict__ part_w,
-                                       const int* __restrict__ part_rank,
-                                       const int* __restrict__ part_slot,
-                                       int S, int n_split,
-                                       float* __restrict__ best_w,
-                                       int* __restrict__ best_slot) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  float aw = 0.f;
-  int ar = INT_MAX, as = -1;
-  for (int k = 0; k < n_split; ++k) {
-    const size_t o = (size_t)k * S + s;
-    const float v = part_w[o];
-    const int r = part_rank[o];
-    if (v > aw || (v == aw && r < ar)) {
-      aw = v;
-      ar = r;
-      as = part_slot[o];
+// Bit i: is_rep[u0 + i] is set (0 past S).  Four 16-byte loads where the
+// thread's rows lie whole inside S and is_rep is 16-byte aligned, else
+// byte loads; either way all loads before any test.
+__device__ __forceinline__ unsigned long long list_flags(
+    const uint8_t* __restrict__ is_rep, int u0, int S, bool vec) {
+  unsigned long long mask = 0;
+  if (vec && u0 + LIST_ROWS <= S) {
+    uint4 w[LIST_ROWS / 16];
+#pragma unroll
+    for (int j = 0; j < LIST_ROWS / 16; ++j)
+      w[j] = __ldg(reinterpret_cast<const uint4*>(is_rep + u0) + j);
+#pragma unroll
+    for (int j = 0; j < LIST_ROWS / 16; ++j) {
+      const unsigned x[4] = {w[j].x, w[j].y, w[j].z, w[j].w};
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        mask |= (unsigned long long)(((x[k >> 2] >> (8 * (k & 3))) & 0xffu)
+                                     != 0u) << (16 * j + k);
+    }
+  } else {
+    uint8_t f[LIST_ROWS];
+#pragma unroll
+    for (int i = 0; i < LIST_ROWS; ++i)
+      f[i] = u0 + i < S ? __ldg(is_rep + u0 + i) : 0;
+#pragma unroll
+    for (int i = 0; i < LIST_ROWS; ++i)
+      mask |= (unsigned long long)(f[i] != 0) << i;
+  }
+  return mask;
+}
+
+__global__ void __launch_bounds__(LIST_THREADS)
+claim_list_kernel(const uint8_t* __restrict__ is_rep,
+                  const int* __restrict__ rank, int S, int col_blocks,
+                  int2* __restrict__ list, int* __restrict__ count,
+                  int* __restrict__ done) {
+  __shared__ int warp_n[LIST_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec = (reinterpret_cast<uintptr_t>(is_rep) & 15) == 0;
+  for (int x = threadIdx.x; x < col_blocks; x += LIST_THREADS) done[x] = 0;
+  int n = 0;
+  for (int base = 0; base < S; base += LIST_THREADS * LIST_ROWS) {
+    // each thread's LIST_ROWS consecutive rows
+    const int u0 = base + threadIdx.x * LIST_ROWS;
+    unsigned long long mask = list_flags(is_rep, u0, S, vec);
+    // block-wide exclusive scan of the threads' counts, in thread order
+    const int c = __popcll(mask);
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_n[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int v = warp_n[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += y;
+      }
+      warp_n[lane] = v;
+    }
+    __syncthreads();
+    int at = n + incl - c + (warp ? warp_n[warp - 1] : 0);
+    while (mask) {
+      const int u = u0 + __ffsll(mask) - 1;
+      mask &= mask - 1;
+      list[at++] = make_int2(u, rank[u]);
+    }
+    n += warp_n[LIST_THREADS / 32 - 1];
+    __syncthreads();     // the next pass rewrites warp_n
+  }
+  if (threadIdx.x == 0) *count = n;
+}
+
+// The listed row u (of rank rk) against the thread's columns: a candidate
+// replaces the running (w, rank, slot) on a greater w, or an equal w with
+// a smaller rank.
+__device__ __forceinline__ void claim_test(float4 v, int u, int rk,
+                                           float alpha, const bool (&ok)[4],
+                                           float (&aw)[4], int (&ar)[4],
+                                           int (&as)[4]) {
+  const float c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (ok[q] && c[q] > 0.f && c[q] >= alpha
+        && (c[q] > aw[q] || (c[q] == aw[q] && rk < ar[q]))) {
+      aw[q] = c[q];
+      ar[q] = rk;
+      as[q] = u;
     }
   }
-  best_w[s] = aw;
-  best_slot[s] = aw > 0.f ? as : -1;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(CLAIM_THREADS)
+claim_max_kernel(const float* __restrict__ sim,
+                 const uint8_t* __restrict__ valid,
+                 const float* __restrict__ alpha_p, float alpha_v, int S,
+                 const int2* __restrict__ list, const int* __restrict__ count,
+                 int* __restrict__ done, float* __restrict__ part_w,
+                 int* __restrict__ part_r, int* __restrict__ part_s,
+                 float* __restrict__ best_w, int* __restrict__ best_slot) {
+  __shared__ int list_u[CLAIM_CHUNK];
+  __shared__ int list_r[CLAIM_CHUNK];
+  __shared__ int last;
+  const int R = *count;
+  const float alpha = alpha_p ? *alpha_p : alpha_v;
+  const int n = claim_splits(R, gridDim.y);
+  const int y = blockIdx.y;
+  if (y >= n) return;                     // uniform across the block
+  const int k0 = (int)((long long)R * y / n);
+  const int k1 = (int)((long long)R * (y + 1) / n);
+  const int c0 = blockIdx.x * CLAIM_COLS + 4 * threadIdx.x;
+  bool ok[4];
+  float aw[4];
+  int ar[4], as[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    ok[q] = c0 + q < S && valid[c0 + q] != 0;
+    aw[q] = 0.f;
+    ar[q] = INT_MAX;
+    as[q] = -1;
+  }
+  const bool live = ok[0] || ok[1] || ok[2] || ok[3];
+  for (int base = k0; base < k1; base += CLAIM_CHUNK) {
+    const int m = min(CLAIM_CHUNK, k1 - base);
+    for (int i = threadIdx.x; i < m; i += CLAIM_THREADS) {
+      const int2 e = list[base + i];
+      list_u[i] = e.x;
+      list_r[i] = e.y;
+    }
+    __syncthreads();
+    if (live) {
+      int k = 0;
+      for (; k + CLAIM_UNROLL <= m; k += CLAIM_UNROLL) {
+        float4 v[CLAIM_UNROLL];
+#pragma unroll
+        for (int q = 0; q < CLAIM_UNROLL; ++q)
+          v[q] = scan_load<VEC>(sim + (size_t)list_u[k + q] * S, c0, S);
+#pragma unroll
+        for (int q = 0; q < CLAIM_UNROLL; ++q)
+          claim_test(v[q], list_u[k + q], list_r[k + q], alpha, ok, aw, ar,
+                     as);
+      }
+      for (; k < m; ++k)
+        claim_test(scan_load<VEC>(sim + (size_t)list_u[k] * S, c0, S),
+                   list_u[k], list_r[k], alpha, ok, aw, ar, as);
+    }
+    __syncthreads();     // the next chunk rewrites the list
+  }
+  if (n == 1) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (c0 + q < S) {
+        best_w[c0 + q] = aw[q];
+        best_slot[c0 + q] = aw[q] > 0.f ? as[q] : -1;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (c0 + q < S) {
+      const size_t o = (size_t)y * S + c0 + q;
+      part_w[o] = aw[q];
+      part_r[o] = ar[q];
+      part_s[o] = as[q];
+    }
+  }
+  __threadfence();       // the partials before the count that publishes them
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done + blockIdx.x, 1) == n - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (c0 + q < S) {
+      float w = 0.f;
+      int r = INT_MAX, s = -1;
+      for (int j = 0; j < n; ++j) {      // slice order: row order
+        const size_t o = (size_t)j * S + c0 + q;
+        const float pw = __ldcg(part_w + o);
+        const int pr = __ldcg(part_r + o);
+        if (pw > w || (pw == w && pr < r)) {
+          w = pw;
+          r = pr;
+          s = __ldcg(part_s + o);
+        }
+      }
+      best_w[c0 + q] = w;
+      best_slot[c0 + q] = w > 0.f ? s : -1;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1444,8 +1614,6 @@ topk_claim_max_kernel(const int* __restrict__ ids,
   }
 }
 
-constexpr int kColThreads = 128;
-
 int rows_per_split(int S, int n_split) {
   return (S + n_split - 1) / n_split;
 }
@@ -1546,6 +1714,24 @@ int sim_setup(PanelArgs& a, int T, int M, int C, int Mc, int ms,
                 chunk_hi, (Mc + kChunk - 1) / kChunk, 0, 0, C - 1, 0, 0,
                 (long long)T * ms, (long long)C * ms, stats, raw, nullptr};
   return panel_setup(a, Mc, kernel, smem);
+}
+
+// K6's scratch (int32 words): the row list (S int2), its count, one
+// counter a column block and, with more than one slice, the slices'
+// partials (w, rank, slot); n_split from the SM count, about 16 blocks an
+// SM over the column blocks (returns a CUDA error, or 0).
+int claim_layout(int S, int* col_blocks, int* n_split, long long* words) {
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  *col_blocks = max(1, (S + CLAIM_COLS - 1) / CLAIM_COLS);
+  *n_split = max(1, min((S + CLAIM_SPLIT_ROWS - 1) / CLAIM_SPLIT_ROWS,
+                        16 * n_sm / *col_blocks));
+  *words = 2LL * S + 1 + *col_blocks
+           + (*n_split > 1 ? 3LL * *n_split * S : 0);
+  return 0;
 }
 
 }  // namespace
@@ -1851,20 +2037,63 @@ int round_scan(const float* sim, const int* rank, const uint8_t* unresolved,
   return (int)cudaGetLastError();
 }
 
+int claim_max_scratch(int S) {
+  if (S < 0 || S > (INT_MAX >> 2)) return -(int)cudaErrorInvalidValue;
+  int cb = 0, ns = 0;
+  long long words = 0;
+  const int err = claim_layout(S, &cb, &ns, &words);
+  if (err) return -err;
+  return words > INT_MAX ? -(int)cudaErrorInvalidValue : (int)words;
+}
+
+// The slices claim_max_kernel cuts a list of R representative rows into
+// at S columns on the current card (R = S: the launcher's n_split), or a
+// negative CUDA error; cluster/ref.py::claim_splits mirrors the rule.
+int claim_max_slices(int S, int R) {
+  if (S < 0 || S > (INT_MAX >> 2) || R < 0 || R > S)
+    return -(int)cudaErrorInvalidValue;
+  int cb = 0, ns = 0;
+  long long words = 0;
+  const int err = claim_layout(S, &cb, &ns, &words);
+  return err ? -err : claim_splits(R, ns);
+}
+
+// alpha: *alpha_p on the card where alpha_p is not NULL (the engine's
+// threshold, read without a host sync), else alpha_v
 int claim_max(const float* sim, const int* rank, const uint8_t* is_rep,
-              const uint8_t* valid, float alpha, int S, float* part_w,
-              int* part_rank, int* part_slot, int n_split, float* best_w,
-              int* best_slot, cudaStream_t stream) {
+              const uint8_t* valid, const float* alpha_p, float alpha_v,
+              int S, int* scratch, int words, float* best_w, int* best_slot,
+              cudaStream_t stream) {
   if (S > 0) {
-    const dim3 grid((S + kColThreads - 1) / kColThreads, n_split);
-    claim_max_partial_kernel<<<grid, kColThreads, 0, stream>>>(
-        sim, rank, is_rep, valid, alpha, S, rows_per_split(S, n_split),
-        part_w, part_rank, part_slot);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    claim_max_merge_kernel<<<(S + kColThreads - 1) / kColThreads,
-                             kColThreads, 0, stream>>>(
-        part_w, part_rank, part_slot, S, n_split, best_w, best_slot);
+    if (S > (INT_MAX >> 2) || (reinterpret_cast<uintptr_t>(scratch) & 7))
+      return (int)cudaErrorInvalidValue;
+    int cb = 0, ns = 0;
+    long long need = 0;
+    const int err = claim_layout(S, &cb, &ns, &need);
+    if (err) return err;
+    if (need > words) return (int)cudaErrorInvalidValue;
+    int2* list = reinterpret_cast<int2*>(scratch);
+    int* count = scratch + 2LL * S;
+    int* done = count + 1;
+    int* part = done + cb;
+    const size_t np = (size_t)ns * S;
+    float* part_w = ns > 1 ? reinterpret_cast<float*>(part) : nullptr;
+    int* part_r = ns > 1 ? part + np : nullptr;
+    int* part_s = ns > 1 ? part + 2 * np : nullptr;
+    claim_list_kernel<<<1, LIST_THREADS, 0, stream>>>(is_rep, rank, S, cb,
+                                                      list, count, done);
+    const cudaError_t lerr = cudaGetLastError();
+    if (lerr != cudaSuccess) return (int)lerr;
+    const dim3 grid(cb, ns);
+    if (S % 4 == 0 && (reinterpret_cast<uintptr_t>(sim) & 15) == 0) {
+      claim_max_kernel<true><<<grid, CLAIM_THREADS, 0, stream>>>(
+          sim, valid, alpha_p, alpha_v, S, list, count, done, part_w,
+          part_r, part_s, best_w, best_slot);
+    } else {
+      claim_max_kernel<false><<<grid, CLAIM_THREADS, 0, stream>>>(
+          sim, valid, alpha_p, alpha_v, S, list, count, done, part_w,
+          part_r, part_s, best_w, best_slot);
+    }
   }
   return (int)cudaGetLastError();
 }

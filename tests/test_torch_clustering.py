@@ -2,6 +2,8 @@
 package on seeded random ``[S, S]`` matrices, with tied weights and tied
 voting.  Labels must be equal; alpha / k only to float32 rounding (the
 vector sums run in another order than XLA's)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,7 @@ from repro.core import clustering as jcl
 from repro.core.types import DSCParams as JParams
 from repro.core.types import SubtrajTable as JTable
 from repro.kernels.cluster.cluster import assign_pallas, round_scan_pallas
+from repro.kernels.cluster.ops import cluster_assign as jax_assign
 from repro.kernels.cluster.ops import plan_tiles
 from repro_torch.core import clustering as tcl
 from repro_torch.core.types import DSCParams, SubtrajTable, TopKSim
@@ -85,6 +88,60 @@ def test_plain_k5_k6_match_pallas(seed, S, tied):
     assert np.array_equal(np.asarray(jw)[:S], tw.numpy())
     assert np.array_equal(np.asarray(js)[:S], tsl.numpy())
     assert tb.any() and tsl.ge(0).any()
+
+
+@functools.lru_cache(maxsize=None)
+def _fig1_instance():
+    """fig1's matrix from the reference's ``run_dsc``, its weights rounded
+    up to quarters (ties in every column), and its table's ``valid``."""
+    (jsim, jt, _), _ = _dsc_inputs("fig1", "dense")
+    sim = np.ceil(np.asarray(jsim) * 4).astype(np.float32) / 4
+    return sim, np.array(jt.valid)
+
+
+# rank kinds: a permutation (the visit order's), duplicates from 8 values,
+# and ranks spread over the int32 range (2^31 - 1 excluded: it is the
+# reference's sentinel for "no candidate", ref.py::cluster_assign_ref)
+RANKS = {"perm": lambda rng, S: rng.permutation(S),
+         "dup": lambda rng, S: rng.integers(0, 8, S),
+         "wide": lambda rng, S: rng.integers(-2 ** 31, 2 ** 31 - 1, S)}
+
+
+@pytest.mark.parametrize("ranks", sorted(RANKS))
+@pytest.mark.parametrize("instance", ["fig1", "rand40", "rand200"])
+def test_plain_k6_any_ranks_match_pallas(instance, ranks):
+    """``cluster_assign`` on the CPU (K6's plain twin) against the
+    reference's ``cluster_assign`` (interpret mode) for any int32 ranks:
+    ``best_w`` bit for bit, ``best_slot`` equal, ties in weight and (for
+    duplicate ranks) in weight and rank going to the lowest row."""
+    if instance == "fig1":
+        sim, valid = _fig1_instance()
+        rng = np.random.default_rng(7)
+    else:
+        S = int(instance[4:])
+        sim, _, _ = _instance(S, S, tied=True)
+        rng = np.random.default_rng(S + 1)
+        valid = rng.uniform(size=S) < 0.9
+    S = sim.shape[0]
+    rank = RANKS[ranks](rng, S).astype(np.int32)
+    rep = rng.uniform(size=S) < 0.3
+    alpha = np.float32(0.5)
+    jw, js = jax_assign(*(jnp.asarray(a) for a in (sim, rank, rep, valid)),
+                        alpha, interpret=True)
+    t = [torch.from_numpy(a) for a in (sim, rank, rep, valid)]
+    tw, ts = cluster_assign(*t, alpha)
+    assert np.array_equal(np.asarray(jw).view(np.int32),
+                          tw.numpy().view(np.int32))
+    assert np.array_equal(np.asarray(js), ts.numpy())
+    # the columns whose winner was decided by the weight tie-break (and,
+    # for duplicates, by the row tie-break too): the instance reaches both
+    claim = rep[:, None] & valid[None, :] & (sim > 0) & (sim >= alpha)
+    w = np.where(claim, sim, 0)
+    top = claim & (w == w.max(0)) & (w.max(0) > 0)
+    assert (top.sum(0) > 1).any()
+    if ranks == "dup":
+        rk = np.where(top, rank[:, None], 2 ** 31 - 1)
+        assert ((top & (rk == rk.min(0))).sum(0) > 1).any()
 
 
 def _assert_labels(jres, tres, tol_alpha=1e-6, tol_k=1e-5):

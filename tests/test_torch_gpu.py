@@ -22,7 +22,10 @@ from repro_torch.kernels.cluster.ops import (cluster_assign,
                                              cluster_round_scan,
                                              topk_cluster_assign,
                                              topk_cluster_round_scan)
-from repro_torch.kernels.cluster.ref import (claim_max_ref, round_scan_ref,
+from repro_torch.kernels.cluster.ref import (claim_max_schedule_ref,
+                                             claim_splits,
+                                             cluster_assign_ref,
+                                             round_scan_ref,
                                              topk_claim_max_schedule_ref)
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import (flash_attention_ref,
@@ -282,8 +285,7 @@ def _k5_instance(cuda, S, state, seed):
 
 # (S, state): S % 4 == 0 takes the float4 kernel, else the scalar one
 # (and S = 200 again through a misaligned view); 32768 is dsc_brest's S;
-# 4097_wide spreads the ranks over the int32 range (K5 only: K6's plain
-# version reads rank as a visit position)
+# 4097_wide spreads the ranks over the int32 range
 K5_CASES = [(200, "mixed"), (5000, "mixed"), (4097, "mixed"),
             (5001, "mixed"), (32768, "sparse"), (200, "all"), (4097, "all"),
             (5001, "none"), (32768, "none"), ("200_offset", "mixed"),
@@ -292,7 +294,8 @@ K5_CASES = [(200, "mixed"), (5000, "mixed"), (4097, "mixed"),
 
 @pytest.mark.parametrize("S,state", K5_CASES)
 def test_k5_k6_match_plain(cuda, S, state):
-    """K5 (one launch) and K6 equal to their plain versions on the card."""
+    """K5 and K6 (one launch each) equal to their plain versions on the
+    card: K6's weights bit for bit."""
     offset, wide = S == "200_offset", S == "4097_wide"
     S = {"200_offset": 200, "4097_wide": 4097}.get(S, S)
     sim, rank, unres, rep, valid = _k5_instance(cuda, S, state, S)
@@ -310,13 +313,85 @@ def test_k5_k6_match_plain(cuda, S, state):
     pb, pc = round_scan_ref(sim, rank, unres, rep, 0.5)
     assert torch.equal(kb, pb) and torch.equal(kc, pc)
     assert bool(kb.any()) == (state != "none")
-    if wide:
-        return
+    before = kernels.LAUNCHES["claim_max"]
     kw, ks = cluster_assign(sim, rank, rep, valid, 0.5)
-    order = torch.empty_like(rank)
-    order[rank.long()] = torch.arange(S, dtype=rank.dtype, device=cuda)
-    pw, ps = claim_max_ref(sim, order, rank, rep, valid, 0.5)
-    assert torch.equal(kw, pw) and torch.equal(ks, ps)
+    assert kernels.LAUNCHES["claim_max"] == before + 1
+    pw, ps = cluster_assign_ref(sim, rank, rep, valid, 0.5)
+    assert torch.equal(kw.view(torch.int32), pw.view(torch.int32))
+    assert torch.equal(ks, ps)
+    assert bool((ks >= 0).any()) == bool(rep.any())
+
+
+# name: (S, representative rows, ranks, share of valid columns, offset);
+# R = S / 2 and S cut the list into many slices (merged), R <= 8 one
+K6_CASES = {"dup_5000": (5000, 500, "dup", 0.9, 0),
+            "dup_4097": (4097, 500, "dup", 0.9, 0),
+            "r0": (32768, 0, "perm", 0.9, 0),
+            "r1": (32768, 1, "dup", 0.9, 0),
+            "r8": (32768, 8, "wide", 0.9, 0),
+            "half": (32768, 16384, "dup", 0.9, 0),
+            "all": (32768, 32768, "wide", 0.9, 0),
+            "all_4097": (4097, 4097, "dup", 0.9, 0),
+            "none_valid": (32768, 16384, "dup", 0.0, 0),
+            "s65536": (65536, 8, "dup", 0.9, 0),
+            "offset": (4096, 300, "dup", 0.9, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_k6_matches_plain(cuda, case):
+    """K6 bit for bit its plain twin, one launch and no host sync (alpha
+    on the card, as the engine passes it), for duplicate ranks and ranks
+    over the int32 range, R from 0 to S, no valid column, S = 65536 and a
+    misaligned view with S % 4 == 0.  The matrix holds weights in
+    {0.25, 0.5, 0.75, 1} on about half its entries (alpha = 0.5: ties in
+    weight everywhere, and in weight and rank for duplicate ranks), made in
+    place on the card from a seed (no symmetry: K6 does not need it)."""
+    S, R, ranks, p_valid, offset = K6_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(S + R)
+    buf = torch.rand(S * S + offset, generator=g, device=cuda)
+    sim = buf[offset:].view(S, S)
+    assert (sim.data_ptr() % 16 != 0) == bool(offset)
+    sim.sub_(0.5).mul_(8).ceil_().clamp_(min=0).div_(4)
+    rank = {"perm": lambda: torch.randperm(S, generator=g, device=cuda),
+            "dup": lambda: torch.randint(0, 8, (S,), generator=g,
+                                         device=cuda),
+            "wide": lambda: torch.randint(-2 ** 31, 2 ** 31 - 1, (S,),
+                                          generator=g, device=cuda),
+            }[ranks]().to(torch.int32)
+    rep = torch.zeros(S, dtype=torch.bool, device=cuda)
+    rep[torch.randperm(S, generator=g, device=cuda)[:R]] = True
+    valid = torch.rand(S, generator=g, device=cuda) < p_valid
+    alpha = torch.tensor(0.5, device=cuda)    # the engine's: on the card
+    before = kernels.LAUNCHES["claim_max"]
+    torch.cuda.set_sync_debug_mode("error")   # a host sync would raise
+    try:
+        kw, ks = cluster_assign(sim, rank, rep, valid, alpha)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.LAUNCHES["claim_max"] == before + 1
+    pw, ps = cluster_assign_ref(sim, rank, rep, valid, 0.5)
+    assert torch.equal(kw.view(torch.int32), pw.view(torch.int32))
+    assert torch.equal(ks, ps)
+    assert bool((ks >= 0).any()) == (R > 0 and p_valid > 0)
+    if S <= 5000:     # the mirror, at the launcher's slice count
+        n_split = kernels.library().claim_max_slices(S, S)
+        mw, ms = claim_max_schedule_ref(sim, rank, rep, valid, 0.5, n_split)
+        assert torch.equal(mw.view(torch.int32), kw.view(torch.int32))
+        assert torch.equal(ms, ks)
+
+
+@pytest.mark.parametrize("S", [1, 200, 4097, 32768, 65536])
+def test_k6_slices_match_mirror(cuda, S):
+    """The slices K6 cuts a list of R representative rows into, read from
+    its launcher, equal ``claim_splits`` (the rule of the schedule's
+    mirror) at the launcher's slice count (its count at R = S), across the
+    rule's edges at 32 rows a slice."""
+    lib = kernels.library()
+    n_split = lib.claim_max_slices(S, S)
+    assert 1 <= n_split <= max(1, -(-S // 32))
+    for R in sorted({0, 1, 8, 31, 32, 33, 64, 65, 1000, S // 2, S}):
+        if R <= S:
+            assert lib.claim_max_slices(S, R) == claim_splits(R, n_split)
 
 
 @pytest.mark.parametrize("mode", sorted(PATH_KERNELS))

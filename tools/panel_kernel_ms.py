@@ -39,7 +39,12 @@ materialize path (its round states recorded by
 ``chip_smoke.recorded_rounds``; that call's wall and cluster stage are
 reported too), on that call's ``[S, S]`` matrix: CUDA events around 10
 calls of the public wrapper a round, and a digest of each round's
-output.
+output; then K6 on the same matrix, with that call's final
+representatives, with a seeded half of the rows and with every row (R =
+S): CUDA events around 20 calls of the public wrapper and around a CUDA
+graph of them (the device time), and a digest of both outputs; and the
+device time of one near-empty kernel (``torch.cuda._sleep(0)``) from a
+CUDA graph, the floor of a launch.
 
 ``lcss``: K14 at full width (``chip_smoke.lcss_pairs``: 32,768 pairs of
 128 x 128 points): CUDA events around 10 calls of ``lcss_wavefront``, and
@@ -170,10 +175,13 @@ def digest(t) -> int:
 
 def cluster_measure(cs, batch, params):
     """One ``run_dsc`` call of the materialize path, its round states
-    recorded, then K5 alone at every round on that call's matrix."""
+    recorded, then K5 alone at every round on that call's matrix, and K6 on
+    its final representatives, on a seeded half of the rows and on every
+    row."""
     from repro_torch.core.clustering import visit_order
     from repro_torch.core.dsc import run_dsc
-    from repro_torch.kernels.cluster.ops import cluster_round_scan
+    from repro_torch.kernels.cluster.ops import (cluster_assign,
+                                                 cluster_round_scan)
     times = {}
     with cs.recorded_rounds() as states:
         torch.cuda.synchronize()
@@ -191,9 +199,21 @@ def cluster_measure(cs, batch, params):
         rounds.append(dict(active=int((unres | rep).sum()),
                            ms=cs.time_ms(call, reps=10),
                            digest=[digest(b), digest(c)]))
+    g = torch.Generator(device=sim.device).manual_seed(0)
+    half = torch.rand(sim.shape[0], generator=g, device=sim.device) < 0.5
+    k6, a = {}, float(alpha)     # by value: a parent's wrapper syncs on it
+    every = torch.ones_like(half)
+    for name, rep in (("final", out.result.is_rep), ("half", half),
+                      ("all", every)):
+        call = lambda: cluster_assign(sim, rank, rep, out.table.valid, a)
+        w, slot = call()
+        k6[name] = dict(R=int(rep.sum()), ms=cs.time_ms(call, reps=20),
+                        device_ms=cs.graph_ms(call),
+                        digest=[digest(w), digest(slot)])
     return dict(wall_s=wall, cluster_ms=times["cluster"],
                 clusters=int(out.result.is_rep.sum()), rounds=rounds,
-                K5_sum_ms=sum(r["ms"] for r in rounds))
+                K5_sum_ms=sum(r["ms"] for r in rounds), K6=k6,
+                launch_floor_ms=cs.graph_ms(lambda: torch.cuda._sleep(0)))
 
 
 def lcss_measure(cs, dev):
@@ -345,8 +365,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+", default=PARTS, choices=PARTS,
                     help="time only these parts: the dense fused passes, "
                          "the materialize join, the top-K panel passes, K5 "
-                         "over the clustering rounds, K14, K3, K9 at every "
-                         "top-K dispatch (default: all seven)")
+                         "over the clustering rounds and K6, K14, K3, K9 at "
+                         "every top-K dispatch (default: all seven)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_kernel_ms: no CUDA device is available",
