@@ -72,6 +72,29 @@ Top-K similarity (``sim_mode="topk"``, the default K = 32 and widening):
 * the fused top-K path at ``dsc_sis``: labels equal to the dense dsc_sis
   run's (after step 6).
 
+The launcher and the stage entry points (after the fused top-K run at
+dsc_brest; launch counts zeroed just before each run and read just
+after):
+
+* ``repro_torch.launch.run_dsc.main`` in this process with ``--config
+  dsc_brest --n-trajs 4096 --segmentation tsa2 --plan`` the fused kernel
+  plan (a JSON file written by ``EnginePlan.save`` under ``build/``): its
+  labels, ``member_sim``, alpha and k bitwise the fused main run's, and
+  its launch counts equal to that run's; its wall (with the data
+  generation, also timed alone) and peak allocation printed.  The same
+  with the deprecated flags (``--mode fused --use-kernel
+  --seg-use-kernel --cluster-use-kernel``) against the ``--plan`` run,
+  and (after the dsc_sis fused run) with ``--config dsc_sis --n-trajs
+  8192`` against that run;
+* the seven stage entry points chained on dsc_brest with the fused and
+  the materialize kernel plans: every field bitwise the main run's, with
+  its launch counts (materialize: ``run_stage_vote_from_join`` on the
+  chain's cube equal to ``run_stage_join``'s votes and words);
+  ``run_dsc_lowerable`` with the fused kernel plan: every field bitwise
+  the main fused run's;
+* (before LCSS) the S2T baseline on the card and on the CPU, on the
+  figure-1 scenario: equal labels.
+
 Index pruning (``use_index=True``, the pruned kernels K10-K13):
 
 * T = 512: the materialize, fused and fused top-K kernel plans with the
@@ -384,18 +407,20 @@ def same_topk(out, dense, what: str):
               f"{what}: TopKSim.{f} not bitwise topk_from_dense")
 
 
-def same_output(a, b) -> list[str]:
-    diffs = []
-    pairs = {"vote": (a.vote, b.vote), "score": (a.seg.score, b.seg.score),
-             "sub_local": (a.seg.sub_local, b.seg.sub_local),
-             "sim": (a.sim, b.sim), "sscr": (a.sscr, b.sscr)}
-    for f in ("member_of", "member_sim", "is_rep", "is_outlier",
-              "alpha_used", "k_used"):
-        pairs[f] = (getattr(a.result, f), getattr(b.result, f))
-    for name, (x, y) in pairs.items():
-        if not torch.equal(x, y):
-            diffs.append(name)
-    return diffs
+def diff_fields(a, b, what: str = "out") -> list[str]:
+    """The fields (dataclasses, tensors, numbers, None, recursively) where
+    ``a`` and ``b`` are not bitwise equal."""
+    import dataclasses
+    if a is None or b is None:
+        return [] if a is None and b is None else [what]
+    if torch.is_tensor(a):
+        same = a.dtype == b.dtype and torch.equal(a, b)
+        return [] if same else [what]
+    if dataclasses.is_dataclass(a):
+        return [d for f in dataclasses.fields(a)
+                for d in diff_fields(getattr(a, f.name), getattr(b, f.name),
+                                     f"{what}.{f.name}")]
+    return [] if a == b else [what]
 
 
 def phase_parity(dev):
@@ -404,7 +429,7 @@ def phase_parity(dev):
     batch, params = brest_batch(512, dev)
     k1 = run_dsc(batch, params, plan=kernel_plan(), device=dev)
     k2 = run_dsc(batch, params, plan=kernel_plan(), device=dev)
-    diffs = same_output(k1, k2)
+    diffs = diff_fields(k1, k2)
     check(not diffs, f"kernel plan not deterministic: {diffs}")
     plain = run_dsc(batch, params, device=dev)
     for f in ("member_of", "is_rep", "is_outlier"):
@@ -428,7 +453,7 @@ def phase_parity_fused(dev):
         p = params.replace(delta_t=k * params.eps_t)
         f1 = run_dsc(batch, p, plan=kernel_plan("fused"), device=dev)
         f2 = run_dsc(batch, p, plan=kernel_plan("fused"), device=dev)
-        diffs = same_output(f1, f2)
+        diffs = diff_fields(f1, f2)
         check(not diffs, f"fused kernel plan not deterministic: {diffs}")
         others = {"fused plain": run_dsc(batch, p, device=dev,
                                          plan=EnginePlan(mode="fused")),
@@ -1019,6 +1044,165 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
         members=members, outliers=int(r.is_outlier.sum()),
         launches=launches)
     return batch, params, out, launches
+
+
+RESULT_FIELDS = ("member_of", "is_rep", "is_outlier", "member_sim",
+                 "alpha_used", "k_used")
+
+
+def launcher_plan_file(mode: str) -> str:
+    """``kernel_plan(mode)`` saved by the port's ``EnginePlan.save`` under
+    the git-ignored ``build/``."""
+    path = ROOT / "build" / "chip_smoke" / f"plan_{mode}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    kernel_plan(mode).save(path)
+    return str(path)
+
+
+def launcher_run(report, name: str, argv: list, want, want_launches):
+    """``repro_torch.launch.run_dsc.main(argv)`` in this process, launch
+    counts zeroed just before it and read just after: equal to
+    ``want_launches`` (the same path's ``phase_main`` run), and the
+    labels, ``member_sim``, alpha and k bitwise ``want``'s (that run's
+    ``ClusteringResult``).  Logs the wall (data generation included,
+    timed alone beside it) and the run's own peak allocation."""
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import default_dsc_params_for
+    from repro_torch.launch import run_dsc as launcher
+    args = launcher.build_parser().parse_args(argv)
+    rc = launcher.get_dsc_config(args.config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    default_dsc_params_for(launcher.make_dataset(
+        rc.name, args.n_trajs, rc.max_points, device="cuda"))
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = launcher.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    check(launches == want_launches,
+          f"launcher ({name}): launches {launches}, expected "
+          f"{want_launches}")
+    for f in RESULT_FIELDS:
+        check(torch.equal(getattr(out.result, f), getattr(want, f)),
+              f"launcher ({name}): {f} not bitwise the main path's")
+    r = out.result
+    log(f"launcher ({name}): {' '.join(argv)}")
+    log(f"launcher ({name}) wall s={wall:.3f} of which data generation "
+        f"s={data_s:.3f} (timed alone) peak_alloc_GB={peak / 1e9:.3f} "
+        f"clusters={int(r.is_rep.sum())} outliers={int(r.is_outlier.sum())};"
+        f" labels, member_sim, alpha, k and launches equal the main path's")
+    report[f"launcher_{name}"] = dict(argv=argv, wall_s=wall,
+                                      data_s=data_s, peak_alloc_bytes=peak,
+                                      launches=launches)
+    return out
+
+
+def stage_chain(batch, params, plan):
+    """The stage entry points chained as ``run_dsc`` runs its stages (one
+    dispatch: the dense paths).  Materialize mode runs ``run_stage_join``,
+    then ``run_stage_vote_from_join`` on its cube (equal to the join
+    stage's votes and words, checked) and goes on from those."""
+    from repro_torch.core import dsc
+    tiles = None
+    if plan.mode == "fused":
+        tiles, plan = dsc.plan_fused_tile_ids(batch, params, plan)
+        join = None
+        vote, masks = dsc.run_stage_join_fused(batch, params, tiles, plan)
+    else:
+        join, vote0, masks0 = dsc.run_stage_join(batch, params, plan)
+        vote, masks = dsc.run_stage_vote_from_join(batch, params, join,
+                                                   plan)
+        check(torch.equal(vote, vote0) and torch.equal(masks, masks0),
+              "run_stage_vote_from_join differs from run_stage_join")
+        del vote0, masks0
+    seg, table = dsc.run_stage_segment(batch, params, vote, masks, plan)
+    del masks
+    sim, topk = dsc.run_stage_similarity(batch, params, join, seg, table,
+                                         tiles, plan)
+    result, overflow = dsc.run_stage_cluster(sim, table, params, plan)
+    sscr, rmse = dsc.run_stage_score(result, sim, params)
+    return dict(join=join, vote=vote, seg=seg, table=table, sim=sim,
+                sim_topk=topk, sim_overflow=overflow, result=result,
+                sscr=sscr, rmse=rmse)
+
+
+def phase_stages(dev, report, batch, params, runs):
+    """The seven stage entry points on dsc_brest, each path's launch
+    counts zeroed just before the chain and read just after: the fused
+    and the materialize kernel plans, every field bitwise the main run's
+    (``runs[mode]``: its output and launches; its cube was dropped, so
+    the chain's is checked by the votes and words it gives), with the
+    same launches; then ``run_dsc_lowerable`` with the fused kernel plan,
+    every field bitwise the main fused run's."""
+    from repro_torch import kernels
+    from repro_torch.core.dsc import run_dsc_lowerable
+    for mode in ("fused", "materialize"):
+        want, want_launches = runs[mode]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = stage_chain(batch, params, kernel_plan(mode))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        check(launches == want_launches,
+              f"stage chain ({mode}): launches {launches}, expected "
+              f"{want_launches}")
+        if mode == "materialize":
+            check(got.pop("join").best_w.shape == (batch.num_trajs,
+                                                   batch.max_points,
+                                                   batch.num_trajs),
+                  "stage chain (materialize): no [T, M, C] cube")
+        diffs = [d for f, v in got.items()
+                 for d in diff_fields(v, getattr(want, f), f)]
+        check(not diffs, f"stage chain ({mode}): {diffs} not bitwise "
+                         "run_dsc's")
+        log(f"stage chain ({mode}, dsc_brest): the seven stage entry "
+            f"points' outputs bitwise run_dsc's, same launches; wall "
+            f"s={wall:.3f}")
+        report[f"stage_chain_{mode}"] = dict(wall_s=wall, launches=launches)
+        del got
+    want, want_launches = runs["fused"]
+    kernels.reset_launch_counts()
+    low = run_dsc_lowerable(batch, params, kernel_plan("fused"), device=dev)
+    launches = dict(kernels.LAUNCHES)
+    diffs = diff_fields(low, want)
+    check(not diffs and launches == want_launches,
+          f"run_dsc_lowerable (fused): {diffs} differ, launches {launches}")
+    log("run_dsc_lowerable (fused, dsc_brest): every field bitwise "
+        "run_dsc's, same launches")
+
+
+def phase_s2t(dev):
+    """The S2T baseline (``core.baselines.s2t``: the plain DSC core on the
+    batch's device, SaCO on the host) on the card and on the CPU, on the
+    figure-1 scenario of ``tests/test_baselines.py``: equal labels."""
+    import numpy as np
+    from repro_torch.core.baselines.s2t import s2t_clustering
+    from repro_torch.data.synthetic import figure1_scenario
+    got = {}
+    for d in (dev, "cpu"):
+        batch, _ = figure1_scenario(n_per_route=3, points_per_leg=16,
+                                    seed=2, device=d)
+        got[str(d)] = s2t_clustering(batch, eps_sp=0.42, eps_t=1.0, w=5,
+                                     tau=0.2)
+    g, c = got[str(dev)], got["cpu"]
+    for f in ("member_of", "is_rep", "is_outlier"):
+        check(np.array_equal(g[f], c[f]), f"s2t: {f} differs card / CPU")
+    check(int(g["is_rep"].sum()) > 0, "s2t: no representative")
+    err = float(np.abs(g["sim"] - c["sim"]).max())
+    log(f"s2t (figure-1, S={len(g['is_rep'])}): labels on the card equal "
+        f"the CPU's; {int(g['is_rep'].sum())} reps, "
+        f"{int(g['is_outlier'].sum())} outliers; max |sim card - sim CPU| "
+        f"= {err}")
 
 
 def kernel_row(rows, name, launches, err, ms, plain, bound, lib=None):
@@ -1957,6 +2141,19 @@ def main(argv=None) -> int:
     check(torch.equal(tout.sscr, fout.sscr), "dsc_brest: top-K sscr")
     log("dsc_brest: fused top-K labels equal the dense fused labels; lists "
         "bitwise topk_from_dense of the dense matrix")
+    brest_argv = ["--config", "dsc_brest", "--n-trajs", "4096",
+                  "--segmentation", "tsa2"]
+    lout = launcher_run(report, "dsc_brest",
+                        brest_argv + ["--plan", launcher_plan_file("fused")],
+                        fout.result, flaunches)
+    launcher_run(report, "dsc_brest_flags",
+                 brest_argv + ["--mode", "fused", "--use-kernel",
+                               "--seg-use-kernel", "--cluster-use-kernel"],
+                 lout.result, flaunches)
+    del lout
+    phase_stages(dev, report, batch, params,
+                 dict(fused=(fout, flaunches), materialize=(out, launches)))
+    torch.cuda.empty_cache()
     join_ids, fplan = plan_index(batch, params, report, "dsc_brest")
     _, sub = phase_index(dev, report, batch, params, "dsc_brest",
                          outs=dict(materialize=out, fused=fout,
@@ -1984,9 +2181,10 @@ def main(argv=None) -> int:
     del sbatch, join_ids, fplan, sub
     torch.cuda.empty_cache()
     sis_rounds = []
-    sbatch, sparams, sout, _ = phase_main(dev, report, "fused",
-                                          n_vessels=8192, name="dsc_sis",
-                                          rounds=sis_rounds)
+    sbatch, sparams, sout, slaunches = phase_main(dev, report, "fused",
+                                                  n_vessels=8192,
+                                                  name="dsc_sis",
+                                                  rounds=sis_rounds)
     from repro_torch.core.clustering import visit_order
     srank = visit_order(sout.table)[1]
     k5_rounds(sout.sim, srank, sout.result.alpha_used, sis_rounds,
@@ -1995,8 +2193,14 @@ def main(argv=None) -> int:
     k6_check(sout.sim, srank, sout.result.is_rep, sout.table.valid,
              sout.result.alpha_used, "dsc_sis fused, final reps", report)
     dense_labels = [getattr(sout.result, f).cpu() for f in LABELS]
-    sub = sout.seg.sub_local
+    sub, sres = sout.seg.sub_local, sout.result
     del sout
+    torch.cuda.empty_cache()
+    launcher_run(report, "dsc_sis",
+                 ["--config", "dsc_sis", "--n-trajs", "8192",
+                  "--segmentation", "tsa2", "--plan",
+                  launcher_plan_file("fused")], sres, slaunches)
+    del sres
     torch.cuda.empty_cache()
     phase_fused_head(sbatch, sparams, sub, report, "dsc_sis", n_plain=256)
     del sbatch, sub
@@ -2009,6 +2213,7 @@ def main(argv=None) -> int:
     log("dsc_sis: fused top-K labels equal the dense fused labels")
     del stout
     torch.cuda.empty_cache()
+    phase_s2t(dev)
     phase_lcss(dev, report, rows)
     torch.cuda.empty_cache()
     phase_attention(dev, report, rows)

@@ -26,7 +26,13 @@ Similarity representations (``EnginePlan.sim_mode``):
   the clustering result.  ``DSCOutput.sim`` is ``None``.
 
 Both modes run the same stage bodies under the same ``STAGES`` names, in
-``_run_stages`` (the reference's ``_finish`` folded in).
+``_run_stages`` (the reference's ``_finish`` folded in).  The per-stage
+entry points (``run_stage_join`` ... ``run_stage_score``) call those same
+bodies, so stage k's outputs fed into stage k + 1 give a straight-through
+run's outputs bit for bit (the resilient runner's argument).  Each runs
+where its inputs lie and keeps no reference to them (the reference
+donates some of them; torch has no donation).  ``run_dsc_lowerable`` is
+the one-dispatch pipeline: no index planning, no widen loop.
 
 ``EnginePlan.use_index`` prunes candidate tiles with the spatiotemporal
 grid (``repro_torch.index``), losslessly: materialize mode with the
@@ -200,20 +206,24 @@ def _vote_from_join_body(params, join):
 def plan_fused_tile_ids(batch: TrajectoryBatch, params: DSCParams,
                         plan: EnginePlan):
     """Host-side fused-tile planning (``mode="fused"`` + ``use_index``):
-    the ``FusedTilePlan`` of the batch's self-join in the port's geometry,
-    or ``None`` when the index is off.  The plan depends only on the
-    batch and the eps thresholds, so one plan serves every dispatch."""
+    ``(tiles, plan)``, ``tiles`` the ``FusedTilePlan`` of the batch's
+    self-join in the port's geometry, or ``None`` when the index is off.
+    The plan comes back unchanged: the reference binds the tile plan's
+    TPU geometry into it, and the CUDA kernels take none.  The tiles
+    depend only on the batch and the eps thresholds, so one tile plan
+    serves every dispatch."""
     if not (plan.mode == "fused" and plan.use_index):
-        return None
+        return None, plan
     return stjoin_ops.plan_fused_tiles(
         batch.x, batch.y, batch.t, batch.valid,
-        batch.x, batch.y, batch.t, batch.valid, params.eps_sp, params.eps_t)
+        batch.x, batch.y, batch.t, batch.valid, params.eps_sp,
+        params.eps_t), plan
 
 
 def _join_vote_materialize_body(batch, params, plan: EnginePlan):
-    """``(join, vote, masks, None)``: the cube, from K1, K10 (``use_index``
-    with the kernel plan) or the plain join (pruned by the row-level mask
-    under ``use_index``)."""
+    """``(join, vote, masks)``: the cube, from K1, K10 (``use_index`` with
+    the kernel plan) or the plain join (pruned by the row-level mask under
+    ``use_index``)."""
     if plan.use_kernel:
         join = stjoin_ops.subtrajectory_join(
             batch, batch, params.eps_sp, params.eps_t, params.delta_t,
@@ -223,23 +233,22 @@ def _join_vote_materialize_body(batch, params, plan: EnginePlan):
             batch, batch, params.eps_sp, params.eps_t, params.delta_t,
             use_index=plan.use_index)
     vote, masks = _vote_from_join_body(params, join)
-    return join, vote, masks, None
+    return join, vote, masks
 
 
-def _join_vote_fused_body(batch, params, plan: EnginePlan):
-    """Fused pass 1: ``(None, vote, masks, tiles)`` — no cube; ``tiles``
-    is the tile plan (``use_index``) the later passes reuse."""
-    tiles = plan_fused_tile_ids(batch, params, plan)
-    vote, masks = stjoin_ops.stjoin_vote_fused_arrays(
+def _join_vote_fused_body(batch, params, tiles, plan: EnginePlan):
+    """Fused pass 1 over the tile plan ``tiles`` (``None``: every tile):
+    ``(vote, masks)`` — no cube."""
+    return stjoin_ops.stjoin_vote_fused_arrays(
         batch.x, batch.y, batch.t, batch.valid, batch.traj_id,
         batch.x, batch.y, batch.t, batch.valid, batch.traj_id,
         params.eps_sp, params.eps_t, params.delta_t, tile_ids=tiles,
         with_masks=params.segmentation == "tsa2")
-    return None, vote, masks, tiles
 
 
-_JOIN_VOTE = {"materialize": _join_vote_materialize_body,
-              "fused": _join_vote_fused_body}
+def _topk_k(plan: EnginePlan, S: int) -> int:
+    """K of a dispatch: ``plan.sim_topk`` (default 32), clamped to S."""
+    return min(plan.sim_topk or DEFAULT_TOPK, S)
 
 
 def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
@@ -250,12 +259,19 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
     not read K, so each retry gives what the reference's full re-dispatch
     gives.  The cube (materialize mode) is returned with the output."""
     with timer.stage("join_vote"):
-        join, vote, masks, tiles = _JOIN_VOTE[plan.mode](batch, params, plan)
+        if plan.mode == "fused":
+            tiles, plan = plan_fused_tile_ids(batch, params, plan)
+            join = None
+            vote, masks = _join_vote_fused_body(batch, params, tiles, plan)
+        else:
+            tiles = None
+            join, vote, masks = _join_vote_materialize_body(batch, params,
+                                                            plan)
     with timer.stage("segment"):
         seg, table = _segment_body(batch, params, vote, masks, plan)
     del masks
     S = table.num_slots
-    k = min(plan.sim_topk or DEFAULT_TOPK, S)
+    k = _topk_k(plan, S)
     dispatches, total_rounds = 0, 0
     while True:
         with timer.stage("similarity"):
@@ -287,6 +303,90 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
                      dispatches=dispatches)
 
 
+# --------------------------------------------------------------------------
+# Per-stage entry points — the checkpointable boundaries of a resilient
+# runner.  Each calls the body that ``_run_stages`` runs for its stage.
+# --------------------------------------------------------------------------
+
+
+def run_stage_join(batch: TrajectoryBatch, params: DSCParams,
+                   plan: EnginePlan):
+    """Materialize-mode stage 1: ``(join, vote, masks)`` (``masks`` None
+    under TSA1)."""
+    return _join_vote_materialize_body(batch, params, plan)
+
+
+def run_stage_join_fused(batch: TrajectoryBatch, params: DSCParams,
+                         tiles, plan: EnginePlan):
+    """Fused-mode stage 1 over the tile plan ``tiles`` (the first item of
+    ``plan_fused_tile_ids``): ``(vote, masks)`` — the cube never
+    exists."""
+    return _join_vote_fused_body(batch, params, tiles, plan)
+
+
+def run_stage_vote_from_join(batch: TrajectoryBatch, params: DSCParams,
+                             join: JoinResult, plan: EnginePlan):
+    """Stage 1 tail for a join made outside the stage: ``(vote, masks)``."""
+    return _vote_from_join_body(params, join)
+
+
+def run_stage_segment(batch: TrajectoryBatch, params: DSCParams, vote,
+                      masks, plan: EnginePlan):
+    """Stage 2: ``(seg, table)`` from the vote state."""
+    return _segment_body(batch, params, vote, masks, plan)
+
+
+def run_stage_similarity(batch: TrajectoryBatch, params: DSCParams, join,
+                         seg: SubtrajSegmentation, table: SubtrajTable,
+                         tiles, plan: EnginePlan):
+    """Stage 3: the SP relation, ``(sim, topk)``, exactly one not None;
+    from ``join`` (materialize) or the fused pass 2 over ``tiles``
+    (``join is None``).  K is ``plan.sim_topk`` (default 32), clamped to
+    S."""
+    return _similarity_body(batch, params, join, seg, table, plan,
+                            _topk_k(plan, table.num_slots), tiles)
+
+
+def run_stage_cluster(simlike, table: SubtrajTable, params: DSCParams,
+                      plan: EnginePlan):
+    """Stage 4: clustering of the dense matrix or the ``TopKSim``,
+    ``(result, overflow)``; ``overflow`` is None on the dense path."""
+    result, _, overflow = _cluster_body(
+        simlike, table, params, plan, lambda _: contextlib.nullcontext())
+    return result, overflow
+
+
+def run_stage_score(result: ClusteringResult, sim, params: DSCParams):
+    """Stage 5: ``(sscr, rmse)`` (from the result alone when ``sim`` is
+    None)."""
+    return _score_body(result, sim, params)
+
+
+def run_dsc_lowerable(batch: TrajectoryBatch, params: DSCParams,
+                      plan: EnginePlan, *, device=None) -> DSCOutput:
+    """The pipeline in one dispatch: no index planning and no widen loop.
+    K is clamped to S up front and the top-K certificate is returned in
+    ``out.sim_overflow``, not acted on; ``use_index=True`` is refused.
+    The reference's autotuner times this surface, one plan at a time;
+    ``device`` as in :func:`run_dsc`."""
+    plan = resolve_plan(plan)
+    if plan.use_index:
+        raise ValueError("run_dsc_lowerable requires use_index=False "
+                         "(index planning is host-driven); use run_dsc")
+    batch = _on_device(batch, device)
+    S = batch.num_trajs * params.max_subtrajs_per_traj
+    plan = plan.replace(sim_topk=_topk_k(plan, S))
+    return _run_stages(batch, params, plan, StageTimer(batch.device),
+                       "degrade")
+
+
+def _on_device(batch: TrajectoryBatch, device) -> TrajectoryBatch:
+    """``batch`` on ``device`` (``None`` = the card, which must exist)."""
+    from repro_torch.kernels import resolve_device
+    dev = resolve_device(device)
+    return batch if batch.device == dev else batch.to(dev)
+
+
 def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
             plan: EnginePlan | None = None, device=None,
             stage_times: dict | None = None,
@@ -315,15 +415,12 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
     truncated result with the violations in ``out.sim_overflow``.
     ``out.dispatches`` counts the passes, ``out.sim_topk.k`` is the final K.
     """
-    from repro_torch.kernels import resolve_device
     plan = resolve_plan(plan)
     if on_overflow not in _ON_OVERFLOW:
         raise ValueError(f"on_overflow={on_overflow!r}: expected "
                          "'raise', 'widen', or 'degrade'")
-    dev = resolve_device(device)
-    if batch.device != dev:
-        batch = batch.to(dev)
-    timer = StageTimer(dev)
+    batch = _on_device(batch, device)
+    timer = StageTimer(batch.device)
     out = _run_stages(batch, params, plan, timer, on_overflow)
     if stage_times is not None:
         stage_times.update(timer.times)

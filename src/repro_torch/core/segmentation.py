@@ -141,3 +141,16 @@ def tsa2(packed_masks: torch.Tensor, valid: torch.Tensor, w: int, tau,
         d = tsa2_signal(torch.where(valid[..., None], packed_masks, 0), w)
     cuts = _local_max_cuts(d, valid, w, tau, count)
     return _finalize(cuts, valid, torch.where(valid, d, 0.0), max_subs)
+
+
+def segment(params_segmentation: str, *, norm_vote=None, packed_masks=None,
+            valid=None, w: int = 10, tau=0.4, max_subs: int = 8,
+            use_kernel: bool = False) -> SubtrajSegmentation:
+    """``tsa1`` over ``norm_vote`` or ``tsa2`` over ``packed_masks`` (with
+    ``use_kernel``), by name, as the reference dispatches."""
+    if params_segmentation == "tsa1":
+        return tsa1(norm_vote, valid, w, tau, max_subs)
+    if params_segmentation == "tsa2":
+        return tsa2(packed_masks, valid, w, tau, max_subs,
+                    use_kernel=use_kernel)
+    raise ValueError(f"unknown segmentation {params_segmentation!r}")

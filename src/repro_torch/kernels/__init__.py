@@ -103,8 +103,9 @@ _SIGNATURES = {
     # masks, valid, T, M, W, w, slab J, scratch (NULL: shared memory),
     # scratch blocks, d, stream
     "jaccard_window": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P],
-    # sim, rank, unresolved, is_rep, alpha, S, blocked, claimed, stream
-    "round_scan": [_P, _P, _P, _P, ctypes.c_float, _I, _P, _P, _P],
+    # sim, rank, unresolved, is_rep, alpha on the card (NULL: the next),
+    # alpha, S, blocked, claimed, stream
+    "round_scan": [_P] * 5 + [ctypes.c_float, _I, _P, _P, _P],
     # sim, rank, is_rep, valid, alpha on the card (NULL: the next), alpha,
     # S, scratch, its int32 words, best_w, best_slot, stream
     "claim_max": [_P] * 5 + [ctypes.c_float, _I, _P, _I, _P, _P, _P],
@@ -112,12 +113,12 @@ _SIGNATURES = {
     "claim_max_scratch": [_I],
     # S, R -> the slices of K6's list of R rows (negative: a CUDA error)
     "claim_max_slices": [_I, _I],
-    # ids, sims, rank, unresolved, is_rep, alpha, S, K, blocked, claimed,
-    # stream
-    "topk_round_scan": [_P] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P],
-    # ids, sims, rank, is_rep, valid, alpha, S, K, best_w, best_slot,
-    # stream
-    "topk_claim_max": [_P] * 5 + [ctypes.c_float, _I, _I, _P, _P, _P],
+    # ids, sims, rank, unresolved, is_rep, alpha on the card (NULL: the
+    # next), alpha, S, K, blocked, claimed, stream
+    "topk_round_scan": [_P] * 6 + [ctypes.c_float, _I, _I, _P, _P, _P],
+    # ids, sims, rank, is_rep, valid, alpha on the card (NULL: the next),
+    # alpha, S, K, best_w, best_slot, stream
+    "topk_claim_max": [_P] * 6 + [ctypes.c_float, _I, _I, _P, _P, _P],
     # rx, ry, rt, rv, sx, sy, st, sv; B, N, M; eps_sp, eps_t; carried-row
     # scratch (NULL: shared memory); scores; stream
     "lcss_wavefront": [_P] * 8 + [_I] * 3 + [ctypes.c_float] * 2

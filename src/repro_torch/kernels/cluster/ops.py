@@ -5,7 +5,10 @@ Callers pass natural ``[S]``, ``[S, S]`` or ``[S, K]`` operands.  CUDA
 tensors launch ``round_scan`` / ``claim_max`` (dense matrix) and
 ``topk_round_scan`` / ``topk_claim_max`` (neighbor lists) from
 ``csrc/dsc_kernels.cu``, which take any ``S`` and ``K`` with no tiles and
-no padding; CPU tensors take the plain versions in ``ref.py``.
+no padding; CPU tensors take the plain versions in ``ref.py``.  ``alpha``
+may be a Python float, a CPU tensor or a tensor on the operands' card:
+the kernels read a card tensor there (no host sync, so a call can be
+captured in a CUDA graph), anything else as a float32 value.
 """
 from __future__ import annotations
 
@@ -32,6 +35,15 @@ def _claim_scratch(device: int, S: int) -> int:
     return n
 
 
+def _alpha_args(alpha, dev: torch.device) -> tuple:
+    """``(pointer or None, value)`` of a launcher's alpha: a tensor on
+    ``dev`` is read there (the launch is ordered on the stream before any
+    reuse of a temporary's memory), anything else on the host."""
+    if torch.is_tensor(alpha) and alpha.device == dev:
+        return alpha.to(torch.float32).data_ptr(), 0.0
+    return None, float(f32(alpha, "cpu"))
+
+
 def cluster_round_scan(sim, rank, unresolved, is_rep, alpha):
     """(blocked [S], claimed [S]) — one fused round scan."""
     if not sim.is_cuda:
@@ -44,7 +56,7 @@ def cluster_round_scan(sim, rank, unresolved, is_rep, alpha):
     claimed = torch.zeros((S,), dtype=torch.bool, device=dev)
     launch("round_scan", *(t.data_ptr() for t in (sim, rank, unresolved,
                                                   is_rep)),
-           float(f32(alpha, "cpu")), S, blocked.data_ptr(),
+           *_alpha_args(alpha, dev), S, blocked.data_ptr(),
            claimed.data_ptr(), device=dev)
     return blocked, claimed
 
@@ -59,19 +71,13 @@ def cluster_assign(sim, rank, is_rep, valid, alpha):
     dev = check_cuda_operands(
         "claim_max", sim=(sim, torch.float32), rank=(rank, torch.int32),
         is_rep=(is_rep, torch.bool), valid=(valid, torch.bool))
-    # a threshold on the card is read there: no host sync
-    if torch.is_tensor(alpha) and alpha.device == dev:
-        alpha_t, alpha_v = alpha.to(torch.float32), 0.0
-    else:
-        alpha_t, alpha_v = None, float(f32(alpha, "cpu"))
     n = _claim_scratch(dev.index, S)
     scratch = torch.empty((n,), dtype=torch.int32, device=dev)
     best_w = torch.empty((S,), dtype=torch.float32, device=dev)
     best_slot = torch.empty((S,), dtype=torch.int32, device=dev)
     launch("claim_max", *(t.data_ptr() for t in (sim, rank, is_rep, valid)),
-           None if alpha_t is None else alpha_t.data_ptr(), alpha_v, S,
-           scratch.data_ptr(), n, best_w.data_ptr(), best_slot.data_ptr(),
-           device=dev)
+           *_alpha_args(alpha, dev), S, scratch.data_ptr(), n,
+           best_w.data_ptr(), best_slot.data_ptr(), device=dev)
     return best_w, best_slot
 
 
@@ -98,7 +104,7 @@ def topk_cluster_round_scan(ids, sims, rank, unresolved, is_rep, alpha):
     claimed = torch.empty((S,), dtype=torch.bool, device=dev)
     launch("topk_round_scan", *(t.data_ptr() for t in (ids, sims, rank,
                                                        unresolved, is_rep)),
-           float(f32(alpha, "cpu")), S, K, blocked.data_ptr(),
+           *_alpha_args(alpha, dev), S, K, blocked.data_ptr(),
            claimed.data_ptr(), device=dev)
     return blocked, claimed
 
@@ -114,6 +120,6 @@ def topk_cluster_assign(ids, sims, rank, is_rep, valid, alpha):
     best_slot = torch.empty((S,), dtype=torch.int32, device=dev)
     launch("topk_claim_max", *(t.data_ptr() for t in (ids, sims, rank,
                                                       is_rep, valid)),
-           float(f32(alpha, "cpu")), S, K, best_w.data_ptr(),
+           *_alpha_args(alpha, dev), S, K, best_w.data_ptr(),
            best_slot.data_ptr(), device=dev)
     return best_w, best_slot

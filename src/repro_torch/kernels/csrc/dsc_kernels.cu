@@ -1152,12 +1152,14 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 round_scan_kernel(const float* __restrict__ sim,
                   const int* __restrict__ rank,
                   const uint8_t* __restrict__ unresolved,
-                  const uint8_t* __restrict__ is_rep, float alpha, int S,
+                  const uint8_t* __restrict__ is_rep,
+                  const float* __restrict__ alpha_p, float alpha_v, int S,
                   int rows_per_split, uint8_t* __restrict__ blocked,
                   uint8_t* __restrict__ claimed) {
   __shared__ int list_u[SCAN_CHUNK];
   __shared__ int list_e[SCAN_CHUNK];
   __shared__ int warp_n[SCAN_THREADS / 32];
+  const float alpha = alpha_p ? *alpha_p : alpha_v;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c0 = blockIdx.x * SCAN_COLS + 4 * threadIdx.x;
   int rs[4];     // a column past S has no predecessor
@@ -1477,7 +1479,8 @@ __global__ void topk_round_scan_kernel(const int* __restrict__ ids,
                                        const int* __restrict__ rank,
                                        const uint8_t* __restrict__ unresolved,
                                        const uint8_t* __restrict__ is_rep,
-                                       float alpha, int S, int K,
+                                       const float* __restrict__ alpha_p,
+                                       float alpha_v, int S, int K,
                                        uint8_t* __restrict__ blocked,
                                        uint8_t* __restrict__ claimed) {
   const long long warp =
@@ -1485,6 +1488,7 @@ __global__ void topk_round_scan_kernel(const int* __restrict__ ids,
   const int lane = threadIdx.x & 31;
   if (warp >= S) return;                  // uniform across the warp
   const int s = (int)warp;
+  const float alpha = alpha_p ? *alpha_p : alpha_v;
   const int rs = rank[s];
   const size_t base = (size_t)s * K;
   bool b = false, c = false;
@@ -1554,7 +1558,8 @@ topk_claim_max_kernel(const int* __restrict__ ids,
                       const float* __restrict__ sims,
                       const int* __restrict__ rank,
                       const uint8_t* __restrict__ is_rep,
-                      const uint8_t* __restrict__ valid, float alpha, int S,
+                      const uint8_t* __restrict__ valid,
+                      const float* __restrict__ alpha_p, float alpha_v, int S,
                       int K, int L, float* __restrict__ best_w,
                       int* __restrict__ best_slot) {
   const long long g = (long long)blockIdx.x * CM_THREADS + threadIdx.x;
@@ -1564,6 +1569,7 @@ topk_claim_max_kernel(const int* __restrict__ ids,
   float aw = 0.f;
   int ar = INT_MAX, as = -1;
   if (live && valid[s]) {
+    const float alpha = alpha_p ? *alpha_p : alpha_v;
     const size_t base = (size_t)s * K;
     const int G = (K + 3) / 4;
     for (int g0 = lane; g0 < G; g0 += L * CM_UNROLL) {
@@ -2008,9 +2014,12 @@ int jaccard_window(const uint32_t* masks, const uint8_t* valid, int T,
   return (int)cudaGetLastError();
 }
 
+// alpha (K5, K6, K8, K9): *alpha_p on the card where alpha_p is not NULL
+// (the engine's threshold, read without a host sync), else alpha_v
 int round_scan(const float* sim, const int* rank, const uint8_t* unresolved,
-               const uint8_t* is_rep, float alpha, int S, uint8_t* blocked,
-               uint8_t* claimed, cudaStream_t stream) {
+               const uint8_t* is_rep, const float* alpha_p, float alpha_v,
+               int S, uint8_t* blocked, uint8_t* claimed,
+               cudaStream_t stream) {
   if (S > 0) {
     // u << 2 in the row list must not overflow
     if (S > (INT_MAX >> 2)) return (int)cudaErrorInvalidValue;
@@ -2028,10 +2037,12 @@ int round_scan(const float* sim, const int* rank, const uint8_t* unresolved,
     const int rows = rows_per_split(S, n_split);
     if (S % 4 == 0 && (reinterpret_cast<uintptr_t>(sim) & 15) == 0) {
       round_scan_kernel<true><<<grid, SCAN_THREADS, 0, stream>>>(
-          sim, rank, unresolved, is_rep, alpha, S, rows, blocked, claimed);
+          sim, rank, unresolved, is_rep, alpha_p, alpha_v, S, rows, blocked,
+          claimed);
     } else {
       round_scan_kernel<false><<<grid, SCAN_THREADS, 0, stream>>>(
-          sim, rank, unresolved, is_rep, alpha, S, rows, blocked, claimed);
+          sim, rank, unresolved, is_rep, alpha_p, alpha_v, S, rows, blocked,
+          claimed);
     }
   }
   return (int)cudaGetLastError();
@@ -2058,8 +2069,6 @@ int claim_max_slices(int S, int R) {
   return err ? -err : claim_splits(R, ns);
 }
 
-// alpha: *alpha_p on the card where alpha_p is not NULL (the engine's
-// threshold, read without a host sync), else alpha_v
 int claim_max(const float* sim, const int* rank, const uint8_t* is_rep,
               const uint8_t* valid, const float* alpha_p, float alpha_v,
               int S, int* scratch, int words, float* best_w, int* best_slot,
@@ -2100,21 +2109,22 @@ int claim_max(const float* sim, const int* rank, const uint8_t* is_rep,
 
 int topk_round_scan(const int* ids, const float* sims, const int* rank,
                     const uint8_t* unresolved, const uint8_t* is_rep,
-                    float alpha, int S, int K, uint8_t* blocked,
-                    uint8_t* claimed, cudaStream_t stream) {
+                    const float* alpha_p, float alpha_v, int S, int K,
+                    uint8_t* blocked, uint8_t* claimed, cudaStream_t stream) {
   if (S > 0) {
     const int threads = 256;   // 8 warps, one list row each
     const long long blocks = ((long long)S * 32 + threads - 1) / threads;
     topk_round_scan_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-        ids, sims, rank, unresolved, is_rep, alpha, S, K, blocked, claimed);
+        ids, sims, rank, unresolved, is_rep, alpha_p, alpha_v, S, K, blocked,
+        claimed);
   }
   return (int)cudaGetLastError();
 }
 
 int topk_claim_max(const int* ids, const float* sims, const int* rank,
-                   const uint8_t* is_rep, const uint8_t* valid, float alpha,
-                   int S, int K, float* best_w, int* best_slot,
-                   cudaStream_t stream) {
+                   const uint8_t* is_rep, const uint8_t* valid,
+                   const float* alpha_p, float alpha_v, int S, int K,
+                   float* best_w, int* best_slot, cudaStream_t stream) {
   if (S > 0) {
     // lanes a row: the least power of two covering its groups, up to 32
     const int G = (K + 3) / 4;
@@ -2127,11 +2137,13 @@ int topk_claim_max(const int* ids, const float* sims, const int* rank,
     if (vec) {
       topk_claim_max_kernel<true><<<(unsigned)blocks, CM_THREADS, 0,
                                     stream>>>(
-          ids, sims, rank, is_rep, valid, alpha, S, K, L, best_w, best_slot);
+          ids, sims, rank, is_rep, valid, alpha_p, alpha_v, S, K, L, best_w,
+          best_slot);
     } else {
       topk_claim_max_kernel<false><<<(unsigned)blocks, CM_THREADS, 0,
                                      stream>>>(
-          ids, sims, rank, is_rep, valid, alpha, S, K, L, best_w, best_slot);
+          ids, sims, rank, is_rep, valid, alpha_p, alpha_v, S, K, L, best_w,
+          best_slot);
     }
   }
   return (int)cudaGetLastError();

@@ -1,0 +1,392 @@
+"""DSC launcher of the port: the pipeline end to end on synthetic data, on
+one device (counterpart of ``repro.launch.run_dsc`` at P = 1).
+
+``python -m repro_torch.launch.run_dsc --config dsc_brest --n-trajs 4096
+--segmentation tsa2 --plan plan.json [--device cpu]``
+
+Engine configuration rides on one surface: ``--plan plan.json``, an
+:class:`repro_torch.core.plan.EnginePlan` (write one with
+``EnginePlan(...).save(path)``; the reference's plan files load as they
+are).  The per-stage flags (``--mode``, ``--sim-mode``, ...) are
+deprecated aliases that materialize a plan; combining them with
+``--plan`` is an error.  The run is on the card unless ``--device cpu``
+asks for the CPU; with no card the default raises.
+
+The parser has every flag of the reference, with its default and
+choices, plus ``--device``.  The options whose code is not ported yet
+(the multi-device program, the resilient runner, the streaming service)
+exit through the parser with the ``ROADMAP.md`` item that ports them.
+
+The README's table of this parser is generated (``--print-cli-table``)
+and checked (``--check-readme``) between its own markers.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.configs.registry import get_dsc_config
+from repro_torch.core.dsc import cluster_summary, run_dsc
+from repro_torch.core.plan import EnginePlan
+from repro_torch.core.types import DSCParams
+from repro_torch.data.synthetic import (ais_like, default_dsc_params_for,
+                                        figure1_scenario)
+from repro_torch.kernels import resolve_device
+from repro_torch.utils.logging import get_logger
+
+log = get_logger("run_dsc")
+
+# README markers the generated CLI table of this parser lives between
+CLI_TABLE_BEGIN = ("<!-- cli-table-torch:begin (generated by python -m "
+                   "repro_torch.launch.run_dsc --print-cli-table) -->")
+CLI_TABLE_END = "<!-- cli-table-torch:end -->"
+
+# process exit code per failure class (the reference's table,
+# repro.run.resilient.EXIT_CODES; it moves to run/ with the resilient
+# runner)
+EXIT_CODES = {
+    "ok": 0,
+    "error": 1,
+    "overflow": 3,
+    "corruption": 4,
+    "retries_exhausted": 5,
+    "injected_crash": 6,
+    "poison": 7,          # PoisonRecord under on_dirty="fail" (stream)
+    "backpressure": 8,    # BackpressureOverflow / WatermarkStall (stream)
+}
+
+# the options whose code is not ported yet -> the ROADMAP.md item
+_MULTI_DEVICE = "ROADMAP.md Queue 1 item 4 (the multi-device program)"
+_RESILIENT = "ROADMAP.md Queue 1 item 3 (recovery and streaming)"
+
+
+def make_dataset(name: str, n_trajs: int, max_points: int, seed: int = 0,
+                 device=None):
+    """The launcher's data for config ``name`` on ``device`` (``None`` =
+    the card): the figure-1 scenario for ``dsc_synth``, AIS-like vessels
+    on 8 lanes otherwise."""
+    if name == "dsc_synth":
+        per = max(1, n_trajs // 6)
+        return figure1_scenario(n_per_route=per, points_per_leg=32,
+                                seed=seed, device=device)[0]
+    return ais_like(n_vessels=n_trajs, max_points=max_points,
+                    n_lanes=8, seed=seed, device=device)[0]
+
+
+# legacy per-stage flags -> (EnginePlan.from_legacy keyword, plan field)
+_LEGACY_FLAGS = {
+    "use_kernel": "use_kernel",
+    "use_index": "use_index",
+    "mode": "mode",
+    "cluster_engine": "cluster_engine",
+    "cluster_use_kernel": "cluster_use_kernel",
+    "seg_use_kernel": "seg_use_kernel",
+    "sim_mode": "sim_mode",
+    "sim_topk": "sim_topk",
+    "halo_stream": "halo_stream",
+    "sim_exchange": "sim_exchange",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.run_dsc",
+        description="Run the DSC pipeline of the PyTorch/CUDA port on one "
+                    "device.")
+    ap.add_argument("--config", default="dsc_synth",
+                    help="dataset/config name from the registry")
+    ap.add_argument("--n-trajs", type=int, default=None,
+                    help="trajectory count override (default: config, at "
+                         "most 64)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the pipeline runs: the card (the kernels "
+                         "of the plan; raises without a card) or the CPU "
+                         "(the plain PyTorch versions)")
+    ap.add_argument("--distributed", type=int, default=0,
+                    help="number of temporal partitions (0 = one device; "
+                         "more is refused until the multi-device program "
+                         "is ported)")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="model-axis width (candidate-column sharding; "
+                         "other than 1 is refused until the multi-device "
+                         "program is ported)")
+    ap.add_argument("--plan", default=None, metavar="PLAN.json",
+                    help="EnginePlan JSON: the single surface owning every "
+                         "per-stage engine choice; mutually exclusive with "
+                         "the deprecated per-stage flags below")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="[deprecated alias: plan.use_kernel] CUDA join "
+                         "kernel in materialize mode")
+    ap.add_argument("--use-index", action="store_true",
+                    help="[deprecated alias: plan.use_index] prune the "
+                         "JOIN phase with the spatiotemporal grid index "
+                         "(lossless)")
+    ap.add_argument("--mode", default="materialize",
+                    choices=["materialize", "fused"],
+                    help="[deprecated alias: plan.mode] join execution "
+                         "mode: materialize the [T, M, C] join cube or "
+                         "stream it through the fused passes (no cube)")
+    ap.add_argument("--cluster-engine", default="rounds",
+                    choices=["rounds", "sequential"],
+                    help="[deprecated alias: plan.cluster_engine] Problem "
+                         "3 engine: round-parallel greedy or the O(S) "
+                         "sequential oracle — label-identical outputs")
+    ap.add_argument("--cluster-use-kernel", action="store_true",
+                    help="[deprecated alias: plan.cluster_use_kernel] back "
+                         "the round engine with the CUDA round-scan and "
+                         "claim-max kernels")
+    ap.add_argument("--seg-use-kernel", action="store_true",
+                    help="[deprecated alias: plan.seg_use_kernel] compute "
+                         "the TSA2 Jaccard signal with the CUDA kernel "
+                         "(bit-identical cuts; no-op under tsa1)")
+    ap.add_argument("--sim-mode", default="dense",
+                    choices=["dense", "topk"],
+                    help="[deprecated alias: plan.sim_mode] SP "
+                         "representation: the dense [S, S] similarity "
+                         "matrix or panel-streamed top-K neighbor lists "
+                         "(labels equal whenever the overflow certificate "
+                         "is zero; K widens until it is)")
+    ap.add_argument("--sim-topk", type=int, default=None,
+                    help="[deprecated alias: plan.sim_topk] K of the "
+                         "top-K neighbor lists (default 32, clamped to "
+                         "S); only with --sim-mode topk")
+    ap.add_argument("--halo-stream", default="barrier",
+                    choices=["barrier", "ring"],
+                    help="[deprecated alias: plan.halo_stream] JOIN halo "
+                         "schedule of the multi-device program (not read "
+                         "on one device)")
+    ap.add_argument("--sim-exchange", default="allgather",
+                    choices=["allgather", "ring"],
+                    help="[deprecated alias: plan.sim_exchange] similarity "
+                         "exchange schedule of the multi-device program "
+                         "(not read on one device)")
+    ap.add_argument("--segmentation", default=None,
+                    help="segmentation algorithm override (tsa1 or tsa2)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="dataset RNG seed")
+    ap.add_argument("--resume-dir", default=None, metavar="DIR",
+                    help="checkpoint each stage boundary under DIR and "
+                         "resume (the resilient runner; refused until it "
+                         "is ported)")
+    ap.add_argument("--on-overflow", default=None,
+                    choices=["raise", "widen", "degrade"],
+                    help="top-K overflow policy of the resilient runner "
+                         "(refused until it is ported; the run widens K)")
+    ap.add_argument("--on-corruption", default="fallback",
+                    choices=["fallback", "fail"],
+                    help="damaged-checkpoint policy for --resume-dir")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="bounded retries per stage (resilient runner)")
+    ap.add_argument("--fault-plan", default=None, metavar="FAULTS.json",
+                    help="FaultPlan JSON scripting failures at stage "
+                         "boundaries (resilient runner; refused until it "
+                         "is ported)")
+    ap.add_argument("--elastic-resume", action="store_true",
+                    help="resume checkpoints written at another partition "
+                         "count (multi-device resilient runner; refused "
+                         "until it is ported)")
+    ap.add_argument("--rebalance", default=None,
+                    choices=["off", "suggest", "apply"],
+                    help="straggler-flag policy (resilient runner; refused "
+                         "until it is ported)")
+    ap.add_argument("--sync-saves", action="store_true",
+                    help="write stage checkpoints synchronously "
+                         "(resilient runner)")
+    ap.add_argument("--stream", action="store_true",
+                    help="run the windowed streaming service instead of a "
+                         "batch pipeline (refused until it is ported)")
+    ap.add_argument("--stream-batch-size", type=int, default=64,
+                    help="records per submission batch (--stream)")
+    ap.add_argument("--stream-order", default="time",
+                    choices=["time", "traj"],
+                    help="record replay order (--stream)")
+    ap.add_argument("--pump-every", type=int, default=1,
+                    help="window advances once per this many submissions "
+                         "(--stream)")
+    ap.add_argument("--allowed-lateness", type=float, default=None,
+                    help="bounded-lateness watermark slack in event-time "
+                         "seconds (--stream)")
+    ap.add_argument("--horizon", type=float, default=None,
+                    help="active-window retention in event-time seconds "
+                         "(--stream)")
+    ap.add_argument("--queue-cap", type=int, default=4096,
+                    help="staging-queue record capacity (--stream)")
+    ap.add_argument("--backpressure", default="shed_oldest",
+                    choices=["shed_oldest", "block"],
+                    help="staging-queue overflow policy (--stream)")
+    ap.add_argument("--on-dirty", default="repair",
+                    choices=["repair", "drop", "fail"],
+                    help="dirty-record policy (--stream)")
+    ap.add_argument("--max-speed", type=float, default=None,
+                    help="GPS-teleport gate in units/second (--stream)")
+    ap.add_argument("--snapshot-every", type=int, default=1,
+                    help="full-state snapshot cadence in window advances "
+                         "(--stream)")
+    ap.add_argument("--stream-k", type=int, default=8,
+                    help="standing neighbor-list width K (--stream)")
+    ap.add_argument("--alpha-abs", type=float, default=0.1,
+                    help="absolute similarity threshold (--stream)")
+    ap.add_argument("--k-abs", type=float, default=0.0,
+                    help="absolute voting threshold (--stream)")
+    ap.add_argument("--print-cli-table", action="store_true",
+                    help="print the generated markdown CLI reference "
+                         "table (the one embedded in the README) and exit")
+    ap.add_argument("--check-readme", default=None, nargs="?",
+                    const="README.md", metavar="README",
+                    help="verify the README's embedded CLI table of this "
+                         "launcher matches this parser and exit nonzero on "
+                         "drift")
+    return ap
+
+
+def cli_reference_table() -> str:
+    """Markdown CLI reference generated from :func:`build_parser`, one row
+    per flag (the reference's generator)."""
+    ap = build_parser()
+    lines = ["| flag | default | description |",
+             "| --- | --- | --- |"]
+    for a in ap._actions:
+        if "--help" in a.option_strings or not a.option_strings:
+            continue
+        flag = " ".join(f"`{s}`" for s in a.option_strings)
+        if a.metavar:
+            flag += f" `{a.metavar}`"
+        elif a.choices:
+            flag += " `{" + ",".join(map(str, a.choices)) + "}`"
+        elif a.type is int:
+            flag += " `N`"
+        elif not isinstance(a, (argparse._StoreTrueAction,
+                                argparse._StoreConstAction)):
+            flag += " `V`"
+        if isinstance(a, argparse._StoreTrueAction):
+            default = "off"
+        elif a.default is None:
+            default = "—"
+        else:
+            default = f"`{a.default}`"
+        help_ = " ".join((a.help or "").split())
+        lines.append(f"| {flag} | {default} | {help_} |")
+    return "\n".join(lines) + "\n"
+
+
+def readme_cli_table(readme_path: str) -> str:
+    """The embedded CLI table of this launcher (between its markers)."""
+    with open(readme_path) as f:
+        text = f.read()
+    try:
+        _, rest = text.split(CLI_TABLE_BEGIN, 1)
+        body, _ = rest.split(CLI_TABLE_END, 1)
+    except ValueError:
+        raise ValueError(
+            f"{readme_path} is missing the CLI-table markers "
+            f"{CLI_TABLE_BEGIN!r} / {CLI_TABLE_END!r}") from None
+    return body.strip("\n") + "\n"
+
+
+def check_readme_cli_table(readme_path: str) -> list[str]:
+    """Diff lines between the README's table and the generated one
+    (empty list = in sync)."""
+    import difflib
+    want = cli_reference_table().splitlines()
+    have = readme_cli_table(readme_path).splitlines()
+    return list(difflib.unified_diff(have, want, fromfile=readme_path,
+                                     tofile="--print-cli-table", lineterm=""))
+
+
+def plan_from_args(args, parser: argparse.ArgumentParser) -> EnginePlan:
+    """One plan from the CLI: ``--plan`` JSON, or the deprecated aliases;
+    mixing both is a parser error."""
+    legacy = {kw: getattr(args, attr)
+              for attr, kw in _LEGACY_FLAGS.items()}
+    if args.plan is None:
+        return EnginePlan.from_legacy(**legacy)
+    defaults = {a.dest: a.default for a in parser._actions}
+    stray = [f"--{attr.replace('_', '-')}" for attr in _LEGACY_FLAGS
+             if getattr(args, attr) != defaults[attr]]
+    if stray:
+        parser.error(f"--plan cannot be combined with the deprecated "
+                     f"per-stage flags ({', '.join(stray)}); set those "
+                     "fields in the plan JSON instead")
+    return EnginePlan.load(args.plan)
+
+
+def _refuse_unported(args, parser: argparse.ArgumentParser) -> None:
+    """Exit through the parser on an option whose code is not ported."""
+    if args.distributed or args.model_par != 1:
+        parser.error(f"--distributed / --model-par: not ported yet, see "
+                     f"{_MULTI_DEVICE}")
+    if args.stream:
+        parser.error(f"--stream: not ported yet, see {_RESILIENT}")
+    given = [flag for flag, on in (
+        ("--resume-dir", args.resume_dir is not None),
+        ("--fault-plan", args.fault_plan is not None),
+        ("--on-overflow", args.on_overflow is not None),
+        ("--rebalance", args.rebalance is not None),
+        ("--elastic-resume", args.elastic_resume)) if on]
+    if given:
+        parser.error(f"{', '.join(given)}: the resilient runner is not "
+                     f"ported yet, see {_RESILIENT}")
+
+
+def _exit_code_for(exc) -> int | None:
+    """Map a failure to its documented process exit code (None = not a
+    classified failure): the port raises only the top-K overflow."""
+    if isinstance(exc, RuntimeError) and "sim_topk" in str(exc):
+        return EXIT_CODES["overflow"]
+    return None
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.print_cli_table:
+        print(cli_reference_table(), end="")
+        return None
+    if args.check_readme is not None:
+        diff = check_readme_cli_table(args.check_readme)
+        if diff:
+            raise SystemExit(
+                "README CLI table is out of sync with the parser — "
+                "regenerate it with --print-cli-table:\n" + "\n".join(diff))
+        print(f"{args.check_readme}: CLI table in sync")
+        return None
+    plan = plan_from_args(args, ap)
+    _refuse_unported(args, ap)
+    dev = resolve_device(args.device)
+
+    rc = get_dsc_config(args.config)
+    n_trajs = args.n_trajs or min(rc.n_trajs, 64)
+    batch = make_dataset(args.config, n_trajs, rc.max_points, args.seed,
+                         device=dev)
+    diam, mean_dt = default_dsc_params_for(batch)
+    params = DSCParams(
+        eps_sp=0.15 * diam if args.config != "dsc_synth" else 0.42,
+        eps_t=1.0 * mean_dt, delta_t=rc.delta_t,
+        w=min(rc.w, 6 if args.config == "dsc_synth" else rc.w),
+        tau=0.15 if args.config == "dsc_synth" else rc.tau,
+        alpha_sigma=-1.0, k_sigma=-1.0,
+        max_subtrajs_per_traj=rc.max_subtrajs,
+        segmentation=args.segmentation or ("tsa2" if args.config ==
+                                           "dsc_synth" else rc.segmentation))
+
+    t0 = time.time()
+    try:
+        out = run_dsc(batch, params, plan=plan, device=dev)
+        s = cluster_summary(out)
+        log.info("DSC: %d clusters, %d outliers, RMSE %.4f, SSCR "
+                 "%.2f in %.2fs", s["num_clusters"], len(s["outliers"]),
+                 s["rmse"], s["sscr"], time.time() - t0)
+        for rep, members in sorted(s["clusters"].items(),
+                                   key=lambda kv: -len(kv[1]))[:8]:
+            log.info("  cluster rep=%d size=%d", rep, len(members))
+    except Exception as e:  # noqa: BLE001 - classified failure -> exit code
+        code = _exit_code_for(e)
+        if code is None:
+            raise
+        log.error("%s: %s (exit code %d)", type(e).__name__, e, code)
+        raise SystemExit(code) from e
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,8 @@ segmentation must be equal.  Float outputs carry stated tolerances:
   another order (and the similarity scatter's per-cell sums may differ by
   an ulp): 1e-5 relative.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -229,3 +231,161 @@ def test_groundtruth_recovery(fig1):
     assert cluster_purity(assign, truth) >= 0.95
     assert pairwise_f1(assign, truth) >= 0.5
     assert float(out.sscr) > 0.0 and float(out.rmse) <= params.eps_sp
+
+
+# --------------------------------------------------------------------------
+# The stage entry points and run_dsc_lowerable
+# --------------------------------------------------------------------------
+
+def _same(a, b, what="out"):
+    """Bitwise equality of two outputs, field by field (dataclasses,
+    tensors, ints, None)."""
+    if a is None or b is None:
+        assert a is None and b is None, what
+    elif torch.is_tensor(a):
+        assert a.dtype == b.dtype and torch.equal(a, b), what
+    elif dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")
+    else:
+        assert a == b, what
+
+
+def _chain(batch, params, plan):
+    """The seven stage entry points chained as ``run_dsc`` runs its stages:
+    in top-K mode the similarity, cluster and score stages again with K
+    doubled while the certificate fails.  The materialize kernel plan with
+    the index takes the reference's host-planned route: the pruned join,
+    then ``run_stage_vote_from_join``."""
+    from repro_torch.kernels.stjoin import ops as stjoin_ops
+    tiles = None
+    if plan.mode == "fused":
+        tiles, plan = tdsc.plan_fused_tile_ids(batch, params, plan)
+        join = None
+        vote, masks = tdsc.run_stage_join_fused(batch, params, tiles, plan)
+    elif plan.use_index and plan.use_kernel:
+        join = stjoin_ops.subtrajectory_join(
+            batch, batch, params.eps_sp, params.eps_t, params.delta_t,
+            use_index=True)
+        vote, masks = tdsc.run_stage_vote_from_join(batch, params, join,
+                                                    plan)
+    else:
+        join, vote, masks = tdsc.run_stage_join(batch, params, plan)
+    seg, table = tdsc.run_stage_segment(batch, params, vote, masks, plan)
+    S, k, dispatches = table.num_slots, plan.sim_topk or 32, 0
+    while True:
+        p = plan.replace(sim_topk=min(k, S))
+        sim, topk = tdsc.run_stage_similarity(batch, params, join, seg,
+                                              table, tiles, p)
+        result, overflow = tdsc.run_stage_cluster(
+            sim if topk is None else topk, table, params, p)
+        sscr_v, rmse_v = tdsc.run_stage_score(result, sim, params)
+        dispatches += 1
+        if overflow is None or int(overflow) == 0:
+            break
+        k = 2 * k
+    return dict(join=join, vote=vote, seg=seg, table=table, sim=sim,
+                sim_topk=topk, sim_overflow=overflow, result=result,
+                sscr=sscr_v, rmse=rmse_v, dispatches=dispatches)
+
+
+CHAIN_PLANS = {
+    "materialize": EnginePlan(**KERNEL_PLAN),
+    "fused": EnginePlan(mode="fused", **KERNEL_PLAN),
+    "materialize_topk": EnginePlan(sim_mode="topk", sim_topk=2,
+                                   **KERNEL_PLAN),
+    "fused_topk": EnginePlan(mode="fused", sim_mode="topk", sim_topk=2,
+                             **KERNEL_PLAN),
+    "materialize+index": EnginePlan(use_index=True, **KERNEL_PLAN),
+    "materialize_plain+index": EnginePlan(use_index=True),
+    "fused_topk+index": EnginePlan(mode="fused", sim_mode="topk",
+                                   use_index=True, **KERNEL_PLAN)}
+
+
+@pytest.mark.parametrize("plan", sorted(CHAIN_PLANS))
+@pytest.mark.parametrize("scenario", ["fig1_tsa2", "ais"])
+def test_stage_chain_equals_run_dsc(scenario, plan):
+    """Each stage's outputs fed into the next give ``run_dsc``'s outputs
+    bit for bit, every field (the cube, the lists and the certificate
+    included), with as many top-K dispatches (K = 2 widens)."""
+    jb, kw = _scenario(scenario)
+    tb, p, plan = _port(jb), DSCParams(**kw), CHAIN_PLANS[plan]
+    out = tdsc.run_dsc(tb, p, device="cpu", plan=plan)
+    got = _chain(tb, p, plan)
+    assert got.pop("dispatches") == out.dispatches
+    for f, v in got.items():
+        _same(v, getattr(out, f), f)
+    assert int(out.result.is_rep.sum()) >= 1
+
+
+def test_stage_chain_widens(fig1):
+    """K = 2 on fig1 does spill: the chain and ``run_dsc`` both widen."""
+    jb, _ = fig1
+    out = tdsc.run_dsc(_port(jb), DSCParams(**FIG1, segmentation="tsa2"),
+                       device="cpu", plan=CHAIN_PLANS["fused_topk"])
+    assert out.dispatches > 1 and out.sim_topk.k > 2
+
+
+def test_plan_fused_tile_ids_returns_the_plan(fig1):
+    """``(tiles, plan)``: no tiles without the index or in materialize
+    mode; the plan comes back unchanged (the kernels take no geometry)."""
+    jb, _ = fig1
+    tb, p = _port(jb), DSCParams(**FIG1, segmentation="tsa2")
+    for plan in (EnginePlan(), EnginePlan(mode="fused"),
+                 EnginePlan(use_index=True)):
+        assert tdsc.plan_fused_tile_ids(tb, p, plan) == (None, plan)
+    plan = EnginePlan(mode="fused", use_index=True, fused_rows=64)
+    tiles, back = tdsc.plan_fused_tile_ids(tb, p, plan)
+    assert back is plan and tiles is not None
+
+
+LOWERABLE = {"materialize": EnginePlan(**KERNEL_PLAN),
+             "fused": EnginePlan(mode="fused", **KERNEL_PLAN),
+             "default": EnginePlan(),
+             "fused_topk": EnginePlan(mode="fused", sim_mode="topk")}
+
+
+@pytest.mark.parametrize("plan", sorted(LOWERABLE))
+@pytest.mark.parametrize("scenario", ["fig1_tsa2", "ais"])
+def test_run_dsc_lowerable_equals_run_dsc(scenario, plan):
+    """One dispatch, every field bitwise ``run_dsc``'s (top-K: at the
+    default K, where the certificate holds, so ``run_dsc`` does not
+    widen)."""
+    jb, kw = _scenario(scenario)
+    tb, p, plan = _port(jb), DSCParams(**kw), LOWERABLE[plan]
+    low = tdsc.run_dsc_lowerable(tb, p, plan, device="cpu")
+    out = tdsc.run_dsc(tb, p, device="cpu", plan=plan)
+    assert low.dispatches == out.dispatches == 1
+    _same(low, out)
+
+
+def test_run_dsc_lowerable_returns_the_certificate(fig1):
+    """No widen loop: at K = 2 the certificate fails and comes back with
+    the one dispatch's result, as ``run_dsc(on_overflow="degrade")``; K
+    is clamped to S."""
+    jb, _ = fig1
+    tb, p = _port(jb), DSCParams(**FIG1, segmentation="tsa2")
+    plan = EnginePlan(mode="fused", sim_mode="topk", sim_topk=2)
+    low = tdsc.run_dsc_lowerable(tb, p, plan, device="cpu")
+    deg = tdsc.run_dsc(tb, p, device="cpu", plan=plan, on_overflow="degrade")
+    assert low.dispatches == 1 and int(low.sim_overflow) > 0
+    _same(low, deg)
+    S = tb.num_trajs * p.max_subtrajs_per_traj
+    wide = tdsc.run_dsc_lowerable(tb, p, plan.replace(sim_topk=10 * S),
+                                  device="cpu")
+    assert wide.sim_topk.k == S and int(wide.sim_overflow) == 0
+
+
+def test_run_dsc_lowerable_refuses_the_index(fig1):
+    jb, _ = fig1
+    tb, p = _port(jb), DSCParams(**FIG1, segmentation="tsa2")
+    msg = ("run_dsc_lowerable requires use_index=False (index planning is "
+           "host-driven); use run_dsc")
+    with pytest.raises(ValueError) as e:
+        tdsc.run_dsc_lowerable(tb, p, EnginePlan(use_index=True),
+                               device="cpu")
+    assert str(e.value) == msg
+    with pytest.raises(ValueError) as je:
+        jdsc.run_dsc_lowerable(jb, JParams(**FIG1, segmentation="tsa2"),
+                               jdsc.EnginePlan(use_index=True))
+    assert str(je.value) == msg

@@ -322,6 +322,89 @@ def test_k5_k6_match_plain(cuda, S, state):
     assert bool((ks >= 0).any()) == bool(rep.any())
 
 
+def _no_sync(fn):
+    """``fn()`` with host syncs refused (alpha read on the card)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _graph(fn):
+    """``fn`` captured in a CUDA graph (after a warm-up on a side stream),
+    and a dict holding the outputs of its captured call."""
+    out = {}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out["r"] = fn()
+    return graph, out
+
+
+@pytest.mark.parametrize("S,state", [(200, "mixed"), (4097, "all"),
+                                     (5001, "none"), (32768, "sparse")])
+def test_k5_alpha_on_card(cuda, S, state):
+    """K5 with alpha a card tensor, as the engine passes it: one launch and
+    no host sync, then captured in a CUDA graph and replayed after new
+    alphas are written into that tensor; bitwise its plain version each
+    time (the kernel reads the tensor, not a value fixed at capture)."""
+    sim, rank, unres, rep, _ = _k5_instance(cuda, S, state, S + 1)
+    alpha = torch.tensor(0.5, device=cuda)
+    before = kernels.LAUNCHES["round_scan"]
+    kb, kc = _no_sync(lambda: cluster_round_scan(sim, rank, unres, rep,
+                                                 alpha))
+    assert kernels.LAUNCHES["round_scan"] == before + 1
+    pb, pc = round_scan_ref(sim, rank, unres, rep, 0.5)
+    assert torch.equal(kb, pb) and torch.equal(kc, pc)
+    graph, out = _graph(lambda: cluster_round_scan(sim, rank, unres, rep,
+                                                   alpha))
+    for a in (0.75, 0.25, 0.5):
+        alpha.fill_(a)
+        graph.replay()
+        torch.cuda.synchronize()
+        pb, pc = round_scan_ref(sim, rank, unres, rep, a)
+        assert torch.equal(out["r"][0], pb) and torch.equal(out["r"][1], pc)
+
+
+@pytest.mark.parametrize("S,K", [(300, 7), (5000, 64), (1000, 256)])
+def test_k8_k9_alpha_on_card(cuda, S, K):
+    """K8 and K9 with alpha a card tensor: one launch each and no host
+    sync, then both captured in a CUDA graph and replayed at new alphas;
+    bitwise their plain versions each time."""
+    rng = np.random.default_rng(S + K + 1)
+    ids, sims = _lists(rng, S, K, cuda)
+    rank = torch.from_numpy(rng.permutation(S).astype(np.int32)).to(cuda)
+    unres = torch.from_numpy(rng.uniform(size=S) < 0.4).to(cuda)
+    rep = ~unres & torch.from_numpy(rng.uniform(size=S) < 0.5).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=S) < 0.9).to(cuda)
+    alpha = torch.tensor(0.4, device=cuda)
+    call = lambda: (topk_cluster_round_scan(ids, sims, rank, unres, rep,
+                                            alpha),
+                    topk_cluster_assign(ids, sims, rank, rep, valid, alpha))
+    before = dict(kernels.LAUNCHES)
+    got = _no_sync(call)
+    assert kernels.LAUNCHES["topk_round_scan"] == before["topk_round_scan"] + 1
+    assert kernels.LAUNCHES["topk_claim_max"] == before["topk_claim_max"] + 1
+    graph, out = _graph(call)
+    cpu = [t.cpu() for t in (ids, sims, rank, unres, rep, valid)]
+    for a, res in ((0.4, got), (0.8, None), (0.2, None)):
+        if res is None:
+            alpha.fill_(a)
+            graph.replay()
+            torch.cuda.synchronize()
+            res = out["r"]
+        (kb, kc), (kw, ks) = res
+        pb, pc = topk_cluster_round_scan(*cpu[:5], a)
+        pw, ps = topk_cluster_assign(*cpu[:3], cpu[4], cpu[5], a)
+        assert torch.equal(kb.cpu(), pb) and torch.equal(kc.cpu(), pc), a
+        assert torch.equal(kw.cpu(), pw) and torch.equal(ks.cpu(), ps), a
+
+
 # name: (S, representative rows, ranks, share of valid columns, offset);
 # R = S / 2 and S cut the list into many slices (merged), R <= 8 one
 K6_CASES = {"dup_5000": (5000, 500, "dup", 0.9, 0),
@@ -417,6 +500,28 @@ def test_run_dsc_kernel_plan_matches_cpu(cuda, mode):
     for f in ("member_of", "is_rep", "is_outlier"):
         assert torch.equal(getattr(g.result, f).cpu(), getattr(c.result, f))
     assert torch.equal(g.seg.sub_local.cpu(), c.seg.sub_local)
+
+
+@pytest.mark.parametrize("mode", ["materialize", "fused", "fused_topk"])
+def test_launcher_kernel_plan_matches_cpu(cuda, mode, tmp_path):
+    """The launcher on a small ``ais_like`` batch (dsc_brest's generator
+    and sizing at 48 vessels, TSA2) with a kernel plan file: the card run
+    launches exactly its path's kernels, and its labels and segmentation
+    equal the same command's with ``--device cpu``."""
+    from repro_torch.launch import run_dsc as launcher
+    path = tmp_path / "plan.json"
+    _path_plan(mode).save(path)
+    argv = ["--config", "dsc_brest", "--n-trajs", "48", "--segmentation",
+            "tsa2", "--plan", str(path)]
+    kernels.reset_launch_counts()
+    g = launcher.main(argv)
+    assert {k for k, n in kernels.LAUNCHES.items() if n > 0} \
+        == PATH_KERNELS[mode]
+    c = launcher.main(argv + ["--device", "cpu"])
+    for f in ("member_of", "is_rep", "is_outlier"):
+        assert torch.equal(getattr(g.result, f).cpu(), getattr(c.result, f))
+    assert torch.equal(g.seg.sub_local.cpu(), c.seg.sub_local)
+    assert g.vote.is_cuda and int(g.result.is_rep.sum()) >= 1
 
 
 def _retime(tb, times, seed=0):

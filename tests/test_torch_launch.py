@@ -1,0 +1,179 @@
+"""PyTorch port: the single-device launcher held against the JAX package's.
+
+``repro_torch.launch.run_dsc.main(argv + ["--device", "cpu"])`` and
+``repro.launch.run_dsc.main(argv)`` run the same config, data and plan
+file: cluster summaries (clusters, outliers, ``num_clusters``) equal;
+``sscr``, ``rmse``, ``alpha`` and ``k`` within the 1e-5 relative
+tolerance ``tests/test_torch_dsc.py::_compare`` states (float32 sums in
+another order than XLA's).  The parser is the reference's plus
+``--device``; options whose code is not ported exit through the parser.
+"""
+import argparse
+import logging
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.dsc import cluster_summary as jsummary
+from repro.core.plan import EnginePlan as JPlan
+from repro.launch import run_dsc as jl
+from repro_torch.core.dsc import cluster_summary as tsummary
+from repro_torch.core.plan import EnginePlan
+from repro_torch.launch import run_dsc as tl
+
+torch.set_num_threads(1)
+
+README = Path(__file__).resolve().parents[1] / "README.md"
+KERNELS = dict(seg_use_kernel=True, cluster_use_kernel=True)
+PLANS = {"materialize": dict(use_kernel=True, **KERNELS),
+         "fused": dict(mode="fused", **KERNELS),
+         "fused_topk": dict(mode="fused", sim_mode="topk", **KERNELS)}
+
+
+@pytest.mark.parametrize("plan", [None, *sorted(PLANS)])
+def test_main_matches_reference(plan, tmp_path, caplog):
+    """The default plan (no ``--plan``) and three plan files written by the
+    port's ``EnginePlan.save``; the port logs the reference's summary."""
+    argv = ["--config", "dsc_synth"]
+    if plan is not None:
+        path = tmp_path / "plan.json"
+        EnginePlan(**PLANS[plan]).save(path)
+        argv += ["--plan", str(path)]
+    jo = jl.main(argv)
+    with caplog.at_level(logging.INFO, logger="repro_torch"):
+        to = tl.main(argv + ["--device", "cpu"])
+    js, ts = jsummary(jo), tsummary(to)
+    for f in ("clusters", "outliers", "num_clusters"):
+        assert ts[f] == js[f], f
+    for f in ("sscr", "rmse", "alpha", "k"):
+        np.testing.assert_allclose(ts[f], js[f], rtol=1e-5, err_msg=f)
+    assert ts["num_clusters"] >= 1
+    assert (to.sim is None) == (plan == "fused_topk")
+    assert (to.join is None) == (plan in ("fused", "fused_topk"))
+    assert f"DSC: {ts['num_clusters']} clusters, {len(ts['outliers'])} " \
+        "outliers" in caplog.text
+
+
+@pytest.mark.parametrize("name", ["dsc_synth", "dsc_brest"])
+def test_make_dataset_matches_reference(name):
+    jb = jl.make_dataset(name, 12, 32, seed=3)
+    tb = tl.make_dataset(name, 12, 32, seed=3, device="cpu")
+    for f in ("x", "y", "t", "valid", "traj_id"):
+        assert np.array_equal(np.asarray(getattr(jb, f)),
+                              getattr(tb, f).numpy()), f
+
+
+def _options(ap):
+    return {s: (a.default, tuple(a.choices or ()), a.nargs, a.const,
+                type(a).__name__)
+            for a in ap._actions for s in a.option_strings}
+
+
+def test_parser_is_the_reference_plus_device():
+    """Option strings, defaults, choices and kinds equal the reference's,
+    plus ``--device {cuda,cpu}`` (default ``cuda``)."""
+    t, j = _options(tl.build_parser()), _options(jl.build_parser())
+    assert set(t) - set(j) == {"--device"}
+    assert set(j) <= set(t)
+    for s in j:
+        assert t[s] == j[s], s
+    assert t["--device"][:2] == ("cuda", ("cuda", "cpu"))
+    assert tl._LEGACY_FLAGS == jl._LEGACY_FLAGS
+
+
+REFUSED = {"distributed": (["--distributed", "2"], "item 4"),
+           "model_par": (["--model-par", "2"], "item 4"),
+           "stream": (["--stream"], "item 3"),
+           "resume_dir": (["--resume-dir", "ck"], "item 3"),
+           "fault_plan": (["--fault-plan", "faults.json"], "item 3"),
+           "on_overflow": (["--on-overflow", "raise"], "item 3"),
+           "rebalance": (["--rebalance", "apply"], "item 3"),
+           "elastic_resume": (["--elastic-resume"], "item 3")}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_unported_options_refuse(name, capsys):
+    """Each exits through the parser (code 2) before any data is made,
+    naming the ROADMAP.md item that ports its code."""
+    argv, item = REFUSED[name]
+    with pytest.raises(SystemExit) as e:
+        tl.main(["--device", "cpu", *argv])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert f"ROADMAP.md Queue 1 {item}" in err and argv[0] in err
+
+
+def test_plan_plus_legacy_flag_refuses(tmp_path, capsys):
+    path = tmp_path / "plan.json"
+    EnginePlan(mode="fused").save(path)
+    with pytest.raises(SystemExit) as e:
+        tl.main(["--device", "cpu", "--plan", str(path), "--sim-mode",
+                 "topk"])
+    assert e.value.code == 2
+    assert "--plan cannot be combined" in capsys.readouterr().err
+    ap = tl.build_parser()
+    args = ap.parse_args(["--plan", str(path)])
+    assert tl.plan_from_args(args, ap) == EnginePlan(mode="fused")
+
+
+def test_reference_plan_file_drives_the_port(tmp_path):
+    """A plan saved by the reference is what the port's launcher runs."""
+    path = tmp_path / "plan.json"
+    JPlan(mode="fused", sim_mode="topk", sim_topk=4, fused_rows=64).save(path)
+    ap = tl.build_parser()
+    plan = tl.plan_from_args(ap.parse_args(["--plan", str(path)]), ap)
+    assert plan.to_dict() == JPlan.load(path).to_dict()
+
+
+@pytest.mark.parametrize("argv", [[], ["--mode", "fused", "--use-kernel",
+                                       "--seg-use-kernel",
+                                       "--cluster-use-kernel"],
+                                  ["--sim-mode", "topk", "--sim-topk", "8",
+                                   "--halo-stream", "ring"]])
+def test_legacy_flags_make_the_reference_plan(argv):
+    tap, jap = tl.build_parser(), jl.build_parser()
+    tp = tl.plan_from_args(tap.parse_args(argv), tap)
+    jp = jl.plan_from_args(jap.parse_args(argv), jap)
+    assert tp.to_dict() == jp.to_dict()
+
+
+def test_exit_codes_match_reference():
+    from repro.run import EXIT_CODES
+    assert tl.EXIT_CODES == EXIT_CODES
+    for exc in (RuntimeError("sim_topk=4 truncated a potential alpha-edge "
+                             "on 3 rows (spill >= alpha)"),
+                RuntimeError("CUDA launch failed"), ValueError("sim_topk"),
+                KeyError("dsc_nowhere")):
+        assert tl._exit_code_for(exc) == jl._exit_code_for(exc), exc
+    assert tl._exit_code_for(RuntimeError("sim_topk=4")) == 3
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without ``--device`` the launcher runs on the card: with none it
+    raises, and does not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tl.main(["--config", "dsc_synth"])
+
+
+def test_readme_cli_table_in_sync(capsys):
+    """The README's port table equals the parser's (``--check-readme``),
+    and the reference's table beside it is not the port's."""
+    assert tl.check_readme_cli_table(str(README)) == []
+    assert tl.main(["--check-readme", str(README)]) is None
+    assert "CLI table in sync" in capsys.readouterr().out
+    assert tl.main(["--print-cli-table"]) is None
+    table = capsys.readouterr().out
+    assert table == tl.cli_reference_table()
+    assert "`--device` `{cuda,cpu}`" in table
+    assert jl.readme_cli_table(str(README)) != tl.readme_cli_table(
+        str(README))
+
+
+def test_cli_table_rows_cover_every_flag():
+    rows = tl.cli_reference_table().splitlines()[2:]
+    flags = [a for a in tl.build_parser()._actions if a.option_strings
+             and not isinstance(a, argparse._HelpAction)]
+    assert len(rows) == len(flags)

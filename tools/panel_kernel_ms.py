@@ -6,8 +6,8 @@ each other within one run (parent, change, change, parent):
     python3 tools/panel_kernel_ms.py [--src DIR] [--label NAME]
                                      [--only PART [PART ...]]
 
-(PART: fused, join, panels, cluster, lcss, jaccard or lists; all seven
-by default.)
+(PART: fused, join, panels, cluster, lcss, jaccard, lists or rounds;
+all eight by default.)
 
 ``--src`` defaults to this checkout's ``src``; the kernels build beside
 it at first use.  Data and parameters are ``chip_smoke.brest_batch``'s
@@ -64,6 +64,12 @@ around 20 calls a dispatch and around a CUDA graph of them (the device
 time: a small K's call is bound by the host), a digest of each output,
 and the sums.
 
+``rounds``: three ``run_dsc`` calls each of the dense fused and the
+fused top-K paths at dsc_brest: per call the clustering stage and its
+parts (``stage_parts``: the thresholds, the visit order, the round loop
+of a K5 / K8 launch and a host sync a round, the claim-max), the rounds,
+and a digest of ``member_of`` and ``member_sim``.
+
 "Alone" is ``chip_smoke.graph_ms`` of the panel's launch with its
 operands prepared once and no slot-map check (K13 with the two zero
 fills of its slabs): through ``prepare_sim_panel``'s prepared call where
@@ -81,7 +87,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PARTS = ("fused", "join", "panels", "cluster", "lcss", "jaccard", "lists")
+PARTS = ("fused", "join", "panels", "cluster", "lcss", "jaccard", "lists",
+         "rounds")
 
 
 def panel_call(sj, batch, sub, ms, eps, p0, Sb, plan):
@@ -146,7 +153,7 @@ def measure(cs, batch, params, path):
     Sb = plan_panel(S)
     p0 = (S // Sb // 2) * Sb
     eps = (params.eps_sp, params.eps_t, params.delta_t)
-    tiles = plan_fused_tile_ids(batch, params, plan)
+    tiles, _ = plan_fused_tile_ids(batch, params, plan)
     sub = out.seg.sub_local
     call, got = panel_call(sj, batch, sub, ms, eps, p0, Sb, tiles)
     call()
@@ -286,6 +293,29 @@ def lists_measure(cs, batch, params):
                 K9_sum_device_ms=sum(p["device_ms"] for p in per))
 
 
+def rounds_measure(cs, batch, params, reps: int = 3):
+    """``reps`` calls of ``run_dsc`` on the dense fused and the fused top-K
+    paths: each call's clustering stage, its parts, rounds and a digest
+    of the labels."""
+    from repro_torch.core.dsc import run_dsc
+    res = {}
+    for path in ("fused", "fused_topk"):
+        calls = []
+        for _ in range(reps):
+            times, parts = {}, {}
+            out = run_dsc(batch, params, plan=cs.kernel_plan(path),
+                          device=batch.x.device, stage_times=times,
+                          stage_parts=parts)
+            calls.append(dict(
+                cluster_ms=times["cluster"], rounds=out.rounds,
+                **{k.split(".")[1] + "_ms": v for k, v in parts.items()},
+                digest=[digest(out.result.member_of),
+                        digest(out.result.member_sim)]))
+            del out
+        res[path] = calls
+    return res
+
+
 def fused_measure(cs, batch, params, path):
     """One ``run_dsc`` call of the dense fused ``path``, then its join_vote
     and similarity passes (K2 and K4, or K11 and K12 with the index) on
@@ -302,7 +332,7 @@ def fused_measure(cs, batch, params, path):
     wall = time.perf_counter() - t0
     ms = params.max_subtrajs_per_traj
     eps = (params.eps_sp, params.eps_t, params.delta_t)
-    tiles = plan_fused_tile_ids(batch, params, plan)
+    tiles, _ = plan_fused_tile_ids(batch, params, plan)
     arrs = (batch.x, batch.y, batch.t, batch.valid, batch.traj_id) * 2
     sub = out.seg.sub_local
     vote = lambda: sj.stjoin_vote_fused_arrays(*arrs, *eps, tile_ids=tiles)
@@ -366,7 +396,8 @@ def main(argv=None) -> int:
                     help="time only these parts: the dense fused passes, "
                          "the materialize join, the top-K panel passes, K5 "
                          "over the clustering rounds and K6, K14, K3, K9 at "
-                         "every top-K dispatch (default: all seven)")
+                         "every top-K dispatch, the clustering stage's "
+                         "parts (default: all eight)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_kernel_ms: no CUDA device is available",
@@ -400,6 +431,8 @@ def main(argv=None) -> int:
         res["lcss"] = lcss_measure(cs, dev)
     if "lists" in args.only:
         res["lists"] = lists_measure(cs, *brest)
+    if "rounds" in args.only:
+        res["rounds"] = rounds_measure(cs, *brest)
     if "jaccard" in args.only:
         res["jaccard"] = jaccard_measure(cs, *brest)
         del brest, lanes
