@@ -95,6 +95,41 @@ after):
 * (before LCSS) the S2T baseline on the card and on the CPU, on the
   figure-1 scenario: equal labels.
 
+The resilient runner, the streaming service and the launcher's options
+for them (after the stage entry points; launch counts zeroed just before
+each run or advance and read just after; wall, peak, checkpoint bytes and
+seconds per save printed):
+
+* ``run_resilient`` at dsc_brest with the fused top-K kernel plan,
+  checkpoints under a temporary directory (its free disk printed),
+  ``on_overflow="widen"``: with ``FaultPlan(crash_at="cluster")`` it must
+  raise ``InjectedCrash`` (launching K2, K3 and K7); the resume must give
+  ``resumed_from == 3``, one widen fewer than the main run's dispatches,
+  launch only K7, K8 and K9 (the widen re-runs similarity from the
+  segment checkpoint), and equal the main fused top-K run field for
+  field (labels, lists, final K, sscr);
+* the streaming service at full width: the 4,096 dsc_brest vessels
+  submitted in time order, 32,768 fixes a batch (13 advances), T = 4096,
+  M = 128, K = 8, w = 6, TSA1, dsc_brest's eps, the whole span as
+  horizon, a batch's span plus twice the mean interval as allowed
+  lateness (at least 99% of the fixes admitted), absolute thresholds
+  from a batch run over the same data (``stream_thresholds``); each
+  advance launches K1 for the delta join and K9 for the claim-max, the
+  run K8 (its ms, dirty rows, pass-2 rows and launches printed); at the
+  middle and the last advance the standing
+  lists, spill and labels bitwise ``run_dsc`` with the materialize top-K
+  kernel plan over the window; once, 64 dirty rows of the cube bitwise
+  K1's plain twin under the rows' bbox mask; balanced books; a peak below
+  60 GB (the cube is 17.2 GB);
+* kill and resume at T = 1024 (the first 1,024 vessels: a snapshot's cube
+  is 1.07 GB, not 17.2): a crash entering advance 3, a resume from the
+  snapshot, the final state bitwise an uninterrupted run's;
+* the launcher in this process at its default size: ``--stream
+  --resume-dir`` (exit 0), a ``{"crash_at": "cluster"}`` fault plan (6)
+  and the resume (0, labels of a plain run), ``--on-overflow raise`` (3),
+  ``--on-dirty fail`` with a poison record (7), ``--backpressure block
+  --queue-cap 10`` (8).
+
 Index pruning (``use_index=True``, the pruned kernels K10-K13):
 
 * T = 512: the materialize, fused and fused top-K kernel plans with the
@@ -148,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -1181,6 +1217,526 @@ def phase_stages(dev, report, batch, params, runs):
         "run_dsc's, same launches")
 
 
+# ---------------------------------------------------------------------------
+# The resilient runner, the streaming service and the launcher's
+# resilient and stream options
+# ---------------------------------------------------------------------------
+
+# the kernels the resumed fused top-K run launches: the widen re-runs
+# similarity from the segment checkpoint
+RESUME_KERNELS = {"chunk_time_bounds", "stjoin_sim_panel_fused",
+                  "topk_round_scan", "topk_claim_max"}
+# the stream at full width: records per submission batch
+STREAM_BATCH = 32768
+# kernels an advance of the TSA1 stream launches: K1 (and the candidates'
+# chunk time bounds) for the delta join, K9 for the claim-max; K8 when a
+# round runs (a warm prefix can resolve every slot)
+STREAM_NEED = {"stjoin_best_match", "chunk_time_bounds", "topk_claim_max"}
+STREAM_KERNELS = STREAM_NEED | {"topk_round_scan"}
+# the stream kill-and-resume phase: its window and its batches
+RESUME_T_CAP = 1024
+RESUME_BATCH = 8192
+
+
+@contextlib.contextmanager
+def recorded_saves():
+    """Every checkpoint write as ``(step, bytes, seconds)`` (on the writer
+    thread for async saves), and every stage save's seconds on the calling
+    thread (the host copy and hand-off), by wrapping the port's
+    ``save_checkpoint`` and ``_StageLoop._save``."""
+    import numpy as np
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.run import resilient
+    real_write, real_save = checkpointer.save_checkpoint, \
+        resilient._StageLoop._save
+    writes, calls = [], []
+
+    def write(root, step, tree, meta=None):
+        t0 = time.perf_counter()
+        out = real_write(root, step, tree, meta=meta)
+        _, leaves = checkpointer._flatten_with_paths(tree)
+        writes.append((step, sum(v.nbytes if hasattr(v, "nbytes")
+                                 else np.asarray(v).nbytes for v in leaves),
+                       time.perf_counter() - t0))
+        return out
+
+    def save(self, step, stage, state):
+        t0 = time.perf_counter()
+        real_save(self, step, stage, state)
+        calls.append(time.perf_counter() - t0)
+
+    checkpointer.save_checkpoint = write
+    resilient._StageLoop._save = save
+    try:
+        yield writes, calls
+    finally:
+        checkpointer.save_checkpoint = real_write
+        resilient._StageLoop._save = real_save
+
+
+def free_disk(path) -> str:
+    import shutil
+    u = shutil.disk_usage(path)
+    return f"{u.free / 1e9:.1f} GB free of {u.total / 1e9:.1f} GB"
+
+
+def phase_resilient(dev, report, batch, params, tout, tlaunches):
+    """The resilient runner at dsc_brest with the fused top-K kernel plan,
+    checkpoints under a temporary directory, ``on_overflow="widen"``: a
+    run with ``FaultPlan(crash_at="cluster")`` must raise ``InjectedCrash``
+    (launching the join, segmentation and first similarity kernels), then
+    the resume: ``resumed_from == 3``, one widen fewer than the main run's
+    dispatches, only K7, K8 and K9 (and the chunk bounds) launched, K8's
+    launches the main run's, and labels, lists, final K and sscr bitwise
+    the main fused top-K run's (``tout``)."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.run import FaultPlan, InjectedCrash, run_resilient
+    from repro_torch.core.similarity import plan_panel
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    log(f"resilient (dsc_brest, fused top-K): checkpoints under a "
+        f"temporary directory, {free_disk(root)}")
+    plan = kernel_plan("fused_topk")
+    try:
+        with recorded_saves() as (writes, calls):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                run_resilient(batch, params, plan=plan, checkpoint_dir=root,
+                              on_overflow="widen", device=dev,
+                              fault_plan=FaultPlan(crash_at="cluster"))
+                check(False, "resilient: the crash at 'cluster' did not "
+                             "raise")
+            except InjectedCrash:
+                pass
+            torch.cuda.synchronize()
+            crash_s = time.perf_counter() - t0
+            crash_launches = dict(kernels.LAUNCHES)
+            crash_peak = torch.cuda.max_memory_allocated() - base
+            want = {"chunk_time_bounds", "stjoin_vote_fused",
+                    "jaccard_window", "stjoin_sim_panel_fused"}
+            check({k for k, n in crash_launches.items() if n} == want,
+                  f"resilient crash run launched {crash_launches}")
+            n_crash_writes = len(writes)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run_resilient(batch, params, plan=plan,
+                                checkpoint_dir=root, on_overflow="widen",
+                                device=dev)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() - base
+        ran = {k for k, n in launches.items() if n}
+        S = tout.table.num_slots
+        check(ran == RESUME_KERNELS,
+              f"resilient resume launched {sorted(ran)}, expected "
+              f"{sorted(RESUME_KERNELS)}")
+        check(res.resumed_from == 3,
+              f"resilient: resumed_from={res.resumed_from}, expected 3")
+        check(res.widen_count == tout.dispatches - 1,
+              f"resilient: widen_count={res.widen_count}, main run "
+              f"dispatches {tout.dispatches}")
+        want = {"stjoin_sim_panel_fused":
+                res.widen_count * S // plan_panel(S),
+                "topk_claim_max": tout.dispatches,
+                "topk_round_scan": tlaunches["topk_round_scan"],
+                "chunk_time_bounds": res.widen_count}
+        check(all(launches[k] == n for k, n in want.items()),
+              f"resilient resume: launches {launches}, expected {want}")
+        out = res.output
+        diffs = [f for f in RESULT_FIELDS
+                 if not torch.equal(getattr(out.result, f),
+                                    getattr(tout.result, f))]
+        diffs += [f for f in ("ids", "sims", "spill", "degree", "row_sum",
+                              "row_sumsq")
+                  if not torch.equal(getattr(out.sim_topk, f),
+                                     getattr(tout.sim_topk, f))]
+        check(not diffs and torch.equal(out.sscr, tout.sscr)
+              and out.sim_topk.k == tout.sim_topk.k,
+              f"resilient resume: {diffs} (or sscr, final K) not bitwise "
+              "the main fused top-K run's")
+        ckpt_bytes = sum(b for _, b, _ in writes)
+        save_s = [s for _, _, s in writes]
+        disk = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+        log(f"resilient (dsc_brest, fused top-K): crash run wall "
+            f"s={crash_s:.3f} peak_alloc_GB={crash_peak / 1e9:.3f} "
+            f"({n_crash_writes} saves); resume wall s={resume_s:.3f} "
+            f"peak_alloc_GB={peak / 1e9:.3f} resumed_from=3 "
+            f"widen_count={res.widen_count} final_K={out.sim_topk.k}; "
+            f"labels, lists, final K and sscr bitwise the main run's")
+        log(f"resilient checkpoints: {len(writes)} saves, "
+            f"{ckpt_bytes / 1e9:.3f} GB written, s per save (writer thread) "
+            f"mean {sum(save_s) / len(save_s):.3f} max {max(save_s):.3f}; "
+            f"s per save on the calling thread (host copy) mean "
+            f"{sum(calls) / len(calls):.3f} max {max(calls):.3f}; "
+            f"{disk / 1e9:.3f} GB on disk at the end")
+        log(f"resilient resume launches: {launches}")
+        report["resilient_dsc_brest_fused_topk"] = dict(
+            crash_wall_s=crash_s, crash_peak_alloc_bytes=crash_peak,
+            crash_launches=crash_launches, resume_wall_s=resume_s,
+            resume_peak_alloc_bytes=peak, launches=launches,
+            widen_count=res.widen_count, final_k=out.sim_topk.k,
+            saves=len(writes), checkpoint_bytes=ckpt_bytes,
+            save_s=save_s, save_call_s=calls, disk_bytes_end=disk)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def batch_span(records) -> float:
+    """The longest event-time span of one submission batch."""
+    import numpy as np
+    return max(float(np.float64(r.t.max()) - np.float64(r.t.min()))
+               for r in records)
+
+
+def stream_config(batch, params, alpha, k, t_cap, records, **kw):
+    """The stream's configuration over ``batch`` at dsc_brest's eps
+    (0.15 x diameter, the mean sampling interval), absolute thresholds
+    ``alpha`` / ``k``, the whole span as horizon, and as allowed lateness
+    the longest span of one of ``records``' batches plus twice the mean
+    interval (a batch's watermark is its newest fix less the lateness: a
+    smaller one drops the batch's own older fixes); TSA1, w = 6, K = 8, 4
+    subtrajectories a trajectory (the service's default)."""
+    import numpy as np
+    from repro_torch.stream import StreamConfig
+    t = batch.t[batch.valid].cpu().numpy()
+    span = float(np.float64(t.max()) - np.float64(t.min()))
+    return StreamConfig(t_cap=t_cap, m_cap=batch.max_points,
+                        eps_sp=params.eps_sp, eps_t=params.eps_t,
+                        alpha_abs=alpha, k_abs=k,
+                        allowed_lateness=(batch_span(records)
+                                          + 2.0 * params.eps_t),
+                        horizon=span, k=8, w=6, segmentation="tsa1", **kw)
+
+
+def stream_oracle(drv, what: str):
+    """The standing lists, spill and labels bitwise ``run_dsc`` over the
+    window with the materialize top-K kernel plan (K1 joins the window as
+    the delta join does), ``sim_topk=K``, ``on_overflow="degrade"``."""
+    from repro_torch.core.dsc import run_dsc
+    K = drv.config.k
+    plan = kernel_plan("materialize_topk").replace(sim_topk=K)
+    t0 = time.perf_counter()
+    out = run_dsc(drv.window_batch(), drv.config.params, plan=plan,
+                  on_overflow="degrade", device=drv.device)
+    out.join = None
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    diffs = [f for f, got in (("ids", drv.standing_ids[:, :K]),
+                              ("sims", drv.standing_sims[:, :K]),
+                              ("spill", drv.standing_sims[:, K]))
+             if not torch.equal(getattr(out.sim_topk, f), got)]
+    diffs += [f for f in ("member_of", "member_sim", "is_rep", "is_outlier")
+              if not torch.equal(getattr(out.result, f), getattr(drv, f))]
+    check(not diffs, f"stream ({what}): {diffs} not bitwise the batch "
+                     "oracle's")
+    reps = int(out.result.is_rep.sum())
+    del out
+    torch.cuda.empty_cache()
+    return oracle_s, reps
+
+
+def k1_delta_check(drv, rows, what: str):
+    """The cube's rows and columns ``rows`` bitwise K1's plain twin under
+    the rows' bbox pair mask (the masked plain delta join)."""
+    import numpy as np
+    from repro_torch.core.types import TrajectoryBatch
+    from repro_torch.index.grid import exact_pair_mask
+    from repro_torch.kernels.stjoin.ops import _flat_operands
+    from repro_torch.kernels.stjoin.ref import stjoin_ref
+    c = drv.config
+    win = drv.window_batch()
+    mask = exact_pair_mask(drv._boxes(rows), drv._boxes(),
+                           np.float32(c.eps_sp), np.float32(c.eps_t))
+    r = torch.from_numpy(rows).to(drv.device)
+    sub = TrajectoryBatch(x=win.x[r], y=win.y[r], t=win.t[r],
+                          valid=win.valid[r], traj_id=win.traj_id[r])
+    for ref, cand, m, got in (
+            (sub, win, mask, (drv.cube_w[r], drv.cube_idx[r])),
+            (win, sub, mask.T, (drv.cube_w[:, :, r], drv.cube_idx[:, :, r]))):
+        ops = _flat_operands(ref.x, ref.y, ref.t, ref.valid, ref.traj_id,
+                             cand.x, cand.y, cand.t, cand.valid,
+                             cand.traj_id)
+        w, i = stjoin_ref(*ops[0], *ops[1], c.eps_sp, c.eps_t,
+                          pair_mask=m.repeat_interleave(c.m_cap, dim=0))
+        check(torch.equal(w.view(got[0].shape), got[0])
+              and torch.equal(i.view(got[1].shape), got[1]),
+              f"stream ({what}): the K1 delta join differs from the "
+              "masked plain join")
+        del w, i
+
+
+def stream_thresholds(batch, cfg):
+    """Absolute thresholds for the stream: the ``alpha_used`` and
+    ``k_used`` of a batch run over the same data with the stream's
+    parameters and the library's default thresholds (the mean similarity
+    and the mean voting; dsc_brest's -1 sigma gives a negative alpha,
+    which a stream refuses).  The fused kernel plan; not a counted run."""
+    from repro_torch.core.dsc import run_dsc
+    p = cfg.params.replace(alpha_abs=-1.0, k_abs=-1.0)
+    out = run_dsc(batch, p, plan=kernel_plan("fused"), device=batch.device)
+    alpha, k = float(out.result.alpha_used), float(out.result.k_used)
+    del out
+    torch.cuda.empty_cache()
+    return alpha, k
+
+
+def phase_stream(dev, report):
+    """The streaming service at full width: the 4,096 dsc_brest vessels
+    (T = 4096, M = 128, the cube [T, M, T] on the card) submitted in time
+    order, 32,768 fixes a batch, one advance a batch, absolute thresholds
+    from ``stream_thresholds``.  Launch counts zeroed before each advance
+    and read after it: K1 and K9 each advance, K8 in the run, nothing
+    else.  At least 99% of the fixes admitted.  At one advance in the middle and at the
+    last, the standing lists, spill and labels bitwise the batch oracle;
+    at the first advance with at least 64 dirty rows, 64 of them held
+    against the masked plain join; the books balance.  Returns the
+    thresholds."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import stream_records
+    from repro_torch.serve.stream import StreamService
+    batch, params = brest_batch(4096, dev)
+    records = stream_records(batch, batch_size=STREAM_BATCH)
+    cfg = stream_config(batch, params, 0.0, 0.0, batch.num_trajs, records,
+                        queue_cap=STREAM_BATCH)
+    alpha, k = stream_thresholds(batch, cfg)
+    cfg = dataclasses.replace(cfg, alpha_abs=alpha, k_abs=k).validate()
+    n_fix = sum(r.n for r in records)
+    log(f"stream (dsc_brest): T={cfg.t_cap} M={cfg.m_cap} "
+        f"S={cfg.t_cap * cfg.max_subs} K={cfg.k} {n_fix} fixes in "
+        f"{len(records)} batches of {STREAM_BATCH}; eps_sp={cfg.eps_sp:.6g} "
+        f"eps_t={cfg.eps_t:.6g} alpha_abs={cfg.alpha_abs:.6g} "
+        f"k_abs={cfg.k_abs:.6g} horizon={cfg.horizon:.6g} "
+        f"allowed_lateness={cfg.allowed_lateness:.6g}")
+    del batch
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    svc = StreamService(cfg, device=dev)
+    drv = svc.driver
+    dirty_of = {}
+    real_join = drv._delta_join
+
+    def delta_join(D, win):
+        dirty_of[drv.advance_count] = D
+        return real_join(D, win)
+
+    drv._delta_join = delta_join
+    mid = len(records) // 2
+    per_adv, peak, checked_rows, oracles, scans = [], 0, None, {}, 0
+    for i, recs in enumerate(records):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        drv.submit(recs)
+        summary = drv.advance()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        check(STREAM_NEED <= set(launches) <= STREAM_KERNELS,
+              f"stream advance {i} launched {launches}")
+        scans += launches.get("topk_round_scan", 0)
+        per_adv.append(dict(ms=ms, dirty_rows=summary["dirty_rows"],
+                            sim_rows=summary["sim_rows"],
+                            pass2_rows=summary["pass2_rows"],
+                            rounds=summary["rounds"],
+                            warm_prefix=summary["warm_prefix"],
+                            k1_launches=launches.get("stjoin_best_match", 0),
+                            launches=launches, reps=summary["reps"]))
+        log(f"stream advance {i}: ms={ms:.1f} dirty_rows="
+            f"{summary['dirty_rows']} sim_rows={summary['sim_rows']} "
+            f"pass2_rows={summary['pass2_rows']} launches={launches} "
+            f"rounds={summary['rounds']} "
+            f"warm_prefix={summary['warm_prefix']} reps={summary['reps']}")
+        if checked_rows is None and summary["dirty_rows"] >= 64:
+            checked_rows = dirty_of[i][:64]
+            k1_delta_check(drv, checked_rows, f"advance {i}")
+        if i in (mid, len(records) - 1):
+            oracles[i] = stream_oracle(drv, f"advance {i}")
+    acc = svc.accounting()
+    check(acc["balanced"], f"stream: books do not balance {acc}")
+    check(scans > 0, "stream: no advance launched topk_round_scan")
+    check(acc["inserted"] >= 0.99 * n_fix,
+          f"stream: {acc['inserted']} of {n_fix} fixes admitted")
+    check(checked_rows is not None, "stream: no advance had 64 dirty rows")
+    check(peak < 60e9, f"stream: peak {peak / 1e9:.3f} GB over 60 GB")
+    ms_all = [a["ms"] for a in per_adv]
+    log(f"stream (dsc_brest): {len(per_adv)} advances, ms per advance mean "
+        f"{sum(ms_all) / len(ms_all):.1f} min {min(ms_all):.1f} max "
+        f"{max(ms_all):.1f}; K1 launches "
+        f"{sum(a['k1_launches'] for a in per_adv)}; peak_alloc_GB="
+        f"{peak / 1e9:.3f} (the cube 17.18); lists and labels bitwise the "
+        f"batch oracle at advances {sorted(oracles)} (oracle s "
+        f"{', '.join(f'{s:.2f}' for s, _ in oracles.values())}); the K1 "
+        f"delta join of 64 dirty rows bitwise the masked plain join; "
+        f"books balance ({acc['inserted']} of {n_fix} fixes inserted, "
+        f"{acc['late_dropped']} late)")
+    report["stream_dsc_brest"] = dict(advances=per_adv, peak_alloc_bytes=peak,
+                                      accounting=acc, fixes=n_fix,
+                                      alpha_abs=alpha, k_abs=k,
+                                      oracle_s={str(a): v[0] for a, v in
+                                                oracles.items()})
+    del svc, drv, delta_join, real_join
+    gc.collect()        # the instrumented driver refers to itself
+    torch.cuda.empty_cache()
+    return alpha, k
+
+
+def stream_state(drv) -> dict:
+    """The service's state that a resume must reproduce."""
+    out = {f: getattr(drv, f).clone() for f in (
+        "standing_ids", "standing_sims", "member_of", "member_sim",
+        "is_rep", "is_outlier", "cube_w", "cube_idx", "sub_local", "vote")}
+    out["store"] = [a.copy() for a in (drv.xs, drv.ys, drv.ts, drv.valid)]
+    out["stats"] = drv.stats()
+    return out
+
+
+def phase_stream_resume(dev, report, alpha, k):
+    """Kill and resume at T = 1024 (the first 1,024 dsc_brest vessels; a
+    snapshot holds a 1.07 GB cube): a service with a snapshot every 3
+    advances crashes entering advance 3, a new one resumes from the
+    snapshot and finishes; its state (cube, lists, labels, store, books)
+    equals an uninterrupted run's bitwise."""
+    import shutil
+    import tempfile
+    from repro_torch.core.types import TrajectoryBatch
+    from repro_torch.data.synthetic import stream_records
+    from repro_torch.run import FaultInjector, FaultPlan, InjectedCrash
+    from repro_torch.serve.stream import StreamService
+    full, params = brest_batch(4096, dev)
+    n = RESUME_T_CAP
+    batch = TrajectoryBatch(x=full.x[:n], y=full.y[:n], t=full.t[:n],
+                            valid=full.valid[:n], traj_id=full.traj_id[:n])
+    records = stream_records(batch, batch_size=RESUME_BATCH)
+    cfg = stream_config(batch, params, alpha, k, n, records,
+                        queue_cap=RESUME_BATCH, snapshot_every=3)
+    del full, batch
+    t0 = time.perf_counter()
+    ref = StreamService(cfg, device=dev)
+    ref.run(records)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    want = stream_state(ref.driver)
+    del ref
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_"))
+    log(f"stream kill and resume (T={n}): {len(records)} batches of "
+        f"{RESUME_BATCH}; snapshots under a temporary directory, "
+        f"{free_disk(root)}")
+    try:
+        with recorded_saves() as (writes, _):
+            svc = StreamService(cfg, checkpoint_dir=str(root), device=dev,
+                                injector=FaultInjector(
+                                    FaultPlan(crash_at_advance=3)))
+            try:
+                svc.run(records)
+                check(False, "stream: the crash at advance 3 did not raise")
+            except InjectedCrash:
+                pass
+            del svc
+            t0 = time.perf_counter()
+            svc = StreamService(cfg, checkpoint_dir=str(root), device=dev)
+            resumed_at = svc.driver.advance_count
+            svc.run(records)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        check(svc.resumed and resumed_at == 3,
+              f"stream: resumed={svc.resumed} at advance {resumed_at}")
+        got = stream_state(svc.driver)
+        diffs = [k for k, v in want.items() if not (
+            torch.equal(v, got[k]) if torch.is_tensor(v) else
+            all((a == b).all() for a, b in zip(v, got[k]))
+            if isinstance(v, list) else v == got[k])]
+        check(not diffs, f"stream resume: {diffs} differ from the "
+                         "uninterrupted run")
+        snap_b = [b for _, b, _ in writes]
+        snap_s = [s for _, _, s in writes]
+        log(f"stream kill and resume (T={n}): uninterrupted run s="
+            f"{ref_s:.3f}; resumed at advance 3, resumed run s="
+            f"{resume_s:.3f}; state bitwise the uninterrupted run's; "
+            f"{len(writes)} snapshots of {max(snap_b) / 1e9:.3f} GB, s per "
+            f"snapshot mean {sum(snap_s) / len(snap_s):.3f}")
+        report["stream_resume_t1024"] = dict(
+            uninterrupted_s=ref_s, resume_s=resume_s, snapshots=len(writes),
+            snapshot_bytes=snap_b, snapshot_s=snap_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_launcher_exits(dev, report):
+    """The launcher in this process at its default size (dsc_synth) on the
+    card: ``--stream --resume-dir`` (exit 0, the books balance), the
+    ``{"crash_at": "cluster"}`` fault plan (exit 6) then the resume (exit
+    0, labels bitwise a plain launcher run's), ``--on-overflow raise``
+    (3), ``--on-dirty fail`` with a poison record (7) and ``--backpressure
+    block --queue-cap 10`` (8)."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.launch import run_dsc as launcher
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_launcher_"))
+
+    def run(argv):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out, code = launcher.main(argv), 0
+        except SystemExit as e:
+            out, code = None, e.code
+        torch.cuda.synchronize()
+        return code, out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    try:
+        for name, plan in (("crash", {"crash_at": "cluster"}),
+                           ("poison", {"stream_poison": [[1, 3]]})):
+            (root / f"{name}.json").write_text(json.dumps(plan))
+        cases = [
+            ("stream", ["--stream", "--resume-dir", str(root / "svc")], 0),
+            ("crash", ["--resume-dir", str(root / "ck"), "--fault-plan",
+                       str(root / "crash.json")], 6),
+            ("resume", ["--resume-dir", str(root / "ck")], 0),
+            ("overflow", ["--sim-mode", "topk", "--sim-topk", "2",
+                          "--on-overflow", "raise"], 3),
+            ("poison", ["--stream", "--on-dirty", "fail", "--fault-plan",
+                        str(root / "poison.json")], 7),
+            ("backpressure", ["--stream", "--backpressure", "block",
+                              "--queue-cap", "10"], 8)]
+        _, plain, _, _ = run([])
+        rows = {}
+        for name, argv, want in cases:
+            code, out, s, launches = run(argv)
+            check(code == want, f"launcher ({name}): exit {code}, expected "
+                                f"{want}")
+            if name == "stream":
+                check(launches.get("stjoin_best_match", 0) > 0,
+                      "launcher --stream launched no K1")
+            if name == "resume":
+                for f in LABELS:
+                    check(torch.equal(getattr(out.result, f),
+                                      getattr(plain.result, f)),
+                          f"launcher resume: {f} differs from a plain run")
+            rows[name] = dict(argv=argv, exit=code, wall_s=s,
+                              launches={k: n for k, n in launches.items()
+                                        if n})
+            log(f"launcher ({name}): {' '.join(argv)} -> exit {code} in "
+                f"{s:.3f} s")
+        report["launcher_exits"] = rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_s2t(dev):
     """The S2T baseline (``core.baselines.s2t``: the plain DSC core on the
     batch's device, SaCO on the host) on the card and on the CPU, on the
@@ -2154,6 +2710,15 @@ def main(argv=None) -> int:
     phase_stages(dev, report, batch, params,
                  dict(fused=(fout, flaunches), materialize=(out, launches)))
     torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    phase_resilient(dev, report, batch, params, tout, tlaunches)
+    alpha, k = phase_stream(dev, report)
+    phase_stream_resume(dev, report, alpha, k)
+    phase_launcher_exits(dev, report)
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    check(left < 64 << 20, f"the resilient and stream phases left "
+                           f"{left / 1e9:.3f} GB allocated on the card")
     join_ids, fplan = plan_index(batch, params, report, "dsc_brest")
     _, sub = phase_index(dev, report, batch, params, "dsc_brest",
                          outs=dict(materialize=out, fused=fout,

@@ -190,6 +190,32 @@ class EnginePlan:
                    sim_exchange=sim_exchange).validate()
 
 
-def resolve_plan(plan: EnginePlan | None = None) -> EnginePlan:
-    """The plan a run uses: ``plan`` validated, or the default plan."""
-    return (EnginePlan() if plan is None else plan).validate()
+_LEGACY_DEFAULTS = {
+    "mode": "materialize", "use_kernel": False, "use_index": False,
+    "fused_tiles": None, "seg_use_kernel": False,
+    "cluster_engine": "rounds", "cluster_use_kernel": False,
+    "sim_mode": "dense", "sim_topk": None, "sim_panel": None,
+    "sim_strategy": "psum", "sim_dtype": "f32",
+    "halo_stream": "barrier", "sim_exchange": "allgather",
+}
+
+
+def resolve_plan(plan: EnginePlan | None = None, **legacy) -> EnginePlan:
+    """The one entry-point rule: a plan, or the deprecated per-stage flags
+    (``sim_mode=``, ``use_kernel=``, ... as ``EnginePlan.from_legacy``
+    takes them) — never both.  ``plan=None`` materializes the plan of the
+    flags (the default plan without any); with a plan, any flag at a
+    non-default value raises, with the reference's messages."""
+    unknown = set(legacy) - set(_LEGACY_DEFAULTS)
+    if unknown:
+        raise TypeError(f"unknown legacy plan flags {sorted(unknown)}")
+    if plan is None:
+        return EnginePlan.from_legacy(**legacy)
+    clash = {k: v for k, v in legacy.items()
+             if v != _LEGACY_DEFAULTS[k] and v is not None}
+    if clash:
+        raise ValueError(
+            f"both plan= and legacy per-stage flags were given ({clash}); "
+            "the deprecated flags only exist to materialize a plan — "
+            "set the fields on the plan instead")
+    return plan.validate()

@@ -1,7 +1,8 @@
 """Subtrajectory similarity (Eq. 2) and the ST / SP relations
-(counterpart of ``repro.core.similarity`` on one host; the distributed
-list merges ``sort_topk_lists`` / ``merge_topk_*`` and
-``finalize_sim_cols`` are ROADMAP queue 1 item 9).
+(counterpart of ``repro.core.similarity`` on one host, with the
+canonical list merges ``sort_topk_lists`` / ``merge_topk_lists`` that the
+streaming service reads; ``merge_topk_blocks`` and ``finalize_sim_cols``
+belong to the multi-device program, ``ROADMAP.md`` Queue 1 item 4).
 
 Every join match ``(ref point (r, m) <-> best point of candidate c)``
 adds its weight ``1 - d_s/eps_sp`` to the (sub(r, m), sub(c, best_idx))
@@ -347,6 +348,40 @@ def topk_from_dense(sim: torch.Tensor, table: SubtrajTable,
     ids, sims, spill = (torch.cat(p) for p in zip(*parts))
     return TopKSim(ids=ids, sims=sims, spill=spill, degree=cnt,
                    row_sum=rsum, row_sumsq=rsumsq)
+
+
+def sort_topk_lists(ids: torch.Tensor, sims: torch.Tensor, kk: int):
+    """Canonical top-``kk`` of candidate lists: rows sorted by the total
+    order (sim descending, id ascending), then truncated.
+
+    The order makes the result a function of the *set* of ``(id, sim)``
+    pairs of a row alone (ids distinct within a row), whatever their
+    column order or grouping.  The reference sorts on both keys at once
+    (``lax.sort(num_keys=2)``); torch has no multi-key sort, so a stable
+    sort by id, then a stable descending sort by sim, gives the same
+    order.  Neither sort tells ``-0.0`` from ``+0.0`` (equal values keep
+    the id order), as ``lax.sort`` does not either.
+
+    ``sims`` are similarity values (non-negative); returns ``(ids [S,
+    kk], sims [S, kk])`` untruncated by sign — masking to ``(id=-1,
+    sim=0)`` stays with the caller.
+    """
+    by_id = torch.sort(ids, dim=-1, stable=True).indices
+    ids_s = torch.gather(ids, -1, by_id)
+    sims_s = torch.gather(sims, -1, by_id)
+    by_sim = torch.sort(sims_s, dim=-1, descending=True, stable=True).indices
+    kk = min(kk, sims.shape[-1])
+    by_sim = by_sim[..., :kk]
+    return torch.gather(ids_s, -1, by_sim), torch.gather(sims_s, -1, by_sim)
+
+
+def merge_topk_lists(ids_a, sims_a, ids_b, sims_b, kk: int):
+    """Pairwise canonical merge: fold the list ``b`` into the standing
+    top-``kk`` ``a``.  Exact because the top-``kk`` of a union lies in the
+    union of the operands' top-``kk`` lists, and canonical because
+    ``sort_topk_lists`` is."""
+    return sort_topk_lists(torch.cat([ids_a, ids_b], dim=1),
+                           torch.cat([sims_a, sims_b], dim=1), kk)
 
 
 def topk_overflow(topk: TopKSim, alpha) -> torch.Tensor:

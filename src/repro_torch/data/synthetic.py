@@ -4,6 +4,9 @@ The same numpy generators, draw for draw, so a seed gives bitwise the same
 batch as the JAX package; only the container is a torch
 ``TrajectoryBatch``, placed on ``device`` (``None`` = the card).
 
+``stream_records`` replays a batch as the streaming service's submission
+batches; ``dirtify`` corrupts such a sequence with a known count of dirt.
+
 ``figure1_scenario`` — the paper's running example: six routes through a
 common midpoint O.  ``crossing_scenario`` — figure-1 traffic plus brief
 crossers and fringe riders of the A->O corridor.  ``ais_like`` —
@@ -153,6 +156,117 @@ def ais_like(n_vessels: int = 64, n_lanes: int = 4, max_points: int = 128,
         trajs, max_points=max_points, pad_trajs_to=pad_trajs_to,
         device=device)
     return batch, np.asarray(labels)
+
+
+def stream_records(batch: TrajectoryBatch, batch_size: int = 64,
+                   order: str = "time"):
+    """Replay a :class:`TrajectoryBatch` as a sequence of submission
+    batches for the streaming service (``repro_torch.stream``).
+
+    Flattens every valid point to a ``(obj, x, y, t)`` record, orders
+    the stream (``"time"``: global event-time order, the realistic feed;
+    ``"traj"``: row-major, worst case for the watermark), and yields
+    :class:`~repro_torch.stream.ingest.Records` chunks of ``batch_size``.
+    Deterministic — the same batch yields the same submission sequence,
+    which is what lets a resumed service replay by absolute batch index.
+    """
+    from repro_torch.stream.ingest import Records
+    x = batch.x.cpu().numpy()
+    y = batch.y.cpu().numpy()
+    t = batch.t.cpu().numpy()
+    v = batch.valid.cpu().numpy()
+    ids = batch.traj_id.cpu().numpy()
+    rows, cols = np.nonzero(v)
+    obj = ids[rows]
+    keep = obj >= 0
+    rows, cols, obj = rows[keep], cols[keep], obj[keep]
+    if order == "time":
+        srt = np.lexsort((obj, t[rows, cols]))
+    elif order == "traj":
+        srt = np.lexsort((t[rows, cols], obj))
+    else:
+        raise ValueError(f"order={order!r}: expected 'time' or 'traj'")
+    rows, cols, obj = rows[srt], cols[srt], obj[srt]
+    out = []
+    for i in range(0, len(obj), batch_size):
+        s = slice(i, i + batch_size)
+        out.append(Records.build(obj[s], x[rows[s], cols[s]],
+                                 y[rows[s], cols[s]], t[rows[s], cols[s]]))
+    return out
+
+
+def dirtify(recs_list, *, dup_frac: float = 0.0, nan_frac: float = 0.0,
+            swap_frac: float = 0.0, teleport_frac: float = 0.0,
+            teleport_dist: float = 50.0, seed: int = 0):
+    """Seeded corruptor for a submission sequence — the chaos suite's
+    ground truth generator.
+
+    Takes the output of :func:`stream_records` and injects, per batch:
+
+    * ``dup_frac``      — duplicated records (appended verbatim);
+    * ``nan_frac``      — records with NaN coordinates;
+    * ``swap_frac``     — adjacent same-object timestamp *swaps* (the
+      mechanically-repairable dirt ``on_dirty="repair"`` fixes);
+    * ``teleport_frac`` — records displaced ``teleport_dist`` away (GPS
+      jumps the ``max_speed`` gate quarantines).
+
+    Returns ``(dirty_list, truth)`` where ``truth`` counts exactly what
+    was injected — tests assert the ingest counters against it.  Fully
+    deterministic in ``seed``.
+    """
+    from repro_torch.stream.ingest import Records, concat_records
+    rng = np.random.default_rng(seed)
+    truth = {"dup": 0, "nan": 0, "swap_pairs": 0, "teleport": 0}
+    out = []
+    seen_objs: set = set()   # teleports need a baseline fix to be seen
+    for recs in recs_list:
+        obj = recs.obj.copy()
+        x = recs.x.copy()
+        y = recs.y.copy()
+        t = recs.t.copy()
+        n = recs.n
+        if n and swap_frac > 0:
+            # swap timestamps of adjacent same-object record pairs
+            cand = np.nonzero(obj[:-1] == obj[1:])[0]
+            take = cand[rng.random(cand.size) < swap_frac]
+            used = np.zeros(n, bool)
+            for i in take:
+                if used[i] or used[i + 1] or t[i] == t[i + 1]:
+                    continue
+                t[i], t[i + 1] = t[i + 1], t[i]
+                used[i] = used[i + 1] = True
+                truth["swap_pairs"] += 1
+        hit = np.zeros(n, bool)     # nan/teleport stay disjoint so the
+        if n and teleport_frac > 0:  # truth counts match ingest's counters
+            # never displace an object's first-ever record: the speed
+            # gate has no baseline fix there, so such a jump would be
+            # invisible to ingest and the truth count would overshoot
+            eligible = np.zeros(n, bool)
+            batch_seen = set(seen_objs)
+            for i in range(n):
+                o = int(obj[i])
+                eligible[i] = o in batch_seen
+                batch_seen.add(o)
+            take = np.nonzero(
+                (rng.random(n) < teleport_frac) & ~hit & eligible)[0]
+            x[take] += teleport_dist
+            hit[take] = True
+            truth["teleport"] += int(take.size)
+        if n and nan_frac > 0:
+            take = np.nonzero((rng.random(n) < nan_frac) & ~hit)[0]
+            x[take] = np.nan
+            hit[take] = True
+            truth["nan"] += int(take.size)
+        dirty = Records(obj, x, y, t)
+        if n and dup_frac > 0:
+            take = np.nonzero(rng.random(n) < dup_frac)[0]
+            if take.size:
+                dirty = concat_records(
+                    [dirty, Records(obj[take], x[take], y[take], t[take])])
+                truth["dup"] += int(take.size)
+        seen_objs.update(int(o) for o in obj)
+        out.append(dirty)
+    return out, truth
 
 
 def default_dsc_params_for(batch: TrajectoryBatch):

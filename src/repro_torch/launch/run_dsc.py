@@ -13,9 +13,16 @@ deprecated aliases that materialize a plan; combining them with
 asks for the CPU; with no card the default raises.
 
 The parser has every flag of the reference, with its default and
-choices, plus ``--device``.  The options whose code is not ported yet
-(the multi-device program, the resilient runner, the streaming service)
-exit through the parser with the ``ROADMAP.md`` item that ports them.
+choices, plus ``--device``.  ``--resume-dir``, ``--fault-plan``,
+``--on-overflow`` and ``--rebalance`` route the run through the resilient
+stage runner (``repro_torch.run``), ``--stream`` replays the dataset
+through the windowed streaming service (``repro_torch.serve.stream``); a
+classified failure exits with the reference's code (``EXIT_CODES``: 3
+overflow, 4 corruption, 5 retries exhausted, 6 injected crash, 7 poison
+record, 8 backpressure).  The multi-device program (``--distributed``,
+``--model-par``) is not ported: those exit through the parser with the
+``ROADMAP.md`` item that ports it, and ``--elastic-resume`` with the
+reference's own parser error (it needs ``--distributed``).
 
 The README's table of this parser is generated (``--print-cli-table``)
 and checked (``--check-readme``) between its own markers.
@@ -32,6 +39,7 @@ from repro_torch.core.types import DSCParams
 from repro_torch.data.synthetic import (ais_like, default_dsc_params_for,
                                         figure1_scenario)
 from repro_torch.kernels import resolve_device
+from repro_torch.run import EXIT_CODES
 from repro_torch.utils.logging import get_logger
 
 log = get_logger("run_dsc")
@@ -41,23 +49,8 @@ CLI_TABLE_BEGIN = ("<!-- cli-table-torch:begin (generated by python -m "
                    "repro_torch.launch.run_dsc --print-cli-table) -->")
 CLI_TABLE_END = "<!-- cli-table-torch:end -->"
 
-# process exit code per failure class (the reference's table,
-# repro.run.resilient.EXIT_CODES; it moves to run/ with the resilient
-# runner)
-EXIT_CODES = {
-    "ok": 0,
-    "error": 1,
-    "overflow": 3,
-    "corruption": 4,
-    "retries_exhausted": 5,
-    "injected_crash": 6,
-    "poison": 7,          # PoisonRecord under on_dirty="fail" (stream)
-    "backpressure": 8,    # BackpressureOverflow / WatermarkStall (stream)
-}
-
 # the options whose code is not ported yet -> the ROADMAP.md item
 _MULTI_DEVICE = "ROADMAP.md Queue 1 item 4 (the multi-device program)"
-_RESILIENT = "ROADMAP.md Queue 1 item 3 (recovery and streaming)"
 
 
 def make_dataset(name: str, n_trajs: int, max_points: int, seed: int = 0,
@@ -165,36 +158,50 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="dataset RNG seed")
     ap.add_argument("--resume-dir", default=None, metavar="DIR",
-                    help="checkpoint each stage boundary under DIR and "
-                         "resume (the resilient runner; refused until it "
-                         "is ported)")
+                    help="run through the resilient stage runner, "
+                         "checkpointing each stage boundary under DIR and "
+                         "resuming from the first incomplete stage on "
+                         "restart (bit-identical to a straight-through "
+                         "run); with --stream, the service's snapshots")
     ap.add_argument("--on-overflow", default=None,
                     choices=["raise", "widen", "degrade"],
-                    help="top-K overflow policy of the resilient runner "
-                         "(refused until it is ported; the run widens K)")
+                    help="top-K overflow policy: fail loudly, double K "
+                         "and re-run from the similarity stage, or accept "
+                         "the truncated lists and record the certificate "
+                         "(default: widen; implies the resilient runner)")
     ap.add_argument("--on-corruption", default="fallback",
                     choices=["fallback", "fail"],
-                    help="damaged-checkpoint policy for --resume-dir")
+                    help="damaged-checkpoint policy for --resume-dir: "
+                         "discard the bad step and restore the newest "
+                         "intact one, or exit with the corruption code")
     ap.add_argument("--max-retries", type=int, default=3,
-                    help="bounded retries per stage (resilient runner)")
+                    help="bounded exponential-backoff retries per stage "
+                         "before giving up (resilient runner)")
     ap.add_argument("--fault-plan", default=None, metavar="FAULTS.json",
-                    help="FaultPlan JSON scripting failures at stage "
-                         "boundaries (resilient runner; refused until it "
-                         "is ported)")
+                    help="FaultPlan JSON scripting deterministic failures "
+                         "(crash/transient/corruption/slowdown, stream "
+                         "chaos) — implies the resilient runner")
     ap.add_argument("--elastic-resume", action="store_true",
                     help="resume checkpoints written at another partition "
-                         "count (multi-device resilient runner; refused "
-                         "until it is ported)")
+                         "count (multi-device resilient runner: needs "
+                         "--distributed, which is not ported yet)")
     ap.add_argument("--rebalance", default=None,
                     choices=["off", "suggest", "apply"],
-                    help="straggler-flag policy (resilient runner; refused "
-                         "until it is ported)")
+                    help="straggler-flag policy (RebalancePolicy); one "
+                         "device has no re-cut to suggest or apply; "
+                         "implies the resilient runner")
     ap.add_argument("--sync-saves", action="store_true",
-                    help="write stage checkpoints synchronously "
-                         "(resilient runner)")
+                    help="write stage checkpoints synchronously instead "
+                         "of overlapping the save with the next stage "
+                         "(results are identical either way)")
     ap.add_argument("--stream", action="store_true",
                     help="run the windowed streaming service instead of a "
-                         "batch pipeline (refused until it is ported)")
+                         "batch pipeline: the dataset is replayed as "
+                         "point-record submissions through ingest "
+                         "validation, the bounded-lateness watermark and "
+                         "incremental window advances (standing state on "
+                         "the device; --resume-dir snapshots and resumes "
+                         "it, --fault-plan scripts stream chaos)")
     ap.add_argument("--stream-batch-size", type=int, default=64,
                     help="records per submission batch (--stream)")
     ap.add_argument("--stream-order", default="time",
@@ -311,29 +318,47 @@ def plan_from_args(args, parser: argparse.ArgumentParser) -> EnginePlan:
 
 
 def _refuse_unported(args, parser: argparse.ArgumentParser) -> None:
-    """Exit through the parser on an option whose code is not ported."""
+    """Exit through the parser on an option whose code is not ported
+    (the multi-device program)."""
     if args.distributed or args.model_par != 1:
         parser.error(f"--distributed / --model-par: not ported yet, see "
                      f"{_MULTI_DEVICE}")
-    if args.stream:
-        parser.error(f"--stream: not ported yet, see {_RESILIENT}")
-    given = [flag for flag, on in (
-        ("--resume-dir", args.resume_dir is not None),
-        ("--fault-plan", args.fault_plan is not None),
-        ("--on-overflow", args.on_overflow is not None),
-        ("--rebalance", args.rebalance is not None),
-        ("--elastic-resume", args.elastic_resume)) if on]
-    if given:
-        parser.error(f"{', '.join(given)}: the resilient runner is not "
-                     f"ported yet, see {_RESILIENT}")
 
 
 def _exit_code_for(exc) -> int | None:
     """Map a failure to its documented process exit code (None = not a
-    classified failure): the port raises only the top-K overflow."""
-    if isinstance(exc, RuntimeError) and "sim_topk" in str(exc):
+    classified failure; let it propagate as a plain error)."""
+    from repro_torch.run import (CheckpointCorruption, InjectedCrash,
+                                 OverflowViolation, RetriesExhausted)
+    from repro_torch.stream import (BackpressureOverflow, PoisonRecord,
+                                    WatermarkStall)
+    if isinstance(exc, InjectedCrash):
+        return EXIT_CODES["injected_crash"]
+    if isinstance(exc, RetriesExhausted):
+        return EXIT_CODES["retries_exhausted"]
+    if isinstance(exc, CheckpointCorruption):
+        return EXIT_CODES["corruption"]
+    if isinstance(exc, OverflowViolation):
         return EXIT_CODES["overflow"]
+    if isinstance(exc, RuntimeError) and "sim_topk" in str(exc):
+        return EXIT_CODES["overflow"]  # run_dsc's raise path
+    if isinstance(exc, PoisonRecord):
+        return EXIT_CODES["poison"]
+    if isinstance(exc, (BackpressureOverflow, WatermarkStall)):
+        return EXIT_CODES["backpressure"]
     return None
+
+
+def _classified(fn, *a):
+    """``fn(*a)``, a classified failure turned into its exit code."""
+    try:
+        return fn(*a)
+    except Exception as e:  # noqa: BLE001 - classified failure -> exit code
+        code = _exit_code_for(e)
+        if code is None:
+            raise
+        log.error("%s: %s (exit code %d)", type(e).__name__, e, code)
+        raise SystemExit(code) from e
 
 
 def main(argv=None):
@@ -369,23 +394,113 @@ def main(argv=None):
         segmentation=args.segmentation or ("tsa2" if args.config ==
                                            "dsc_synth" else rc.segmentation))
 
+    if args.stream:
+        return _classified(_run_stream, args, batch, mean_dt, dev)
+
+    resilient = (args.resume_dir is not None or args.fault_plan is not None
+                 or args.on_overflow is not None
+                 or args.rebalance is not None)
+    if args.elastic_resume:
+        ap.error("--elastic-resume needs --resume-dir and --distributed "
+                 "(elastic adaptation is a distributed-checkpoint "
+                 "feature)")
+    return _classified(_run_batch, args, batch, params, plan, dev,
+                       resilient)
+
+
+def _run_batch(args, batch, params, plan, dev, resilient: bool):
+    """One DSC run (through the resilient runner when asked), logged as
+    the reference logs it."""
     t0 = time.time()
-    try:
+    if resilient:
+        out = _run_resilient(args, batch, params, plan, dev)
+    else:
         out = run_dsc(batch, params, plan=plan, device=dev)
-        s = cluster_summary(out)
-        log.info("DSC: %d clusters, %d outliers, RMSE %.4f, SSCR "
-                 "%.2f in %.2fs", s["num_clusters"], len(s["outliers"]),
-                 s["rmse"], s["sscr"], time.time() - t0)
-        for rep, members in sorted(s["clusters"].items(),
-                                   key=lambda kv: -len(kv[1]))[:8]:
-            log.info("  cluster rep=%d size=%d", rep, len(members))
-    except Exception as e:  # noqa: BLE001 - classified failure -> exit code
-        code = _exit_code_for(e)
-        if code is None:
-            raise
-        log.error("%s: %s (exit code %d)", type(e).__name__, e, code)
-        raise SystemExit(code) from e
+    s = cluster_summary(out)
+    log.info("DSC: %d clusters, %d outliers, RMSE %.4f, SSCR "
+             "%.2f in %.2fs", s["num_clusters"], len(s["outliers"]),
+             s["rmse"], s["sscr"], time.time() - t0)
+    for rep, members in sorted(s["clusters"].items(),
+                               key=lambda kv: -len(kv[1]))[:8]:
+        log.info("  cluster rep=%d size=%d", rep, len(members))
     return out
+
+
+def _run_stream(args, batch, mean_dt, dev):
+    """Replay the dataset as a record stream through the windowed
+    incremental service (DESIGN.md §13), its state on ``dev``; the
+    reference's configuration (``eps_sp`` 0.42 on dsc_synth, else 0.3)."""
+    from pathlib import Path
+
+    from repro_torch.data.synthetic import stream_records
+    from repro_torch.run import FaultInjector, FaultPlan, Telemetry
+    from repro_torch.serve.stream import StreamService
+    from repro_torch.stream import StreamConfig
+
+    t = batch.t.cpu().numpy()[batch.valid.cpu().numpy()]
+    span = float(t.max() - t.min()) if t.size else 1.0
+    lateness = (args.allowed_lateness if args.allowed_lateness is not None
+                else 2.0 * mean_dt)
+    horizon = (args.horizon if args.horizon is not None
+               else max(span, lateness))
+    cfg = StreamConfig(
+        t_cap=batch.num_trajs, m_cap=batch.max_points,
+        eps_sp=0.42 if args.config == "dsc_synth" else 0.3,
+        eps_t=1.0 * mean_dt, alpha_abs=args.alpha_abs, k_abs=args.k_abs,
+        allowed_lateness=lateness, horizon=horizon,
+        k=args.stream_k, w=min(6, batch.max_points // 2),
+        queue_cap=args.queue_cap, backpressure=args.backpressure,
+        on_dirty=args.on_dirty, max_speed=args.max_speed,
+        snapshot_every=args.snapshot_every if args.resume_dir else 0)
+    fault_plan = (FaultPlan.load(args.fault_plan)
+                  if args.fault_plan else None)
+    injector = FaultInjector(fault_plan) if fault_plan else None
+    telemetry = None
+    if args.resume_dir:
+        Path(args.resume_dir).mkdir(parents=True, exist_ok=True)
+        telemetry = Telemetry(Path(args.resume_dir) / "telemetry.jsonl",
+                              time.time)
+    svc = StreamService(cfg, checkpoint_dir=args.resume_dir,
+                        telemetry=telemetry, injector=injector, device=dev)
+    if svc.resumed:
+        log.info("resumed stream service at advance %d (cursor %d)",
+                 svc.driver.advance_count, svc.driver.cursor)
+    batches = stream_records(batch, batch_size=args.stream_batch_size,
+                             order=args.stream_order)
+    t0 = time.time()
+    stats = svc.run(batches, pump_every=args.pump_every)
+    acc = svc.accounting()
+    log.info("stream: %d advances, %d objects, %d points in window, "
+             "%d reps, %d outliers in %.2fs", stats["advances"],
+             stats["objects"], stats["points"], stats["reps"],
+             stats["outliers"], time.time() - t0)
+    log.info("accounting: submitted=%d inserted=%d quarantined=%d "
+             "late=%d shed=%d balanced=%s", acc["submitted"],
+             acc["inserted"], acc["quarantined"], acc["late_dropped"],
+             acc["shed_queue"] + acc["shed_capacity"], acc["balanced"])
+    if not acc["balanced"]:
+        raise RuntimeError(f"stream accounting imbalance: {acc}")
+    return stats
+
+
+def _run_resilient(args, batch, params, plan, dev):
+    """Route a launcher invocation through the resilient stage runner."""
+    from repro_torch.run import FaultPlan, RebalancePolicy, run_resilient
+    fault_plan = (FaultPlan.load(args.fault_plan)
+                  if args.fault_plan else None)
+    rebalance = (RebalancePolicy(mode=args.rebalance)
+                 if args.rebalance is not None else None)
+    res = run_resilient(batch, params, plan=plan,
+                        checkpoint_dir=args.resume_dir,
+                        on_overflow=args.on_overflow or "widen",
+                        on_corruption=args.on_corruption,
+                        fault_plan=fault_plan, max_retries=args.max_retries,
+                        rebalance=rebalance, sync_saves=args.sync_saves,
+                        device=dev)
+    log.info("resilient run: resumed_from=%s widen_count=%d "
+             "rebalance_count=%d fallback_steps=%s", res.resumed_from,
+             res.widen_count, res.rebalance_count, res.fallback_steps)
+    return res.output
 
 
 if __name__ == "__main__":

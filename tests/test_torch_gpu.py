@@ -1417,3 +1417,159 @@ def test_k1_k4_wide_candidate_grid(cuda):
         n_dst=C * ms)
     assert torch.equal(raw, plain)
     assert bool((plain[:, -2000:] > 0).any())
+
+
+# ---------------------------------------------------------------------------
+# The resilient runner, the streaming service and the checkpoint store on
+# the card
+# ---------------------------------------------------------------------------
+
+
+def _fig1_case(cuda):
+    tb, _ = figure1_scenario(n_per_route=4, points_per_leg=24, seed=0,
+                             device=cuda)
+    return tb, DSCParams(eps_sp=0.42, eps_t=1.0, delta_t=0.0, w=6, tau=0.15,
+                         alpha_sigma=-1.0, k_sigma=-1.0, segmentation="tsa2")
+
+
+@pytest.mark.parametrize("path", ["fused_topk", "materialize"])
+def test_resilient_crash_resume_on_card(cuda, path, tmp_path):
+    """The kernel plan through the resilient runner: a crash at the cluster
+    stage, then a resume, gives ``run_dsc``'s output bit for bit; the
+    resumed run launches only the similarity and clustering kernels (the
+    top-K widen re-runs similarity from the segment checkpoint)."""
+    from repro_torch.run import FaultPlan, InjectedCrash, run_resilient
+    tb, params = _fig1_case(cuda)
+    plan = _path_plan(path, sim_topk=2 if path == "fused_topk" else None)
+    want = run_dsc(tb, params, plan=plan, device=cuda)
+    with pytest.raises(InjectedCrash):
+        run_resilient(tb, params, plan=plan, checkpoint_dir=tmp_path,
+                      fault_plan=FaultPlan(crash_at="cluster"))
+    kernels.reset_launch_counts()
+    res = run_resilient(tb, params, plan=plan, checkpoint_dir=tmp_path)
+    ran = {k for k, n in kernels.LAUNCHES.items() if n}
+    assert res.resumed_from == 3
+    assert res.widen_count == want.dispatches - 1
+    for f in ("member_of", "member_sim", "is_rep", "is_outlier",
+              "alpha_used", "k_used"):
+        assert torch.equal(getattr(res.output.result, f),
+                           getattr(want.result, f)), f
+    assert torch.equal(res.output.sscr, want.sscr)
+    if path == "fused_topk":
+        assert ran == {"chunk_time_bounds", "stjoin_sim_panel_fused",
+                       "topk_round_scan", "topk_claim_max"}
+        for f in ("ids", "sims", "spill"):
+            assert torch.equal(getattr(res.output.sim_topk, f),
+                               getattr(want.sim_topk, f)), f
+    else:
+        assert ran == {"round_scan", "claim_max"}
+
+
+def _stream_case(n=24, M=24, batch_size=96, segmentation="tsa1"):
+    from repro_torch.data.synthetic import (default_dsc_params_for,
+                                            stream_records)
+    from repro_torch.stream import StreamConfig
+    tb, _ = ais_like(n_vessels=n, max_points=M, seed=3, device="cpu")
+    diam, mean_dt = default_dsc_params_for(tb)
+    cfg = StreamConfig(t_cap=n, m_cap=M, eps_sp=0.15 * diam, eps_t=mean_dt,
+                       alpha_abs=0.05, k_abs=0.0,
+                       allowed_lateness=2 * mean_dt, horizon=1e9, k=8, w=4,
+                       max_subs=4, segmentation=segmentation)
+    return cfg, stream_records(tb, batch_size=batch_size)
+
+
+@pytest.mark.parametrize("segmentation", ["tsa1", "tsa2"])
+def test_stream_on_card_matches_kernel_plan_oracle(cuda, monkeypatch,
+                                                   segmentation):
+    """The service's standing lists, spill and labels on the card equal
+    ``run_dsc`` with the materialize top-K kernel plan over the same
+    window, bitwise, at every advance; its cube equals K1's full join of
+    the window.  Every advance launches K1 and K9 (and K3 under TSA2), the
+    run K8.  Delta-join and fresh-block chunks of a few rows."""
+    import repro_torch.stream.driver as drv_mod
+    from repro_torch.serve.stream import StreamService
+    monkeypatch.setattr(drv_mod, "JOIN_ELEMENTS", 24 * 24 * 5)
+    monkeypatch.setattr(drv_mod, "FRESH_ELEMENTS", 4 * 96 * 3)
+    cfg, batches = _stream_case(segmentation=segmentation)
+    svc = StreamService(cfg, device=cuda)
+    K = cfg.k
+    scans = 0
+    for recs in batches:
+        svc.driver.submit(recs)
+        kernels.reset_launch_counts()
+        svc.driver.advance()
+        assert kernels.LAUNCHES["stjoin_best_match"] > 0
+        assert kernels.LAUNCHES["topk_claim_max"] > 0
+        assert (kernels.LAUNCHES["jaccard_window"] > 0) == (
+            segmentation == "tsa2")
+        scans += kernels.LAUNCHES["topk_round_scan"]
+        d = svc.driver
+        win = d.window_batch()
+        out = run_dsc(win, cfg.params, plan=_path_plan("materialize_topk",
+                                                       sim_topk=K),
+                      on_overflow="degrade", device=cuda)
+        assert torch.equal(out.sim_topk.ids, d.standing_ids[:, :K])
+        assert torch.equal(out.sim_topk.sims, d.standing_sims[:, :K])
+        assert torch.equal(out.sim_topk.spill, d.standing_sims[:, K])
+        for f in ("member_of", "member_sim", "is_rep", "is_outlier"):
+            assert torch.equal(getattr(out.result, f), getattr(d, f)), f
+        full = best_match_join_kernel(win, win, cfg.eps_sp, cfg.eps_t)
+        assert torch.equal(full.best_w, d.cube_w)
+        assert torch.equal(full.best_idx, d.cube_idx)
+    assert scans > 0
+    assert svc.accounting()["balanced"]
+
+
+def test_stream_k1_delta_join_bitwise_masked_plain_join(cuda):
+    """One advance's delta join through K1 equals K1's plain twin under
+    the rows' bbox pair mask on the dirty rows, both directions, bitwise."""
+    from repro_torch.index.grid import exact_pair_mask
+    from repro_torch.stream import StreamDriver
+    from repro_torch.kernels.stjoin.ops import _flat_operands
+    cfg, batches = _stream_case()
+    d = StreamDriver(cfg, device=cuda)
+    for recs in batches[:3]:
+        d.submit(recs)
+        d.advance()
+    win = d.window_batch()
+    rows = np.arange(0, cfg.t_cap, 2)
+    mask = exact_pair_mask(d._boxes(rows), d._boxes(), np.float32(cfg.eps_sp),
+                           np.float32(cfg.eps_t))
+    r = torch.from_numpy(rows).to(cuda)
+    sub = TrajectoryBatch(x=win.x[r], y=win.y[r], t=win.t[r],
+                          valid=win.valid[r], traj_id=win.traj_id[r])
+    M = cfg.m_cap
+    for ref, cand, m, got in (
+            (sub, win, mask, (d.cube_w[r], d.cube_idx[r])),
+            (win, sub, mask.T, (d.cube_w[:, :, r], d.cube_idx[:, :, r]))):
+        ops = _flat_operands(ref.x, ref.y, ref.t, ref.valid, ref.traj_id,
+                             cand.x, cand.y, cand.t, cand.valid,
+                             cand.traj_id)
+        pm = m.repeat_interleave(M, dim=0)
+        w, i = stjoin_ref(*ops[0], *ops[1], cfg.eps_sp, cfg.eps_t,
+                          pair_mask=pm)
+        assert torch.equal(w.view(got[0].shape), got[0])
+        assert torch.equal(i.view(got[1].shape), got[1])
+
+
+def test_checkpoint_of_card_tensors(cuda, tmp_path):
+    """Card tensors saved (async: copied to the host before the call
+    returns) and restored onto the card, bitwise; the flat restore reads
+    host arrays."""
+    from repro_torch.checkpoint import CheckpointManager
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.rand((64, 33), device=cuda, generator=g),
+            "n": {"i": torch.randint(-9, 9, (7,), device=cuda,
+                                     dtype=torch.int32, generator=g),
+                  "b": torch.rand((5,), device=cuda, generator=g) > 0.5}}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(1, tree)
+    want = {"w": tree["w"].clone(), "i": tree["n"]["i"].clone()}
+    tree["w"].zero_()
+    back, step = mgr.restore({"w": tree["w"], "n": tree["n"]})
+    assert step == 1 and back["w"].is_cuda
+    assert torch.equal(back["w"], want["w"])
+    assert torch.equal(back["n"]["i"], want["i"])
+    assert torch.equal(back["n"]["b"], tree["n"]["b"])
+    flat, _ = mgr.restore_flat(1)
+    assert np.array_equal(flat["n/i"], want["i"].cpu().numpy())

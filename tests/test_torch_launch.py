@@ -6,9 +6,12 @@ file: cluster summaries (clusters, outliers, ``num_clusters``) equal;
 ``sscr``, ``rmse``, ``alpha`` and ``k`` within the 1e-5 relative
 tolerance ``tests/test_torch_dsc.py::_compare`` states (float32 sums in
 another order than XLA's).  The parser is the reference's plus
-``--device``; options whose code is not ported exit through the parser.
+``--device``; the resilient runner's and the streaming service's options
+give the reference's exit codes (0, 3-8) and cluster counts; the
+multi-device options exit through the parser.
 """
 import argparse
+import json
 import logging
 from pathlib import Path
 
@@ -83,26 +86,114 @@ def test_parser_is_the_reference_plus_device():
     assert tl._LEGACY_FLAGS == jl._LEGACY_FLAGS
 
 
-REFUSED = {"distributed": (["--distributed", "2"], "item 4"),
-           "model_par": (["--model-par", "2"], "item 4"),
-           "stream": (["--stream"], "item 3"),
-           "resume_dir": (["--resume-dir", "ck"], "item 3"),
-           "fault_plan": (["--fault-plan", "faults.json"], "item 3"),
-           "on_overflow": (["--on-overflow", "raise"], "item 3"),
-           "rebalance": (["--rebalance", "apply"], "item 3"),
-           "elastic_resume": (["--elastic-resume"], "item 3")}
+REFUSED = {"distributed": (["--distributed", "2"],
+                           "ROADMAP.md Queue 1 item 4"),
+           "model_par": (["--model-par", "2"], "ROADMAP.md Queue 1 item 4"),
+           "elastic_resume": (["--elastic-resume"],
+                              "--elastic-resume needs --resume-dir and "
+                              "--distributed")}
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_options_refuse(name, capsys):
-    """Each exits through the parser (code 2) before any data is made,
-    naming the ROADMAP.md item that ports its code."""
-    argv, item = REFUSED[name]
+    """The multi-device options exit through the parser (code 2) before
+    any data is made, naming the ROADMAP.md item that ports their code;
+    ``--elastic-resume`` with the reference's own parser error."""
+    argv, msg = REFUSED[name]
     with pytest.raises(SystemExit) as e:
         tl.main(["--device", "cpu", *argv])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert f"ROADMAP.md Queue 1 {item}" in err and argv[0] in err
+    assert msg in err and argv[0] in err
+    if name == "elastic_resume":
+        with pytest.raises(SystemExit) as e:
+            jl.main(argv)
+        assert e.value.code == 2
+        assert err.split("error: ")[1] == \
+            capsys.readouterr().err.split("error: ")[1]
+
+
+# the resilient runner's and the streaming service's options, each a
+# sequence of launcher calls ("{dir}" is a directory of the package's
+# own) and the exit code each must give, the reference's
+N12 = ["--n-trajs", "12"]
+STREAM = ["--stream", *N12, "--stream-batch-size", "48"]
+PORTED = {
+    "resume_dir": [(["--resume-dir", "{dir}", "--fault-plan", "{crash}"], 6),
+                   (["--resume-dir", "{dir}"], 0)],
+    "fault_plan": [(["--fault-plan", "{transient}", "--max-retries", "1"],
+                    5)],
+    "corruption": [(["--resume-dir", "{dir}", "--fault-plan", "{corrupt}"],
+                    6),
+                   (["--resume-dir", "{dir}", "--on-corruption", "fail"], 4),
+                   (["--resume-dir", "{dir}", "--sync-saves"], 0)],
+    "on_overflow": [(["--sim-mode", "topk", "--sim-topk", "2",
+                      "--on-overflow", "raise"], 3),
+                    (["--sim-mode", "topk", "--sim-topk", "2",
+                      "--on-overflow", "widen"], 0),
+                    (["--sim-mode", "topk", "--sim-topk", "2",
+                      "--on-overflow", "degrade"], 0)],
+    "rebalance": [(["--rebalance", "apply"], 0)],
+    "stream": [(STREAM, 0)],
+    "stream_resume": [([*STREAM, "--resume-dir", "{dir}", "--fault-plan",
+                        "{stream_crash}"], 6),
+                      ([*STREAM, "--resume-dir", "{dir}"], 0)],
+    "stream_poison": [([*STREAM, "--on-dirty", "fail", "--fault-plan",
+                        "{poison}"], 7)],
+    "stream_backpressure": [([*STREAM, "--backpressure", "block",
+                              "--queue-cap", "10"], 8)],
+}
+FAULT_PLANS = {"crash": {"crash_at": "cluster"},
+               "transient": {"transient_at": "segment",
+                             "transient_count": 9},
+               "corrupt": {"corrupt_stage": "segment",
+                           "crash_at": "similarity"},
+               "stream_crash": {"crash_at_advance": 3},
+               "poison": {"stream_poison": [[1, 3]]}}
+
+
+def _launch(main, argv):
+    """``(exit code, returned value)`` of one in-process launcher call."""
+    try:
+        return 0, main(argv)
+    except SystemExit as e:
+        return e.code, None
+
+
+def _counts(text: str, what: str) -> list[str]:
+    """The launcher's summary log lines, without their timing."""
+    return [line.split(what, 1)[1].rsplit(" in ", 1)[0]
+            for line in text.splitlines() if what in line]
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_options_run(name, tmp_path, caplog):
+    """Each option now runs through the port's launcher on the CPU: the
+    reference's exit code at every call, and the cluster counts it logs
+    (a batch run's clusters and outliers, a stream's advances, objects,
+    points, reps and outliers, and its books) equal the reference's
+    launcher's on the same argv."""
+    paths = {}
+    for k, plan in FAULT_PLANS.items():
+        paths[k] = str(tmp_path / f"{k}.json")
+        Path(paths[k]).write_text(json.dumps(plan))
+    for step, (argv, code) in enumerate(PORTED[name]):
+        logs = {}
+        for pkg, main, extra in (("reference", jl.main, []),
+                                 ("port", tl.main, ["--device", "cpu"])):
+            args = [a.format(dir=str(tmp_path / pkg), **paths)
+                    for a in argv]
+            caplog.clear()
+            with caplog.at_level(logging.INFO):
+                got, out = _launch(main, args + extra)
+            assert got == code, (pkg, step, args)
+            logs[pkg] = caplog.text
+        for what in ("DSC: ", "stream: ", "accounting: ", "resilient run: "):
+            assert _counts(logs["port"], what) == \
+                _counts(logs["reference"], what), (step, what)
+        if code == 0:
+            assert _counts(logs["port"], "DSC: ") or _counts(
+                logs["port"], "stream: ")
 
 
 def test_plan_plus_legacy_flag_refuses(tmp_path, capsys):

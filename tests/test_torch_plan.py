@@ -166,3 +166,37 @@ def test_segment_unknown_name():
     with pytest.raises(ValueError) as je:
         jseg.segment("tsa3", valid=jnp.zeros((1, 1), bool))
     assert str(te.value) == str(je.value) == "unknown segmentation 'tsa3'"
+
+
+LEGACY_CASES = [{}, dict(sim_mode="topk", sim_topk=4),
+                dict(mode="fused", use_kernel=True, seg_use_kernel=True,
+                     cluster_use_kernel=True, fused_tiles=(64, 32, 128)),
+                dict(cluster_engine="sequential", sim_panel=64,
+                     halo_stream="ring", sim_exchange="ring")]
+
+
+@pytest.mark.parametrize("kw", LEGACY_CASES)
+def test_resolve_plan_legacy_flags_match_reference(kw):
+    """``resolve_plan(None, **legacy)`` materializes the reference's plan;
+    with a plan, the default flags (and None) pass."""
+    got = tplan.resolve_plan(None, **kw)
+    assert got.to_dict() == jplan.resolve_plan(None, **kw).to_dict()
+    p = tplan.EnginePlan(mode="fused")
+    defaults = {k: v for k, v in tplan._LEGACY_DEFAULTS.items()}
+    assert tplan.resolve_plan(p, **defaults) is p
+    assert tplan._LEGACY_DEFAULTS == jplan._LEGACY_DEFAULTS
+
+
+@pytest.mark.parametrize("kw,exc", [
+    (dict(sim_mode="topk"), ValueError),
+    (dict(use_kernel=True, sim_topk=8), ValueError),
+    (dict(warp_drive=True), TypeError)])
+def test_resolve_plan_legacy_errors_match_reference(kw, exc):
+    """A plan with a non-default flag, or an unknown flag: the reference's
+    exception and message."""
+    msgs = []
+    for mod in (tplan, jplan):
+        with pytest.raises(exc) as e:
+            mod.resolve_plan(mod.EnginePlan(), **kw)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]

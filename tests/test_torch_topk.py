@@ -463,3 +463,36 @@ def test_on_overflow_policies():
     with pytest.raises(ValueError, match="on_overflow='drop': expected "
                        "'raise', 'widen', or 'degrade'"):
         tdsc.run_dsc(tb, p, device="cpu", plan=plan, on_overflow="drop")
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_sort_and_merge_topk_lists_match_reference(seed):
+    """``sort_topk_lists`` / ``merge_topk_lists``: the reference's
+    canonical (sim desc, id asc) order on random lists with many ties,
+    ``-0.0`` beside ``+0.0`` and -1 padding ids, bitwise (sims compared as
+    bit patterns).  ``lax.sort`` does not tell the two zeros apart either:
+    equal under both sorts, they keep the id order."""
+    rng = np.random.default_rng(seed)
+    S, W = 24, 10
+    pool = np.array([0.0, -0.0, 0.125, 0.25, 0.5, 0.75], np.float32)
+    ids = np.stack([rng.permutation(60)[:W] for _ in range(S)]).astype(
+        np.int32)
+    ids[rng.random((S, W)) < 0.2] = -1
+    sims = rng.choice(pool, (S, W))
+    for kk in (1, 5, W, W + 3):
+        want = jsim.sort_topk_lists(jnp.asarray(ids), jnp.asarray(sims), kk)
+        got = tsim.sort_topk_lists(torch.from_numpy(ids),
+                                   torch.from_numpy(sims), kk)
+        assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+        assert np.array_equal(got[1].numpy().view(np.int32),
+                              np.asarray(want[1]).view(np.int32))
+    a, b = slice(0, 4), slice(4, W)
+    want = jsim.merge_topk_lists(jnp.asarray(ids[:, a]),
+                                 jnp.asarray(sims[:, a]),
+                                 jnp.asarray(ids[:, b]),
+                                 jnp.asarray(sims[:, b]), 6)
+    got = tsim.merge_topk_lists(*(torch.from_numpy(x) for x in (
+        ids[:, a], sims[:, a], ids[:, b], sims[:, b])), 6)
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy().view(np.int32),
+                          np.asarray(want[1]).view(np.int32))
