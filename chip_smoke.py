@@ -174,6 +174,43 @@ The entry points off the DSC paths (after the dsc_sis runs):
   and the tiles it skipped out of those it swept, equal to the plain
   mirror of its tile test.
 
+The multi-device program (last; ``phase_distributed``, or alone with
+``--only-distributed``): ``repro_torch.distributed.mesh.spawn`` starts a
+(part, model) = (2, 2) mesh of four ranks that share this card over gloo
+(payloads staged through host memory), each rank running ``DIST_JOBS``
+through ``run_dsc_distributed`` with its launch counts zeroed just before
+each run and read just after:
+
+* the main run, dsc_brest (T = 4096, TSA2) cut into two temporal
+  partitions, the fused top-K kernel plan from K = 32 with
+  ``on_overflow="widen"``: every rank launches exactly K2, K4, K3, K8,
+  K9 and the chunk bounds (K2 and K3 once, per widen dispatch K4 and K9
+  once; the bounds once for K2 and once a dispatch); run again, bitwise
+  and with the same launches, recording its kernels' operands; the plain
+  plan on the card (from K = 4096) gives the same labels; every rank
+  assembles the same output;
+* the fused dense kernel plan (K5, K6) there: the labels of the main run;
+* at T = 512: the materialize kernel plan (K1) with the labels of the
+  fused top-K run; the ring twins (top-K, and materialize with the
+  allgather strategy) bitwise their barrier twins on every label field;
+  the stage chain of ``build_dsc_stage_programs`` bitwise the monolith
+  with its launches; then mesh (1, 2) against one-device ``run_dsc``;
+* every kernel of these paths against its plain version at the operands
+  the program gave it, on every rank (``recorded_program`` wraps the
+  wrappers in the recorded rerun, the dense run and mat_512): each call's
+  wrapper again and its plain version bitwise the run's outputs (the
+  chunk bounds, K3 on the compacted TSA2 words, K8 at every round and K9
+  at every dispatch on the merged lists, K5 at every round and K6 on the
+  partition's ``[S, S]``, K1 on the halo candidates); K2 and K4 on the
+  whole partition again, and their plain versions on 8 blocks of 16
+  partition rows from the first to the last (K4 with the program's slot
+  maps); each timed beside its plain version.
+
+It prints each run's wall, phase times (CUDA events), collectives (calls,
+MB sent, seconds) and peak allocation per rank, the card's used peak over
+the phase (all processes), and the cluster / member / outlier counts,
+beside the card's name and power limit.
+
 Prints one JSON ``kernels`` line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any mismatch or
 error exits non-zero without the result line; so does a machine without a
@@ -1737,6 +1774,613 @@ def phase_launcher_exits(dev, report):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# The multi-device program: a (part, model) mesh of four ranks on this one
+# card, gloo with host staging
+# ---------------------------------------------------------------------------
+
+# the kernels each distributed path launches on every rank, and no other
+DIST_KERNELS = {
+    "fused_topk": {"chunk_time_bounds", "stjoin_vote_fused",
+                   "stjoin_sim_fused", "jaccard_window", "topk_round_scan",
+                   "topk_claim_max"},
+    "fused": {"chunk_time_bounds", "stjoin_vote_fused", "stjoin_sim_fused",
+              "jaccard_window", "round_scan", "claim_max"},
+    "materialize": {"chunk_time_bounds", "stjoin_best_match",
+                    "jaccard_window", "round_scan", "claim_max"},
+    "plain": set(),
+}
+RINGS = dict(halo_stream="ring", sim_exchange="ring")
+# job -> (vessels, path, plan fields beyond the path's, on_overflow, the
+# kernels whose calls the run records for the checks after it); the main
+# run at dsc_brest, then again recording its kernels' operands, the plain
+# plan there (from K = 4096, the main run's final K at one device: each
+# widen reruns the similarity phase, and the plain join is the slow part
+# of the program), the dense case there (K5, K6), and the variants at
+# T = 512 (K1 in mat_512)
+DIST_JOBS = {
+    "main": (4096, "fused_topk", dict(sim_topk=32), "widen", ()),
+    "main_again": (4096, "fused_topk", dict(sim_topk=32), "widen",
+                   ("chunk_time_bounds", "stjoin_vote_fused",
+                    "jaccard_window", "stjoin_sim_fused", "topk_round_scan",
+                    "topk_claim_max")),
+    "plain": (4096, "plain", dict(sim_mode="topk", sim_topk=4096), "widen",
+              ()),
+    "dense": (4096, "fused", {}, "raise", ("round_scan", "claim_max")),
+    "topk_512": (512, "fused_topk", dict(sim_topk=32), "widen", ()),
+    "topk_512_ring": (512, "fused_topk", dict(sim_topk=32, **RINGS),
+                      "widen", ()),
+    "topk_512_k32": (512, "fused_topk", dict(sim_topk=32), "degrade", ()),
+    "mat_512": (512, "materialize", {}, "raise", ("stjoin_best_match",)),
+    "mat_512_allgather": (512, "materialize",
+                          dict(sim_strategy="allgather"), "raise", ()),
+    "mat_512_ring": (512, "materialize",
+                     dict(sim_strategy="allgather", **RINGS), "raise", ()),
+}
+DIST_LABELS = ("member_of", "member_sim", "is_rep", "is_outlier")
+# the partition rows at which K2 and K4 are held against their plain
+# versions: DIST_BLOCKS blocks of DIST_BLOCK_ROWS rows spread from the
+# first row to the last, shifted by the rank (the plain versions take
+# about 19 ms a row each at dsc_brest)
+DIST_BLOCKS, DIST_BLOCK_ROWS = 8, 16
+
+
+def dist_plan(path: str, extra: dict):
+    from repro_torch.core.plan import EnginePlan
+    if path == "plain":
+        return EnginePlan(**extra)
+    return kernel_plan(path).replace(**extra)
+
+
+def dist_data(n_vessels: int, P: int):
+    """``brest_batch(n_vessels)`` on the host, cut into P partitions."""
+    from repro_torch.core.partitioning import partition_batch
+    batch, params = brest_batch(n_vessels, "cpu")
+    return batch, params, partition_batch(batch, P)
+
+
+def dist_rows(T: int, rank: int) -> torch.Tensor:
+    """The checked partition rows of ``rank`` (``DIST_BLOCKS``)."""
+    n = DIST_BLOCK_ROWS
+    starts = [min(i * (T - n) // (DIST_BLOCKS - 1) + rank * n, T - n)
+              for i in range(DIST_BLOCKS)]
+    rows = torch.cat([torch.arange(a, a + n) for a in starts]).unique()
+    return rows.cuda()
+
+
+# kernel -> (module, wrapper) as the program's callers import it at each
+# call
+def dist_wrappers():
+    from repro_torch.kernels.cluster import ops as cops
+    from repro_torch.kernels.jaccard import ops as jops
+    from repro_torch.kernels.stjoin import ops as sops
+    return {"chunk_time_bounds": (sops, "chunk_time_bounds"),
+            "stjoin_best_match": (sops, "stjoin_best_match"),
+            "stjoin_vote_fused": (sops, "stjoin_vote_fused_arrays"),
+            "stjoin_sim_fused": (sops, "stjoin_sim_fused_arrays"),
+            "jaccard_window": (jops, "window_jaccard"),
+            "round_scan": (cops, "cluster_round_scan"),
+            "claim_max": (cops, "cluster_assign"),
+            "topk_round_scan": (cops, "topk_cluster_round_scan"),
+            "topk_claim_max": (cops, "topk_cluster_assign")}
+
+
+@contextlib.contextmanager
+def recorded_program(names, rows):
+    """Yields ``rec``: for each kernel of ``names``, the list of its
+    wrapper's calls in the run (operands and outputs), kept by wrapping
+    the wrapper at its module, which the program's callers import at each
+    call; every call still launches its kernel through the real wrapper,
+    counted as before.  Operands are cloned on the card, except: K4 keeps
+    its first call and, of its ``[S, S_loc]`` output, the slots of the
+    partition ``rows``; K8 and K9 keep their ``[S, K]`` lists on the host,
+    once a dispatch (``rec["lists"]``); K5 and K6 keep a reference to
+    ``sim`` (the run does not write it after it is built)."""
+    import weakref
+    wrappers = dist_wrappers()
+    rec = {n: [] for n in names}
+    rec["lists"] = []
+    cur = [None]                    # the current dispatch's ids
+    cl = lambda v: v.clone() if torch.is_tensor(v) else v
+
+    def dispatch(ids, sims):
+        if cur[0] is None or cur[0]() is not ids:
+            rec["lists"].append((ids.cpu(), sims.cpu()))
+            cur[0] = weakref.ref(ids)
+        return len(rec["lists"]) - 1
+
+    def keep(name, a, kw, out):
+        outs = out if isinstance(out, tuple) else (out,)
+        if name == "stjoin_sim_fused":
+            if rec[name]:
+                return
+            T, S_loc = a[0].shape[0], a[13]
+            ms = a[12] // T
+            rec[name].append(dict(args=[cl(v) for v in a], kw=kw,
+                                  rows=out.view(T, ms, S_loc)[rows].clone()))
+            return
+        if name in ("topk_round_scan", "topk_claim_max"):
+            rec[name].append(dict(d=dispatch(a[0], a[1]),
+                                  args=[cl(v) for v in a[2:]],
+                                  out=[cl(o) for o in outs]))
+            return
+        if name in ("round_scan", "claim_max"):
+            check(not rec[name] or rec[name][0]["args"][0] is a[0],
+                  f"{name}: the run's calls read more than one sim")
+            rec[name].append(dict(args=[a[0], *(cl(v) for v in a[1:])],
+                                  out=[cl(o) for o in outs]))
+            return
+        rec[name].append(dict(args=[cl(v) for v in a], kw=dict(kw),
+                              out=[cl(o) for o in outs]))
+
+    def wrap(name, real):
+        def record(*a, **kw):
+            out = real(*a, **kw)
+            keep(name, a, kw, out)
+            return out
+        return record
+
+    reals = {n: getattr(*wrappers[n]) for n in names}
+    for n in names:
+        setattr(wrappers[n][0], wrappers[n][1], wrap(n, reals[n]))
+    try:
+        yield rec
+    finally:
+        for n in names:
+            setattr(wrappers[n][0], wrappers[n][1], reals[n])
+
+
+def dist_job(name, parts, params, mesh, plan, on_overflow, record=()):
+    """One run of the program on this rank, with its launches, phase
+    times (CUDA events), collectives, wall and peak allocation; with
+    ``record``, the calls of those kernels (``recorded_program``) under
+    ``"rec"``."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.core.distributed import run_dsc_distributed
+    from repro_torch.distributed.mesh import current
+    comm = current()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows = dist_rows(parts.x.shape[1], comm.rank)
+    times = {}
+    with (recorded_program(record, rows) if record
+          else contextlib.nullcontext(None)) as rec:
+        dist.barrier()
+        kernels.reset_launch_counts()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        out = run_dsc_distributed(parts, params, mesh, plan=plan,
+                                  on_overflow=on_overflow, stage_times=times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    if comm.rank == 0:
+        log(f"  distributed {name} (rank 0): wall s={wall:.3f}; " + ", ".join(
+            f"{k}={v:.1f}" for k, v in times.items()) + " ms")
+    return dict(out=out, launches=launches, stats=dict(comm.stats),
+                times=times, wall=wall, rec=rec, rows=rows,
+                peak=torch.cuda.max_memory_allocated() - base)
+
+
+def dist_chain(parts, params, mesh, plan):
+    """The five stage functions of ``build_dsc_stage_programs`` in order,
+    with the launches they make."""
+    from repro_torch import kernels
+    from repro_torch.core.distributed import (DistributedDSCOutput,
+                                              build_dsc_stage_programs)
+    kernels.reset_launch_counts()
+    st = build_dsc_stage_programs(parts, params, mesh, plan=plan)
+    pts = (parts.x, parts.y, parts.t, parts.valid, parts.traj_id,
+           parts.ranges)
+    j = st["join"](*pts)
+    table, labels = st["segment"](parts.t, parts.valid, j[0], j[1])
+    sim = st["similarity"](*pts, labels, table, *j[2:])
+    c = st["cluster"](table, sim[-1], *sim[:-1])
+    final = st["refine"](c[0], c[1], c[2], sim[-1], c[4], c[5])
+    return DistributedDSCOutput(result=final, table=table, vote=j[0],
+                                active=sim[-1], sim_diag=c[6]), \
+        dict(kernels.LAUNCHES)
+
+
+def timed_once(fn):
+    """``(ms, fn())`` of one call, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def same_bits(got, want) -> bool:
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    return len(got) == len(want) and all(
+        (g is None and w is None) or (g is not None and w is not None
+                                      and torch.equal(g, w))
+        for g, w in zip(got, want))
+
+
+def dist_check_calls(name, calls, kernel, plain, job):
+    """Every recorded call of ``name``: its wrapper on the call's operands
+    again gives the run's outputs bit for bit, and so does ``plain`` on
+    the same operands.  Times the first call's kernel and plain version.
+    Returns the kernel's row for the parent."""
+    ms = plain_ms = None
+    for i, c in enumerate(calls):
+        check(same_bits(kernel(c), c["out"]),
+              f"distributed {job}: {name} call {i} not bitwise on rerun")
+        p_ms, p = timed_once(lambda: plain(c))
+        check(same_bits(p, c["out"]),
+              f"distributed {job}: {name} call {i} not bitwise its plain "
+              "version")
+        if i == 0:
+            ms, plain_ms = time_ms(lambda: kernel(c), reps=3), p_ms
+    shape = [tuple(v.shape) for v in calls[0]["args"] if torch.is_tensor(v)]
+    return dict(name=name, job=job, calls=len(calls), shape=shape, ms=ms,
+                plain_ms=plain_ms, rows="all")
+
+
+def dist_check_lists(name, rec, kernel, plain, job):
+    """K8 or K9 at every recorded call, the dispatch's ``[S, K]`` lists
+    brought back to the card: bitwise on rerun and against ``plain``;
+    timed at the last dispatch's first call."""
+    calls, lists, on_card = rec[name], rec["lists"], {}
+    last = calls[-1]["d"]
+    ms = plain_ms = None
+    for i, c in enumerate(calls):
+        if c["d"] not in on_card:
+            on_card.clear()
+            on_card[c["d"]] = tuple(t.cuda() for t in lists[c["d"]])
+        ids, sims = on_card[c["d"]]
+        run_k = lambda: kernel(ids, sims, *c["args"])
+        run_p = lambda: plain(ids, sims, *c["args"])
+        check(same_bits(run_k(), c["out"]),
+              f"distributed {job}: {name} call {i} not bitwise on rerun")
+        check(same_bits(run_p(), c["out"]),
+              f"distributed {job}: {name} call {i} (K={ids.shape[1]}) not "
+              "bitwise its plain version")
+        if ms is None and c["d"] == last:
+            ms = time_ms(run_k, reps=5)
+            plain_ms = time_ms(run_p, reps=3)
+            shape = (tuple(ids.shape),)
+    return dict(name=name, job=job, calls=len(calls), shape=shape, ms=ms,
+                plain_ms=plain_ms, rows="all",
+                dispatch_k=sorted({lists[c["d"]][0].shape[1]
+                                   for c in calls}))
+
+
+def dist_check_rows(name, c, rows, job):
+    """K2 or K4: the wrapper again on the run's operands (the whole
+    partition against the rank's candidates; bitwise the run's outputs on
+    the checked rows, and timed), and the plain version on the checked
+    ``rows`` against the run's outputs there: K4 with the program's slot
+    maps, the rows' slots renumbered from 0."""
+    from repro_torch.kernels.stjoin import ops as sops
+    from repro_torch.kernels.stjoin.ref import (stjoin_sim_fused_ref,
+                                                stjoin_vote_fused_ref)
+    a, kw = c["args"], c["kw"]
+    px, py, pt, pv, tid = a[:5]
+    T, Mp = px.shape
+    n = rows.numel()
+    if name == "stjoin_vote_fused":
+        cand, eps = a[5:10], a[10:13]
+        kernel = lambda: sops.stjoin_vote_fused_arrays(*a, **kw)
+        check(same_bits(kernel(), c["out"]),
+              f"distributed {job}: K2 not bitwise on rerun")
+        ref_ops, cand_ops = sops._flat_operands(
+            px[rows], py[rows], pt[rows], pv[rows], tid[rows], *cand)
+        p_ms, (vp, wp) = timed_once(lambda: stjoin_vote_fused_ref(
+            *ref_ops, *cand_ops, *eps, M=Mp))
+        vk, wk = c["out"]
+        check(torch.equal(vk[rows].reshape(-1), vp)
+              and torch.equal(wk[rows].reshape(wp.shape), wp),
+              f"distributed {job}: K2 not bitwise its plain version on the "
+              "checked rows")
+        cells = int((vk > 0).sum())
+    else:
+        gid_own, cand, cid, gidc_l = a[5], a[6:10], a[10], a[11]
+        S, S_loc, eps = a[12], a[13], a[14:17]
+        ms_ = S // T
+        kernel = lambda: sops.stjoin_sim_fused_arrays(*a, **kw)
+        again = kernel().view(T, ms_, S_loc)[rows]
+        check(torch.equal(again, c["rows"]),
+              f"distributed {job}: K4 not bitwise on rerun")
+        del again
+        g = gid_own[rows]
+        local = (g - rows[:, None].to(g.dtype) * ms_
+                 + torch.arange(n, device=g.device, dtype=g.dtype)[:, None]
+                 * ms_)
+        g_l = torch.where(g < S, local, n * ms_).to(torch.int32)
+        ref_ops, cand_ops = sops._flat_operands(
+            px[rows], py[rows], pt[rows], pv[rows], tid[rows], *cand[:4],
+            cid)
+        p_ms, rp = timed_once(lambda: stjoin_sim_fused_ref(
+            *ref_ops, g_l.reshape(-1), *cand_ops, gidc_l, *eps, M=Mp,
+            n_src=n * ms_, n_dst=S_loc))
+        check(torch.equal(rp, c["rows"].reshape(n * ms_, S_loc)),
+              f"distributed {job}: K4 not bitwise its plain version on the "
+              "checked rows (the program's slot maps)")
+        cells = int((rp > 0).sum())
+    ms = time_ms(kernel, reps=3)
+    return dict(name=name, job=job, calls=1,
+                shape=[(T, Mp), tuple(a[5 if name == "stjoin_vote_fused"
+                                        else 6].shape)],
+                ms=ms, plain_ms=p_ms, rows=n, cells=cells)
+
+
+def dist_checks(job, rec, rows):
+    """Each kernel that ``job`` recorded against its plain version at the
+    run's own operands (``recorded_program``); K5 and K6, whose plain
+    versions build several ``[S, S]`` temporaries, one rank after
+    another."""
+    import torch.distributed as dist
+    from repro_torch.core.segmentation import tsa2_signal
+    from repro_torch.distributed.mesh import current
+    from repro_torch.kernels.cluster import ref as cref
+    from repro_torch.kernels.stjoin import ref as sref
+    from repro_torch.kernels.stjoin.ops import PANEL_CHUNK
+    w = dist_wrappers()
+    real = lambda n: getattr(*w[n])
+    out = []
+    for name in rec:
+        calls = rec[name]
+        if name == "lists":
+            continue
+        check(len(calls) > 0, f"distributed {job}: {name} recorded no call")
+        if name in ("stjoin_vote_fused", "stjoin_sim_fused"):
+            out.append(dist_check_rows(name, calls[0], rows, job))
+        elif name in ("topk_round_scan", "topk_claim_max"):
+            plain = (cref.topk_round_scan_ref if name == "topk_round_scan"
+                     else cref.topk_claim_max_ref)
+            out.append(dist_check_lists(name, rec, real(name), plain, job))
+        elif name == "chunk_time_bounds":
+            out.append(dist_check_calls(
+                name, calls, lambda c: real(name)(*c["args"]),
+                lambda c: sref.chunk_time_bounds(*c["args"], PANEL_CHUNK),
+                job))
+        elif name == "jaccard_window":
+            out.append(dist_check_calls(
+                name, calls, lambda c: real(name)(*c["args"], **c["kw"]),
+                lambda c: tsa2_signal(torch.where(
+                    c["args"][1][..., None], c["args"][0], 0), c["kw"]["w"]),
+                job))
+        elif name == "stjoin_best_match":
+            out.append(dist_check_calls(
+                name, calls, lambda c: real(name)(*c["args"]),
+                lambda c: sref.stjoin_ref(*c["args"]), job))
+    dense = [n for n in ("round_scan", "claim_max") if n in rec]
+    comm = current()
+    for r in range(comm.mesh.size if dense else 0):
+        if r == comm.rank:
+            for name in dense:
+                plain = (cref.round_scan_ref if name == "round_scan"
+                         else cref.cluster_assign_ref)
+                out.append(dist_check_calls(
+                    name, rec[name], lambda c: real(name)(*c["args"]),
+                    lambda c: plain(*c["args"]), job))
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def dist_rank(sizes):
+    """Every job of a ``sizes`` mesh on this rank (the mesh's ranks run
+    this together): the jobs of ``DIST_JOBS`` on ``(2, 2)``, each
+    recording job's kernels checked right after it, then the stage chain;
+    on ``(1, 2)`` the fused top-K kernel plan at T = 512 beside one-device
+    ``run_dsc``."""
+    from repro_torch.core.dsc import run_dsc
+    from repro_torch.distributed.mesh import Mesh, current
+    mesh = Mesh(sizes, "gloo", "cuda")
+    current().timing = True
+    res, data = {}, {}
+    if sizes == (1, 2):
+        batch, params, parts = dist_data(512, 1)
+        plan = dist_plan("fused_topk", dict(sim_topk=32))
+        res["p1_512"] = dist_job("p1_512", parts, params, mesh, plan,
+                                 "widen")
+        one = run_dsc(batch, params, plan=plan, device="cuda")
+        res["p1_512_single"] = {f: getattr(one.result, f)
+                                for f in DIST_LABELS}
+        return res
+    res["checks"] = []
+    for name, (n, path, extra, policy, record) in DIST_JOBS.items():
+        if n not in data:
+            data.clear()
+            data[n] = dist_data(n, sizes[0])
+        _, params, parts = data[n]
+        res[name] = job = dist_job(name, parts, params, mesh,
+                                   dist_plan(path, extra), policy, record)
+        rec = job.pop("rec")
+        if record:
+            res["checks"] += dist_checks(name, rec, job["rows"])
+        del rec
+        if name == "topk_512_k32":
+            res["chain_512"], res["chain_512_launches"] = dist_chain(
+                parts, params, mesh, dist_plan(path, extra))
+    return res
+
+
+def dist_check_output(out, T: int, Mp: int, S: int, what: str):
+    """The repo's sanity conditions on a distributed output."""
+    r = out.result
+    check(out.vote.shape == (2, T, Mp) and bool(torch.isfinite(out.vote)
+                                                .all()),
+          f"{what}: vote shape or non-finite values")
+    check(out.active.shape == (2, S) and out.sim_diag.shape == (2, 4)
+          and bool(torch.isfinite(out.sim_diag).all()),
+          f"{what}: active / sim_diag shape or values")
+    check(int(out.sim_diag[:, 3].sum()) == 0, f"{what}: certificate fails")
+    members = ~r.is_rep & (r.member_of >= 0)
+    check(bool(r.is_rep[r.member_of[members].long()].all()),
+          f"{what}: a member's owner is no rep")
+    check(not bool((r.is_outlier & (r.is_rep | members)).any()),
+          f"{what}: an outlier is also clustered")
+    seen = out.active.any(0)
+    check(bool((r.is_rep | members | r.is_outlier)[seen].all()),
+          f"{what}: an active slot has no state")
+    check(int(r.is_rep.sum()) > 0, f"{what}: no cluster found")
+
+
+def dist_counts(out) -> str:
+    r = out.result
+    members = int((~r.is_rep & (r.member_of >= 0)).sum())
+    return (f"clusters={int(r.is_rep.sum())} members={members} "
+            f"outliers={int(r.is_outlier.sum())}")
+
+
+def card_used_peak(stop, peak: list) -> None:
+    """Poll the card's used memory (every process on it) until ``stop``."""
+    free0, total = torch.cuda.mem_get_info(0)
+    while not stop.is_set():
+        free, _ = torch.cuda.mem_get_info(0)
+        peak[0] = max(peak[0], total - free)
+        stop.wait(0.05)
+
+
+def phase_distributed(report, card: str):
+    """The multi-device program on this card: mesh (2, 2) over gloo with
+    host staging (four processes), then mesh (1, 2)."""
+    import threading
+    from repro_torch.distributed.mesh import Mesh, spawn
+    torch.cuda.empty_cache()
+    stop, peak = threading.Event(), [0]
+    poll = threading.Thread(target=card_used_peak, args=(stop, peak))
+    poll.start()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(dist_rank, Mesh((2, 2), "gloo", "cuda"), (2, 2),
+                      timeout=900)
+        p1 = spawn(dist_rank, Mesh((1, 2), "gloo", "cuda"), (1, 2),
+                   timeout=300)
+    finally:
+        stop.set()
+        poll.join()
+    phase_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    # every rank assembles the same output
+    for name in DIST_JOBS:
+        for r, res in enumerate(ranks[1:], 1):
+            diffs = diff_fields(res[name]["out"], r0[name]["out"])
+            check(not diffs, f"distributed {name}: rank {r} differs from "
+                             f"rank 0 in {diffs}")
+    # launches: exactly the path's kernels on every rank; the fused top-K
+    # path K2 and K3 once a run, per dispatch K4 and K9 once, the chunk
+    # bounds once a run and once a dispatch
+    for name, (n, path, _, _, _) in DIST_JOBS.items():
+        for r, res in enumerate(ranks):
+            ln = res[name]["launches"]
+            ran = {k for k, v in ln.items() if v > 0}
+            check(ran == DIST_KERNELS[path],
+                  f"distributed {name} rank {r}: launched {sorted(ran)}, "
+                  f"expected {sorted(DIST_KERNELS[path])}")
+            if path == "fused_topk":
+                d = ln["topk_claim_max"]
+                check(ln["stjoin_vote_fused"] == ln["jaccard_window"] == 1
+                      and ln["stjoin_sim_fused"] == d
+                      and ln["chunk_time_bounds"] == 1 + d
+                      and ln["topk_round_scan"] >= d,
+                      f"distributed {name} rank {r}: launches {ln}")
+    main = r0["main"]["out"]
+    T, Mp = 4096, main.vote.shape[2]
+    S = T * 8
+    dist_check_output(main, T, Mp, S, "distributed main")
+    diffs = diff_fields(r0["main_again"]["out"], main)
+    check(not diffs, f"distributed main: rerun not bitwise: {diffs}")
+    for r, res in enumerate(ranks):
+        check(res["main_again"]["launches"] == res["main"]["launches"],
+              f"distributed main rank {r}: the recorded rerun launched "
+              "otherwise")
+    for a, b, fields in (
+            ("plain", "main", LABELS),
+            ("dense", "main", LABELS),
+            ("mat_512", "topk_512", LABELS),
+            ("mat_512_allgather", "mat_512", LABELS),
+            ("topk_512_ring", "topk_512", DIST_LABELS),
+            ("mat_512_ring", "mat_512_allgather", DIST_LABELS)):
+        for f in fields:
+            check(torch.equal(getattr(r0[a]["out"].result, f),
+                              getattr(r0[b]["out"].result, f)),
+                  f"distributed {a} vs {b}: {f} differs")
+    for r, res in enumerate(ranks):
+        diffs = diff_fields(res["chain_512"], res["topk_512_k32"]["out"])
+        check(not diffs, f"distributed stage chain rank {r}: {diffs} not "
+                         "bitwise the monolith")
+        check(res["chain_512_launches"] == res["topk_512_k32"]["launches"],
+              f"distributed stage chain rank {r}: launches differ")
+    for f in LABELS:
+        check(torch.equal(getattr(p1[0]["p1_512"]["out"].result, f),
+                          p1[0]["p1_512_single"][f]),
+              f"distributed P = 1 vs run_dsc: {f} differs")
+    # every kernel of the distributed paths held against its plain
+    # version at the operands of a run on every rank (the ranks check and
+    # fail themselves; here: that none was left out)
+    every = set().union(*DIST_KERNELS.values())
+    for r, res in enumerate(ranks):
+        got = {c["name"] for c in res["checks"]}
+        check(got == every, f"distributed rank {r}: kernels checked "
+                            f"{sorted(got)}, expected {sorted(every)}")
+        for c in res["checks"]:
+            if c["name"] in ("stjoin_vote_fused", "stjoin_sim_fused"):
+                check(c["cells"] > 0, f"distributed rank {r}: {c['name']} "
+                                      "checked on rows with no match")
+    log(f"distributed (gloo, 4 ranks on one card via host memory; {card}): "
+        f"phase wall s={phase_s:.1f}, card used peak "
+        f"GB={peak[0] / 1e9:.3f} (all processes)")
+    dispatches = r0["main"]["launches"]["topk_claim_max"]
+    log(f"distributed main (fused top-K, dsc_brest T={T} Mp={Mp}, mesh "
+        f"2x2; {card}): dispatches={dispatches} {dist_counts(main)}; "
+        f"bitwise on rerun; plain plan labels equal; every rank's output "
+        f"equal")
+    rows = {}
+    for name in DIST_JOBS:
+        walls = [res[name]["wall"] for res in ranks]
+        peaks = [res[name]["peak"] / 1e9 for res in ranks]
+        coll = [sum(v[2] for v in res[name]["stats"].values())
+                for res in ranks]
+        rows[name] = dict(
+            wall_s=walls, peak_alloc_GB=peaks, collective_s=coll,
+            phase_ms=[res[name]["times"] for res in ranks],
+            collectives=[res[name]["stats"] for res in ranks],
+            launches=[res[name]["launches"] for res in ranks],
+            counts=dist_counts(r0[name]["out"]))
+        log(f"distributed {name} ({card}): wall s per rank "
+            + ", ".join(f"{w:.3f}" for w in walls)
+            + "; collectives s per rank "
+            + ", ".join(f"{c:.3f}" for c in coll)
+            + "; peak alloc GB per rank "
+            + ", ".join(f"{p:.3f}" for p in peaks)
+            + f"; {rows[name]['counts']}")
+    for r, res in enumerate(ranks):
+        m = res["main"]
+        log(f"  main rank {r} phase ms (CUDA events): " + ", ".join(
+            f"{k}={v:.1f}" for k, v in m["times"].items()))
+        log(f"  main rank {r} collectives (calls, MB sent, s): " + ", ".join(
+            f"{k}=({v[0]}, {v[1] / 1e6:.1f}, {v[2]:.3f})"
+            for k, v in sorted(m["stats"].items())))
+        log(f"  main rank {r} launches: " + ", ".join(
+            f"{k}={v}" for k, v in m["launches"].items() if v))
+    for r, res in enumerate(ranks):
+        for c in res["checks"]:
+            log(f"  rank {r} {c['name']} ({c['job']}): {c['calls']} calls "
+                f"at {c['shape']}, bitwise on rerun and against the plain "
+                f"version (rows: {c['rows']}"
+                + (f", K {c['dispatch_k']}" if "dispatch_k" in c else "")
+                + f"); {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms "
+                f"({card})")
+    log("distributed P = 1 (mesh 1x2, T=512): labels equal one-device "
+        "run_dsc's; stage chain (T=512) bitwise the monolith, same "
+        "launches; ring twins bitwise; dense T=4096 labels equal the main "
+        "run's")
+    report["distributed"] = dict(card=card, phase_s=phase_s,
+                                 card_used_peak_bytes=peak[0], jobs=rows,
+                                 checks=[res["checks"] for res in ranks])
+
+
 def phase_s2t(dev):
     """The S2T baseline (``core.baselines.s2t``: the plain DSC core on the
     batch's device, SaCO on the host) on the card and on the CPU, on the
@@ -2650,6 +3294,9 @@ def k15_kernel(plan, hd: int, dtype) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", help="also write every number to this file")
+    ap.add_argument("--only-distributed", action="store_true",
+                    help="build, run the multi-device phase alone and exit "
+                         "(no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2678,6 +3325,13 @@ def main(argv=None) -> int:
     log_ptxas(kernels.build_log)
     report = {"card": card, "build_s": build_s,
               "build_steps_s": kernels.build_seconds}
+    if args.only_distributed:
+        phase_distributed(report, card)
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(report, indent=1) + "\n")
+        log("distributed phase alone: passed")
+        return 0
 
     phase_parity(dev)
     phase_parity_fused(dev)
@@ -2782,6 +3436,7 @@ def main(argv=None) -> int:
     phase_lcss(dev, report, rows)
     torch.cuda.empty_cache()
     phase_attention(dev, report, rows)
+    phase_distributed(report, card)
     order = list(REPLACES)
     rows.sort(key=lambda r: order.index(r["name"]))
     check(len(rows) == len(REPLACES),

@@ -64,9 +64,12 @@ def resolve_thresholds_from_moments(params: DSCParams, moments,
 
 
 def resolve_thresholds(params: DSCParams, sim: torch.Tensor,
-                       table: SubtrajTable):
-    """Absolute (alpha, k) from a dense similarity matrix."""
-    moments = sim_row_moments(sim, table.valid, table.valid)
+                       table: SubtrajTable, moments=None):
+    """Absolute (alpha, k) from a dense similarity matrix.  ``moments``
+    (per-row ``(count, sum, sumsq)``) replaces the pass over the matrix:
+    the multi-device program sums them over its column blocks."""
+    if moments is None:
+        moments = sim_row_moments(sim, table.valid, table.valid)
     return resolve_thresholds_from_moments(params, moments, table)
 
 
@@ -113,9 +116,10 @@ def _sequential(table: SubtrajTable, alpha, k, claim_row):
 
 
 def cluster_sequential(sim: torch.Tensor, table: SubtrajTable,
-                       params: DSCParams) -> ClusteringResult:
-    """Algorithm 4 on the dense matrix: the parity oracle."""
-    alpha, k = resolve_thresholds(params, sim, table)
+                       params: DSCParams, moments=None) -> ClusteringResult:
+    """Algorithm 4 on the dense matrix: the parity oracle (``moments`` as
+    in ``resolve_thresholds``)."""
+    alpha, k = resolve_thresholds(params, sim, table, moments=moments)
     slots = torch.arange(table.num_slots, device=sim.device)
     return _sequential(table, alpha, k, lambda s: (slots, sim[s]))
 
@@ -204,7 +208,7 @@ def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
 
 def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
                    *, max_rounds: int | None = None, use_kernel: bool = False,
-                   with_rounds: bool = False, span=_no_span):
+                   with_rounds: bool = False, moments=None, span=_no_span):
     """Round-parallel Algorithm 4 — label-identical to the oracle.
 
     ``max_rounds=None`` loops until every slot is resolved (at least one
@@ -216,14 +220,15 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
     through the CUDA kernels; the plain path builds the alpha-edge
     predicate once and reduces each round to two 0/1 vector-matrix
     products (exact: the sums are integers below 2^24).
-    ``with_rounds=True`` also returns the number of rounds.  ``span``
+    ``with_rounds=True`` also returns the number of rounds.  ``moments``
+    as in ``resolve_thresholds``.  ``span``
     (a context-manager factory such as ``dsc.StageTimer.stage``) times the
     parts ``cluster.thresholds``, ``cluster.visit_order``,
     ``cluster.round_loop`` and ``cluster.claim_max``.
     """
     _check_max_rounds(max_rounds, table.num_slots)
     with span("cluster.thresholds"):
-        alpha, k = resolve_thresholds(params, sim, table)
+        alpha, k = resolve_thresholds(params, sim, table, moments=moments)
     with span("cluster.visit_order"):
         order, rank = visit_order(table)
 
@@ -302,11 +307,13 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
 def cluster(sim, table: SubtrajTable, params: DSCParams,
             engine: str = "rounds", *, max_rounds: int | None = None,
             use_kernel: bool = False, with_rounds: bool = False,
-            span=_no_span):
+            moments=None, span=_no_span):
     """Problem 3 entry point: ``sim`` is the dense ``[S, S]`` matrix or a
     ``TopKSim``; ``engine`` is ``"rounds"`` or the ``"sequential"``
     oracle.  ``max_rounds`` goes to the rounds engines (the sequential
-    oracle ignores it).  ``with_rounds=True`` returns ``(result,
+    oracle ignores it).  ``moments`` overrides the dense threshold
+    statistics (the multi-device program's column-block sums); a
+    ``TopKSim`` carries its own.  ``with_rounds=True`` returns ``(result,
     rounds)``; the sequential oracle reports ``rounds = None``.  ``span``
     times the parts of the rounds engines (``cluster_rounds``).
     """
@@ -321,12 +328,13 @@ def cluster(sim, table: SubtrajTable, params: DSCParams,
                                        with_rounds=with_rounds, span=span)
         raise ValueError(f"unknown cluster engine {engine!r}")
     if engine == "sequential":
-        res = cluster_sequential(sim, table, params)
+        res = cluster_sequential(sim, table, params, moments=moments)
         return (res, None) if with_rounds else res
     if engine == "rounds":
         return cluster_rounds(sim, table, params, max_rounds=max_rounds,
                               use_kernel=use_kernel,
-                              with_rounds=with_rounds, span=span)
+                              with_rounds=with_rounds, moments=moments,
+                              span=span)
     raise ValueError(f"unknown cluster engine {engine!r}")
 
 

@@ -22,8 +22,8 @@ clustering (P3)       ``cluster_engine`` ("rounds" | "sequential"),
                       ``cluster_bu`` / ``cluster_bs``
 ====================  =====================================================
 
-No single-device CUDA path reads two groups of fields; they are accepted,
-validated and carried so that plan files stay interchangeable:
+The single-device paths read neither of two groups of fields; they are
+accepted, validated and carried so that plan files stay interchangeable:
 
 * the TPU tile geometry (``fused_rows/bc/bm``, ``cluster_bu/bs``): the
   reference holds it bit-neutral (any geometry gives the same outputs),
@@ -31,9 +31,8 @@ validated and carried so that plan files stay interchangeable:
   their own blocks, which the tile plans of ``kernels.stjoin.ops``
   carry);
 * the collective schedules and payloads (``sim_strategy``, ``sim_dtype``,
-  ``halo_stream``, ``sim_exchange``): the reference reads them only in
-  its distributed program, and so will the port's (``ROADMAP.md``,
-  Queue 1 item 4).
+  ``halo_stream``, ``sim_exchange``): only the multi-device program
+  (``core/distributed.py``) reads them, as in the reference.
 
 ``use_kernel`` picks the join kernel of materialize mode only (K1, or K10
 under ``use_index``): fused mode on the card always runs its kernels.
@@ -73,9 +72,9 @@ class EnginePlan:
     sim_mode: str = "dense"            # "dense" | "topk"
     sim_topk: int | None = None        # K of the top-K lists (None = 32)
     sim_panel: int | None = None       # panel height Sb (None = 128-snap)
-    sim_strategy: str = "psum"         # distributed only (not read)
-    sim_dtype: str = "f32"             # distributed only (not read)
-    # ---- communication schedules (distributed-only, not read) -------------
+    sim_strategy: str = "psum"         # distributed only
+    sim_dtype: str = "f32"             # distributed only
+    # ---- communication schedules (distributed only) -----------------------
     halo_stream: str = "barrier"       # "barrier" | "ring"
     sim_exchange: str = "allgather"    # "allgather" | "ring"
     # ---- clustering (Problem 3) ------------------------------------------

@@ -1,8 +1,8 @@
 """Subtrajectory similarity (Eq. 2) and the ST / SP relations
 (counterpart of ``repro.core.similarity`` on one host, with the
 canonical list merges ``sort_topk_lists`` / ``merge_topk_lists`` that the
-streaming service reads; ``merge_topk_blocks`` and ``finalize_sim_cols``
-belong to the multi-device program, ``ROADMAP.md`` Queue 1 item 4).
+streaming service reads, and the column-block pieces of the multi-device
+program, ``merge_topk_blocks`` and ``finalize_sim_cols``).
 
 Every join match ``(ref point (r, m) <-> best point of candidate c)``
 adds its weight ``1 - d_s/eps_sp`` to the (sub(r, m), sub(c, best_idx))
@@ -208,14 +208,17 @@ def panel_local(gid: torch.Tensor, p0: int, Sb: int) -> torch.Tensor:
 
 
 def finalize_sim_panel(fwd: torch.Tensor, rev: torch.Tensor, p0: int,
-                       table: SubtrajTable) -> torch.Tensor:
+                       table: SubtrajTable,
+                       active: torch.Tensor | None = None) -> torch.Tensor:
     """Eq. 2 finalization of one row panel from its two raw orientations.
 
     ``fwd[i, j] = raw[p0 + i, j]`` and ``rev[i, j] = raw[j, p0 + i]``, so
     ``max(fwd, rev)`` is the panel's rows of ``max(raw, raw.T)``.  The
     symmetric ``min(card)`` denominator commutes with the max (IEEE
     division by a positive number is monotone), so dividing after the max
-    is bit-identical to ``finalize_sim``'s divide-then-max.
+    is bit-identical to ``finalize_sim``'s divide-then-max.  ``active``
+    (the multi-device program) also masks rows and columns to the
+    partition's active slots.
     """
     Sb, S = fwd.shape
     dev = fwd.device
@@ -226,6 +229,8 @@ def finalize_sim_panel(fwd: torch.Tensor, rev: torch.Tensor, p0: int,
     sim = torch.maximum(fwd, rev) / denom.clamp_min(1).to(torch.float32)
     keep = (table.valid[r, None] & table.valid[None, :]
             & (rows[:, None] != cols[None, :]))
+    if active is not None:
+        keep &= active[r, None] & active[None, :]
     return torch.where(keep, sim, 0.0)
 
 
@@ -262,7 +267,8 @@ def topk_reduce_rows(sim_rows: torch.Tensor, k: int):
 
 
 def topk_stream(panel_raw_fn, table: SubtrajTable, *, k: int,
-                panel: int | None = None) -> TopKSim:
+                panel: int | None = None,
+                active: torch.Tensor | None = None) -> TopKSim:
     """Drive the panel sweep: raw orientations -> finalize -> top-K.
 
     ``panel_raw_fn(p0)`` returns the two raw orientations ``(fwd [Sb, S],
@@ -271,6 +277,7 @@ def topk_stream(panel_raw_fn, table: SubtrajTable, *, k: int,
     (``kernels.stjoin.ops.stjoin_sim_panel_fused``, K7).  A Python loop
     over the panels writes each panel's ``[Sb, K]`` reduction into the
     ``[S, K]`` lists; only one panel's slabs are live at a time.
+    ``active`` masks rows and columns as in ``finalize_sim_panel``.
     """
     S = table.num_slots
     k = min(k, S)
@@ -284,7 +291,8 @@ def topk_stream(panel_raw_fn, table: SubtrajTable, *, k: int,
     row_sumsq = torch.empty((S,), dtype=torch.float32, device=dev)
     for p0 in range(0, S, Sb):
         r = slice(p0, p0 + Sb)
-        sim_rows = finalize_sim_panel(*panel_raw_fn(p0), p0, table)
+        sim_rows = finalize_sim_panel(*panel_raw_fn(p0), p0, table,
+                                      active=active)
         degree[r], row_sum[r], row_sumsq[r] = sim_row_moments(
             sim_rows, table.valid[r], table.valid)
         ids[r], sims[r], spill[r] = topk_reduce_rows(sim_rows, k)
@@ -335,14 +343,20 @@ def similarity_topk(join: JoinResult, ref_seg: SubtrajSegmentation,
     return topk_stream(fn, table, k=k, panel=Sb)
 
 
-def topk_from_dense(sim: torch.Tensor, table: SubtrajTable,
-                    k: int) -> TopKSim:
+def topk_from_dense(sim: torch.Tensor, table: SubtrajTable, k: int,
+                    active: torch.Tensor | None = None) -> TopKSim:
     """TopKSim of a finalized dense matrix (tests and oracles): bitwise
     what the panel sweep gives for the same cells.  Rows are reduced in
-    chunks of ``ROW_CHUNK``, so the sort's temporaries stay bounded."""
+    chunks of ``ROW_CHUNK``, so the sort's temporaries stay bounded.
+    ``active`` masks rows and columns to the partition's active slots
+    (and the moments to its valid ones), as the panel sweep does."""
     S = table.num_slots
     k = min(k, S)
-    cnt, rsum, rsumsq = sim_row_moments(sim, table.valid, table.valid)
+    valid = table.valid
+    if active is not None:
+        valid = valid & active
+        sim = torch.where(active[:, None] & active[None, :], sim, 0.0)
+    cnt, rsum, rsumsq = sim_row_moments(sim, valid, valid)
     parts = [topk_reduce_rows(sim[r0:r0 + ROW_CHUNK], k)
              for r0 in range(0, S, ROW_CHUNK)]
     ids, sims, spill = (torch.cat(p) for p in zip(*parts))
@@ -390,3 +404,41 @@ def topk_overflow(topk: TopKSim, alpha) -> torch.Tensor:
     top-K labels equal the dense ones."""
     over = (topk.spill > 0.0) & (topk.spill >= alpha)
     return over.sum().to(torch.int32)
+
+
+def merge_topk_blocks(ids: torch.Tensor, sims: torch.Tensor, k: int):
+    """K-way merge of per-block top-(K+1) lists into the global top-K and
+    the spill certificate: ``(ids [S, k], sims [S, k], spill [S])``.
+
+    ``ids [S, B*(K+1)]`` / ``sims`` concatenate the blocks' lists
+    (disjoint column ranges, exact values).  A row's global top-(K+1)
+    lies in the union of its blocks' top-(K+1) lists, so the merged top-K
+    and (K+1)-th value are those of the full row, in the canonical
+    (sim desc, id asc) order of ``sort_topk_lists``.
+    """
+    mi, ms = sort_topk_lists(ids, sims, min(k + 1, sims.shape[1]))
+    return _topk_tail(ms, mi, k)
+
+
+def finalize_sim_cols(sym_blk: torch.Tensor, c0: int, table: SubtrajTable,
+                      active: torch.Tensor | None = None) -> torch.Tensor:
+    """Eq. 2 finalization of a symmetrized *column block* ``[S, S_loc]``:
+    ``sym_blk[i, j] = max(raw[i, c0+j], raw[c0+j, i])``.  Masks and
+    normalization mirror ``finalize_sim`` cell for cell (``active``:
+    rows and columns outside the partition's active slots are 0)."""
+    S, S_loc = sym_blk.shape
+    dev = sym_blk.device
+    rows = torch.arange(S, device=dev)
+    cols = torch.arange(c0, c0 + S_loc, device=dev)
+    c = slice(c0, c0 + S_loc)
+    out = torch.empty_like(sym_blk)
+    for r0 in range(0, S, ROW_CHUNK):
+        r = slice(r0, r0 + ROW_CHUNK)
+        denom = torch.minimum(table.card[r, None], table.card[None, c])
+        sim = sym_blk[r] / denom.clamp_min(1).to(torch.float32)
+        keep = (table.valid[r, None] & table.valid[None, c]
+                & (rows[r, None] != cols[None, :]))
+        if active is not None:
+            keep &= active[r, None] & active[None, c]
+        out[r] = torch.where(keep, sim, 0.0)
+    return out

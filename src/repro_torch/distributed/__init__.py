@@ -1,2 +1,3 @@
-"""Host-side pieces of the reference's ``repro.distributed`` that the
-single-host runner needs (the multi-device program is not ported)."""
+"""The port's counterpart of ``repro.distributed``: the ``(part, model)``
+mesh of ranks over ``torch.distributed`` and its collectives (``mesh``),
+and the straggler monitor of the resilient runner (``straggler``)."""

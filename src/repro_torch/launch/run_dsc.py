@@ -1,8 +1,11 @@
 """DSC launcher of the port: the pipeline end to end on synthetic data, on
-one device (counterpart of ``repro.launch.run_dsc`` at P = 1).
+one device or on a mesh of ranks (counterpart of ``repro.launch.run_dsc``).
 
 ``python -m repro_torch.launch.run_dsc --config dsc_brest --n-trajs 4096
 --segmentation tsa2 --plan plan.json [--device cpu]``
+
+``python -m repro_torch.launch.run_dsc --config dsc_synth --distributed 4
+--model-par 2 --device cpu --comm gloo``
 
 Engine configuration rides on one surface: ``--plan plan.json``, an
 :class:`repro_torch.core.plan.EnginePlan` (write one with
@@ -13,16 +16,21 @@ deprecated aliases that materialize a plan; combining them with
 asks for the CPU; with no card the default raises.
 
 The parser has every flag of the reference, with its default and
-choices, plus ``--device``.  ``--resume-dir``, ``--fault-plan``,
-``--on-overflow`` and ``--rebalance`` route the run through the resilient
-stage runner (``repro_torch.run``), ``--stream`` replays the dataset
-through the windowed streaming service (``repro_torch.serve.stream``); a
-classified failure exits with the reference's code (``EXIT_CODES``: 3
-overflow, 4 corruption, 5 retries exhausted, 6 injected crash, 7 poison
-record, 8 backpressure).  The multi-device program (``--distributed``,
-``--model-par``) is not ported: those exit through the parser with the
-``ROADMAP.md`` item that ports it, and ``--elastic-resume`` with the
-reference's own parser error (it needs ``--distributed``).
+choices, plus ``--device`` and ``--comm``.  ``--resume-dir``,
+``--fault-plan``, ``--on-overflow`` and ``--rebalance`` route the run
+through the resilient stage runner (``repro_torch.run``), ``--stream``
+replays the dataset through the windowed streaming service
+(``repro_torch.serve.stream``); a classified failure exits with the
+reference's code (``EXIT_CODES``: 3 overflow, 4 corruption, 5 retries
+exhausted, 6 injected crash, 7 poison record, 8 backpressure).
+``--distributed P --model-par M`` runs the multi-device program
+(``core/distributed.py``) on a ``P x M`` mesh of spawned ranks, over the
+transport ``--comm`` names (required with ``--distributed``: ``gloo`` on
+the CPU or with ranks sharing a card, ``nccl`` with a card per rank).
+Its resilient runner is not ported: ``--distributed`` with the resilient
+options, and ``--elastic-resume``, exit through the parser (the latter
+with the reference's own error when ``--resume-dir`` or ``--distributed``
+is missing).
 
 The README's table of this parser is generated (``--print-cli-table``)
 and checked (``--check-readme``) between its own markers.
@@ -50,7 +58,8 @@ CLI_TABLE_BEGIN = ("<!-- cli-table-torch:begin (generated by python -m "
 CLI_TABLE_END = "<!-- cli-table-torch:end -->"
 
 # the options whose code is not ported yet -> the ROADMAP.md item
-_MULTI_DEVICE = "ROADMAP.md Queue 1 item 4 (the multi-device program)"
+_MULTI_DEVICE = ("ROADMAP.md Queue 1 item 4 (the distributed resilient "
+                 "runner and elastic resume)")
 
 
 def make_dataset(name: str, n_trajs: int, max_points: int, seed: int = 0,
@@ -95,14 +104,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where the pipeline runs: the card (the kernels "
                          "of the plan; raises without a card) or the CPU "
                          "(the plain PyTorch versions)")
+    ap.add_argument("--comm", default=None, choices=["nccl", "gloo"],
+                    help="transport of the --distributed mesh (required "
+                         "with it): gloo (the CPU, or ranks sharing one "
+                         "card through host memory) or nccl (one card per "
+                         "rank)")
     ap.add_argument("--distributed", type=int, default=0,
-                    help="number of temporal partitions (0 = one device; "
-                         "more is refused until the multi-device program "
-                         "is ported)")
+                    help="number of temporal partitions (0 = single host; "
+                         "P>0 runs the multi-device program on P x "
+                         "model-par spawned ranks)")
     ap.add_argument("--model-par", type=int, default=1,
-                    help="model-axis width (candidate-column sharding; "
-                         "other than 1 is refused until the multi-device "
-                         "program is ported)")
+                    help="model-axis width (candidate-column sharding)")
     ap.add_argument("--plan", default=None, metavar="PLAN.json",
                     help="EnginePlan JSON: the single surface owning every "
                          "per-stage engine choice; mutually exclusive with "
@@ -317,12 +329,34 @@ def plan_from_args(args, parser: argparse.ArgumentParser) -> EnginePlan:
     return EnginePlan.load(args.plan)
 
 
+def _resilient(args) -> bool:
+    """Whether the options route the run through the resilient runner."""
+    return (args.resume_dir is not None or args.fault_plan is not None
+            or args.on_overflow is not None or args.rebalance is not None)
+
+
 def _refuse_unported(args, parser: argparse.ArgumentParser) -> None:
-    """Exit through the parser on an option whose code is not ported
-    (the multi-device program)."""
-    if args.distributed or args.model_par != 1:
-        parser.error(f"--distributed / --model-par: not ported yet, see "
-                     f"{_MULTI_DEVICE}")
+    """Exit through the parser, before any data is made, on options whose
+    code is not ported (the distributed resilient runner) or that cannot
+    go together (the reference's own errors)."""
+    if args.stream:
+        if args.distributed:
+            parser.error("--stream is a single-host service "
+                         "(no --distributed)")
+        return
+    if args.elastic_resume and not (_resilient(args) and args.distributed):
+        parser.error("--elastic-resume needs --resume-dir and --distributed "
+                     "(elastic adaptation is a distributed-checkpoint "
+                     "feature)")
+    if not args.distributed:
+        return
+    if _resilient(args) or args.elastic_resume:
+        parser.error(f"--distributed with --resume-dir / --fault-plan / "
+                     f"--on-overflow / --rebalance / --elastic-resume: not "
+                     f"ported yet, see {_MULTI_DEVICE}")
+    if args.comm is None:
+        parser.error("--distributed needs --comm {nccl,gloo}: the mesh's "
+                     "transport is never chosen silently")
 
 
 def _exit_code_for(exc) -> int | None:
@@ -396,16 +430,39 @@ def main(argv=None):
 
     if args.stream:
         return _classified(_run_stream, args, batch, mean_dt, dev)
-
-    resilient = (args.resume_dir is not None or args.fault_plan is not None
-                 or args.on_overflow is not None
-                 or args.rebalance is not None)
-    if args.elastic_resume:
-        ap.error("--elastic-resume needs --resume-dir and --distributed "
-                 "(elastic adaptation is a distributed-checkpoint "
-                 "feature)")
+    if args.distributed:
+        return _classified(_run_distributed, args, batch, params, plan, dev)
     return _classified(_run_batch, args, batch, params, plan, dev,
-                       resilient)
+                       _resilient(args))
+
+
+def _run_distributed(args, batch, params, plan, dev):
+    """The multi-device program on a ``--distributed x --model-par`` mesh
+    of spawned ranks on ``dev``'s kind of device, logged as the reference
+    logs it."""
+    import numpy as np
+
+    from repro_torch.core.distributed import run_dsc_distributed
+    from repro_torch.core.partitioning import partition_batch
+    from repro_torch.distributed.mesh import Mesh
+    P = args.distributed
+    t0 = time.time()
+    mesh = Mesh((P, args.model_par), args.comm, device=dev.type)
+    parts = partition_batch(batch, P)
+    # the program has no in-graph K widening: keep the default of 32
+    # explicit in the plan, as the reference does
+    if plan.sim_mode == "topk" and plan.sim_topk is None:
+        plan = plan.replace(sim_topk=32)
+    out = run_dsc_distributed(parts, params, mesh, plan=plan)
+    res = out.result
+    n_rep = int(res.is_rep.sum())
+    n_out = int(res.is_outlier.sum())
+    n_mem = int(np.sum((res.member_of.cpu().numpy() >= 0)
+                       & ~res.is_rep.cpu().numpy()))
+    log.info("distributed DSC (%d partitions x %d model): "
+             "%d clusters, %d members, %d outliers in %.2fs",
+             P, args.model_par, n_rep, n_mem, n_out, time.time() - t0)
+    return out
 
 
 def _run_batch(args, batch, params, plan, dev, resilient: bool):

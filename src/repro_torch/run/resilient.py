@@ -611,8 +611,9 @@ def run_resilient(batch, params, *, plan: EnginePlan | None = None,
 
 
 def run_resilient_distributed(*args, **kw) -> ResilientResult:
-    """The multi-device resilient runner is not ported: it needs the
-    multi-device DSC program, ``ROADMAP.md`` Queue 1 item 4."""
+    """The multi-device resilient runner is not ported (the stage
+    programs it drives are: ``core/distributed.py::
+    build_dsc_stage_programs``); ``ROADMAP.md`` Queue 1 item 4."""
     raise NotImplementedError(
-        "run_resilient_distributed: the multi-device program is not "
-        "ported yet, see ROADMAP.md Queue 1 item 4")
+        "run_resilient_distributed: the distributed resilient runner is "
+        "not ported yet, see ROADMAP.md Queue 1 item 4")

@@ -1573,3 +1573,84 @@ def test_checkpoint_of_card_tensors(cuda, tmp_path):
     assert torch.equal(back["n"]["b"], tree["n"]["b"])
     flat, _ = mgr.restore_flat(1)
     assert np.array_equal(flat["n/i"], want["i"].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# The multi-device program: a (2, 2) mesh of gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# the kernels each distributed path launches on every rank
+DIST_KERNELS = {
+    "fused_topk": {"chunk_time_bounds", "stjoin_vote_fused",
+                   "stjoin_sim_fused", "jaccard_window", "topk_round_scan",
+                   "topk_claim_max"},
+    "materialize": {"chunk_time_bounds", "stjoin_best_match",
+                    "jaccard_window", "round_scan", "claim_max"},
+}
+DIST_LABELS = ("member_of", "member_sim", "is_rep", "is_outlier")
+
+
+def _dist_rank(n_vessels):
+    """One rank of the card tests' mesh: the fused top-K kernel plan, its
+    ring twin, the materialize kernel plan (K1) and the plain plan, each
+    with its launches."""
+    from repro_torch.core.distributed import run_dsc_distributed
+    from repro_torch.core.partitioning import partition_batch
+    from repro_torch.distributed.mesh import Mesh
+    batch, _ = ais_like(n_vessels=n_vessels, max_points=128, n_lanes=8,
+                        seed=0, device="cpu")
+    params = DSCParams(eps_sp=17.0, eps_t=60.0, w=20, tau=0.4,
+                       alpha_sigma=-1.0, k_sigma=-1.0, segmentation="tsa2")
+    parts = partition_batch(batch, 2)
+    mesh = Mesh((2, 2), "gloo", "cuda")
+    plans = {"fused_topk": _path_plan("fused_topk", sim_topk=32),
+             "ring": _path_plan("fused_topk", sim_topk=32,
+                                halo_stream="ring", sim_exchange="ring"),
+             "materialize": _path_plan("materialize"),
+             "plain": EnginePlan(sim_mode="topk", sim_topk=32)}
+    out = {}
+    for name, plan in plans.items():
+        kernels.reset_launch_counts()
+        o = run_dsc_distributed(parts, params, mesh, plan=plan,
+                                on_overflow="widen")
+        out[name] = ({f: getattr(o.result, f) for f in DIST_LABELS},
+                     {k for k, v in kernels.LAUNCHES.items() if v > 0},
+                     o.vote.is_cuda)
+    return out
+
+
+def test_distributed_kernel_plan_matches_plain_on_card(cuda):
+    """Mesh (2, 2) on the card at T = 512 (dsc_brest's generator, TSA2):
+    the fused top-K kernel plan launches exactly its kernels on every
+    rank, its labels equal the plain plan's on the card and the
+    materialize kernel plan's (K1, K5, K6), its ring twin is bitwise, and
+    every rank assembles the same output."""
+    from repro_torch.distributed.mesh import Mesh, spawn
+    ranks = spawn(_dist_rank, Mesh((2, 2), "gloo", "cuda"), 512,
+                  timeout=600)
+    first = ranks[0]
+    for r, res in enumerate(ranks):
+        assert res["fused_topk"][1] == DIST_KERNELS["fused_topk"], r
+        assert res["ring"][1] == DIST_KERNELS["fused_topk"], r
+        assert res["materialize"][1] == DIST_KERNELS["materialize"], r
+        assert res["plain"][1] == set(), r
+        assert res["fused_topk"][2], r
+        for name in res:
+            for f in DIST_LABELS:
+                assert torch.equal(res[name][0][f], first[name][0][f])
+    got = first["fused_topk"][0]
+    assert int(got["is_rep"].sum()) >= 1
+    for f in DIST_LABELS:
+        assert torch.equal(first["ring"][0][f], got[f]), f
+    for f in ("member_of", "is_rep", "is_outlier"):
+        assert torch.equal(first["plain"][0][f], got[f]), f
+        assert torch.equal(first["materialize"][0][f], got[f]), f
+
+
+def test_mesh_refuses_nccl_with_too_few_cards(cuda):
+    """nccl needs one card per rank: a mesh larger than the visible cards
+    raises before any rank starts."""
+    from repro_torch.distributed.mesh import Mesh
+    mesh = Mesh((torch.cuda.device_count() + 1, 1), "nccl", "cuda")
+    with pytest.raises(RuntimeError, match="one card per rank"):
+        mesh.rank_device(0)

@@ -6,9 +6,11 @@ file: cluster summaries (clusters, outliers, ``num_clusters``) equal;
 ``sscr``, ``rmse``, ``alpha`` and ``k`` within the 1e-5 relative
 tolerance ``tests/test_torch_dsc.py::_compare`` states (float32 sums in
 another order than XLA's).  The parser is the reference's plus
-``--device``; the resilient runner's and the streaming service's options
-give the reference's exit codes (0, 3-8) and cluster counts; the
-multi-device options exit through the parser.
+``--device`` and ``--comm``; the resilient runner's and the streaming
+service's options give the reference's exit codes (0, 3-8) and cluster
+counts; ``--distributed`` runs the multi-device program with the
+reference's cluster, member and outlier counts; its resilient options
+exit through the parser.
 """
 import argparse
 import json
@@ -76,9 +78,11 @@ def _options(ap):
 
 def test_parser_is_the_reference_plus_device():
     """Option strings, defaults, choices and kinds equal the reference's,
-    plus ``--device {cuda,cpu}`` (default ``cuda``)."""
+    plus ``--device {cuda,cpu}`` (default ``cuda``) and ``--comm
+    {nccl,gloo}`` (no default: ``--distributed`` requires it)."""
     t, j = _options(tl.build_parser()), _options(jl.build_parser())
-    assert set(t) - set(j) == {"--device"}
+    assert set(t) - set(j) == {"--device", "--comm"}
+    assert t["--comm"][:2] == (None, ("nccl", "gloo"))
     assert set(j) <= set(t)
     for s in j:
         assert t[s] == j[s], s
@@ -86,19 +90,25 @@ def test_parser_is_the_reference_plus_device():
     assert tl._LEGACY_FLAGS == jl._LEGACY_FLAGS
 
 
-REFUSED = {"distributed": (["--distributed", "2"],
+REFUSED = {"distributed": (["--distributed", "2", "--comm", "gloo",
+                            "--resume-dir", "unused"],
                            "ROADMAP.md Queue 1 item 4"),
-           "model_par": (["--model-par", "2"], "ROADMAP.md Queue 1 item 4"),
+           "model_par": (["--distributed", "2", "--model-par", "2",
+                          "--comm", "gloo", "--on-overflow", "widen"],
+                         "ROADMAP.md Queue 1 item 4"),
            "elastic_resume": (["--elastic-resume"],
                               "--elastic-resume needs --resume-dir and "
-                              "--distributed")}
+                              "--distributed"),
+           "comm": (["--distributed", "2"], "needs --comm")}
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_options_refuse(name, capsys):
-    """The multi-device options exit through the parser (code 2) before
-    any data is made, naming the ROADMAP.md item that ports their code;
-    ``--elastic-resume`` with the reference's own parser error."""
+    """The distributed resilient runner's options exit through the parser
+    (code 2) before any data is made, naming the ROADMAP.md item that
+    ports their code; ``--elastic-resume`` with the reference's own parser
+    error; ``--distributed`` without ``--comm`` naming the missing
+    transport."""
     argv, msg = REFUSED[name]
     with pytest.raises(SystemExit) as e:
         tl.main(["--device", "cpu", *argv])
@@ -194,6 +204,34 @@ def test_ported_options_run(name, tmp_path, caplog):
         if code == 0:
             assert _counts(logs["port"], "DSC: ") or _counts(
                 logs["port"], "stream: ")
+
+
+@pytest.mark.parametrize("mode", ["materialize", "fused"])
+def test_distributed_main_matches_reference(mode, caplog):
+    """``--distributed 4 --model-par 2 --device cpu --comm gloo`` (eight
+    gloo ranks), in materialize and in fused mode, logs the cluster,
+    member and outlier counts of the reference's launcher in materialize
+    mode under eight forced host devices (the reference's fused run is
+    wrong at two model ranks, ROADMAP Queue 3)."""
+    import os
+    import subprocess
+    import sys
+    argv = ["--config", "dsc_synth", "--distributed", "4", "--model-par",
+            "2"]
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_"
+               "count=8", PYTHONPATH=str(README.parent / "src"))
+    ref = subprocess.run([sys.executable, "-m", "repro.launch.run_dsc",
+                          *argv], env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    what = "distributed DSC (4 partitions x 2 model): "
+    want = _counts(ref.stderr + ref.stdout, what)
+    with caplog.at_level(logging.INFO, logger="repro_torch"):
+        out = tl.main(argv + ["--mode", mode, "--device", "cpu", "--comm",
+                              "gloo"])
+    got = _counts(caplog.text, what)
+    assert got == want and len(want) == 1, (got, want)
+    assert out.vote.shape[0] == 4 and out.sim_diag.shape == (4, 4)
 
 
 def test_plan_plus_legacy_flag_refuses(tmp_path, capsys):
