@@ -211,6 +211,32 @@ MB sent, seconds) and peak allocation per rank, the card's used peak over
 the phase (all processes), and the cluster / member / outlier counts,
 beside the card's name and power limit.
 
+Then the distributed resilient runner (``phase_resilient_distributed``,
+also under ``--only-distributed``), ``run_resilient_distributed`` on the
+same (2, 2) mesh, checkpoints under a fresh temporary directory:
+
+* dsc_brest (T = 4096), the fused top-K kernel plan from K = 32 with
+  widen: ``FaultPlan(crash_at="cluster")`` through the runner's own spawn
+  must come back as ``InjectedCrash`` in this process; the resume (on
+  ranks this script spawns, its launches zeroed just before it and read
+  just after: exactly K4, K8, K9 and the chunk bounds) must give
+  ``resumed_from == 3``, one widen fewer than the main run's dispatches,
+  and labels, ``member_sim``, ``vote``, ``active`` and ``sim_diag``
+  bitwise the main monolith run's; it prints both walls, the saves (GB
+  written, seconds a save on rank 0's writer thread and on its calling
+  thread), each rank's peak allocation, the card's used peak and the
+  collectives' share of the resume's wall;
+* at T = 512: the materialize kernel plan (K1, K3, K5, K6) crashed at each
+  of the five stages and resumed, each bitwise its straight run (which
+  equals the monolith's mat_512); an applied rebalance (fused top-K,
+  partition 1 slowed by 30 s at ``join``) bitwise a straight run at the
+  applied cut; a fused top-K crash at cluster on (2, 2) resumed on a
+  (1, 2) mesh with ``elastic_resume=True``, bitwise a straight run there;
+* every kernel these runs launch (K1-K6, K8, K9, the chunk bounds)
+  against its plain version at the resilient runs' own operands
+  (``recorded_program`` in the resume, the materialize straight run and
+  the rebalanced run).
+
 Prints one JSON ``kernels`` line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any mismatch or
 error exits non-zero without the result line; so does a machine without a
@@ -1185,11 +1211,12 @@ def stage_chain(batch, params, plan):
     then ``run_stage_vote_from_join`` on its cube (equal to the join
     stage's votes and words, checked) and goes on from those."""
     from repro_torch.core import dsc
-    tiles = None
+    tile_ids = None
     if plan.mode == "fused":
-        tiles, plan = dsc.plan_fused_tile_ids(batch, params, plan)
+        tile_ids, plan = dsc.plan_fused_tile_ids(batch, params, plan)
         join = None
-        vote, masks = dsc.run_stage_join_fused(batch, params, tiles, plan)
+        vote, masks = dsc.run_stage_join_fused(batch, params,
+                                               tile_ids=tile_ids, plan=plan)
     else:
         join, vote0, masks0 = dsc.run_stage_join(batch, params, plan)
         vote, masks = dsc.run_stage_vote_from_join(batch, params, join,
@@ -1200,7 +1227,7 @@ def stage_chain(batch, params, plan):
     seg, table = dsc.run_stage_segment(batch, params, vote, masks, plan)
     del masks
     sim, topk = dsc.run_stage_similarity(batch, params, join, seg, table,
-                                         tiles, plan)
+                                         tile_ids=tile_ids, plan=plan)
     result, overflow = dsc.run_stage_cluster(sim, table, params, plan)
     sscr, rmse = dsc.run_stage_score(result, sim, params)
     return dict(join=join, vote=vote, seg=seg, table=table, sim=sim,
@@ -2379,6 +2406,300 @@ def phase_distributed(report, card: str):
     report["distributed"] = dict(card=card, phase_s=phase_s,
                                  card_used_peak_bytes=peak[0], jobs=rows,
                                  checks=[res["checks"] for res in ranks])
+    phase_resilient_distributed(report, card, r0)
+
+
+# ---------------------------------------------------------------------------
+# The distributed resilient runner on the card
+# ---------------------------------------------------------------------------
+
+# kernels the main resume launches (the join and segment state is
+# restored; each widen reruns the similarity stage)
+RDIST_RESUME_KERNELS = {"chunk_time_bounds", "stjoin_sim_fused",
+                        "topk_round_scan", "topk_claim_max"}
+RDIST_MAT_RECORD = ("chunk_time_bounds", "stjoin_best_match",
+                    "jaccard_window", "round_scan", "claim_max")
+RDIST_TOPK_RECORD = ("chunk_time_bounds", "stjoin_vote_fused",
+                     "jaccard_window", "stjoin_sim_fused", "topk_round_scan",
+                     "topk_claim_max")
+RDIST_STAGES = ("join", "segment", "similarity", "cluster", "refine")
+
+
+def rdist_run(name, parts, params, mesh, plan, record=(), **kw):
+    """One ``run_resilient_distributed`` on this rank (the mesh's ranks
+    run it together), with its launches (zeroed just before, read just
+    after), wall, collectives, peak allocation and checkpoint saves; an
+    ``InjectedCrash`` is kept as its text.  With ``record``, the calls of
+    those kernels are checked against their plain versions after it."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.distributed.mesh import current
+    from repro_torch.run import InjectedCrash, run_resilient_distributed
+    comm = current()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows = dist_rows(parts.x.shape[1], comm.rank)
+    res = err = None
+    with (recorded_program(record, rows) if record
+          else contextlib.nullcontext(None)) as rec, \
+            recorded_saves() as (writes, calls):
+        dist.barrier()
+        kernels.reset_launch_counts()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        try:
+            res = run_resilient_distributed(parts, params, mesh, plan=plan,
+                                            **kw)
+        except InjectedCrash as e:
+            err = f"{type(e).__name__}: {e}"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    job = dict(res=res, err=err, launches=launches, stats=dict(comm.stats),
+               wall=wall, peak=torch.cuda.max_memory_allocated() - base,
+               writes=list(writes), calls=list(calls))
+    if record:
+        job["checks"] = dist_checks(f"resilient {name}", rec, rows)
+    del rec
+    return job
+
+
+def rdist_rank(sizes, root):
+    """This rank's resilient runs (the mesh's ranks run this together):
+    on (2, 2) the main resume from ``root/main``, then the T = 512 runs
+    (materialize crashes, the rebalance, the elastic crash into
+    ``root/elastic``); on (1, 2) the elastic resume and its straight
+    run."""
+    from repro_torch.core.partitioning import repartition_batch
+    from repro_torch.distributed.mesh import Mesh, current
+    from repro_torch.run import FaultPlan, RebalancePolicy
+    mesh = Mesh(sizes, "gloo", "cuda")
+    current().timing = True
+    topk = dist_plan("fused_topk", dict(sim_topk=32))
+    out = {}
+    if sizes == (1, 2):
+        _, params, parts = dist_data(512, 1)
+        out["elastic"] = rdist_run("elastic", parts, params, mesh, topk,
+                                   checkpoint_dir=f"{root}/elastic",
+                                   on_overflow="widen", elastic_resume=True)
+        out["p1"] = rdist_run("p1", parts, params, mesh, topk,
+                              on_overflow="widen")
+        return out
+    _, params, parts = dist_data(4096, 2)
+    out["resume"] = rdist_run("main resume", parts, params, mesh, topk,
+                              record=tuple(sorted(RDIST_RESUME_KERNELS)),
+                              checkpoint_dir=f"{root}/main",
+                              on_overflow="widen")
+    _, params, parts = dist_data(512, 2)
+    mat = dist_plan("materialize", {})
+    out["mat"] = rdist_run("mat_512", parts, params, mesh, mat,
+                           record=RDIST_MAT_RECORD)
+    for stage in RDIST_STAGES:
+        d = f"{root}/mat_{stage}"
+        out[f"mat_crash_{stage}"] = rdist_run(
+            f"mat crash {stage}", parts, params, mesh, mat,
+            checkpoint_dir=d, fault_plan=FaultPlan(crash_at=stage))
+        out[f"mat_resume_{stage}"] = rdist_run(
+            f"mat resume {stage}", parts, params, mesh, mat,
+            checkpoint_dir=d)
+    out["rb"] = rb = rdist_run(
+        "rebalance", parts, params, mesh, topk, record=RDIST_TOPK_RECORD,
+        on_overflow="widen", fault_plan=FaultPlan(slow=(("join", 1, 30.0),)),
+        rebalance=RebalancePolicy(mode="apply"))
+    edges = [e for e in rb["res"].events
+             if e["event"] == "rebalanced"][0]["edges"]
+    import numpy as np
+    out["rb_oracle"] = rdist_run(
+        "rebalance oracle", repartition_batch(parts, np.asarray(edges)),
+        params, mesh, topk, on_overflow="widen")
+    out["el_crash"] = rdist_run(
+        "elastic crash", parts, params, mesh, topk,
+        checkpoint_dir=f"{root}/elastic", on_overflow="widen",
+        fault_plan=FaultPlan(crash_at="cluster"))
+    return out
+
+
+def rdist_same(a, b, what: str):
+    """Two distributed outputs bitwise: every result field, ``vote``,
+    ``active`` and ``sim_diag``."""
+    diffs = diff_fields(a, b)
+    check(not diffs, f"{what}: not bitwise ({diffs})")
+
+
+def phase_resilient_distributed(report, card: str, mono: dict):
+    """``run_resilient_distributed`` on the (2, 2) mesh of this card (the
+    module docstring's last part); ``mono`` is rank 0's results of
+    ``phase_distributed``'s jobs (the main run's output, its launches)."""
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.distributed.mesh import Mesh, spawn
+    from repro_torch.run import FaultPlan, InjectedCrash
+    from repro_torch.run import run_resilient_distributed
+    root = tempfile.mkdtemp(prefix="chip_smoke_rdist_")
+    log(f"resilient distributed: checkpoints under a temporary directory, "
+        f"{free_disk(root)}")
+    _, params, parts = dist_data(4096, 2)
+    mesh = Mesh((2, 2), "gloo", "cuda")
+    plan = dist_plan("fused_topk", dict(sim_topk=32))
+    torch.cuda.empty_cache()
+    stop, peak = threading.Event(), [0]
+    poll = threading.Thread(target=card_used_peak, args=(stop, peak))
+    poll.start()
+    try:
+        t0 = time.perf_counter()
+        crash = None
+        try:
+            run_resilient_distributed(
+                parts, params, mesh, plan=plan, checkpoint_dir=f"{root}/main",
+                on_overflow="widen", fault_plan=FaultPlan(crash_at="cluster"))
+        except InjectedCrash as e:
+            crash = e
+        crash_s = time.perf_counter() - t0
+        check(type(crash) is InjectedCrash
+              and str(crash) == "injected crash at stage 'cluster'",
+              f"resilient distributed: the crash came back as {crash!r}")
+        t0 = time.perf_counter()
+        ranks = spawn(rdist_rank, mesh, (2, 2), root, timeout=900)
+        p1 = spawn(rdist_rank, Mesh((1, 2), "gloo", "cuda"), (1, 2), root,
+                   timeout=300)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        poll.join()
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    main = mono["main"]["out"]
+    dispatches = mono["main"]["launches"]["topk_claim_max"]
+    for r, res in enumerate(ranks):
+        job = res["resume"]
+        ran = {k for k, n in job["launches"].items() if n}
+        check(ran == RDIST_RESUME_KERNELS,
+              f"resilient distributed resume rank {r}: launched "
+              f"{sorted(ran)}, expected {sorted(RDIST_RESUME_KERNELS)}")
+        check(job["launches"]["topk_claim_max"] == dispatches,
+              f"resilient distributed resume rank {r}: "
+              f"{job['launches']['topk_claim_max']} dispatches, the main "
+              f"run {dispatches}")
+        rr = job["res"]
+        check(rr.resumed_from == 3 and rr.widen_count == dispatches - 1,
+              f"resilient distributed resume rank {r}: resumed_from="
+              f"{rr.resumed_from} widen_count={rr.widen_count}")
+        rdist_same(rr.output, main,
+                   f"resilient distributed resume rank {r} vs the main run")
+    # T = 512: the materialize crashes, the rebalance, the elastic resume
+    for r, res in enumerate(ranks):
+        check({k for k, n in res["mat"]["launches"].items() if n}
+              == DIST_KERNELS["materialize"],
+              f"resilient distributed mat_512 rank {r}: launches "
+              f"{res['mat']['launches']}")
+        rdist_same(res["mat"]["res"].output, mono["mat_512"]["out"],
+                   f"resilient distributed mat_512 rank {r} vs the monolith")
+        for stage in RDIST_STAGES:
+            check(res[f"mat_crash_{stage}"]["err"]
+                  == f"InjectedCrash: injected crash at stage {stage!r}",
+                  f"resilient distributed mat crash {stage} rank {r}: "
+                  f"{res[f'mat_crash_{stage}']['err']}")
+            rs = res[f"mat_resume_{stage}"]["res"]
+            check(rs.resumed_from == RDIST_STAGES.index(stage),
+                  f"resilient distributed mat resume {stage}: resumed_from"
+                  f"={rs.resumed_from}")
+            rdist_same(rs.output, res["mat"]["res"].output,
+                       f"resilient distributed mat resume {stage} rank {r}")
+        rb = res["rb"]["res"]
+        check(rb.rebalance_count == 1
+              and {k for k, n in res["rb"]["launches"].items() if n}
+              == DIST_KERNELS["fused_topk"],
+              f"resilient distributed rebalance rank {r}: "
+              f"rebalance_count={rb.rebalance_count}, launches "
+              f"{res['rb']['launches']}")
+        rdist_same(rb.output, res["rb_oracle"]["res"].output,
+                   f"resilient distributed rebalance rank {r} vs a straight "
+                   "run at its cut")
+        check(res["el_crash"]["err"] ==
+              "InjectedCrash: injected crash at stage 'cluster'",
+              f"resilient distributed elastic crash rank {r}")
+    for r, res in enumerate(p1):
+        el = res["elastic"]["res"]
+        check(el.resumed_from == 2
+              and any(e["event"] == "elastic_resume" for e in el.events),
+              f"resilient distributed elastic rank {r}: resumed_from="
+              f"{el.resumed_from}")
+        rdist_same(el.output, res["p1"]["res"].output,
+                   f"resilient distributed elastic (2, 2) -> (1, 2) rank {r}"
+                   " vs a straight run at P = 1")
+    want = {"chunk_time_bounds", "stjoin_best_match", "stjoin_vote_fused",
+            "stjoin_sim_fused", "jaccard_window", "round_scan", "claim_max",
+            "topk_round_scan", "topk_claim_max"}
+    for r, res in enumerate(ranks):
+        got = {c["name"] for j in ("resume", "mat", "rb")
+               for c in res[j]["checks"]}
+        check(got == want, f"resilient distributed rank {r}: kernels "
+                           f"checked {sorted(got)}, expected {sorted(want)}")
+    job = r0["resume"]
+    writes = job["writes"]
+    gb = sum(b for _, b, _ in writes) / 1e9
+    wsec = [s for _, _, s in writes]
+    csec = job["calls"]
+    walls = [res["resume"]["wall"] for res in ranks]
+    coll = [sum(v[2] for v in res["resume"]["stats"].values())
+            for res in ranks]
+    peaks = [res["resume"]["peak"] / 1e9 for res in ranks]
+    log(f"resilient distributed main (dsc_brest T=4096, fused top-K from "
+        f"K=32, widen, mesh 2x2, gloo, 4 ranks on one card; {card}): crash "
+        f"at cluster through the runner's spawn: InjectedCrash in the "
+        f"parent, wall s={crash_s:.3f}; resume wall s per rank "
+        + ", ".join(f"{w:.3f}" for w in walls)
+        + f" (both spawns s={spawn_s:.1f}); resumed_from=3 widen_count="
+        f"{job['res'].widen_count}; labels, member_sim, vote, active and "
+        f"sim_diag bitwise the main monolith run's")
+    log(f"resilient distributed saves (rank 0): {len(writes)} saves, "
+        f"{gb:.3f} GB written; s per save on the writer thread mean "
+        f"{sum(wsec) / max(len(wsec), 1):.3f} max {max(wsec, default=0):.3f};"
+        f" on the calling thread (host copy) mean "
+        f"{sum(csec) / max(len(csec), 1):.3f} max {max(csec, default=0):.3f}")
+    log(f"resilient distributed resume: peak alloc GB per rank "
+        + ", ".join(f"{p:.3f}" for p in peaks)
+        + f"; card used peak GB={peak[0] / 1e9:.3f} (all processes, the "
+        f"crash and both spawns); collectives s per rank "
+        + ", ".join(f"{c:.3f}" for c in coll) + ", share of the wall "
+        + ", ".join(f"{c / w:.3f}" for c, w in zip(coll, walls)))
+    for r, res in enumerate(ranks):
+        log(f"  resume rank {r} collectives (calls, MB sent, s): " + ", ".join(
+            f"{k}=({v[0]}, {v[1] / 1e6:.1f}, {v[2]:.3f})"
+            for k, v in sorted(res["resume"]["stats"].items())))
+        log(f"  resume rank {r} launches: " + ", ".join(
+            f"{k}={v}" for k, v in res["resume"]["launches"].items() if v))
+    t512 = {j: [res[j]["wall"] for res in ranks]
+            for j in ("mat", "rb", "rb_oracle", "el_crash")}
+    t512.update({j: [res[j]["wall"] for res in p1] for j in ("elastic",
+                                                              "p1")})
+    log("resilient distributed T=512: materialize crash at each stage and "
+        "resume bitwise the straight run (= the monolith's mat_512); "
+        "rebalance (rebalance_count=1) bitwise a straight run at its cut; "
+        "elastic (2, 2) -> (1, 2) resumed_from=2 bitwise a straight run at "
+        "P = 1; walls s (rank 0) " + ", ".join(
+            f"{k}={v[0]:.3f}" for k, v in t512.items()))
+    for r, res in enumerate(ranks):
+        for j in ("resume", "mat", "rb"):
+            for c in res[j]["checks"]:
+                log(f"  rank {r} {c['name']} ({c['job']}): {c['calls']} "
+                    f"calls at {c['shape']}, bitwise on rerun and against "
+                    f"the plain version (rows: {c['rows']}); {c['ms']:.3f} "
+                    f"ms, plain {c['plain_ms']:.3f} ms ({card})")
+    report["resilient_distributed"] = dict(
+        card=card, crash_wall_s=crash_s, resume_wall_s=walls,
+        spawns_s=spawn_s, widen_count=job["res"].widen_count,
+        saves=len(writes), checkpoint_bytes=sum(b for _, b, _ in writes),
+        save_writer_s=wsec, save_call_s=csec, peak_alloc_GB=peaks,
+        card_used_peak_bytes=peak[0], collective_s=coll,
+        collectives=[res["resume"]["stats"] for res in ranks],
+        launches=[res["resume"]["launches"] for res in ranks],
+        walls_512=t512,
+        checks=[[c for j in ("resume", "mat", "rb") for c in res[j]["checks"]]
+                for res in ranks])
 
 
 def phase_s2t(dev):

@@ -317,11 +317,11 @@ def run_stage_join(batch: TrajectoryBatch, params: DSCParams,
 
 
 def run_stage_join_fused(batch: TrajectoryBatch, params: DSCParams,
-                         tiles, plan: EnginePlan):
-    """Fused-mode stage 1 over the tile plan ``tiles`` (the first item of
-    ``plan_fused_tile_ids``): ``(vote, masks)`` — the cube never
+                         tile_ids, plan: EnginePlan):
+    """Fused-mode stage 1 over the tile plan ``tile_ids`` (the first item
+    of ``plan_fused_tile_ids``): ``(vote, masks)`` — the cube never
     exists."""
-    return _join_vote_fused_body(batch, params, tiles, plan)
+    return _join_vote_fused_body(batch, params, tile_ids, plan)
 
 
 def run_stage_vote_from_join(batch: TrajectoryBatch, params: DSCParams,
@@ -338,13 +338,13 @@ def run_stage_segment(batch: TrajectoryBatch, params: DSCParams, vote,
 
 def run_stage_similarity(batch: TrajectoryBatch, params: DSCParams, join,
                          seg: SubtrajSegmentation, table: SubtrajTable,
-                         tiles, plan: EnginePlan):
+                         tile_ids, plan: EnginePlan):
     """Stage 3: the SP relation, ``(sim, topk)``, exactly one not None;
-    from ``join`` (materialize) or the fused pass 2 over ``tiles``
+    from ``join`` (materialize) or the fused pass 2 over ``tile_ids``
     (``join is None``).  K is ``plan.sim_topk`` (default 32), clamped to
     S."""
     return _similarity_body(batch, params, join, seg, table, plan,
-                            _topk_k(plan, table.num_slots), tiles)
+                            _topk_k(plan, table.num_slots), tile_ids)
 
 
 def run_stage_cluster(simlike, table: SubtrajTable, params: DSCParams,
@@ -387,15 +387,28 @@ def _on_device(batch: TrajectoryBatch, device) -> TrajectoryBatch:
     return batch if batch.device == dev else batch.to(dev)
 
 
-def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
+def run_dsc(batch: TrajectoryBatch, params: DSCParams,
+            use_kernel: bool = False, *, use_index: bool = False,
+            mode: str = "materialize",
+            fused_tiles: tuple[int, int, int] | None = None,
+            cluster_engine: str = "rounds",
+            cluster_use_kernel: bool = False,
+            seg_use_kernel: bool = False,
+            sim_mode: str = "dense",
+            sim_topk: int | None = None,
+            sim_panel: int | None = None,
+            sim_topk_retry: bool = True,
+            on_overflow: str | None = None,
             plan: EnginePlan | None = None, device=None,
             stage_times: dict | None = None,
-            stage_parts: dict | None = None,
-            on_overflow: str = "widen") -> DSCOutput:
+            stage_parts: dict | None = None) -> DSCOutput:
     """Run the full DSC pipeline on one device.
 
     ``plan`` (``None`` = the default, all-plain plan) picks each stage's
-    engine.  ``device`` (``None`` = the card) is where the pipeline runs:
+    engine.  The per-stage flags (``use_kernel`` ... ``sim_panel``) are
+    the reference's deprecated aliases: they materialize a plan through
+    ``resolve_plan``, and a plan together with a flag at a non-default
+    value raises.  ``device`` (``None`` = the card) is where the pipeline runs:
     the batch is moved there if it lies elsewhere, and asking for the card
     where there is none raises.  ``stage_times``, when given, is filled
     with the time of each stage in ms (CUDA events on the card), summed
@@ -412,13 +425,27 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams, *,
     does not: ``"widen"`` runs the similarity, cluster and score stages
     again with K doubled until it holds (at K = S it always does),
     ``"raise"`` raises ``RuntimeError``, ``"degrade"`` returns the
-    truncated result with the violations in ``out.sim_overflow``.
-    ``out.dispatches`` counts the passes, ``out.sim_topk.k`` is the final K.
+    truncated result with the violations in ``out.sim_overflow``.  The
+    default (``None``) is the deprecated ``sim_topk_retry``'s policy:
+    ``"widen"`` when it is true, ``"raise"`` otherwise; passing both
+    raises.  ``out.dispatches`` counts the passes, ``out.sim_topk.k`` is
+    the final K.
     """
-    plan = resolve_plan(plan)
-    if on_overflow not in _ON_OVERFLOW:
-        raise ValueError(f"on_overflow={on_overflow!r}: expected "
-                         "'raise', 'widen', or 'degrade'")
+    plan = resolve_plan(plan, mode=mode, use_kernel=use_kernel,
+                        use_index=use_index, fused_tiles=fused_tiles,
+                        cluster_engine=cluster_engine,
+                        cluster_use_kernel=cluster_use_kernel,
+                        seg_use_kernel=seg_use_kernel, sim_mode=sim_mode,
+                        sim_topk=sim_topk, sim_panel=sim_panel)
+    if on_overflow is not None:
+        if on_overflow not in _ON_OVERFLOW:
+            raise ValueError(f"on_overflow={on_overflow!r}: expected "
+                             "'raise', 'widen', or 'degrade'")
+        if not sim_topk_retry:
+            raise ValueError("pass either on_overflow or "
+                             "sim_topk_retry=False, not both")
+    else:
+        on_overflow = "widen" if sim_topk_retry else "raise"
     batch = _on_device(batch, device)
     timer = StageTimer(batch.device)
     out = _run_stages(batch, params, plan, timer, on_overflow)

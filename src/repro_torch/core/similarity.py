@@ -134,6 +134,73 @@ def scatter_raw(best_w: torch.Tensor, best_idx: torch.Tensor,
     return raw
 
 
+def scatter_operands(join: JoinResult, ref_seg: SubtrajSegmentation,
+                     cand_seg_sub_local: torch.Tensor, S: int,
+                     max_subs: int):
+    """Flat SP-scatter contribution list ``(src [N], dst [N], w [N])``,
+    ``N = T*M*C`` in (t, m, c) order: ``src`` / ``dst`` are subtrajectory
+    slots with ``S`` as the sentinel for unmatched / unsegmented points
+    (the reference's list, entry for entry).  The public surface of
+    :func:`contribution_panel_raw`; the pipeline's own paths never build
+    the list (at dsc_brest it is 2.1e9 entries)."""
+    T, M, C = join.best_w.shape
+    dev = join.best_w.device
+    src = slot_ids(ref_seg.sub_local, max_subs, S)                 # [T, M]
+    src = src[:, :, None].expand(T, M, C)
+    c = torch.arange(C, dtype=torch.int32, device=dev)[None, None, :]
+    idx = join.best_idx.clamp(0, cand_seg_sub_local.shape[1] - 1).long()
+    cand_sub = cand_seg_sub_local[c.long(), idx]                   # [T, M, C]
+    dst = torch.where((join.best_idx >= 0) & (cand_sub >= 0),
+                      c * max_subs + cand_sub, S)
+    return (src.reshape(-1).to(torch.int32), dst.reshape(-1).to(torch.int32),
+            join.best_w.reshape(-1))
+
+
+def _ordered_add(flat: torch.Tensor, cell: torch.Tensor, w: torch.Tensor):
+    """``flat[cell[i]] += w[i]`` for every i, each cell adding in ``i``
+    order: one ``index_put_`` per occurrence rank (the first entry of
+    every cell, then the second, ...), so no index repeats within a call
+    (the card's ``index_put_(accumulate=True)`` reorders repeated
+    indices).  On a DSC list the ranks are the point positions m, as in
+    ``scatter_raw``."""
+    if cell.numel() == 0:
+        return
+    key, order = torch.sort(cell, stable=True)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    pos = torch.arange(key.numel(), device=key.device)
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - start
+    for r in range(int(rank.max()) + 1):
+        sel = rank == r
+        flat.index_put_((cell[sel],), w[sel], accumulate=True)
+
+
+def contribution_panel_raw(src: torch.Tensor, dst: torch.Tensor,
+                           w: torch.Tensor, S: int, Sb: int):
+    """``panel_raw(p0)`` closure over a flat contribution list (the
+    reference's contract, from :func:`scatter_operands`): the entries
+    whose ``src`` (fwd) / ``dst`` (rev) falls inside the panel ``[p0, p0
+    + Sb)``, scattered in both orientations into ``[Sb, S]`` slabs; the
+    sentinel ``S`` and the other panels' entries are dropped.  Each cell
+    adds its entries in the list's order (``_ordered_add``), so the slabs
+    equal the cube closure's bit for bit."""
+    src, dst = src.long(), dst.long()
+
+    def panel_raw(p0):
+        slabs = []
+        for own, other in ((src, dst), (dst, src)):
+            keep = (own >= p0) & (own < p0 + Sb) & (other < S) & (w > 0.0)
+            slab = torch.zeros((Sb, S), dtype=torch.float32, device=w.device)
+            _ordered_add(slab.view(-1), (own[keep] - p0) * S + other[keep],
+                         w[keep])
+            slabs.append(slab)
+        return tuple(slabs)
+
+    return panel_raw
+
+
 def similarity_matrix(join: JoinResult, ref_seg: SubtrajSegmentation,
                       cand_seg_sub_local: torch.Tensor, table: SubtrajTable,
                       max_subs: int) -> torch.Tensor:
@@ -273,7 +340,8 @@ def topk_stream(panel_raw_fn, table: SubtrajTable, *, k: int,
 
     ``panel_raw_fn(p0)`` returns the two raw orientations ``(fwd [Sb, S],
     rev [Sb, S])`` of the rows ``[p0, p0 + Sb)``: from the join cube
-    (``contribution_panel_raw``) or from the fused panel pass
+    (``_cube_panel_raw``, or ``contribution_panel_raw`` over the flat
+    list of ``scatter_operands``) or from the fused panel pass
     (``kernels.stjoin.ops.stjoin_sim_panel_fused``, K7).  A Python loop
     over the panels writes each panel's ``[Sb, K]`` reduction into the
     ``[S, K]`` lists; only one panel's slabs are live at a time.
@@ -301,18 +369,19 @@ def topk_stream(panel_raw_fn, table: SubtrajTable, *, k: int,
                    row_sum=row_sum, row_sumsq=row_sumsq)
 
 
-def contribution_panel_raw(best_w: torch.Tensor, best_idx: torch.Tensor,
-                           ref_gid: torch.Tensor, cand_gid: torch.Tensor,
-                           S: int, Sb: int):
+def _cube_panel_raw(best_w: torch.Tensor, best_idx: torch.Tensor,
+                    ref_gid: torch.Tensor, cand_gid: torch.Tensor,
+                    S: int, Sb: int):
     """``panel_raw(p0)`` closure over the join cube ``[T, M, C]`` (slot
-    maps ``ref_gid [T, M]``, ``cand_gid [C, Mc]``, sentinel ``S``).
+    maps ``ref_gid [T, M]``, ``cand_gid [C, Mc]``, sentinel ``S``): the
+    slabs of :func:`contribution_panel_raw` without the flat list.
 
     The forward slab scatters only the cube's rows that own a slot of the
     panel, the reverse slab only its candidates that do, each through the
     ordered ``scatter_raw``, so every cell adds the same weights in the
     same (t, m, c) order as the dense matrix, and no panel touches the
-    rest of the cube.  (The reference's closure takes the flat list of all
-    ``T*M*C`` contributions and masks it once per panel.)
+    rest of the cube.  (The flat list holds all ``T*M*C`` contributions:
+    2.1e9 entries at dsc_brest.)
     """
     def panel_raw(p0):
         rows = panel_members(ref_gid, p0, Sb)
@@ -337,7 +406,7 @@ def similarity_topk(join: JoinResult, ref_seg: SubtrajSegmentation,
     no ``[S, S]`` tensor."""
     S = table.num_slots
     Sb = plan_panel(S, panel)
-    fn = contribution_panel_raw(
+    fn = _cube_panel_raw(
         join.best_w, join.best_idx, slot_ids(ref_seg.sub_local, max_subs, S),
         slot_ids(cand_seg_sub_local, max_subs, S), S, Sb)
     return topk_stream(fn, table, k=k, panel=Sb)

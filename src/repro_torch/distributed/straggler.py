@@ -12,9 +12,8 @@ Hooks: ``on_straggler`` receives (host_id, ratio); production deployments
 wire this to the elastic controller (checkpoint-evict-restart, or re-split
 the equi-depth partitions the way the paper rebalances time bins; the
 resilient runner ``repro_torch.run.resilient`` records the flags in its
-JSONL telemetry).  The re-split (the reference's
-``suggest_rebalance_edges``) comes with the multi-device loop that uses
-it (ROADMAP.md Queue 1 item 4).
+JSONL telemetry).  ``suggest_rebalance_edges`` is the re-split the
+multi-device runner suggests or applies.
 """
 from __future__ import annotations
 
@@ -85,3 +84,29 @@ class StragglerMonitor:
         w2 = np.mean(buf[-self.window:])
         return abs(w2 - w1) / max(w1, 1e-9) > tau
 
+
+def suggest_rebalance_edges(times, part_of: np.ndarray,
+                            flagged: dict[int, float],
+                            P: int) -> np.ndarray:
+    """Slowdown-weighted equi-depth re-split of the temporal bins.
+
+    ``times``/``part_of`` give each valid point's timestamp and current
+    partition; a point in a flagged partition is weighted by that
+    partition's slowdown ratio, so the weighted equi-depth quantiles
+    narrow the slow partitions' time ranges proportionally — the paper's
+    time-bin rebalancing driven by the monitor's flags instead of the
+    input histogram.  Returns ``P + 1`` edges shaped like
+    ``repro_torch.core.partitioning.equi_depth_edges`` (±inf outer edges).
+    """
+    times = np.asarray(times, np.float64).ravel()
+    part_of = np.asarray(part_of).ravel()
+    w = np.ones_like(times)
+    for p, ratio in flagged.items():
+        w[part_of == p] = max(float(ratio), 1.0)
+    order = np.argsort(times, kind="stable")
+    times, w = times[order], w[order]
+    cum = np.cumsum(w)
+    targets = cum[-1] * np.arange(1, P) / P
+    inner = times[np.searchsorted(cum, targets, side="left")]
+    inner = np.maximum.accumulate(inner)
+    return np.concatenate(([-np.inf], inner, [np.inf]))

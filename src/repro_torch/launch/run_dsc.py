@@ -27,10 +27,11 @@ exhausted, 6 injected crash, 7 poison record, 8 backpressure).
 (``core/distributed.py``) on a ``P x M`` mesh of spawned ranks, over the
 transport ``--comm`` names (required with ``--distributed``: ``gloo`` on
 the CPU or with ranks sharing a card, ``nccl`` with a card per rank).
-Its resilient runner is not ported: ``--distributed`` with the resilient
-options, and ``--elastic-resume``, exit through the parser (the latter
-with the reference's own error when ``--resume-dir`` or ``--distributed``
-is missing).
+With the resilient options it runs the multi-device resilient runner
+(``run_resilient_distributed``, one spawn of the ranks for the whole
+run); ``--elastic-resume`` resumes a checkpoint written at another
+partition count, and without ``--resume-dir`` and ``--distributed`` it is
+the reference's usage error.
 
 The README's table of this parser is generated (``--print-cli-table``)
 and checked (``--check-readme``) between its own markers.
@@ -56,11 +57,6 @@ log = get_logger("run_dsc")
 CLI_TABLE_BEGIN = ("<!-- cli-table-torch:begin (generated by python -m "
                    "repro_torch.launch.run_dsc --print-cli-table) -->")
 CLI_TABLE_END = "<!-- cli-table-torch:end -->"
-
-# the options whose code is not ported yet -> the ROADMAP.md item
-_MULTI_DEVICE = ("ROADMAP.md Queue 1 item 4 (the distributed resilient "
-                 "runner and elastic resume)")
-
 
 def make_dataset(name: str, n_trajs: int, max_points: int, seed: int = 0,
                  device=None):
@@ -194,14 +190,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "(crash/transient/corruption/slowdown, stream "
                          "chaos) — implies the resilient runner")
     ap.add_argument("--elastic-resume", action="store_true",
-                    help="resume checkpoints written at another partition "
-                         "count (multi-device resilient runner: needs "
-                         "--distributed, which is not ported yet)")
+                    help="allow --resume-dir checkpoints written at a "
+                         "different partition count: join/segment state "
+                         "folds to global point space and re-cuts for "
+                         "this mesh, later stages rewind to the segment "
+                         "boundary — bit-identical to a straight-through "
+                         "run at the new P (distributed only; DESIGN.md "
+                         "section 11)")
     ap.add_argument("--rebalance", default=None,
                     choices=["off", "suggest", "apply"],
-                    help="straggler-flag policy (RebalancePolicy); one "
-                         "device has no re-cut to suggest or apply; "
-                         "implies the resilient runner")
+                    help="straggler-flag policy (RebalancePolicy): "
+                         "ignore flags, emit slowdown-weighted "
+                         "rebalance-edge suggestions to telemetry "
+                         "(default), or apply the re-cut at the next "
+                         "join/segment boundary and checkpoint the "
+                         "repartitioned state (multi-device: one device "
+                         "has no re-cut); implies the resilient runner")
     ap.add_argument("--sync-saves", action="store_true",
                     help="write stage checkpoints synchronously instead "
                          "of overlapping the save with the next stage "
@@ -335,10 +339,10 @@ def _resilient(args) -> bool:
             or args.on_overflow is not None or args.rebalance is not None)
 
 
-def _refuse_unported(args, parser: argparse.ArgumentParser) -> None:
-    """Exit through the parser, before any data is made, on options whose
-    code is not ported (the distributed resilient runner) or that cannot
-    go together (the reference's own errors)."""
+def _refuse(args, parser: argparse.ArgumentParser) -> None:
+    """Exit through the parser, before any data is made, on options that
+    cannot go together (the reference's own errors) or a mesh without its
+    transport."""
     if args.stream:
         if args.distributed:
             parser.error("--stream is a single-host service "
@@ -348,13 +352,7 @@ def _refuse_unported(args, parser: argparse.ArgumentParser) -> None:
         parser.error("--elastic-resume needs --resume-dir and --distributed "
                      "(elastic adaptation is a distributed-checkpoint "
                      "feature)")
-    if not args.distributed:
-        return
-    if _resilient(args) or args.elastic_resume:
-        parser.error(f"--distributed with --resume-dir / --fault-plan / "
-                     f"--on-overflow / --rebalance / --elastic-resume: not "
-                     f"ported yet, see {_MULTI_DEVICE}")
-    if args.comm is None:
+    if args.distributed and args.comm is None:
         parser.error("--distributed needs --comm {nccl,gloo}: the mesh's "
                      "transport is never chosen silently")
 
@@ -410,7 +408,7 @@ def main(argv=None):
         print(f"{args.check_readme}: CLI table in sync")
         return None
     plan = plan_from_args(args, ap)
-    _refuse_unported(args, ap)
+    _refuse(args, ap)
     dev = resolve_device(args.device)
 
     rc = get_dsc_config(args.config)
@@ -431,15 +429,16 @@ def main(argv=None):
     if args.stream:
         return _classified(_run_stream, args, batch, mean_dt, dev)
     if args.distributed:
-        return _classified(_run_distributed, args, batch, params, plan, dev)
+        return _classified(_run_distributed, args, batch, params, plan, dev,
+                           _resilient(args))
     return _classified(_run_batch, args, batch, params, plan, dev,
                        _resilient(args))
 
 
-def _run_distributed(args, batch, params, plan, dev):
-    """The multi-device program on a ``--distributed x --model-par`` mesh
-    of spawned ranks on ``dev``'s kind of device, logged as the reference
-    logs it."""
+def _run_distributed(args, batch, params, plan, dev, resilient: bool):
+    """The multi-device program (through the resilient runner when asked)
+    on a ``--distributed x --model-par`` mesh of spawned ranks on
+    ``dev``'s kind of device, logged as the reference logs it."""
     import numpy as np
 
     from repro_torch.core.distributed import run_dsc_distributed
@@ -453,7 +452,10 @@ def _run_distributed(args, batch, params, plan, dev):
     # explicit in the plan, as the reference does
     if plan.sim_mode == "topk" and plan.sim_topk is None:
         plan = plan.replace(sim_topk=32)
-    out = run_dsc_distributed(parts, params, mesh, plan=plan)
+    if resilient:
+        out = _run_resilient(args, parts, params, plan, dev, mesh=mesh)
+    else:
+        out = run_dsc_distributed(parts, params, mesh, plan=plan)
     res = out.result
     n_rep = int(res.is_rep.sum())
     n_out = int(res.is_outlier.sum())
@@ -540,20 +542,26 @@ def _run_stream(args, batch, mean_dt, dev):
     return stats
 
 
-def _run_resilient(args, batch, params, plan, dev):
-    """Route a launcher invocation through the resilient stage runner."""
-    from repro_torch.run import FaultPlan, RebalancePolicy, run_resilient
+def _run_resilient(args, data, params, plan, dev, mesh=None):
+    """Route a launcher invocation through the resilient stage runner:
+    one device, or the mesh's (``data`` is then the partitioned batch)."""
+    from repro_torch.run import (FaultPlan, RebalancePolicy, run_resilient,
+                                 run_resilient_distributed)
     fault_plan = (FaultPlan.load(args.fault_plan)
                   if args.fault_plan else None)
     rebalance = (RebalancePolicy(mode=args.rebalance)
                  if args.rebalance is not None else None)
-    res = run_resilient(batch, params, plan=plan,
-                        checkpoint_dir=args.resume_dir,
-                        on_overflow=args.on_overflow or "widen",
-                        on_corruption=args.on_corruption,
-                        fault_plan=fault_plan, max_retries=args.max_retries,
-                        rebalance=rebalance, sync_saves=args.sync_saves,
-                        device=dev)
+    kw = dict(plan=plan, checkpoint_dir=args.resume_dir,
+              on_overflow=args.on_overflow or "widen",
+              on_corruption=args.on_corruption,
+              fault_plan=fault_plan, max_retries=args.max_retries,
+              rebalance=rebalance, sync_saves=args.sync_saves)
+    if mesh is None:
+        res = run_resilient(data, params, device=dev, **kw)
+    else:
+        res = run_resilient_distributed(data, params, mesh,
+                                        elastic_resume=args.elastic_resume,
+                                        **kw)
     log.info("resilient run: resumed_from=%s widen_count=%d "
              "rebalance_count=%d fallback_steps=%s", res.resumed_from,
              res.widen_count, res.rebalance_count, res.fallback_steps)

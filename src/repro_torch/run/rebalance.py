@@ -5,7 +5,7 @@ The port's copy of ``repro.run.rebalance`` (plain Python and numpy).
 A :class:`RebalancePolicy` closes the straggler loop: the
 ``StragglerMonitor`` flags slow partitions and the reference's
 ``suggest_rebalance_edges`` computes a slowdown-weighted equi-depth
-re-cut (multi-device only, not ported); the policy — one frozen,
+re-cut (multi-device only); the policy — one frozen,
 JSON-serializable dataclass in the :class:`repro_torch.run.faults.FaultPlan`
 idiom — tells the resilient stage runner what to do with those flags:
 
@@ -17,8 +17,8 @@ idiom — tells the resilient stage runner what to do with those flags:
   straggler (and at most ``max_applies`` times per run), re-cut the
   partitioned batch at the suggested edges, repartition all in-flight
   per-point stage state through the canonical global form
-  (``repro.core.partitioning.repartition``; multi-device only,
-  not ported), rebuild the stage
+  (``repro_torch.core.partitioning.repartition``; multi-device only),
+  rebuild the stage
   programs, checkpoint the post-rebalance state, and emit a
   ``rebalanced`` event carrying the applied edges.
 
@@ -56,9 +56,37 @@ class RebalancePolicy:
                              f"got {self.max_applies!r}")
         return self
 
+    def replace(self, **kw) -> "RebalancePolicy":
+        return dataclasses.replace(self, **kw).validate()
+
     # --------------------------------------------------------- serialization
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "RebalancePolicy":
+        """Strict inverse of ``to_dict``: unknown keys raise (same contract
+        as ``FaultPlan.from_dict``); missing keys take field defaults."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - names
+        if unknown:
+            raise ValueError(
+                f"unknown RebalancePolicy fields {sorted(unknown)}; "
+                f"known fields: {sorted(names)}")
+        return cls(**d).validate()
+
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RebalancePolicy":
+        return cls.from_dict(json.loads(s))
+
+    def save(self, path) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json() + "\n")
+
+    @classmethod
+    def load(cls, path) -> "RebalancePolicy":
+        with open(path) as f:
+            return cls.from_json(f.read())

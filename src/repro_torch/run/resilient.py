@@ -43,10 +43,47 @@ violations follow ``on_overflow``:
 
 Per-stage wall timings (plus any :class:`repro_torch.run.faults.
 FaultPlan` scripted slowdowns) feed the :class:`repro_torch.distributed.
-straggler.StragglerMonitor`; with one partition no re-cut exists to
-suggest or apply.  Everything is emitted as JSONL telemetry next to the
-checkpoints, event for event the reference's.  The multi-device runner
-(``run_resilient_distributed``) is ``ROADMAP.md`` Queue 1 item 4.
+straggler.StragglerMonitor`; what happens to a flag is the
+:class:`repro_torch.run.rebalance.RebalancePolicy`'s call — emit a
+``suggest_rebalance_edges`` re-cut suggestion (the default), or *apply*
+it: repartition the batch and the in-flight per-point stage state at the
+new cut, rebuild the stage programs, and checkpoint the post-rebalance
+state (``rebalanced`` event).  One partition has no re-cut to suggest or
+apply.  Everything is emitted as JSONL telemetry next to the checkpoints,
+event for event the reference's.
+
+The multi-device runner (``run_resilient_distributed``) drives the stage
+programs of ``repro_torch.core.distributed.build_dsc_stage_programs``.
+Those run on every rank of the mesh together and return the global ``[P,
+...]`` arrays on every rank, so the whole stage loop runs on every rank,
+inside one ``spawn``.  Where the reference has one process, the port has
+``P * M``, and three rules keep them one run:
+
+* every decision agrees on every rank (a rank that widened or rebalanced
+  alone would hang the others in a collective): the overflow counts come
+  from the gathered ``diag``; the straggler monitor is fed one wall a
+  stage, the max over the ranks; retries and injected faults are
+  deterministic and raise at stage entry, before any collective;
+* one writer: rank 0 alone writes checkpoints and ``telemetry.jsonl``,
+  injects checkpoint corruption and runs the async writer thread; every
+  rank restores from the directory itself (a CRC decides corruption the
+  same way everywhere), then all ranks pass a barrier before rank 0 may
+  rewrite or prune a step, and another barrier ends every run, so a run
+  that follows on the same ranks restores only after rank 0's last save
+  has landed;
+* the runner's own failures (``InjectedCrash``, ``RetriesExhausted``,
+  ``OverflowViolation``, ``CheckpointCorruption`` and the elastic
+  ``ValueError``) come back from the ranks as values, after the in-flight
+  save has landed, and the parent re-raises rank 0's with its class and
+  message (``spawn`` would turn them into a ``RuntimeError``).
+
+Distributed checkpoints also record the layout (``meta/*`` leaves: cut
+edges, the global point set, the model-axis width), so
+``elastic_resume=True`` restores them onto a mesh with another partition
+count: the join / segment state folds to global point space and re-cuts
+for the new P (``repro_torch.core.partitioning.repartition``), later
+stages rewind to the segment boundary, and the finished run is bitwise a
+straight run at the new P (DESIGN.md §11).
 """
 from __future__ import annotations
 
@@ -59,17 +96,22 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.checkpointer import to_host
 from repro_torch.core import dsc as dsc_mod
+from repro_torch.core.clustering import rmse_from_result, sscr_from_result
+from repro_torch.core.partitioning import (PointLayout, _np, repartition,
+                                           repartition_batch)
 from repro_torch.core.plan import EnginePlan, resolve_plan
 from repro_torch.core.types import (ClusteringResult, JoinResult,
                                     SubtrajSegmentation, SubtrajTable,
                                     TopKSim)
-from repro_torch.distributed.straggler import StragglerMonitor
-from repro_torch.run.faults import (FaultInjector, FaultPlan,
-                                    retry_with_backoff)
+from repro_torch.distributed.straggler import (StragglerMonitor,
+                                               suggest_rebalance_edges)
+from repro_torch.run.faults import (FaultInjector, FaultPlan, InjectedCrash,
+                                    RetriesExhausted, retry_with_backoff)
 from repro_torch.run.rebalance import RebalancePolicy
 from repro_torch.utils.logging import get_logger
 
@@ -113,13 +155,21 @@ _STAGE_KEYS = {
 # the reference's checkpoints (saved and restored as the reference's)
 _WORD_LEAVES = ("masks",)
 
+# the repartitionable subset of the distributed state: per-point leaves
+# ([P, T, Mp, ...] in the partition layout) and the halo-slab-indexed
+# join cube.  Everything else either is layout-free (the replicated
+# table) or partition-bound (similarity onward — no partition-free form;
+# elastic adaptation rewinds past it instead).
+_POINT_LEAVES = ("vote", "masks", "labels", "join/best_w")
+_CAND_IDX_LEAVES = ("join/best_idx",)
+
 TELEMETRY_SCHEMA = 1
 
 
 @dataclasses.dataclass
 class ResilientResult:
     """What a resilient run hands back to the caller / launcher."""
-    output: Any                    # DSCOutput
+    output: Any                    # DSCOutput | DistributedDSCOutput
     sscr: float
     rmse: float
     resumed_from: int              # completed stages found on disk (0=fresh)
@@ -231,15 +281,19 @@ def _to_device(state: dict, device: torch.device) -> dict:
 
 
 class _StageLoop:
-    """The stage-graph executor: checkpointing, resume, retries, fault
-    hooks, overflow policy, and straggler telemetry.  A subclass provides
-    the stage bodies (``stage_<name>``) and the per-run geometry."""
+    """The stage-graph executor shared by the single-device and
+    distributed runners: checkpointing, resume, retries, fault hooks,
+    overflow policy, and straggler telemetry.  A subclass provides the
+    stage bodies (``stage_<name>``) and the per-run geometry.  ``writer``
+    is false on the ranks other than rank 0 of a mesh: they restore from
+    the checkpoint directory but write neither checkpoints nor
+    telemetry."""
 
     def __init__(self, *, plan: EnginePlan, checkpoint_dir, on_overflow,
                  on_corruption, fault_plan, max_retries, sleep, clock,
                  monitor, n_partitions: int, S: int, device: torch.device,
                  rebalance: RebalancePolicy | None = None,
-                 sync_saves: bool = False):
+                 sync_saves: bool = False, writer: bool = True):
         _check_policies(on_overflow, on_corruption)
         self.plan = plan
         self.on_overflow = on_overflow
@@ -259,6 +313,7 @@ class _StageLoop:
         self.S = S
         self.device = device
         self.sync_saves = sync_saves
+        self.writer = writer
         self.rebalance = (rebalance if rebalance is not None
                           else RebalancePolicy()).validate()
         self.mgr = None
@@ -267,14 +322,21 @@ class _StageLoop:
             self.mgr = CheckpointManager(checkpoint_dir,
                                          keep_n=len(STAGES) + 1)
             self.mgr.root.mkdir(parents=True, exist_ok=True)
-            tel_path = self.mgr.root / "telemetry.jsonl"
+            if writer:
+                tel_path = self.mgr.root / "telemetry.jsonl"
         self.tel = _Telemetry(tel_path, self.clock)
         self.monitor = monitor if monitor is not None else \
             StragglerMonitor(n_partitions)
         self.widen_count = 0
         self.rebalance_count = 0
+        self._flag_streak = 0
+        self._last_flagged: dict[int, float] = {}
 
     # ---- hooks a subclass provides -----------------------------------
+    def rebalance_inputs(self):
+        """``(times, part_of)`` of all valid points, or None (P == 1)."""
+        return None
+
     def current_k(self, state: dict) -> int:
         """K of the top-K lists currently in ``state`` (or planned)."""
         if "topk/ids" in state:
@@ -285,6 +347,35 @@ class _StageLoop:
 
     def overflow_count(self, state: dict) -> int:
         raise NotImplementedError
+
+    def _table_of(self, state):
+        return SubtrajTable(
+            t_start=state["table/t_start"], t_end=state["table/t_end"],
+            voting=state["table/voting"], card=state["table/card"],
+            valid=state["table/valid"], traj_row=state["table/traj_row"])
+
+    def agreed_wall(self, wall: float) -> float:
+        """The stage wall every partition's straggler series records (one
+        process: its own)."""
+        return wall
+
+    # ---- elastic / rebalance hooks (distributed loop overrides) ------
+    def extra_leaves(self) -> dict:
+        """Layout-metadata leaves merged into every checkpoint save."""
+        return {}
+
+    def adapt_restored_state(self, state: dict, done: int):
+        """Map a restored checkpoint (host numpy leaves) onto this run's
+        layout.  The base runner has no layout: just strip the ``meta/*``
+        leaves that ``extra_leaves`` (here or in the reference) added."""
+        return {k: v for k, v in state.items()
+                if not k.startswith("meta/")}, done
+
+    def _maybe_rebalance(self, stage: str, step: int, state: dict):
+        return state
+
+    def on_plan_widened(self):
+        """Subclass hook: rebuild anything keyed on plan.sim_topk."""
 
     # ---- executor ----------------------------------------------------
     def _comm_schedule(self) -> dict:
@@ -306,7 +397,7 @@ class _StageLoop:
         t0 = self.clock()
         updates = retry_with_backoff(attempt, max_retries=self.max_retries,
                                      sleep=self.sleep, on_retry=on_retry)
-        wall = self.clock() - t0
+        wall = self.agreed_wall(self.clock() - t0)
         times = [wall + self.injector.slowdown(stage, p)
                  for p in range(self.nP)]
         self.monitor.record_all(times)
@@ -315,14 +406,22 @@ class _StageLoop:
                       step=STAGES.index(stage) + 1, wall_s=round(wall, 6),
                       per_partition_s=[round(t, 6) for t in times],
                       comm=self._comm_schedule())
+        self._flag_streak = self._flag_streak + 1 if flagged else 0
+        self._last_flagged = dict(flagged)
         if flagged:
-            # one partition has no re-cut to suggest or apply (the
-            # reference's rebalance_suggestion needs P > 1)
             self.tel.emit("straggler_flagged",
                           stage=stage, partitions={
                               str(p): round(r, 3)
                               for p, r in flagged.items()},
                           comm=self._comm_schedule())
+            ri = self.rebalance_inputs() \
+                if self.rebalance.mode != "off" else None
+            if ri is not None:
+                edges = suggest_rebalance_edges(ri[0], ri[1], flagged,
+                                                self.nP)
+                self.tel.emit("rebalance_suggestion",
+                              stage=stage, edges=[
+                                  float(e) for e in edges])
         state = dict(state)
         state.update(updates)
         return state
@@ -337,9 +436,10 @@ class _StageLoop:
         return tree
 
     def _save(self, step: int, stage: str, state: dict):
-        if self.mgr is None:
+        if self.mgr is None or not self.writer:
             return
         tree = self._host_tree(state)
+        tree.update(self.extra_leaves())
         if self.sync_saves:
             self.mgr.save(step, tree)
         else:
@@ -382,6 +482,7 @@ class _StageLoop:
         self.widen_count += 1
         self.tel.emit("widen", k_from=k, k_to=new_k, rows=overflow)
         self.plan = self.plan.replace(sim_topk=new_k)
+        self.on_plan_widened()
         state = _drop_stage_keys(state,
                                  ("similarity", "cluster", "refine"))
         return state, STAGES.index("segment") + 1
@@ -409,9 +510,8 @@ class _StageLoop:
                 self.mgr, self.on_corruption, self.tel)
         else:
             state, done, discarded = {}, 0, []
-        # the reference's multi-device checkpoints add layout leaves
-        state = _to_device({k: v for k, v in state.items()
-                            if not k.startswith("meta/")}, self.device)
+        state, done = self.adapt_restored_state(state, done)
+        state = _to_device(state, self.device)
         resumed_from = done
         self.tel.emit("run_start", resumed_from_step=done,
                       plan_sim_mode=self.plan.sim_mode,
@@ -423,6 +523,7 @@ class _StageLoop:
             for step in range(done + 1, len(STAGES) + 1):
                 stage = STAGES[step - 1]
                 state = self._run_stage(stage, state)
+                state = self._maybe_rebalance(stage, step, state)
                 self._save(step, stage, state)
                 done = step
                 if stage == "cluster":
@@ -461,7 +562,7 @@ class _SingleHostLoop(_StageLoop):
         b, p, plan = self.batch, self.params, self.plan
         if plan.mode == "fused":
             vote, masks = dsc_mod.run_stage_join_fused(
-                b, p, self.tile_ids, plan)
+                b, p, tile_ids=self.tile_ids, plan=plan)
             join = None
         elif plan.use_index and plan.use_kernel:
             from repro_torch.kernels.stjoin import ops as stjoin_ops
@@ -489,12 +590,6 @@ class _SingleHostLoop(_StageLoop):
             cut=state["seg/cut"], sub_local=state["seg/sub_local"],
             num_subs=state["seg/num_subs"], score=state["seg/score"])
 
-    def _table_of(self, state):
-        return SubtrajTable(
-            t_start=state["table/t_start"], t_end=state["table/t_end"],
-            voting=state["table/voting"], card=state["table/card"],
-            valid=state["table/valid"], traj_row=state["table/traj_row"])
-
     def stage_segment(self, state):
         seg, table = dsc_mod.run_stage_segment(
             self.batch, self.params, state["vote"], state.get("masks"),
@@ -509,8 +604,8 @@ class _SingleHostLoop(_StageLoop):
     def stage_similarity(self, state):
         sim, topk = dsc_mod.run_stage_similarity(
             self.batch, self.params, self._join_of(state),
-            self._seg_of(state), self._table_of(state), self.tile_ids,
-            self.plan)
+            self._seg_of(state), self._table_of(state),
+            tile_ids=self.tile_ids, plan=self.plan)
         if topk is not None:
             return {"topk/ids": topk.ids, "topk/sims": topk.sims,
                     "topk/spill": topk.spill, "topk/degree": topk.degree,
@@ -610,10 +705,375 @@ def run_resilient(batch, params, *, plan: EnginePlan | None = None,
                            rebalance_count=loop.rebalance_count)
 
 
-def run_resilient_distributed(*args, **kw) -> ResilientResult:
-    """The multi-device resilient runner is not ported (the stage
-    programs it drives are: ``core/distributed.py::
-    build_dsc_stage_programs``); ``ROADMAP.md`` Queue 1 item 4."""
-    raise NotImplementedError(
-        "run_resilient_distributed: the distributed resilient runner is "
-        "not ported yet, see ROADMAP.md Queue 1 item 4")
+# ===================================================================== #
+# distributed                                                           #
+# ===================================================================== #
+
+
+class _DistributedLoop(_StageLoop):
+    """The stage loop on one rank of a mesh (the module docstring's three
+    rules).  ``state`` holds the stage programs' global ``[P, ...]``
+    outputs, on this rank's device; every rank holds all of it."""
+
+    def __init__(self, parts, params, mesh, part_axis, model_axis, comm,
+                 elastic_resume: bool = False, **kw):
+        self.params = params
+        self.mesh = mesh
+        self.part_axis = part_axis
+        self.model_axis = model_axis
+        self.comm = comm
+        self.parts = parts.to(comm.device)
+        self.elastic_resume = bool(elastic_resume)
+        nP = mesh.shape[part_axis]
+        self.nM = mesh.shape[model_axis]
+        T = parts.x.shape[1]
+        super().__init__(n_partitions=nP,
+                         S=T * params.max_subtrajs_per_traj,
+                         device=comm.device, writer=comm.rank == 0, **kw)
+        try:
+            self._layout = PointLayout.from_parts(parts)
+        except ValueError:
+            self._layout = None     # hand-built batch: no edges/src_m
+        if self.elastic_resume and self._layout is None:
+            raise ValueError(
+                "elastic_resume=True needs a PartitionedBatch produced "
+                "by partition_batch/repartition_batch (carrying "
+                "edges/src_m); a hand-built batch has no canonical "
+                "layout to adapt from")
+        self.plan = self.plan.replace(sim_topk=self.current_k({}))
+        self._build()
+
+    def run(self):
+        """The loop, then a barrier: no rank leaves (and restores again,
+        in a run that follows on the same ranks) before rank 0's last save
+        has landed.  A failure every rank raises at the same point passes
+        the barrier too; another may be this rank's alone and does not
+        wait."""
+        try:
+            out = super().run()
+        except _RANK_FAILURES:
+            dist.barrier()
+            raise
+        dist.barrier()
+        return out
+
+    def _build(self):
+        from repro_torch.core.distributed import build_dsc_stage_programs
+        self.progs = build_dsc_stage_programs(
+            self.parts, self.params, self.mesh, part_axis=self.part_axis,
+            model_axis=self.model_axis, plan=self.plan)
+
+    def on_plan_widened(self):
+        self._build()
+
+    def overflow_count(self, state):
+        return int(state["diag"][:, 3].sum())
+
+    def agreed_wall(self, wall):
+        """The max of the ranks' walls: each rank times its own stage, and
+        a flag, a streak or a re-cut must come out the same on every rank
+        (one float64 through the mesh, both axes)."""
+        self.comm.phase = "wall"
+        x = torch.tensor([wall], dtype=torch.float64, device=self.device)
+        x = self.comm.all_gather(x, self.part_axis)
+        return float(self.comm.all_gather(x, self.model_axis).max())
+
+    def _run_stage(self, stage, state):
+        self.comm.phase = stage
+        out = super()._run_stage(stage, state)
+        if self.comm.host:
+            # ranks share one card: hand cached blocks back between stages
+            torch.cuda.empty_cache()
+        return out
+
+    def rebalance_inputs(self):
+        pt = _np(self.parts.t)
+        pv = _np(self.parts.valid)
+        part_of = np.broadcast_to(
+            np.arange(pt.shape[0])[:, None, None], pt.shape)
+        return pt[pv], part_of[pv]
+
+    # ---- elastic resume + adaptive repartitioning (DESIGN.md §11) ----
+    def extra_leaves(self):
+        if self._layout is None:
+            return {}
+        lay = self._layout
+        return {"meta/schema": np.int32(1),
+                "meta/edges": np.asarray(lay.edges, np.float64),
+                "meta/point_t": np.asarray(lay.t),
+                "meta/point_valid": np.asarray(lay.valid),
+                "meta/model_width": np.int32(self.nM)}
+
+    def _repartition_state(self, state, old, new):
+        """The per-point leaves re-cut from ``old`` to ``new`` (host numpy
+        leaves stay numpy, tensors come back on this rank's device)."""
+        out = {}
+        for k, v in state.items():
+            kind = ("point" if k in _POINT_LEAVES else
+                    "cand_idx" if k in _CAND_IDX_LEAVES else None)
+            if kind is None:
+                out[k] = v      # replicated table/* etc. — layout-free
+                continue
+            r = repartition(v, old, new, kind=kind)
+            out[k] = (torch.from_numpy(r).to(self.device)
+                      if torch.is_tensor(v) else r)
+        return out
+
+    def adapt_restored_state(self, state, done):
+        # every rank has read its state: from here on rank 0 may rewrite
+        # or prune any step
+        dist.barrier()
+        meta = {k: np.asarray(v) for k, v in state.items()
+                if k.startswith("meta/")}
+        state = {k: v for k, v in state.items()
+                 if not k.startswith("meta/")}
+        if done == 0 or not meta or self._layout is None:
+            # pre-elastic checkpoint / hand-built batch: same-mesh
+            # resume only (shape mismatches surface downstream)
+            return state, done
+        old_edges = np.asarray(meta["meta/edges"], np.float64)
+        old_P = old_edges.shape[0] - 1
+        if old_P != self.nP and not self.elastic_resume:
+            raise ValueError(
+                f"checkpoint was written at P={old_P} but this mesh has "
+                f"P={self.nP}; pass elastic_resume=True "
+                "(--elastic-resume) to adapt it")
+        new = self._layout
+        old_mp = int(np.asarray(state["vote"]).shape[2])
+        old = PointLayout.from_global(meta["meta/point_t"],
+                                      meta["meta/point_valid"],
+                                      old_edges, Mp=old_mp)
+        if not old.same_points(new):
+            raise ValueError(
+                "elastic resume: the checkpoint's global point set "
+                "differs from this run's batch — refusing to mix runs")
+        if old.same_layout(new):
+            return state, done
+        old_nm = int(meta["meta/model_width"])
+        if old_nm != self.nM:
+            raise ValueError(
+                f"checkpoint was written with model-axis width {old_nm} "
+                f"but this mesh has {self.nM}; only the partition axis "
+                "is elastic")
+        if old.P == new.P:
+            # same partition count, different cut: a crash after an
+            # applied rebalance.  Adopt the checkpoint's layout (re-cut
+            # the batch at its edges) instead of repartitioning state —
+            # the later-stage partition-bound leaves stay valid, so no
+            # rewind is needed.
+            self.parts = repartition_batch(self.parts, old_edges)
+            self._layout = PointLayout.from_parts(self.parts)
+            if not self._layout.same_layout(old):
+                raise AssertionError("edge adoption did not converge")
+            self._build()
+            self.tel.emit("elastic_adopt_edges", step=done,
+                          edges=[float(e) for e in old_edges])
+            return state, done
+        # different partition count: fold the join/segment point state
+        # to global row space and re-cut it for this mesh.  Similarity
+        # onward is partition-bound (per-partition moments feed the
+        # alpha/k statistics), so rewind to the segment boundary.
+        new_done = min(done, STAGES.index("segment") + 1)
+        if new_done < done:
+            state = _drop_stage_keys(state, STAGES[new_done:])
+        state = self._repartition_state(state, old, new)
+        self.tel.emit("elastic_resume", from_partitions=old.P,
+                      to_partitions=new.P, from_step=done,
+                      to_step=new_done)
+        log.info("elastic resume: P=%d checkpoint (step %d) adapted to "
+                 "P=%d (step %d)", old.P, done, new.P, new_done)
+        return state, new_done
+
+    def _maybe_rebalance(self, stage, step, state):
+        pol = self.rebalance
+        if (pol.mode != "apply" or not self._last_flagged
+                or self._flag_streak < pol.consecutive
+                or self.rebalance_count >= pol.max_applies
+                or stage not in ("join", "segment")
+                or self._layout is None):
+            return state
+        times, part_of = self.rebalance_inputs()
+        edges = np.asarray(
+            suggest_rebalance_edges(times, part_of, self._last_flagged,
+                                    self.nP), np.float64)
+        old = self._layout
+        self.parts = repartition_batch(self.parts, edges)
+        self._layout = PointLayout.from_parts(self.parts)
+        state = self._repartition_state(state, old, self._layout)
+        self._build()
+        for p in range(self.nP):
+            self.monitor.reset(p)
+        self._flag_streak = 0
+        self._last_flagged = {}
+        self.rebalance_count += 1
+        self.tel.emit("rebalanced", stage=stage, step=step,
+                      applies=self.rebalance_count,
+                      edges=[float(e) for e in self._layout.edges],
+                      comm=self._comm_schedule())
+        log.info("rebalanced after %s at the straggler-weighted cut "
+                 "(apply %d/%d)", stage, self.rebalance_count,
+                 pol.max_applies)
+        return state
+
+    # ---- stage bodies -------------------------------------------------
+    def _points(self):
+        p = self.parts
+        return p.x, p.y, p.t, p.valid, p.traj_id, p.ranges
+
+    def stage_join(self, state):
+        st = self.progs["join"](*self._points())
+        out = {"vote": st[0], "masks": st[1]}
+        if len(st) == 4:
+            out["join/best_w"], out["join/best_idx"] = st[2], st[3]
+        return out
+
+    def stage_segment(self, state):
+        table, labels = self.progs["segment"](
+            self.parts.t, self.parts.valid, state["vote"], state["masks"])
+        return {"table/t_start": table.t_start,
+                "table/t_end": table.t_end, "table/voting": table.voting,
+                "table/card": table.card, "table/valid": table.valid,
+                "table/traj_row": table.traj_row, "labels": labels}
+
+    def stage_similarity(self, state):
+        cube = (() if "join/best_w" not in state else
+                (state["join/best_w"], state["join/best_idx"]))
+        st = self.progs["similarity"](
+            *self._points(), state["labels"], self._table_of(state), *cube)
+        if self.plan.sim_mode == "topk":
+            ids, sims, spill, degree, rsum, rsumsq, active = st
+            return {"topk/ids": ids, "topk/sims": sims,
+                    "topk/spill": spill, "topk/degree": degree,
+                    "topk/row_sum": rsum, "topk/row_sumsq": rsumsq,
+                    "active": active}
+        sim, cnt, rsum, rsumsq, active = st
+        return {"sim": sim, "moments/cnt": cnt, "moments/rsum": rsum,
+                "moments/rsumsq": rsumsq, "active": active}
+
+    def stage_cluster(self, state):
+        if self.plan.sim_mode == "topk":
+            sim_state = (state["topk/ids"], state["topk/sims"],
+                         state["topk/spill"], state["topk/degree"],
+                         state["topk/row_sum"], state["topk/row_sumsq"])
+        else:
+            sim_state = (state["sim"], state["moments/cnt"],
+                         state["moments/rsum"], state["moments/rsumsq"])
+        member, msim, rep, outl, alpha, k, diag = self.progs["cluster"](
+            self._table_of(state), state["active"], *sim_state)
+        return {"res/member_of": member, "res/member_sim": msim,
+                "res/is_rep": rep, "res/is_outlier": outl,
+                "res/alpha": alpha, "res/k": k, "diag": diag}
+
+    def stage_refine(self, state):
+        final = self.progs["refine"](
+            state["res/member_of"], state["res/member_sim"],
+            state["res/is_rep"], state["active"], state["res/alpha"],
+            state["res/k"])
+        out = {f"final/{f}": getattr(final, f)
+               for f in ("member_of", "member_sim", "is_rep",
+                         "is_outlier", "alpha_used", "k_used")}
+        out["sscr"] = sscr_from_result(final)
+        out["rmse"] = rmse_from_result(final, self.params.eps_sp)
+        return out
+
+    def to_output(self, state):
+        from repro_torch.core.distributed import DistributedDSCOutput
+        final = ClusteringResult(
+            member_of=state["final/member_of"],
+            member_sim=state["final/member_sim"],
+            is_rep=state["final/is_rep"],
+            is_outlier=state["final/is_outlier"],
+            alpha_used=state["final/alpha_used"],
+            k_used=state["final/k_used"])
+        return DistributedDSCOutput(
+            result=final, table=self._table_of(state),
+            vote=state["vote"], active=state["active"],
+            sim_diag=state["diag"])
+
+
+# the runner's own failures: raised on every rank at the same point
+# (stage entry, the restore, the gathered certificate), so each rank
+# returns it as a value and the parent re-raises rank 0's
+_RANK_FAILURES = (InjectedCrash, RetriesExhausted, OverflowViolation,
+                  CheckpointCorruption, ValueError)
+
+
+@dataclasses.dataclass
+class _RankFailure:
+    exc: BaseException
+
+
+def _rank_run(parts, params, mesh, part_axis, model_axis, kw):
+    """``run_resilient_distributed`` on this rank of ``mesh``."""
+    from repro_torch.distributed import mesh as mesh_mod
+    loop = _DistributedLoop(parts, params, mesh, part_axis, model_axis,
+                            mesh_mod.comm_for(mesh), **kw)
+    state, resumed, discarded = loop.run()
+    return ResilientResult(output=loop.to_output(state),
+                           sscr=float(state["sscr"]),
+                           rmse=float(state["rmse"]), resumed_from=resumed,
+                           widen_count=loop.widen_count,
+                           fallback_steps=discarded,
+                           events=loop.tel.events,
+                           rebalance_count=loop.rebalance_count)
+
+
+def _spawned_rank(*args):
+    """A spawned rank's body: the runner's own failures come back as
+    values (``run()`` has waited for the in-flight save by then)."""
+    try:
+        return _rank_run(*args)
+    except _RANK_FAILURES as e:
+        return _RankFailure(e)
+
+
+def run_resilient_distributed(parts, params, mesh, *,
+                              part_axis: str = "part",
+                              model_axis: str = "model",
+                              plan: EnginePlan | None = None,
+                              checkpoint_dir=None,
+                              on_overflow: str = "widen",
+                              on_corruption: str = "fallback",
+                              fault_plan: FaultPlan | None = None,
+                              max_retries: int = 3, sleep=None, clock=None,
+                              monitor: StragglerMonitor | None = None,
+                              rebalance: RebalancePolicy | None = None,
+                              sync_saves: bool = False,
+                              elastic_resume: bool = False,
+                              **legacy) -> ResilientResult:
+    """Distributed resilient run over ``mesh`` (a
+    :class:`repro_torch.distributed.mesh.Mesh`); see the module
+    docstring.
+
+    The stages are the functions of ``build_dsc_stage_programs`` — the
+    phase bodies of the monolithic ``run_dsc_distributed`` — and the state
+    between them stays on each rank's device (host copies only for rank
+    0's checkpoints).  Unlike the monolith's ``on_overflow="widen"``
+    (which reruns the phases that read K), the stage-level widen here
+    restarts from the checkpointed segment state.
+
+    On a rank of the mesh's process group this runs the loop and returns
+    the result (the output on the rank's device).  Anywhere else it
+    spawns the ``P * M`` ranks (one ``spawn`` for the whole run) and
+    returns rank 0's result, its output on the mesh's device; a failure
+    of the runner's own classes is re-raised with its class and message.
+    ``sleep``, ``clock`` and ``monitor`` then cross a pickle to the ranks:
+    they must be module-level (picklable), and each rank records into its
+    own copy of ``monitor``.
+    """
+    from repro_torch.distributed import mesh as mesh_mod
+    plan = resolve_plan(plan, **legacy)
+    _check_policies(on_overflow, on_corruption)
+    kw = dict(plan=plan, checkpoint_dir=checkpoint_dir,
+              on_overflow=on_overflow, on_corruption=on_corruption,
+              fault_plan=fault_plan, max_retries=max_retries, sleep=sleep,
+              clock=clock, monitor=monitor, rebalance=rebalance,
+              sync_saves=sync_saves, elastic_resume=elastic_resume)
+    args = (parts, params, mesh, part_axis, model_axis, kw)
+    if mesh_mod.comm_for(mesh) is not None:
+        return _rank_run(*args)
+    res = mesh_mod.spawn(_spawned_rank, mesh, *args)[0]
+    if isinstance(res, _RankFailure):
+        raise res.exc
+    return dataclasses.replace(res, output=mesh_mod.to_device(
+        res.output, torch.device("cpu" if mesh.device == "cpu" else "cuda")))

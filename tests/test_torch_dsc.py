@@ -258,11 +258,12 @@ def _chain(batch, params, plan):
     the index takes the reference's host-planned route: the pruned join,
     then ``run_stage_vote_from_join``."""
     from repro_torch.kernels.stjoin import ops as stjoin_ops
-    tiles = None
+    tile_ids = None
     if plan.mode == "fused":
-        tiles, plan = tdsc.plan_fused_tile_ids(batch, params, plan)
+        tile_ids, plan = tdsc.plan_fused_tile_ids(batch, params, plan)
         join = None
-        vote, masks = tdsc.run_stage_join_fused(batch, params, tiles, plan)
+        vote, masks = tdsc.run_stage_join_fused(batch, params,
+                                                tile_ids=tile_ids, plan=plan)
     elif plan.use_index and plan.use_kernel:
         join = stjoin_ops.subtrajectory_join(
             batch, batch, params.eps_sp, params.eps_t, params.delta_t,
@@ -276,7 +277,8 @@ def _chain(batch, params, plan):
     while True:
         p = plan.replace(sim_topk=min(k, S))
         sim, topk = tdsc.run_stage_similarity(batch, params, join, seg,
-                                              table, tiles, p)
+                                              table, tile_ids=tile_ids,
+                                              plan=p)
         result, overflow = tdsc.run_stage_cluster(
             sim if topk is None else topk, table, params, p)
         sscr_v, rmse_v = tdsc.run_stage_score(result, sim, params)
@@ -389,3 +391,75 @@ def test_run_dsc_lowerable_refuses_the_index(fig1):
         jdsc.run_dsc_lowerable(jb, JParams(**FIG1, segmentation="tsa2"),
                                jdsc.EnginePlan(use_index=True))
     assert str(je.value) == msg
+
+
+# the reference's deprecated flags of run_dsc: name -> (positional args,
+# keywords); each run under the port and the reference on fig1
+FLAG_CASES = {
+    "use_kernel": ((True,), {}),
+    "use_index": ((), dict(use_index=True)),
+    "mode": ((), dict(mode="fused")),
+    "fused_tiles": ((), dict(mode="fused", use_index=True,
+                             fused_tiles=(64, 16, 128))),
+    "cluster_engine": ((), dict(cluster_engine="sequential")),
+    "cluster_use_kernel": ((), dict(cluster_use_kernel=True)),
+    "seg_use_kernel": ((), dict(seg_use_kernel=True)),
+    "sim_mode": ((), dict(sim_mode="topk")),
+    "sim_topk": ((), dict(sim_mode="topk", sim_topk=2)),
+    "sim_panel": ((), dict(sim_mode="topk", sim_panel=16)),
+    "on_overflow": ((), dict(sim_mode="topk", sim_topk=2,
+                             on_overflow="degrade")),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(FLAG_CASES))
+def test_run_dsc_deprecated_flags(fig1, flag):
+    """Each deprecated flag of the reference's ``run_dsc`` gives its
+    labels and top-K certificate, and the same bits as the port's run of
+    the plan the flag materializes."""
+    jb, _ = fig1
+    kw = dict(FIG1, segmentation="tsa2")
+    args, flags = FLAG_CASES[flag]
+    jo = jdsc.run_dsc(jb, JParams(**kw), *args, **flags)
+    tb, p = _port(jb), DSCParams(**kw)
+    to = tdsc.run_dsc(tb, p, *args, device="cpu", **flags)
+    for f in ("member_of", "is_rep", "is_outlier"):
+        assert np.array_equal(np.asarray(getattr(jo.result, f)),
+                              getattr(to.result, f).numpy()), f
+    if jo.sim_overflow is None:
+        assert to.sim_overflow is None
+    else:
+        assert int(to.sim_overflow) == int(jo.sim_overflow)
+        assert to.sim_topk.k == np.asarray(jo.sim_topk.ids).shape[1]
+    legacy = dict(flags)
+    overflow = legacy.pop("on_overflow", None)
+    if args:
+        legacy["use_kernel"] = args[0]
+    plan = resolve_plan(None, **legacy)
+    _same(to, tdsc.run_dsc(tb, p, plan=plan, device="cpu",
+                           on_overflow=overflow))
+
+
+def test_run_dsc_deprecated_flag_errors(fig1):
+    """A plan mixed with a flag, and ``on_overflow`` with
+    ``sim_topk_retry=False``, raise the reference's errors word for word;
+    ``sim_topk_retry=False`` alone is the ``"raise"`` policy."""
+    jb, _ = fig1
+    kw = dict(FIG1, segmentation="tsa2")
+    tb, p, jp = _port(jb), DSCParams(**kw), JParams(**kw)
+    cases = (
+        ((True,), dict(plan=EnginePlan()), dict(plan=jdsc.EnginePlan())),
+        ((), dict(mode="fused", plan=EnginePlan()),
+         dict(mode="fused", plan=jdsc.EnginePlan())),
+        ((), dict(sim_mode="topk", on_overflow="widen",
+                  sim_topk_retry=False), None),
+        ((), dict(sim_mode="topk", sim_topk=2, sim_topk_retry=False), None),
+    )
+    for args, tkw, jkw in cases:
+        jkw = tkw if jkw is None else jkw
+        with pytest.raises((ValueError, RuntimeError)) as te:
+            tdsc.run_dsc(tb, p, *args, device="cpu", **tkw)
+        with pytest.raises((ValueError, RuntimeError)) as je:
+            jdsc.run_dsc(jb, jp, *args, **jkw)
+        assert type(te.value) is type(je.value)
+        assert str(te.value) == str(je.value)

@@ -1654,3 +1654,37 @@ def test_mesh_refuses_nccl_with_too_few_cards(cuda):
     mesh = Mesh((torch.cuda.device_count() + 1, 1), "nccl", "cuda")
     with pytest.raises(RuntimeError, match="one card per rank"):
         mesh.rank_device(0)
+
+
+def test_distributed_resilient_crash_resume_on_card(cuda, tmp_path):
+    """Mesh (2, 1) of gloo ranks on the card at fig1 size, the fused
+    top-K kernel plan from K = 4 with widen: a crash at cluster comes back
+    as ``InjectedCrash`` from the runner's own spawn, and the resume is
+    bitwise the straight run, its output on the card."""
+    from repro_torch.core.partitioning import partition_batch
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.run import (FaultPlan, InjectedCrash,
+                                 run_resilient_distributed)
+    batch = figure1_scenario(n_per_route=4, points_per_leg=24, seed=0,
+                             device="cpu")[0]
+    params = DSCParams(eps_sp=0.42, eps_t=1.0, delta_t=0.0, w=6, tau=0.15,
+                       alpha_sigma=-1.0, k_sigma=-1.0, segmentation="tsa2")
+    parts = partition_batch(batch, 2)
+    mesh = Mesh((2, 1), "gloo", "cuda")
+    kw = dict(plan=_path_plan("fused_topk", sim_topk=4), on_overflow="widen")
+    with pytest.raises(InjectedCrash, match="'cluster'"):
+        run_resilient_distributed(parts, params, mesh, checkpoint_dir=tmp_path,
+                                  fault_plan=FaultPlan(crash_at="cluster"),
+                                  **kw)
+    res = run_resilient_distributed(parts, params, mesh,
+                                    checkpoint_dir=tmp_path, **kw)
+    want = run_resilient_distributed(parts, params, mesh, **kw)
+    assert res.resumed_from == 3 and res.widen_count == want.widen_count
+    assert res.output.vote.is_cuda
+    for f in DIST_LABELS:
+        assert torch.equal(getattr(res.output.result, f),
+                           getattr(want.output.result, f)), f
+    for f in ("vote", "active", "sim_diag"):
+        assert torch.equal(getattr(res.output, f), getattr(want.output, f)), f
+    assert (res.sscr, res.rmse) == (want.sscr, want.rmse)
+    assert int(want.output.result.is_rep.sum()) >= 1

@@ -90,13 +90,7 @@ def test_parser_is_the_reference_plus_device():
     assert tl._LEGACY_FLAGS == jl._LEGACY_FLAGS
 
 
-REFUSED = {"distributed": (["--distributed", "2", "--comm", "gloo",
-                            "--resume-dir", "unused"],
-                           "ROADMAP.md Queue 1 item 4"),
-           "model_par": (["--distributed", "2", "--model-par", "2",
-                          "--comm", "gloo", "--on-overflow", "widen"],
-                         "ROADMAP.md Queue 1 item 4"),
-           "elastic_resume": (["--elastic-resume"],
+REFUSED = {"elastic_resume": (["--elastic-resume"],
                               "--elastic-resume needs --resume-dir and "
                               "--distributed"),
            "comm": (["--distributed", "2"], "needs --comm")}
@@ -104,10 +98,10 @@ REFUSED = {"distributed": (["--distributed", "2", "--comm", "gloo",
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_options_refuse(name, capsys):
-    """The distributed resilient runner's options exit through the parser
-    (code 2) before any data is made, naming the ROADMAP.md item that
-    ports their code; ``--elastic-resume`` with the reference's own parser
-    error; ``--distributed`` without ``--comm`` naming the missing
+    """Options that cannot go together exit through the parser (code 2)
+    before any data is made: ``--elastic-resume`` without
+    ``--resume-dir`` and ``--distributed`` with the reference's own parser
+    error, ``--distributed`` without ``--comm`` naming the missing
     transport."""
     argv, msg = REFUSED[name]
     with pytest.raises(SystemExit) as e:
@@ -204,6 +198,55 @@ def test_ported_options_run(name, tmp_path, caplog):
         if code == 0:
             assert _counts(logs["port"], "DSC: ") or _counts(
                 logs["port"], "stream: ")
+
+
+@pytest.fixture(scope="module")
+def elastic_codes(tmp_path_factory):
+    """``tests/test_elastic.py::launcher_codes`` on the port's launcher
+    (``--device cpu --comm gloo``, P = 4 written, P = 2 resumed): each
+    call's exit code and standard error."""
+    import os
+    import subprocess
+    import sys
+    tmp = tmp_path_factory.mktemp("elastic_cli")
+    crash = tmp / "crash.json"
+    crash.write_text(json.dumps({"crash_at": "cluster"}))
+    ckpt = str(tmp / "ckpt")
+    env = dict(os.environ, PYTHONPATH=str(README.parent / "src"))
+
+    def run(extra):
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.run_dsc", "--device",
+             "cpu", "--n-trajs", "24", "--comm", "gloo", *extra], env=env,
+            capture_output=True, text=True, timeout=600)
+        return proc.returncode, proc.stderr
+
+    return {"crash4": run(["--distributed", "4", "--resume-dir", ckpt,
+                           "--fault-plan", str(crash)]),
+            "noflag2": run(["--distributed", "2", "--resume-dir", ckpt]),
+            "elastic2": run(["--distributed", "2", "--resume-dir", ckpt,
+                             "--elastic-resume"]),
+            "elastic_alone": run(["--elastic-resume"])}
+
+
+@pytest.mark.parametrize("case", ["crash4", "noflag2", "elastic2",
+                                  "elastic_alone"])
+def test_launcher_elastic_exit_codes(elastic_codes, case):
+    """The reference's ``test_launcher_elastic_exit_codes`` on the port: an
+    injected crash at P = 4 exits 6; a P = 2 resume without the flag is a
+    plain error naming ``elastic``; with ``--elastic-resume`` it exits 0;
+    ``--elastic-resume`` alone is a usage error (2)."""
+    code, err = elastic_codes[case]
+    if case == "crash4":
+        assert code == tl.EXIT_CODES["injected_crash"], err[-2000:]
+    elif case == "noflag2":
+        assert code not in (0, tl.EXIT_CODES["injected_crash"])
+        assert "elastic" in err
+    elif case == "elastic2":
+        assert code == tl.EXIT_CODES["ok"], err[-2000:]
+        assert "resilient run: resumed_from=2" in err
+    else:
+        assert code == 2
 
 
 @pytest.mark.parametrize("mode", ["materialize", "fused"])

@@ -204,8 +204,17 @@ def test_bad_policies_and_plans(fig1):
         run(fig1, rebalance=RebalancePolicy(mode="bogus"))
     with pytest.raises(ValueError, match="both plan= and legacy"):
         run(fig1, plan=EnginePlan(), sim_mode="topk")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        run_resilient_distributed(fig1["tb"], fig1["tp"], None)
+    # the distributed runner checks its policies before it spawns a rank
+    from repro_torch.core.partitioning import partition_batch
+    from repro_torch.distributed.mesh import Mesh
+    parts = partition_batch(fig1["tb"], 2)
+    mesh = Mesh((2, 1), "gloo", "cpu")
+    with pytest.raises(ValueError, match="on_overflow"):
+        run_resilient_distributed(parts, fig1["tp"], mesh,
+                                  on_overflow="explode")
+    with pytest.raises(ValueError, match="both plan= and legacy"):
+        run_resilient_distributed(parts, fig1["tp"], mesh, plan=EnginePlan(),
+                                  sim_mode="topk")
 
 
 def test_transient_retry_schedule(fig1):
@@ -393,3 +402,38 @@ def test_straggler_copy_matches_reference():
         jmon.record_all([1.0, 1.0, 1.0, 9.0])
     assert mon.check() == jmon.check()
     assert mon.change_detected(3) and jmon.change_detected(3)
+    from repro.distributed.straggler import suggest_rebalance_edges as jsug
+    from repro_torch.distributed.straggler import suggest_rebalance_edges
+    rng = np.random.default_rng(7)
+    times = np.round(rng.uniform(0, 50, 400), 1)      # with ties
+    part_of = np.minimum((times // 12.5).astype(int), 3)
+    for flagged, P in (({3: 9.0}, 4), ({1: 1.5, 2: 4.0}, 4), ({}, 3),
+                       ({0: 0.5}, 5), ({2: 31.0}, 2)):
+        got = suggest_rebalance_edges(times, part_of, flagged, P)
+        want = jsug(times, part_of, flagged, P)
+        assert got.dtype == want.dtype == np.float64
+        assert np.array_equal(got, want), (flagged, P)
+
+
+def test_rebalance_policy_round_trip(tmp_path):
+    """``RebalancePolicy`` through JSON and files, strict, in both
+    packages and across them."""
+    pol = RebalancePolicy(mode="apply", consecutive=2, max_applies=3)
+    assert RebalancePolicy.from_json(pol.to_json()) == pol
+    assert pol.replace(mode="off") == RebalancePolicy(
+        mode="off", consecutive=2, max_applies=3)
+    pol.save(tmp_path / "t.json")
+    JRebalance(mode="suggest", max_applies=0).save(tmp_path / "j.json")
+    assert JRebalance.load(tmp_path / "t.json").to_dict() == pol.to_dict()
+    assert RebalancePolicy.load(tmp_path / "j.json") == RebalancePolicy(
+        mode="suggest", max_applies=0)
+    for cls in (RebalancePolicy, JRebalance):
+        with pytest.raises(ValueError) as e:
+            cls.from_dict({"mode": "apply", "every": 2})
+        assert str(e.value) == (
+            "unknown RebalancePolicy fields ['every']; known fields: "
+            "['consecutive', 'max_applies', 'mode']")
+        with pytest.raises(ValueError, match="consecutive"):
+            cls.from_dict({"consecutive": 0})
+        with pytest.raises(ValueError, match="mode"):
+            cls(mode="apply").replace(mode="now")

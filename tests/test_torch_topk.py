@@ -278,6 +278,58 @@ def test_topk_similarity_matches_reference():
                  jsim.topk_stream(jpanel, jtable, k=k, panel=panel), S)
 
 
+def test_scatter_operands_match_reference():
+    """The flat contribution list equals the reference's entry for entry
+    on the same join and segmentation (the port's, handed to both)."""
+    from repro.core.types import JoinResult as JJoin
+    from repro.core.types import SubtrajSegmentation as JSeg
+    _, _, join, seg, table, ms, _ = _pieces()
+    S = table.num_slots
+    jjoin = JJoin(best_w=jnp.asarray(join.best_w.numpy()),
+                  best_idx=jnp.asarray(join.best_idx.numpy()))
+    jseg = JSeg(*(jnp.asarray(getattr(seg, f).numpy())
+                  for f in ("cut", "sub_local", "num_subs", "score")))
+    got = tsim.scatter_operands(join, seg, seg.sub_local, S, ms)
+    want = jsim.scatter_operands(jjoin, jseg, jseg.sub_local, S, ms)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype and np.array_equal(g.numpy(), w)
+    assert int((got[0] < S).sum()) > 0 and int((got[1] < S).sum()) > 0
+
+
+@pytest.mark.parametrize("panel", [8, 12, 96])
+def test_contribution_panel_raw_list_contract(panel):
+    """Top-K over the public ``contribution_panel_raw`` (the flat list of
+    ``scatter_operands``, the reference's contract) gives the port's
+    ``similarity_topk`` bit for bit, its slabs are the dense ``raw``'s
+    rows and transposed columns, and it agrees with the reference's
+    closure over the reference's own list to the stated tolerance."""
+    jb, _, join, seg, table, ms, eps = _pieces()
+    S = table.num_slots
+    ops = tsim.scatter_operands(join, seg, seg.sub_local, S, ms)
+    fn = tsim.contribution_panel_raw(*ops, S, panel)
+    raw = tsim.scatter_raw(join.best_w, join.best_idx,
+                           tsim.slot_ids(seg.sub_local, ms, S),
+                           tsim.slot_ids(seg.sub_local, ms, S), S, S)
+    for p0 in range(0, S, panel):
+        fwd, rev = fn(p0)
+        assert torch.equal(fwd, raw[p0:p0 + panel])
+        assert torch.equal(rev, raw.T[p0:p0 + panel])
+    for k in (4, S):
+        got = tsim.topk_stream(fn, table, k=k, panel=panel)
+        _assert_lists_equal(got, tsim.similarity_topk(
+            join, seg, seg.sub_local, table, ms, k=k, panel=panel),
+            (panel, k))
+    jjoin = jops.subtrajectory_join(jb, jb, *eps)
+    jseg = jtsa2(jvoting.neighbor_mask_packed(jjoin), jb.valid, 4, 0.2, ms)
+    jtable = jsim.build_subtraj_table(jb, jseg, jvoting.point_voting(jjoin),
+                                      ms)
+    jfn = jsim.contribution_panel_raw(
+        *jsim.scatter_operands(jjoin, jseg, jseg.sub_local, S, ms), S, panel)
+    _close_lists(tsim.topk_stream(fn, table, k=6, panel=panel),
+                 jsim.topk_stream(jfn, jtable, k=6, panel=panel), S)
+
+
 # ---------------------------------------------------------------------------
 # Clustering on the lists
 # ---------------------------------------------------------------------------
