@@ -174,6 +174,34 @@ The entry points off the DSC paths (after the dsc_sis runs):
   and the tiles it skipped out of those it swept, equal to the plain
   mirror of its tile test.
 
+The plan autotuner (``phase_tune``, before the multi-device phase, or
+alone with ``--only-tune``): ``repro_torch.tune.autotune``'s sweeps on
+the card, each with its launch counts zeroed just before it and read
+just after (exactly its kernels), every candidate verified bit for bit
+before it is ranked; per candidate it prints the wall (the minimum of
+``TUNE_ITERS`` timed calls after a warm one), the interface bytes and
+the allocation peak of the timed calls:
+
+* ``tune_join`` at dsc_brest (T = 4096) from the materialize kernel plan
+  (the oracle and candidate 0: K1, K3, K5, K6) against the seven fused
+  rows of ``join_candidates`` (K2, K3, K4, K5, K6; one computation, since
+  no kernel reads the tile fields): 8 of 8 verified, labels 8 / 7,430 /
+  552;
+* ``tune_cluster_tiles`` on that oracle's ``[S, S]`` and table (S =
+  32,768): the plain round engine (candidate 0) beside K5 / K6 (1-5), 6
+  of 6 bitwise the plain oracle on all six fields;
+* ``tune_pipeline`` at T = 1024 from the fused kernel plan through a
+  ``PlanStore`` saved to a temporary file and reloaded: every candidate
+  verified, the reloaded stage winners merge to the tuned plan, whose
+  labels equal the base plan's;
+* the top-K panel height at dsc_brest, K = 4,096: ``sweep`` over the
+  fused top-K kernel plan at Sb = 128, 256, 512, 1024, 2048, measured by
+  ``measure_call`` over ``run_dsc_lowerable``; every Sb bitwise Sb = 128
+  (lists, spill, moments, labels) and launching K7 S/Sb times a call;
+* ``tune_comm`` on a (2, 2) mesh of four gloo ranks at T = 512 (the
+  materialize kernel plan, allgather): 4 of 4 verified on every rank,
+  every rank naming the same winner on the same agreed walls.
+
 The multi-device program (last; ``phase_distributed``, or alone with
 ``--only-distributed``): ``repro_torch.distributed.mesh.spawn`` starts a
 (part, model) = (2, 2) mesh of four ranks that share this card over gloo
@@ -1799,6 +1827,255 @@ def phase_launcher_exits(dev, report):
         report["launcher_exits"] = rows
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# The plan autotuner (repro_torch.tune) on the card
+# ---------------------------------------------------------------------------
+
+# the kernels each sweep launches, and no other (the counts are zeroed just
+# before a sweep and read just after)
+TUNE_KERNELS = {
+    "join": {"chunk_time_bounds", "stjoin_best_match", "stjoin_vote_fused",
+             "stjoin_sim_fused", "jaccard_window", "round_scan",
+             "claim_max"},
+    "cluster": {"round_scan", "claim_max"},
+    "pipeline": {"chunk_time_bounds", "stjoin_best_match",
+                 "stjoin_vote_fused", "stjoin_sim_fused", "jaccard_window",
+                 "round_scan", "claim_max"},
+    "panel": PATH_KERNELS["fused_topk"],
+}
+TUNE_ITERS = 3
+# the top-K panel heights swept at dsc_brest (K = 4,096, the main fused
+# top-K run's final K): every one a divisor of S = 32,768
+TUNE_PANELS = (128, 256, 512, 1024, 2048)
+TUNE_K = 4096
+
+
+def plan_delta(plan, base) -> str:
+    """The fields where ``plan`` differs from ``base``."""
+    b = base.to_dict()
+    d = {k: v for k, v in plan.to_dict().items() if v != b[k]}
+    return ", ".join(f"{k}={v}" for k, v in d.items()) or "base"
+
+
+def log_sweep(name: str, res, card: str, extra=None) -> list:
+    """One line a candidate (its wall, interface bytes and the allocation
+    peak of its timed calls), then the winner; the rows for the report."""
+    base = res.candidates[0].plan
+    rows = []
+    for i, c in enumerate(res.candidates):
+        more = "" if extra is None else f"; {extra[i]}"
+        log(f"  tune {name} [{i}] {plan_delta(c.plan, base)}: wall "
+            f"ms={c.wall_s * 1e3:.3f} interface MB="
+            f"{c.peak_interface_bytes / 1e6:.3f} peak GB="
+            f"{c.peak_buffer_bytes / 1e9:.3f} verified={c.verified}{more}")
+        rows.append(c.to_dict())
+    w = res.candidates.index(res.winner)
+    log(f"tune {name} ({card}): bucket {res.bucket}, "
+        f"{sum(c.verified for c in res.candidates)} / {len(res.candidates)} "
+        f"verified, winner [{w}] {plan_delta(res.winner.plan, base)}")
+    return rows
+
+
+def tune_launched(name: str, launches: dict):
+    ran = {k for k, n in launches.items() if n > 0}
+    check(ran == TUNE_KERNELS[name],
+          f"tune {name}: launched {sorted(ran)}, expected "
+          f"{sorted(TUNE_KERNELS[name])}")
+
+
+def all_verified(name: str, res, n: int):
+    check(len(res.candidates) == n
+          and all(c.verified for c in res.candidates),
+          f"tune {name}: {[c.note for c in res.candidates]} "
+          f"({len(res.candidates)} candidates, expected {n})")
+
+
+def tune_comm_rank(sizes):
+    """``tune_comm`` on this rank of a ``sizes`` mesh at T = 512 (the
+    materialize kernel plan, allgather), launch counts zeroed just before
+    it and read just after."""
+    from repro_torch import kernels
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.tune.autotune import tune_comm
+    _, params, parts = dist_data(512, sizes[0])
+    base = kernel_plan("materialize").replace(sim_strategy="allgather")
+    kernels.reset_launch_counts()
+    res = tune_comm(parts, params, Mesh(sizes, "gloo", "cuda"), base=base)
+    return res, dict(kernels.LAUNCHES)
+
+
+def phase_tune(dev, report, card: str):
+    """The autotuner's sweeps on the card: the join and cluster sweeps at
+    dsc_brest, the whole pipeline at T = 1024 through a plan store, the
+    top-K panel height at dsc_brest, the comm schedules on a (2, 2)
+    mesh."""
+    import dataclasses
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.core.dsc import run_dsc, run_dsc_lowerable
+    from repro_torch.core.plan import EnginePlan
+    from repro_torch.distributed.mesh import Mesh, spawn
+    from repro_torch.tune.autotune import (PlanStore, measure_call,
+                                           shape_bucket, sweep,
+                                           tune_cluster_tiles, tune_join,
+                                           tune_pipeline)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = report["tune"] = {"card": card}
+
+    # 1. the join sweep at dsc_brest: the materialize kernel plan (the
+    # oracle and candidate 0) against seven fused rows
+    batch, params = brest_batch(4096, dev)
+    base = kernel_plan("materialize")
+    oracle = run_dsc_lowerable(batch, params, base, device=dev)
+    oracle = dataclasses.replace(oracle, join=None)     # the 17.2 GB cube
+    check(dist_counts(oracle) == "clusters=8 members=7430 outliers=552",
+          f"tune join oracle: {dist_counts(oracle)}")
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    res = tune_join(batch, params, base=base, iters=TUNE_ITERS,
+                    oracle=oracle, device=dev)
+    launches = dict(kernels.LAUNCHES)
+    tune_launched("join", launches)
+    all_verified("join", res, 8)
+    out["join"] = dict(s=time.perf_counter() - t0, launches=launches,
+                       candidates=log_sweep("join (dsc_brest T=4096)", res,
+                                            card))
+    log(f"tune join: labels {dist_counts(oracle)}; the sweep "
+        f"{out['join']['s']:.1f} s")
+
+    # 2. the cluster sweep on that oracle's [S, S] and table: the plain
+    # round engine (candidate 0) beside K5 / K6 (candidates 1-5)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    res = tune_cluster_tiles(oracle.sim, oracle.table, params,
+                             base=EnginePlan(), iters=TUNE_ITERS,
+                             device=dev)
+    launches = dict(kernels.LAUNCHES)
+    tune_launched("cluster", launches)
+    all_verified("cluster", res, 6)
+    check(not res.candidates[0].plan.cluster_use_kernel
+          and all(c.plan.cluster_use_kernel for c in res.candidates[1:]),
+          "tune cluster: candidate 0 is not the plain engine")
+    out["cluster"] = dict(s=time.perf_counter() - t0, launches=launches,
+                          candidates=log_sweep("cluster (dsc_brest "
+                                               "S=32768)", res, card))
+    del oracle, res
+    torch.cuda.empty_cache()
+
+    # 3. the whole pipeline at T = 1024 through a plan store file
+    b1, p1 = brest_batch(1024, dev)
+    pbase = kernel_plan("fused")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "plans.json")
+        store = PlanStore(path)
+        kernels.reset_launch_counts()
+        tuned, results = tune_pipeline(b1, p1, base=pbase, store=store,
+                                       device=dev)
+        launches = dict(kernels.LAUNCHES)
+        store.save()
+        again = PlanStore(path)
+        got = {stage: again.get(stage, r.bucket)
+               for stage, r in results.items()}
+    tune_launched("pipeline", launches)
+    # the base plan already runs the cluster kernels: 5 cluster candidates
+    for stage, n in (("join", 8), ("cluster", 5), ("similarity", 4)):
+        all_verified(f"pipeline {stage}", results[stage], n)
+        check(got[stage] == results[stage].winner.plan,
+              f"tune pipeline: the reloaded store's {stage} plan is not "
+              "the winner")
+    merged = got["join"].replace(
+        cluster_engine=got["cluster"].cluster_engine,
+        cluster_use_kernel=got["cluster"].cluster_use_kernel,
+        cluster_bu=got["cluster"].cluster_bu,
+        cluster_bs=got["cluster"].cluster_bs,
+        sim_panel=got["similarity"].sim_panel)
+    check(merged == tuned, f"tune pipeline: the reloaded store merges to "
+                           f"{merged}, not {tuned}")
+    s = time.perf_counter() - t0
+    same_labels(run_dsc(b1, p1, plan=tuned, device=dev),
+                run_dsc(b1, p1, plan=pbase, device=dev),
+                "tune pipeline: the merged plan against the base plan")
+    out["pipeline"] = dict(s=s, launches=launches, tuned=tuned.to_dict(),
+                           stages={k: log_sweep(f"pipeline {k} (T=1024)", r,
+                                                card)
+                                   for k, r in results.items()})
+    log(f"tune pipeline (T=1024; {card}): {s:.1f} s; the store reloads to "
+        f"the merged plan ({plan_delta(tuned, pbase)}); its labels equal "
+        "the base plan's")
+    del b1, results
+    torch.cuda.empty_cache()
+
+    # 4. the top-K panel height at dsc_brest, K = 4,096, through the public
+    # sweep: every Sb bitwise Sb = 128 (lists, spill, moments, labels)
+    S = batch.num_trajs * params.max_subtrajs_per_traj
+    cands = [kernel_plan("fused_topk").replace(sim_topk=TUNE_K, sim_panel=sb)
+             for sb in TUNE_PANELS]
+    want = run_dsc_lowerable(batch, params, cands[0], device=dev)
+    check(int(want.sim_overflow) == 0 and want.sim_topk.k == TUNE_K,
+          "tune panel: the certificate fails at K = 4096")
+    k7 = "stjoin_sim_panel_fused"
+    per_call = {}
+
+    def measure(plan):
+        before = kernels.LAUNCHES[k7]
+        got = measure_call(
+            lambda b: run_dsc_lowerable(b, params, plan, device=dev),
+            (batch,), iters=TUNE_ITERS, device=dev)
+        per_call[plan.sim_panel] = ((kernels.LAUNCHES[k7] - before)
+                                    / (TUNE_ITERS + 1))
+        return got
+
+    def verify(o, plan):
+        return (not diff_fields(o.sim_topk, want.sim_topk)
+                and all(torch.equal(getattr(o.result, f),
+                                    getattr(want.result, f))
+                        for f in LABELS))
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    res = sweep("similarity", shape_bucket(S=S, K=TUNE_K), cands, measure,
+                verify)
+    launches = dict(kernels.LAUNCHES)
+    tune_launched("panel", launches)
+    all_verified("panel", res, len(TUNE_PANELS))
+    for sb in TUNE_PANELS:
+        check(per_call[sb] == S // sb, f"tune panel Sb={sb}: "
+                                       f"{per_call[sb]} K7 launches a call")
+    out["panel"] = dict(
+        s=time.perf_counter() - t0, launches=launches, k7_per_call=per_call,
+        candidates=log_sweep(
+            "panel (dsc_brest S=32768 K=4096)", res, card,
+            [f"K7 launches a call {per_call[sb]:.0f}" for sb in TUNE_PANELS]))
+    log(f"tune panel: Sb {', '.join(map(str, TUNE_PANELS))} bitwise Sb = "
+        f"128 (lists, spill, moments, labels {dist_counts(want)})")
+    del batch, want, res
+    torch.cuda.empty_cache()
+
+    # 5. the comm schedules on a (2, 2) mesh of four gloo ranks at T = 512
+    t0 = time.perf_counter()
+    ranks = spawn(tune_comm_rank, Mesh((2, 2), "gloo", "cuda"), (2, 2),
+                  timeout=600)
+    r0 = ranks[0][0]
+    for r, (res, launches) in enumerate(ranks):
+        all_verified(f"comm rank {r}", res, 4)
+        ran = {k for k, n in launches.items() if n > 0}
+        check(ran == DIST_KERNELS["materialize"],
+              f"tune comm rank {r}: launched {sorted(ran)}")
+        check(res.winner.plan == r0.winner.plan
+              and [c.wall_s for c in res.candidates]
+              == [c.wall_s for c in r0.candidates],
+              f"tune comm rank {r}: another winner or walls than rank 0")
+    out["comm"] = dict(s=time.perf_counter() - t0,
+                       candidates=log_sweep("comm (mesh 2x2, T=512)", r0,
+                                            card))
+    log("tune comm: every rank named the same winner, on the same agreed "
+        "walls")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tune phase ({card}): wall s={out['phase_s']:.1f}")
 
 
 # ---------------------------------------------------------------------------
@@ -3618,6 +3895,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-distributed", action="store_true",
                     help="build, run the multi-device phase alone and exit "
                          "(no result line)")
+    ap.add_argument("--only-tune", action="store_true",
+                    help="build, run the autotuner phase alone and exit "
+                         "(no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3646,12 +3926,16 @@ def main(argv=None) -> int:
     log_ptxas(kernels.build_log)
     report = {"card": card, "build_s": build_s,
               "build_steps_s": kernels.build_seconds}
-    if args.only_distributed:
-        phase_distributed(report, card)
+    if args.only_distributed or args.only_tune:
+        if args.only_tune:
+            phase_tune(dev, report, card)
+        else:
+            phase_distributed(report, card)
         if args.json:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
             Path(args.json).write_text(json.dumps(report, indent=1) + "\n")
-        log("distributed phase alone: passed")
+        log(("tune" if args.only_tune else "distributed")
+            + " phase alone: passed")
         return 0
 
     phase_parity(dev)
@@ -3757,6 +4041,8 @@ def main(argv=None) -> int:
     phase_lcss(dev, report, rows)
     torch.cuda.empty_cache()
     phase_attention(dev, report, rows)
+    torch.cuda.empty_cache()
+    phase_tune(dev, report, card)
     phase_distributed(report, card)
     order = list(REPLACES)
     rows.sort(key=lambda r: order.index(r["name"]))

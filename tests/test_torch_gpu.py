@@ -17,7 +17,8 @@ from repro_torch.core.plan import EnginePlan
 from repro_torch.core.similarity import (plan_panel, slot_ids,
                                          topk_from_dense, topk_reduce_rows)
 from repro_torch.core.types import DSCParams, TrajectoryBatch
-from repro_torch.data.synthetic import ais_like, figure1_scenario
+from repro_torch.data.synthetic import (ais_like, default_dsc_params_for,
+                                        figure1_scenario)
 from repro_torch.kernels.cluster.ops import (cluster_assign,
                                              cluster_round_scan,
                                              topk_cluster_assign,
@@ -1688,3 +1689,26 @@ def test_distributed_resilient_crash_resume_on_card(cuda, tmp_path):
         assert torch.equal(getattr(res.output, f), getattr(want.output, f)), f
     assert (res.sscr, res.rmse) == (want.sscr, want.rmse)
     assert int(want.output.result.is_rep.sum()) >= 1
+
+
+def test_tune_cluster_tiles_kernel_candidates_on_card(cuda):
+    """The autotuner's cluster sweep on the card: candidate 0 the plain
+    round engine, candidates 1-5 K5 / K6, every one bitwise the plain
+    oracle on all six result fields, the kernels launched."""
+    from repro_torch.tune.autotune import tune_cluster_tiles
+    tb, _ = ais_like(n_vessels=512, max_points=64, seed=3, device=cuda)
+    diam, mean_dt = default_dsc_params_for(tb)
+    params = DSCParams(eps_sp=0.15 * diam, eps_t=mean_dt, delta_t=0.0,
+                       w=12, tau=0.4, alpha_sigma=-1.0, k_sigma=-1.0)
+    out = run_dsc(tb, params, plan=_path_plan("fused"), device=cuda)
+    kernels.reset_launch_counts()
+    res = tune_cluster_tiles(out.sim, out.table, params, device=cuda)
+    assert len(res.candidates) == 6 and res.backend == "gpu"
+    assert all(c.verified for c in res.candidates), \
+        [c.note for c in res.candidates]
+    assert not res.candidates[0].plan.cluster_use_kernel
+    assert all(c.plan.cluster_use_kernel for c in res.candidates[1:])
+    assert all(c.peak_buffer_bytes is not None and c.peak_buffer_bytes >= 0
+               for c in res.candidates)
+    assert kernels.LAUNCHES["round_scan"] > 0
+    assert kernels.LAUNCHES["claim_max"] > 0
