@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--only-serve | --only-tune |
+                                         --only-distributed]
 
 Run from the root of a checkout; it needs no build step (the kernels
 build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
@@ -173,6 +174,29 @@ The entry points off the DSC paths (after the dsc_sis runs):
   took (``bf16_mma``, ``f32_tiled`` or ``general``, and its key split),
   and the tiles it skipped out of those it swept, equal to the plain
   mirror of its tile test.
+
+The LM serving path (``phase_serve``, after attention and before the
+autotuner, or alone with ``--only-serve``); no TPU kernel lies on it (the
+reference's attention is plain XLA), and every part must launch no
+custom kernel (counts zeroed just before it, read just after):
+
+* every architecture at its reduced config, the same params on the card
+  and on the CPU: the full forward's logits and aux, a prefill of L - 1
+  tokens into the caches and one decode step (logits and every cache
+  leaf) within ``SERVE_ULPS`` bf16 ulps; the MoE expert choices under the
+  margin rule; on the card, decode after prefill against the full
+  forward (atol = rtol = 2e-2, as ``tests/test_arch_smoke.py``);
+* smollm-360m at full width (seeded init on the card, the count of every
+  parameter but the norm scales equal to ``param_count()``) through
+  ``ServeEngine``: 16 requests in 8 slots, 32 new tokens, ``max_len``
+  4096, prompts in 1536-3072 with a 3072 in each wave (online-path
+  prefills); 2 prefill calls, 62 decode steps; one request's tokens
+  against full forwards on the card fed its tokens, under the margin
+  rule; prefill ms per wave and decode ms per step (CUDA events),
+  tokens/s, peak;
+* gemma2-2b at full width, one wave of 2 x 4608 (past the 4096 window),
+  ``max_len`` 5120, 8 decode steps: times and peak;
+* the port's launcher in this process, ``--arch smollm-360m --full``.
 
 The plan autotuner (``phase_tune``, before the multi-device phase, or
 alone with ``--only-tune``): ``repro_torch.tune.autotune``'s sweeps on
@@ -3837,6 +3861,450 @@ def phase_attention(dev, report, rows):
     del outs, inputs
 
 
+# ------------------------------------------------------------- LM serving
+
+# bf16 ulps of the largest value compared, card against the CPU (the
+# whole-model tolerance of tests/test_torch_models.py: cuBLAS and the CPU's
+# GEMMs sum in other orders, and a bf16 rounding that falls the other way
+# moves a value by an ulp, a few of which add up through the layers)
+SERVE_ULPS = 8
+SERVE_ARCH = "smollm-360m"
+SERVE_SLOTS, SERVE_MAX_NEW, SERVE_MAX_LEN = 8, 32, 4096
+# 7 prompts drawn in [1536, 3072) and 9 of exactly 3072: the queue is
+# sorted (stably) by length, so each wave of 8 holds a 3072 and every
+# prefill is 3072 long (> ATTN_CHUNK_THRESHOLD: the online path, with
+# whole 512-query and 1024-key chunks of the 4096-slot cache)
+SERVE_SHORT, SERVE_LONG = 7, 9
+SERVE_PROMPT = (1536, 3072)
+# the full-forward chain right-pads its sequence to 3584 = 7 x 512, so the
+# online path keeps whole chunks (a length like 3073 halves them to 1);
+# causal masking keeps the pads out of the last real position's logits
+SERVE_CHAIN_LEN = 3584
+GEMMA_ARCH, GEMMA_B, GEMMA_PROMPT, GEMMA_MAX_LEN, GEMMA_STEPS = (
+    "gemma2-2b", 2, 4608, 5120, 8)
+
+
+def ulps_tol(want: torch.Tensor, ulps: int = SERVE_ULPS) -> float:
+    import math
+    top = float(want.detach().float().abs().max())
+    return ulps * 2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0
+
+
+def top_gap(row: torch.Tensor) -> float:
+    top = torch.topk(row.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def serve_close(got, want, what: str) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs "
+                                   f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    tol = ulps_tol(want)
+    check(err <= tol, f"{what}: max |card - cpu| {err} > {tol}")
+    return err
+
+
+@contextlib.contextmanager
+def recorded_moe(seen: list):
+    """Record every MoE layer's input during the block."""
+    from repro_torch.models import moe
+    real = moe.moe_ffn
+
+    def rec(p, h, cfg, **kw):
+        seen.append(h.detach().clone())
+        return real(p, h, cfg, **kw)
+    moe.moe_ffn = rec
+    try:
+        yield
+    finally:
+        moe.moe_ffn = real
+
+
+def moe_aux_bound(cfg, cpu_params, seen) -> tuple[float, int]:
+    """Each recorded card layer input routed again on the CPU: the expert
+    choices equal where the CPU's k-th / (k+1)-th and top-1 / top-2 router
+    probabilities differ by more than 2**-7 of the largest (the margin
+    rule).  Returns the bound on |card aux - cpu aux| that the rows which
+    are not sure allow (E / N a row, over the layers' mean), and their
+    count."""
+    from repro_torch.models import moe
+    layers = cpu_params["layers"]["moe"].tree()
+    low = 0
+    e_over_n = 0.0
+    for i, h in enumerate(seen):
+        p = {k: v[i] for k, v in layers.items()}
+        hc = h.cpu()
+        D = hc.shape[-1]
+        logits = (hc.reshape(-1, D).bfloat16()
+                  @ p["router"].bfloat16()).float()
+        probs, _, eidx = moe._route(logits, cfg.moe, logits.shape[1])
+        card_logits = (h.reshape(-1, D).bfloat16()
+                       @ p["router"].to(h.device).bfloat16()).float()
+        _, _, card_eidx = moe._route(card_logits, cfg.moe,
+                                     card_logits.shape[1])
+        k, tol = cfg.moe.top_k, 2.0 ** -7 * float(probs.max())
+        srt = probs.sort(dim=-1, descending=True).values
+        sure = ((srt[:, k - 1] - srt[:, k] > tol)
+                & (srt[:, 0] - srt[:, 1] > tol))
+        same = (card_eidx.cpu().sort(-1).values
+                == eidx.sort(-1).values).all(-1)
+        check(bool(same[sure].all()), f"MoE layer {i}: a sure expert "
+                                      f"choice differs card vs CPU")
+        low += int((~sure).sum())
+        e_over_n = probs.shape[1] / probs.shape[0]
+    return e_over_n * low / max(len(seen), 1), low
+
+
+def serve_tokens(cfg, B: int, L: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    shape = (B, cfg.n_codebooks, L) if cfg.family == "audio" else (B, L)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
+                              .astype(np.int32))
+    fe = None
+    if cfg.family == "vlm":
+        fe = torch.from_numpy(rng.normal(
+            0, 1, (B, cfg.vision_tokens, cfg.d_vision)).astype(np.float32))
+    return tokens, fe
+
+
+def phase_serve_reduced(dev, report):
+    """Every architecture at its reduced config, the same params on the card
+    and on the CPU: the full forward's logits and aux, a prefill of L - 1
+    tokens into the caches and one decode step (logits and every cache
+    leaf) within ``SERVE_ULPS`` ulps; the MoE aux within the margin rule's
+    bound; on the card, the decode logits against the full forward's last
+    position (``tests/test_arch_smoke.py``'s atol = rtol = 2e-2)."""
+    import copy
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHITECTURES, get_arch, reduced_config
+    from repro_torch.models import transformer as tf
+    out = {}
+    B, L = 2, 12
+    for i, arch in enumerate(ARCHITECTURES):
+        cfg = reduced_config(get_arch(arch))
+        cpu = tf.init_model(cfg, generator=torch.Generator().manual_seed(i),
+                            device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        tokens, fe = serve_tokens(cfg, B, L, i)
+        td, fd = tokens.to(dev), None if fe is None else fe.to(dev)
+        prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+        seen = []
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            with recorded_moe(seen):
+                gl, gaux, _ = tf.forward(card, td, cfg, frontend_inputs=fd)
+            cl, caux, _ = tf.forward(cpu, tokens, cfg, frontend_inputs=fe)
+            errs = [serve_close(gl, cl, f"{arch} forward logits")]
+            if cfg.family == "moe":
+                bound, low = moe_aux_bound(cfg, cpu, seen)
+                err = abs(float(gaux["moe_aux"]) - float(caux["moe_aux"]))
+                tol = 1e-3 * float(caux["moe_aux"]) + bound
+                check(err <= tol, f"{arch} moe_aux: {err} > {tol}")
+                check(float(gaux["moe_dropped"]) == float(
+                    caux["moe_dropped"]) == 0.0, f"{arch}: tokens dropped")
+            gc = tf.init_cache(cfg, B, L + prefix, device=dev)
+            cc = tf.init_cache(cfg, B, L + prefix, device="cpu")
+            gp, _, gc = tf.forward(card, td[..., :L - 1], cfg,
+                                   frontend_inputs=fd, cache=gc,
+                                   cache_index=0)
+            cp, _, cc = tf.forward(cpu, tokens[..., :L - 1], cfg,
+                                   frontend_inputs=fe, cache=cc,
+                                   cache_index=0)
+            errs.append(serve_close(gp, cp, f"{arch} prefill logits"))
+            errs += [serve_close(gc[k], cc[k], f"{arch} prefill cache {k}")
+                     for k in cc]
+            gd, _, gc = tf.forward(card, td[..., L - 1:], cfg, cache=gc,
+                                   cache_index=prefix + L - 1)
+            cd, _, cc = tf.forward(cpu, tokens[..., L - 1:], cfg, cache=cc,
+                                   cache_index=prefix + L - 1)
+            errs.append(serve_close(gd, cd, f"{arch} decode logits"))
+            errs += [serve_close(gc[k], cc[k], f"{arch} decode cache {k}")
+                     for k in cc]
+            dev_err = float((gd[:, -1] - gl[:, -1]).abs().max())
+            check(torch.allclose(gd[:, -1], gl[:, -1], atol=2e-2,
+                                 rtol=2e-2),
+                  f"{arch}: decode after prefill vs full forward on the "
+                  f"card: {dev_err}")
+        launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        check(not launched, f"{arch}: the LM path launched {launched}")
+        out[arch] = {"max_err_card_cpu": max(errs),
+                     "decode_vs_forward": dev_err,
+                     "moe_rows_not_sure": low if cfg.family == "moe"
+                     else None}
+        log(f"serve reduced ({arch}, {cfg.family}): logits, caches and aux "
+            f"on the card equal the CPU's within {SERVE_ULPS} bf16 ulps "
+            f"(max |card - cpu| {max(errs):.6g}); decode vs full forward "
+            f"{dev_err:.6g} (atol 2e-2)"
+            + (f"; MoE rows not sure {low}" if cfg.family == "moe" else ""))
+        del card, gc, cc
+    report["serve_reduced"] = out
+
+
+class StepTimer:
+    """CUDA events around every call of the engine module's prefill and
+    decode steps (the engine looks them up at call time); each step's
+    logits are checked finite, and those of one slot kept."""
+
+    def __init__(self, slot=None):
+        self.slot = slot
+        self.calls = []       # (kind, start, end)
+        self.rows = []
+
+    @contextlib.contextmanager
+    def active(self):
+        from repro_torch.serve import engine
+        real = {n: getattr(engine, n) for n in ("prefill_step",
+                                                 "decode_step")}
+
+        def wrap(name):
+            def step(*a, **kw):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                logits, cache = real[name](*a, **kw)
+                e.record()
+                self.calls.append((name, s, e))
+                check(bool(torch.isfinite(logits).all()),
+                      f"{name}: logits not finite")
+                if self.slot is not None:
+                    self.rows.append(logits[self.slot].float().clone())
+                return logits, cache
+            return step
+        for n in real:
+            setattr(engine, n, wrap(n))
+        try:
+            yield self
+        finally:
+            for n, f in real.items():
+                setattr(engine, n, f)
+
+    def ms(self, name: str) -> list[float]:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for n, s, e in self.calls if n == name]
+
+
+def serve_params(cfg, seed: int, dev):
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    norms = sum(p.numel() for name, p in params.named_parameters()
+                if name.endswith(".scale"))
+    check(n - norms == cfg.param_count(),
+          f"{cfg.name}: {n - norms} parameters besides the norm scales, "
+          f"param_count() {cfg.param_count()}")
+    return params, n, norms, init_s
+
+
+def decode_op_count(params, cfg, dev) -> int:
+    """Top-level aten operators one decode step dispatches (a host-side
+    profile, no device activity traced): the host's share of a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import decode_step
+    cache = tf.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, device=dev)
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device=dev)
+    decode_step(params, tok, cache, 100, cfg)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        decode_step(params, tok, cache, 101, cfg)
+    torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+
+
+def phase_serve_smollm(dev, report, card: str):
+    """smollm-360m at full width through ``ServeEngine``: 16 requests in 8
+    slots, 32 new tokens each, ``max_len`` 4096, two waves whose prefills
+    are 3072 long (the online path); the counters; one request's tokens
+    against a chain of full forwards on the card (fed the engine's
+    tokens) under the margin rule; prefill ms per wave and decode ms per
+    step (CUDA events), tokens/s (host clock around ``run``), peak.  The
+    probe's engine logits must lie within ``SERVE_ULPS`` ulps of the
+    forward's at every step, and its token must be the forward's argmax
+    wherever the forward's top-1 / top-2 gap exceeds twice the step's
+    largest logit difference (the margin rule at the measured bound)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_arch(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, n, norms, init_s = serve_params(cfg, 0, dev)
+    # warm the card's libraries (cuBLAS handles, the allocator) on a short
+    # request; untimed
+    warm = ServeEngine(params, cfg, n_slots=SERVE_SLOTS, max_len=256)
+    warm.submit(Request(uid=0, prompt=np.arange(64, dtype=np.int32),
+                        max_new=2))
+    warm.run()
+    rng = np.random.default_rng(0)
+    lens = [int(x) for x in rng.integers(*SERVE_PROMPT, SERVE_SHORT)]
+    lens += [SERVE_PROMPT[1]] * SERVE_LONG
+    rng.shuffle(lens)
+    reqs = [Request(uid=u, prompt=rng.integers(0, cfg.vocab_size, L)
+                    .astype(np.int32), max_new=SERVE_MAX_NEW)
+            for u, L in enumerate(lens)]
+    order = sorted(reqs, key=lambda r: len(r.prompt))
+    probe = order[SERVE_SLOTS - 1]          # the first wave's 3072 prompt
+    check(len(probe.prompt) == SERVE_PROMPT[1], "probe is not 3072 long")
+    eng = ServeEngine(params, cfg, n_slots=SERVE_SLOTS,
+                      max_len=SERVE_MAX_LEN)
+    for r in reqs:
+        eng.submit(r)
+    timer = StepTimer(slot=SERVE_SLOTS - 1)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer.active():
+        done = eng.run()
+    wall = time.perf_counter() - t0
+    launched = {k: c for k, c in kernels.LAUNCHES.items() if c}
+    check(not launched, f"serving launched {launched}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(len(done) == 16 and all(len(r.out) == SERVE_MAX_NEW
+                                  for r in done),
+          "a request did not return its 32 tokens")
+    check(eng.prefill_calls == 2 and eng.decode_steps == 62,
+          f"prefill_calls {eng.prefill_calls}, decode_steps "
+          f"{eng.decode_steps} (want 2, 62)")
+    prefill = timer.ms("prefill_step")
+    decode = timer.ms("decode_step")
+    # the probe's logits: its wave's prefill and 31 decode steps
+    rows = timer.rows[:SERVE_MAX_NEW]
+    toks = probe.out
+    chain_err, sure, first_low = 0.0, 0, None
+    for t in range(SERVE_MAX_NEW):
+        seq = np.zeros((1, SERVE_CHAIN_LEN), np.int32)
+        cur = np.concatenate([probe.prompt, np.asarray(toks[:t], np.int32)])
+        seq[0, :len(cur)] = cur
+        with torch.no_grad():
+            logits = tf.forward(params, torch.from_numpy(seq).to(dev),
+                                cfg)[0][0, len(cur) - 1]
+        err = float((logits - rows[t]).abs().max())
+        check(err <= ulps_tol(logits),
+              f"smollm probe step {t}: max |engine - forward| logit {err} "
+              f"> {ulps_tol(logits)}")
+        chain_err = max(chain_err, err)
+        # each logit within err of the forward's: where the forward's two
+        # best lie more than 2 err apart, no token but its argmax is the
+        # engine's argmax
+        if top_gap(logits) > 2 * err:
+            check(int(logits.argmax()) == toks[t],
+                  f"smollm probe step {t}: engine token {toks[t]}, full "
+                  f"forward {int(logits.argmax())} at a sure margin")
+            sure += 1
+        elif first_low is None:
+            first_low = t
+    tok_s = sum(len(r.out) for r in done) / wall
+    ops = decode_op_count(params, cfg, dev)
+    res = {"params": n, "norm_scales": norms, "init_s": init_s,
+           "decode_aten_ops": ops,
+           "prefill_ms": prefill, "decode_ms_mean": sum(decode) / len(decode),
+           "decode_ms_min": min(decode), "decode_ms_max": max(decode),
+           "wall_s": wall, "tokens_per_s": tok_s, "peak_gb": peak,
+           "prompt_lens": lens, "chain_steps_sure": sure,
+           "chain_first_low_margin": first_low,
+           "chain_max_abs_logit_diff": chain_err, "card": card}
+    report["serve_smollm"] = res
+    log(f"serve ({SERVE_ARCH} full: 32 layers, d 960, 15/5 heads, vocab "
+        f"49152; {n} parameters, {norms} of them norm scales; init "
+        f"{init_s:.2f} s): 16 requests in {SERVE_SLOTS} slots, "
+        f"{SERVE_MAX_NEW} new tokens each, max_len {SERVE_MAX_LEN}; "
+        f"prefill_calls 2, decode_steps 62; prefill ms per wave (3072 "
+        f"tokens x 8 rows) " + ", ".join(f"{x:.1f}" for x in prefill)
+        + f"; decode ms per step mean {res['decode_ms_mean']:.2f} (min "
+        f"{min(decode):.2f}, max {max(decode):.2f}; {ops} top-level aten "
+        f"ops a step, the host's dispatch); wall {wall:.2f} s, "
+        f"{tok_s:.1f} tokens/s; peak {peak:.3f} GB ({card})")
+    log(f"serve ({SERVE_ARCH}): request {probe.uid}'s 32 tokens against "
+        f"full forwards on the card: max |engine - forward| logit "
+        f"{chain_err:.6g} (within {SERVE_ULPS} ulps at every step); tokens "
+        f"equal at the {sure} steps whose margin exceeds twice it, first "
+        f"low margin at step {first_low}")
+    del params, eng, timer
+    torch.cuda.empty_cache()
+
+
+def phase_serve_gemma(dev, report, card: str):
+    """gemma2-2b at full width for one wave: B = 2 prompts of 4608 (longer
+    than the 4096 window, so the local layers mask), ``max_len`` 5120, 8
+    decode steps; softcaps, gemma norms and hd 256 on the way."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_arch(GEMMA_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, n, norms, init_s = serve_params(cfg, 1, dev)
+    rng = np.random.default_rng(1)
+    eng = ServeEngine(params, cfg, n_slots=GEMMA_B, max_len=GEMMA_MAX_LEN)
+    for u in range(GEMMA_B):
+        eng.submit(Request(uid=u, prompt=rng.integers(
+            0, cfg.vocab_size, GEMMA_PROMPT).astype(np.int32),
+            max_new=GEMMA_STEPS + 1))
+    timer = StepTimer()
+    kernels.reset_launch_counts()
+    with timer.active():
+        done = eng.run()
+    launched = {k: c for k, c in kernels.LAUNCHES.items() if c}
+    check(not launched, f"serving launched {launched}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(eng.prefill_calls == 1 and eng.decode_steps == GEMMA_STEPS
+          and all(len(r.out) == GEMMA_STEPS + 1 for r in done),
+          "gemma2-2b wave: counters")
+    prefill, decode = timer.ms("prefill_step"), timer.ms("decode_step")
+    report["serve_gemma"] = {"params": n, "init_s": init_s,
+                             "prefill_ms": prefill[0], "decode_ms": decode,
+                             "peak_gb": peak, "card": card}
+    log(f"serve ({GEMMA_ARCH} full: 26 layers, d 2304, 8/4 heads, hd 256, "
+        f"window 4096, vocab 256000; {n} parameters): one wave of "
+        f"{GEMMA_B} x {GEMMA_PROMPT}, max_len {GEMMA_MAX_LEN}; prefill "
+        f"{prefill[0]:.1f} ms, decode ms per step mean "
+        f"{sum(decode) / len(decode):.2f}; peak {peak:.3f} GB (the "
+        f"[2, 4608, 256000] f32 logits alone 9.4 GB) ({card})")
+    del params, eng, timer
+    torch.cuda.empty_cache()
+
+
+def phase_serve_launcher(report):
+    """The port's launcher in this process: ``--arch smollm-360m --full``
+    at its defaults (16 requests, 4 slots, prompts of 16-32, 16 new
+    tokens, max_len 128)."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = launcher.main(["--arch", SERVE_ARCH, "--full"])
+    wall = time.perf_counter() - t0
+    launched = {k: c for k, c in kernels.LAUNCHES.items() if c}
+    check(not launched, f"the serving launcher launched {launched}")
+    check(len(done) == 16 and all(len(r.out) == 16 for r in done),
+          "launcher: 16 requests of 16 tokens")
+    report["serve_launcher_s"] = wall
+    log(f"serve launcher (--arch {SERVE_ARCH} --full): 16 requests, 256 "
+        f"tokens, wall {wall:.2f} s (init included)")
+
+
+def phase_serve(dev, report, card: str):
+    """The LM serving path (no TPU kernel lies on it: the reference's
+    attention is plain XLA, and no custom kernel launches here)."""
+    phase_serve_reduced(dev, report)
+    phase_serve_smollm(dev, report, card)
+    phase_serve_gemma(dev, report, card)
+    phase_serve_launcher(report)
+
+
 def kernel_name(line: str) -> str | None:
     """The kernel a ptxas ``Function properties for <mangled>`` line is
     about: the ``<length><name>`` of the mangled name that ends in
@@ -3898,6 +4366,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-tune", action="store_true",
                     help="build, run the autotuner phase alone and exit "
                          "(no result line)")
+    ap.add_argument("--only-serve", action="store_true",
+                    help="build, run the LM serving phase alone and exit "
+                         "(no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3926,16 +4397,20 @@ def main(argv=None) -> int:
     log_ptxas(kernels.build_log)
     report = {"card": card, "build_s": build_s,
               "build_steps_s": kernels.build_seconds}
-    if args.only_distributed or args.only_tune:
-        if args.only_tune:
+    only = {"tune": args.only_tune, "serve": args.only_serve,
+            "distributed": args.only_distributed}
+    if any(only.values()):
+        name = next(k for k, v in only.items() if v)
+        if name == "tune":
             phase_tune(dev, report, card)
+        elif name == "serve":
+            phase_serve(dev, report, card)
         else:
             phase_distributed(report, card)
         if args.json:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
             Path(args.json).write_text(json.dumps(report, indent=1) + "\n")
-        log(("tune" if args.only_tune else "distributed")
-            + " phase alone: passed")
+        log(f"{name} phase alone: passed")
         return 0
 
     phase_parity(dev)
@@ -4042,6 +4517,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_attention(dev, report, rows)
     torch.cuda.empty_cache()
+    phase_serve(dev, report, card)
     phase_tune(dev, report, card)
     phase_distributed(report, card)
     order = list(REPLACES)

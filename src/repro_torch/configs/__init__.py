@@ -1,4 +1,6 @@
-from repro_torch.configs.registry import (DSC_CONFIGS, DSCRunConfig,
-                                          get_dsc_config)
+from repro_torch.configs.registry import (ARCHITECTURES, DSC_CONFIGS,
+                                          DSCRunConfig, get_arch,
+                                          get_dsc_config, reduced_config)
 
-__all__ = ["DSC_CONFIGS", "DSCRunConfig", "get_dsc_config"]
+__all__ = ["ARCHITECTURES", "DSC_CONFIGS", "DSCRunConfig", "get_arch",
+           "get_dsc_config", "reduced_config"]

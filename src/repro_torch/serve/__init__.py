@@ -1,1 +1,2 @@
-"""Long-running services of the port (``serve/stream.py``)."""
+"""Serving in the port: the LM serving engine (``serve/engine.py``) and the
+windowed DSC streaming service (``serve/stream.py``)."""

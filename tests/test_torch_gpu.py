@@ -1712,3 +1712,123 @@ def test_tune_cluster_tiles_kernel_candidates_on_card(cuda):
                for c in res.candidates)
     assert kernels.LAUNCHES["round_scan"] > 0
     assert kernels.LAUNCHES["claim_max"] > 0
+
+
+# ----------------------------- the LM serving path ---------------------------
+# bf16 ulps of the largest value compared, card against the CPU (cuBLAS and
+# the CPU's GEMMs sum in other orders; a few one-ulp roundings add up
+# through the layers); tokens follow the margin rule at 4 ulps
+
+
+def _ulps(want, ulps):
+    import math
+    top = float(want.detach().float().abs().max())
+    return ulps * 2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0
+
+
+def _lm(arch, seed, cuda):
+    import copy
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.models import transformer as tf
+    cfg = reduced_config(get_arch(arch))
+    cpu = tf.init_model(cfg, generator=torch.Generator().manual_seed(seed),
+                        device="cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(cuda)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-moe-a2.7b",
+                                  "rwkv6-1.6b", "zamba2-1.2b",
+                                  "paligemma-3b", "musicgen-large"])
+def test_lm_forward_card_matches_cpu(cuda, arch):
+    """One reduced architecture of each family: the full forward's logits
+    and a prefill's caches on the card within 8 bf16 ulps of the CPU's,
+    no custom kernel launched (the reference's attention is plain XLA)."""
+    from repro_torch.models import transformer as tf
+    cfg, cpu, card = _lm(arch, 0, cuda)
+    rng = np.random.default_rng(0)
+    shape = (2, cfg.n_codebooks, 10) if cfg.family == "audio" else (2, 10)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
+                           .astype(np.int32))
+    fe = None
+    if cfg.family == "vlm":
+        fe = torch.from_numpy(rng.normal(0, 1, (2, cfg.vision_tokens,
+                                                cfg.d_vision))
+                              .astype(np.float32))
+    n = 10 + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        outs = []
+        for p, d in ((card, cuda), (cpu, torch.device("cpu"))):
+            cache = tf.init_cache(cfg, 2, n, device=d)
+            logits, _, cache = tf.forward(
+                p, tok.to(d), cfg, cache=cache, cache_index=0,
+                frontend_inputs=None if fe is None else fe.to(d))
+            outs.append((logits, cache))
+    assert not any(kernels.LAUNCHES.values())
+    (gl, gc), (cl, cc) = outs
+    assert gl.is_cuda and bool(torch.isfinite(gl).all())
+    torch.testing.assert_close(gl.cpu(), cl, rtol=0, atol=_ulps(cl, 8))
+    for k in cc:
+        torch.testing.assert_close(gc[k].cpu().float(), cc[k].float(),
+                                   rtol=0, atol=_ulps(cc[k], 8))
+
+
+def _engine_run(mod, params, cfg, monkeypatch=None):
+    steps = []
+    if monkeypatch is not None:
+        for name in ("prefill_step", "decode_step"):
+            real = getattr(mod, name)
+
+            def rec(*a, _real=real, **kw):
+                logits, cache = _real(*a, **kw)
+                steps.append(logits.float().cpu())
+                return logits, cache
+            monkeypatch.setattr(mod, name, rec)
+    eng = mod.ServeEngine(params, cfg, n_slots=3, max_len=48)
+    rng = np.random.default_rng(0)
+    for u in range(7):
+        eng.submit(mod.Request(uid=u, prompt=rng.integers(
+            0, 256, int(rng.integers(6, 13))).astype(np.int32), max_new=5))
+    return eng, {r.uid: (len(r.prompt), r.out) for r in eng.run()}, steps
+
+
+def test_serve_engine_card_matches_cpu(cuda, monkeypatch):
+    """``ServeEngine`` on the card against the same engine on the CPU
+    (reduced smollm-360m, 7 requests in 3 slots): equal counters, and
+    each request's tokens equal before its first step whose CPU top-1 /
+    top-2 gap is within 4 ulps (the margin rule)."""
+    from repro_torch.serve import engine as teng
+    cfg, cpu, card = _lm("smollm-360m", 0, cuda)
+    ceng, cout, steps = _engine_run(teng, cpu, cfg, monkeypatch)
+    monkeypatch.undo()
+    geng, gout, _ = _engine_run(teng, card, cfg)
+    assert geng.device.type == "cuda"
+    for f in ("prefill_calls", "decode_steps", "padding_waste"):
+        assert getattr(geng, f) == getattr(ceng, f), f
+    order = sorted(cout, key=lambda u: cout[u][0])
+    sure = 0
+    for w in range(3):
+        for slot, uid in enumerate(order[3 * w:3 * w + 3]):
+            for t in range(5):
+                row = steps[5 * w + t][slot]
+                top = torch.topk(row, 2).values
+                if float(top[0] - top[1]) <= _ulps(row, 4):
+                    break
+                assert gout[uid][1][t] == cout[uid][1][t], (uid, t)
+                sure += 1
+    assert sure >= 10
+
+
+def test_serve_launcher_on_card(cuda, caplog):
+    """The launcher with ``--device cuda`` serves what ``--device cpu``
+    serves: the same requests, token counts and counters."""
+    import logging
+    from repro_torch.launch import serve as launcher
+    with caplog.at_level(logging.INFO, logger="repro_torch"):
+        g = launcher.main(["--arch", "smollm-360m", "--device", "cuda"])
+        c = launcher.main(["--arch", "smollm-360m", "--device", "cpu"])
+    assert [len(r.out) for r in g] == [len(r.out) for r in c]
+    assert [r.uid for r in g] == [r.uid for r in c]
+    lines = [r.getMessage().split("; ", 1)[1] for r in caplog.records
+             if "served" in r.getMessage()]
+    assert len(lines) == 2 and lines[0] == lines[1]
