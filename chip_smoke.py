@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--json PATH] [--only-serve | --only-tune |
-                                         --only-distributed]
+    python3 chip_smoke.py [--json PATH] [--only-serve | --only-train |
+                                         --only-tune | --only-distributed]
 
 Run from the root of a checkout; it needs no build step (the kernels
 build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
@@ -197,6 +197,33 @@ custom kernel (counts zeroed just before it, read just after):
 * gemma2-2b at full width, one wave of 2 x 4608 (past the 4096 window),
   ``max_len`` 5120, 8 decode steps: times and peak;
 * the port's launcher in this process, ``--arch smollm-360m --full``.
+
+The LM training path (``phase_train``, after the serving phase, or alone
+with ``--only-train``); no TPU kernel lies on it and the reference has no
+backward kernel, so every part must launch no custom kernel (counts
+zeroed just before it, read just after):
+
+* every architecture at its reduced config, the same params and
+  ``TokenPipeline`` batch on the card and on the CPU, one ``train_step``
+  (remat=True): ``lr`` bitwise, the loss within 2**-9, the grad norm
+  within 2**-6 relative, each moment leaf within 10% relative L2 and
+  cosine 0.995 (``tests/test_torch_train.py``'s bounds), the new params
+  within lr / 1000 where both first moments share a sign and exceed 1e-5
+  and within 2 lr everywhere, MoE choices under the margin rule; on the
+  card the step lowers its batch's loss;
+* smollm-360m at full width, B = 4 x 4,096 ``TokenPipeline`` tokens (the
+  train_4k shape's length, its global batch 256 cut to 4), 8 steps at
+  remat=True: losses and grad norms finite, the last two losses below
+  the first two; one more step from the same state and batch at each
+  remat mode: the loss bitwise remat=True's, each leaf's update within
+  ``TRAIN_REMAT_REL`` of it; step ms (CUDA events), tokens/s, each mode's
+  peak above the held state;
+* zamba2-1.2b at full width, B = 2 x 2,048, 2 steps: finite, the shared
+  attention block's first moments (its gradient summed over its 6 uses)
+  finite and non-zero; step ms and peak;
+* the port's training launcher in this process, ``--arch smollm-360m
+  --full --steps 20 --batch 8 --seq 512 --ckpt-every 10 --device cuda``,
+  then ``--steps 30 --resume`` (logs ``resumed from step 20``).
 
 The plan autotuner (``phase_tune``, before the multi-device phase, or
 alone with ``--only-tune``): ``repro_torch.tune.autotune``'s sweeps on
@@ -4305,6 +4332,441 @@ def phase_serve(dev, report, card: str):
     phase_serve_launcher(report)
 
 
+# the LM training phase: every family reduced (card against CPU, the
+# bounds of tests/test_torch_train.py), smollm-360m at full width with the
+# train_4k shape's sequence (the global batch cut from 256 to 4), zamba2-1.2b
+# at full width, the training launcher run and resumed
+TRAIN_KW = dict(peak_lr=1e-2, warmup=2, total_steps=10)
+TRAIN_LOSS_TOL = 2.0 ** -9
+TRAIN_GNORM_REL = 2.0 ** -6
+TRAIN_REL, TRAIN_COS = 0.1, 0.995
+TRAIN_ARCH, TRAIN_B, TRAIN_L, TRAIN_STEPS = "smollm-360m", 4, 4096, 8
+TRAIN_FULL_KW = dict(peak_lr=1e-3, warmup=2, total_steps=10_000)
+# the remat modes' new params against remat=True's: the card's atomic
+# scatter adds in the backward reorder f32 sums, and Adam divides by
+# sqrt(v), so where v is tiny such a change moves an element's update by
+# up to its whole size: each leaf's update within this relative L2, each
+# element within 2 lr
+TRAIN_REMAT_REL = 0.05
+ZAMBA_ARCH, ZAMBA_B, ZAMBA_L, ZAMBA_STEPS = "zamba2-1.2b", 2, 2048, 2
+
+
+def host_leaves(tree) -> list:
+    from repro_torch.optim.adamw import tree_leaves
+    return [x.detach().float().cpu().numpy() for x in tree_leaves(tree)]
+
+
+def leaf_close(got, want, paths, rel, cos, what) -> tuple[float, float]:
+    """Per leaf: relative L2 within ``rel`` (of the leaf's norm, or of
+    1/256 of the largest leaf norm where the leaf's is smaller) and, above
+    that floor, the cosine at least ``cos``; the worst (rel, cos) above the
+    floor."""
+    import numpy as np
+    floor = max(float(np.linalg.norm(w.astype(np.float64))) for w in want)
+    floor /= 256
+    worst = (0.0, 1.0)
+    for p, g, w in zip(paths, got, want):
+        g, w = g.astype(np.float64), w.astype(np.float64)
+        nw, err = float(np.linalg.norm(w)), float(np.linalg.norm(g - w))
+        check(np.isfinite(g).all(), f"{what} {p}: not finite")
+        check(err <= rel * max(nw, floor),
+              f"{what} {p}: |card - cpu| {err} > {rel} x {max(nw, floor)}")
+        if nw >= floor:
+            c = float((g * w).sum() / (np.linalg.norm(g) * nw))
+            check(c >= cos, f"{what} {p}: cosine {c} < {cos}")
+            worst = (max(worst[0], err / nw), min(worst[1], c))
+    return worst
+
+
+def train_batch(cfg, B: int, L: int, step: int, dev, seed: int = 0):
+    """``TokenPipeline``'s batch ``step`` on ``dev``: tokens, labels,
+    frontend (None outside vlm)."""
+    from repro_torch.data.pipeline import TokenPipeline
+    b = TokenPipeline(cfg, B, L, seed=seed).batch_at(step)
+    fe = b.get("frontend")
+    return (torch.from_numpy(b["tokens"]).to(dev),
+            torch.from_numpy(b["labels"]).to(dev),
+            None if fe is None else torch.from_numpy(fe).to(dev))
+
+
+def phase_train_reduced(dev, report):
+    """Every architecture at its reduced config, the same params and
+    ``TokenPipeline`` batch on the card and on the CPU: one ``train_step``
+    each (remat=True): ``lr`` bitwise, the loss within 2**-9, the grad norm
+    within 2**-6 relative, each moment leaf within 10% relative L2 and
+    cosine 0.995 (above 1/256 of the largest leaf norm), the new params
+    within lr / 1000 where both first moments share a sign and exceed 1e-5
+    and within 2 lr everywhere (a bf16 sign flip of a tiny gradient); MoE
+    choices under the margin rule.  On the card the step lowers the loss
+    of its own batch (``tests/test_arch_smoke.py``'s check)."""
+    import copy
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import ARCHITECTURES, get_arch, reduced_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.train.step import TrainState, loss_and_grads, train_step
+    out = {}
+    for i, arch in enumerate(ARCHITECTURES):
+        cfg = reduced_config(get_arch(arch))
+        cpu = tf.init_model(cfg, generator=torch.Generator().manual_seed(i),
+                            device="cpu")
+        before = copy.deepcopy(cpu)
+        card = copy.deepcopy(cpu).to(dev)
+        cs, gs = TrainState(cpu, adamw_init(cpu)), TrainState(
+            card, adamw_init(card))
+        ct, cl, cf = train_batch(cfg, 2, 32, 0, "cpu", seed=i)
+        gt, gl, gf = (ct.to(dev), cl.to(dev),
+                      None if cf is None else cf.to(dev))
+        seen = []
+        kernels.reset_launch_counts()
+        with recorded_moe(seen):
+            gs, gm = train_step(gs, gt, gl, cfg, frontend_inputs=gf,
+                                **TRAIN_KW)
+        cs, cm = train_step(cs, ct, cl, cfg, frontend_inputs=cf, **TRAIN_KW)
+        with torch.no_grad():
+            after = float(loss_and_grads(gs.params, gt, gl, cfg,
+                                         frontend_inputs=gf)[0])
+        launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        check(not launched, f"{arch}: training launched {launched}")
+        m = {k: float(v) for k, v in gm.items()}
+        c = {k: float(v) for k, v in cm.items()}
+        check(all(np.isfinite(v) for v in m.values()), f"{arch}: {m}")
+        check(m["lr"] == c["lr"], f"{arch}: lr {m['lr']} vs {c['lr']}")
+        check(abs(m["loss"] - c["loss"]) <= TRAIN_LOSS_TOL,
+              f"{arch}: loss card {m['loss']} cpu {c['loss']}")
+        check(abs(m["grad_norm"] / c["grad_norm"] - 1) <= TRAIN_GNORM_REL,
+              f"{arch}: grad norm card {m['grad_norm']} cpu "
+              f"{c['grad_norm']}")
+        check(after < m["loss"], f"{arch}: one step on the card did not "
+                                 f"lower its batch's loss ({m['loss']} -> "
+                                 f"{after})")
+        low = 0
+        if cfg.family == "moe":
+            # the forward's layer inputs (remat recomputes them once more
+            # in the backward)
+            with torch.no_grad():
+                bound, low = moe_aux_bound(cfg, before,
+                                           seen[:cfg.n_layers
+                                                - cfg.moe.first_k_dense])
+            err = abs(m["moe_aux"] - c["moe_aux"])
+            check(err <= 1e-3 * c["moe_aux"] + bound,
+                  f"{arch} moe_aux: {err} > {1e-3 * c['moe_aux'] + bound}")
+        paths = _flatten_with_paths(cs.params.tree())[0]
+        keep = [j for j, p in enumerate(paths)
+                if not (low and p.startswith("layers/moe"))]
+        worst = {}
+        for what, g, w in (("mu", gs.opt.mu, cs.opt.mu),
+                           ("nu", gs.opt.nu, cs.opt.nu)):
+            g, w = host_leaves(g), host_leaves(w)
+            worst[what] = leaf_close([g[j] for j in keep],
+                                     [w[j] for j in keep],
+                                     [paths[j] for j in keep], TRAIN_REL,
+                                     TRAIN_COS, f"{arch} {what}")
+        lr, flips, n = c["lr"], 0, 0
+        for p, a, b, ma, mb in zip(paths, host_leaves(gs.params),
+                                   host_leaves(cs.params),
+                                   host_leaves(gs.opt.mu),
+                                   host_leaves(cs.opt.mu)):
+            d = np.abs(a - b)
+            ulps = 2 * np.spacing(np.abs(b))
+            sure = ((np.sign(ma) == np.sign(mb)) & (np.abs(ma) > 1e-5)
+                    & (np.abs(mb) > 1e-5))
+            check(bool((d[sure] <= lr * 1e-3 + ulps[sure]).all()),
+                  f"{arch} {p}: new params differ where the step is sure")
+            check(bool((d <= 2 * lr + ulps).all()),
+                  f"{arch} {p}: new params differ by more than 2 lr")
+            flips += int((np.sign(ma) != np.sign(mb)).sum())
+            n += ma.size
+        out[arch] = {"loss_card": m["loss"], "loss_cpu": c["loss"],
+                     "loss_after": after, "grad_norm_card": m["grad_norm"],
+                     "grad_norm_cpu": c["grad_norm"], "mu_worst": worst["mu"],
+                     "nu_worst": worst["nu"], "sign_flips": flips / n,
+                     "moe_rows_not_sure": low if cfg.family == "moe"
+                     else None}
+        log(f"train reduced ({arch}, {cfg.family}): loss card {m['loss']:.6f}"
+            f" cpu {c['loss']:.6f} -> {after:.6f} after the step; grad norm "
+            f"{m['grad_norm']:.5f} / {c['grad_norm']:.5f}; moments worst rel "
+            f"{max(worst['mu'][0], worst['nu'][0]):.4f}, cos "
+            f"{min(worst['mu'][1], worst['nu'][1]):.5f}; first-moment signs "
+            f"differ at {flips / n:.4%} of the elements"
+            + (f"; MoE rows not sure {low}" if cfg.family == "moe" else ""))
+        del card, gs, cs
+    report["train_reduced"] = out
+
+
+def clone_state(state):
+    from repro_torch.optim.adamw import tree_leaves
+    return [x.detach().clone() for x in (
+        tree_leaves(state.params) + tree_leaves(state.opt.mu)
+        + tree_leaves(state.opt.nu))] + [state.opt.step.clone()]
+
+
+@torch.no_grad()
+def restore_state(state, saved):
+    from repro_torch.optim.adamw import AdamWState, tree_leaves
+    from repro_torch.train.step import TrainState
+    mine = (tree_leaves(state.params) + tree_leaves(state.opt.mu)
+            + tree_leaves(state.opt.nu))
+    torch._foreach_copy_(mine, saved[:-1])
+    return TrainState(state.params, AdamWState(
+        saved[-1].clone(), state.opt.mu, state.opt.nu))
+
+
+def timed_step(step_fn, state, batch):
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    state, metrics = step_fn(state, batch[0], batch[1],
+                             frontend_inputs=batch[2])
+    e.record()
+    return state, metrics, (s, e)
+
+
+def phase_train_smollm(dev, report, card: str):
+    """smollm-360m at full width (32 layers, d 960, vocab 49,152), B = 4
+    sequences of 4,096 ``TokenPipeline`` tokens (the train_4k shape's
+    length; its global batch 256 cut to 4), 8 steps at remat=True: every
+    loss and grad norm finite, the last two losses below the first two;
+    then one more step from the same state and batch at each remat mode:
+    the loss bitwise remat=True's, the new params within
+    ``TRAIN_REMAT_REL``; step ms (CUDA events), tokens/s and each mode's
+    peak above the held state."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.train.step import TrainState, make_train_step
+    cfg = get_arch(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, n, norms, init_s = serve_params(cfg, 0, dev)
+    state = TrainState(params, adamw_init(params))
+    steps = {r: make_train_step(cfg, remat=r, **TRAIN_FULL_KW)
+             for r in (True, False, "dots")}
+    kernels.reset_launch_counts()
+    metrics, events = [], []
+    for i in range(TRAIN_STEPS):
+        batch = train_batch(cfg, TRAIN_B, TRAIN_L, i, dev)
+        state, m, ev = timed_step(steps[True], state, batch)
+        metrics.append(m)
+        events.append(ev)
+    torch.cuda.synchronize()
+    peak8 = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    check(all(np.isfinite(losses + gnorms)),
+          f"smollm training: losses {losses}, grad norms {gnorms}")
+    check(np.mean(losses[-2:]) < np.mean(losses[:2]),
+          f"smollm training: loss did not fall: {losses}")
+    # one more step from the same state and batch at each remat mode
+    saved = clone_state(state)
+    p8 = saved[:len(tree_leaves(params))]
+    batch = train_batch(cfg, TRAIN_B, TRAIN_L, TRAIN_STEPS, dev)
+    modes, diffs, want = {}, {}, None
+    for r in (True, False, "dots"):
+        state = restore_state(state, saved)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state, m, (s, e) = timed_step(steps[r], state, batch)
+        torch.cuda.synchronize()
+        modes[r] = {"loss": m["loss"].clone(), "lr": float(m["lr"]),
+                    "ms": s.elapsed_time(e),
+                    "peak_gb": (torch.cuda.max_memory_allocated() - held)
+                    / 1e9, "held_gb": held / 1e9}
+        got = tree_leaves(state.params)
+        if r is True:
+            want = [x.detach().clone() for x in got]
+            continue
+        check(torch.equal(modes[r]["loss"], modes[True]["loss"]),
+              f"remat={r!r}: loss {float(modes[r]['loss'])} is not "
+              f"remat=True's {float(modes[True]['loss'])} bitwise")
+        worst, top, same = 0.0, 0.0, True
+        for a, b, p0 in zip(got, want, p8):
+            a = a.detach()
+            ua, ub = (a - p0).double(), (b - p0).double()
+            nb = float(ub.norm())
+            rel = float((ua - ub).norm()) / nb if nb else 0.0
+            worst = max(worst, rel)
+            top = max(top, float((a - b).abs().max()))
+            same = same and torch.equal(a, b)
+        lr = modes[True]["lr"]
+        check(worst <= TRAIN_REMAT_REL, f"remat={r!r}: a leaf's update "
+                                        f"{worst} from remat=True's")
+        check(top <= 2 * lr * (1 + 1e-3) + 1e-6,
+              f"remat={r!r}: an element {top} from remat=True's")
+        diffs[r] = {"update_rel": worst, "max_abs": top, "bitwise": same}
+    del want
+    launched = {k: c for k, c in kernels.LAUNCHES.items() if c}
+    check(not launched, f"training launched {launched}")
+    lr = modes[True]["lr"]
+    tok = TRAIN_B * TRAIN_L
+    steady = ms[1:]
+    res = {"params": n, "init_s": init_s, "losses": losses,
+           "grad_norms": gnorms, "step_ms": ms,
+           "step_ms_mean": sum(steady) / len(steady),
+           "tokens_per_s": tok / (sum(steady) / len(steady) / 1e3),
+           "peak_gb_8_steps": peak8,
+           "remat": {str(r): {k: v for k, v in d.items() if k != "loss"}
+                     | {"loss": float(d["loss"])} for r, d in modes.items()},
+           "remat_vs_true": {str(r): d for r, d in diffs.items()},
+           "card": card}
+    report["train_smollm"] = res
+    log(f"train ({TRAIN_ARCH} full: 32 layers, d 960, vocab 49152; {n} "
+        f"parameters; init {init_s:.2f} s): B {TRAIN_B} x L {TRAIN_L}, "
+        f"{TRAIN_STEPS} steps at remat=True: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in gnorms) + "; step ms "
+        + ", ".join(f"{x:.1f}" for x in ms)
+        + f" (mean after the first {res['step_ms_mean']:.1f}, "
+          f"{res['tokens_per_s']:.0f} tokens/s); peak {peak8:.3f} GB "
+          f"({card})")
+    for r, d in modes.items():
+        extra = "" if r is True else (
+            f"; loss bitwise remat=True's, params: update rel "
+            f"{diffs[r]['update_rel']:.3g}, max |diff| "
+            f"{diffs[r]['max_abs']:.3g} (lr {lr:.3g}), bitwise "
+            f"{diffs[r]['bitwise']}")
+        log(f"train ({TRAIN_ARCH}) step {TRAIN_STEPS + 1} at remat={r!r}: "
+            f"{d['ms']:.1f} ms, loss {float(d['loss']):.6f}, peak "
+            f"{d['peak_gb']:.3f} GB above the {d['held_gb']:.3f} GB held"
+            + extra)
+    del params, state, saved, p8, modes, steps
+    torch.cuda.empty_cache()
+
+
+def phase_train_zamba(dev, report, card: str):
+    """zamba2-1.2b at full width (38 Mamba-2 layers, d 2048, the shared
+    attention block after every 6th), B = 2 x 2,048, 2 steps at remat=True:
+    losses and grad norms finite; after the first step the shared block's
+    first moments (0.1 x its clipped gradient, the sum over its 6 uses)
+    finite and non-zero in every leaf; step ms and peak."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import TrainState, make_train_step
+    cfg = get_arch(ZAMBA_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = tf.init_model(cfg, generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    n = sum(p.numel() for p in params.parameters())
+    state = TrainState(params, adamw_init(params))
+    step = make_train_step(cfg, **TRAIN_FULL_KW)
+    kernels.reset_launch_counts()
+    out, shared = [], None
+    for i in range(ZAMBA_STEPS):
+        batch = train_batch(cfg, ZAMBA_B, ZAMBA_L, i, dev, seed=2)
+        state, m, ev = timed_step(step, state, batch)
+        if i == 0:
+            shared = {k: (float(v.norm()), bool(torch.isfinite(v).all()))
+                      for k, v in zip(*_flatten_with_paths(
+                          state.opt.mu["shared_attn"]))}
+        out.append((float(m["loss"]), float(m["grad_norm"]), ev))
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in kernels.LAUNCHES.items() if c}
+    check(not launched, f"zamba2 training launched {launched}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(all(np.isfinite([lo, g]).all() for lo, g, _ in out),
+          f"zamba2: {[(lo, g) for lo, g, _ in out]}")
+    check(all(fin and nrm > 0 for nrm, fin in shared.values()),
+          f"zamba2: the shared block's gradient: {shared}")
+    ms = [s.elapsed_time(e) for _, _, (s, e) in out]
+    report["train_zamba"] = {"params": n, "losses": [o[0] for o in out],
+                             "grad_norms": [o[1] for o in out],
+                             "step_ms": ms, "peak_gb": peak,
+                             "shared_mu_norms": {k: v[0] for k, v in
+                                                 shared.items()},
+                             "card": card}
+    log(f"train ({ZAMBA_ARCH} full: 38 layers, d 2048, the shared block "
+        f"every 6; {n} parameters): B {ZAMBA_B} x L {ZAMBA_L}, remat=True: "
+        f"losses " + ", ".join(f"{o[0]:.4f}" for o in out)
+        + "; grad norms " + ", ".join(f"{o[1]:.3f}" for o in out)
+        + "; step ms " + ", ".join(f"{x:.1f}" for x in ms)
+        + f"; the shared block's first moments finite and non-zero in all "
+          f"{len(shared)} leaves (smallest norm "
+          f"{min(v[0] for v in shared.values()):.3g}); peak {peak:.3f} GB "
+          f"({card})")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def phase_train_launcher(report):
+    """The port's training launcher in this process, twice: ``--arch
+    smollm-360m --full --steps 20 --batch 8 --seq 512 --ckpt-every 10
+    --device cuda`` into a fresh directory, then the same with ``--steps
+    30 --resume``: the second logs ``resumed from step 20`` and trains 10
+    steps; every loss finite."""
+    import logging
+    import math
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.launch import train as launcher
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    lines = Lines()
+    logger = logging.getLogger("repro_torch")
+    logger.addHandler(lines)
+    walls = []
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+            argv = ["--arch", TRAIN_ARCH, "--full", "--batch", "8", "--seq",
+                    "512", "--ckpt-dir", d, "--ckpt-every", "10",
+                    "--device", "cuda"]
+            kernels.reset_launch_counts()
+            runs = []
+            for extra in (["--steps", "20"], ["--steps", "30", "--resume"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs.append(launcher.main(argv + extra))
+                walls.append(time.perf_counter() - t0)
+            disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                       if f.is_file()) / 1e9
+    finally:
+        logger.removeHandler(lines)
+    launched = {k: c for k, c in kernels.LAUNCHES.items() if c}
+    check(not launched, f"the training launcher launched {launched}")
+    check([len(r) for r in runs] == [20, 10],
+          f"launcher: {[len(r) for r in runs]} steps, want 20 then 10")
+    check(all(math.isfinite(x) for r in runs for x in r),
+          f"launcher: losses {runs}")
+    check("resumed from step 20" in lines.lines,
+          "launcher: the second run did not log 'resumed from step 20'")
+    verdicts = [x for x in lines.lines if "->" in x]
+    report["train_launcher"] = {"walls_s": walls, "losses": runs,
+                                "verdicts": verdicts, "disk_gb": disk}
+    log(f"train launcher (--arch {TRAIN_ARCH} --full --batch 8 --seq 512, "
+        f"--ckpt-every 10): 20 steps in {walls[0]:.2f} s, then --steps 30 "
+        f"--resume ('resumed from step 20') in {walls[1]:.2f} s (init, "
+        f"checkpoints included; {disk:.2f} GB on disk at the end); "
+        + "; ".join(verdicts))
+
+
+def phase_train(dev, report, card: str):
+    """The LM training path (no TPU kernel lies on it, and the reference
+    has no backward kernel: no custom kernel launches here)."""
+    phase_train_reduced(dev, report)
+    phase_train_smollm(dev, report, card)
+    phase_train_zamba(dev, report, card)
+    phase_train_launcher(report)
+
+
 def kernel_name(line: str) -> str | None:
     """The kernel a ptxas ``Function properties for <mangled>`` line is
     about: the ``<length><name>`` of the mangled name that ends in
@@ -4369,6 +4831,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-serve", action="store_true",
                     help="build, run the LM serving phase alone and exit "
                          "(no result line)")
+    ap.add_argument("--only-train", action="store_true",
+                    help="build, run the LM training phase alone and exit "
+                         "(no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4398,13 +4863,15 @@ def main(argv=None) -> int:
     report = {"card": card, "build_s": build_s,
               "build_steps_s": kernels.build_seconds}
     only = {"tune": args.only_tune, "serve": args.only_serve,
-            "distributed": args.only_distributed}
+            "train": args.only_train, "distributed": args.only_distributed}
     if any(only.values()):
         name = next(k for k, v in only.items() if v)
         if name == "tune":
             phase_tune(dev, report, card)
         elif name == "serve":
             phase_serve(dev, report, card)
+        elif name == "train":
+            phase_train(dev, report, card)
         else:
             phase_distributed(report, card)
         if args.json:
@@ -4518,6 +4985,9 @@ def main(argv=None) -> int:
     phase_attention(dev, report, rows)
     torch.cuda.empty_cache()
     phase_serve(dev, report, card)
+    torch.cuda.empty_cache()
+    phase_train(dev, report, card)
+    torch.cuda.empty_cache()
     phase_tune(dev, report, card)
     phase_distributed(report, card)
     order = list(REPLACES)

@@ -8,10 +8,13 @@ Layout (one directory per step):
         leaf_00000.npy ...
 
 Leaves are numbered in the reference's order (its pytree flattening
-with paths): dict keys sorted, list and tuple items by index, paths
-joined with ``/``; ``None`` holds no leaf.  A leaf is a torch
-tensor (copied to the host), a numpy array or a number.  So a checkpoint
-of either package restores in the other, bit for bit.
+with paths): dict keys sorted, list and tuple items by index, the fields
+of a :func:`tree_node` dataclass (the reference's ``pytree_dataclass``:
+``TrainState``, ``AdamWState``) in declaration order as ``.<field>``,
+a ``ParamTree`` as its nested dict; paths joined with ``/``; ``None``
+holds no leaf.  A leaf is a torch tensor (copied to the host), a numpy
+array or a number.  So a checkpoint of either package restores in the
+other, bit for bit.
 
 Guarantees
 ----------
@@ -25,6 +28,7 @@ Guarantees
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -42,6 +46,21 @@ from repro_torch.utils.logging import get_logger
 log = get_logger("checkpoint")
 
 
+_TREE_NODES: set = set()
+
+
+def tree_node(cls):
+    """Class decorator: instances of the dataclass ``cls`` flatten field by
+    field, in declaration order, with the path part ``.<field>``, as the
+    reference's ``pytree_dataclass`` instances do."""
+    _TREE_NODES.add(cls)
+    return cls
+
+
+def _is_param_tree(node) -> bool:
+    return isinstance(node, torch.nn.Module) and hasattr(node, "tree")
+
+
 def _items(node):
     """Children of a container node as ``(key, child)``, in the
     reference's flattening order; ``None`` for a leaf."""
@@ -49,6 +68,11 @@ def _items(node):
         return [(k, node[k]) for k in sorted(node)]
     if isinstance(node, (list, tuple)):
         return list(enumerate(node))
+    if type(node) in _TREE_NODES:
+        return [(f".{f.name}", getattr(node, f.name))
+                for f in dataclasses.fields(node)]
+    if _is_param_tree(node):
+        return _items(node.tree())
     return None
 
 
@@ -80,9 +104,20 @@ def _unflatten(tree, leaves):
             return next(it)
         if isinstance(node, dict):
             return {k: build(v) for k, v in items}
+        if type(node) in _TREE_NODES:
+            return type(node)(**{k[1:]: build(v) for k, v in items})
+        if _is_param_tree(node):
+            # tensors make a new ParamTree; host copies stay a dict
+            tree = {k: build(v) for k, v in items}
+            return type(node)(tree) if _all_tensors(tree) else tree
         return type(node)(build(v) for _, v in items)
 
     return build(tree)
+
+
+def _all_tensors(tree: dict) -> bool:
+    return all(_all_tensors(v) if isinstance(v, dict) else torch.is_tensor(v)
+               for v in tree.values())
 
 
 def to_host(leaf) -> np.ndarray:

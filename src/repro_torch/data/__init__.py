@@ -1,1 +1,2 @@
-"""Synthetic trajectory generators of the PyTorch/CUDA port."""
+"""Synthetic trajectory generators and the LM token pipeline of the
+PyTorch/CUDA port."""

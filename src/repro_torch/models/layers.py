@@ -12,11 +12,14 @@ same here, so such products round at the same point.
 """
 from __future__ import annotations
 
+import functools
 import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 
@@ -128,13 +131,54 @@ def _attend_dense(qg, k, v, q_pos, kv_pos, cfg, sliding_window, prefix_len,
     return torch.einsum("blkgm,bmkh->blkgh", probs, v)
 
 
+def _kv_step(m, l, acc, qi, kj, vj, qp, kvp, cfg, sliding_window,
+             prefix_len, max_kv):
+    """One KV chunk of the online softmax: the running (max, denom, acc)
+    after chunk ``kj`` / ``vj``."""
+    logits = torch.einsum("bqkgh,bmkh->bqkgm", qi, kj)
+    if cfg.attn_softcap is not None:
+        logits = _softcap(logits, cfg.attn_softcap)
+    msk = _mask_block(qp, kvp, sliding_window, prefix_len, max_kv)
+    logits = torch.where(msk[None, :, None, None, :], logits.to(F32), -1e30)
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    scale_old = torch.exp(m - m_new)
+    p_blk = torch.exp(logits - m_new[..., None])
+    l = l * scale_old + p_blk.sum(dim=-1)
+    pv = torch.einsum("bqkgm,bmkh->bqkgh", p_blk.to(qi.dtype), vj)
+    acc = acc * scale_old[..., None] + pv
+    return m_new, l, acc
+
+
+# ``depth`` is non-zero while this thread runs a checkpointed KV step: a
+# selective checkpoint around the layer ("dots", ``transformer._remat``)
+# saves nothing inside it, as ``dots_saveable`` sees nothing inside the
+# reference's ``jax.checkpoint(kv_step)`` (it would otherwise keep every
+# chunk's logits for the backward)
+KV_STEP = threading.local()
+
+
+def in_kv_step() -> bool:
+    return getattr(KV_STEP, "depth", 0) > 0
+
+
+def _kv_step_checkpointed(*args):
+    KV_STEP.depth = getattr(KV_STEP, "depth", 0) + 1
+    try:
+        return _kv_step(*args)
+    finally:
+        KV_STEP.depth -= 1
+
+
 def _attend_online(qg, k, v, q_pos, kv_pos, cfg, sliding_window, prefix_len,
                    max_kv):
     """Online softmax, as the reference's: query chunks in turn, each over
     the KV chunks with a running (max, denom, acc), peak memory O(q chunk
     x kv chunk).  The chunk sizes halve from ATTN_Q_CHUNK / ATTN_KV_CHUNK
     until they divide the lengths, as the reference's do: another
-    chunking is another order of float operations."""
+    chunking is another order of float operations.  While autograd
+    records, each KV step is checkpointed, as the reference's
+    ``jax.checkpoint(kv_step)``: the backward keeps the carried
+    (m, l, acc) of each step, not its f32 logits and probabilities."""
     B, Lq, KV, G, hd = qg.shape
     M = k.shape[1]
     qc, kc = ATTN_Q_CHUNK, ATTN_KV_CHUNK
@@ -145,7 +189,11 @@ def _attend_online(qg, k, v, q_pos, kv_pos, cfg, sliding_window, prefix_len,
     while M % kc:
         kc //= 2
     nq, nk = Lq // qc, M // kc
-    out = torch.empty((B, Lq, KV, G, hd), dtype=F32, device=qg.device)
+    step = _kv_step
+    if torch.is_grad_enabled():
+        step = functools.partial(checkpoint, _kv_step_checkpointed,
+                                 use_reentrant=False)
+    outs = []
     for i in range(nq):
         qi = qg[:, i * qc:(i + 1) * qc]              # [B, qc, KV, G, hd]
         qp = q_pos[i * qc:(i + 1) * qc]
@@ -153,24 +201,12 @@ def _attend_online(qg, k, v, q_pos, kv_pos, cfg, sliding_window, prefix_len,
         l = torch.zeros((B, qc, KV, G), dtype=F32, device=qg.device)
         acc = torch.zeros((B, qc, KV, G, hd), dtype=F32, device=qg.device)
         for j in range(nk):
-            kj = k[:, j * kc:(j + 1) * kc]           # [B, kc, KV, hd]
-            vj = v[:, j * kc:(j + 1) * kc]
-            kvp = kv_pos[j * kc:(j + 1) * kc]
-            logits = torch.einsum("bqkgh,bmkh->bqkgm", qi, kj)
-            if cfg.attn_softcap is not None:
-                logits = _softcap(logits, cfg.attn_softcap)
-            msk = _mask_block(qp, kvp, sliding_window, prefix_len, max_kv)
-            logits = torch.where(msk[None, :, None, None, :],
-                                 logits.to(F32), -1e30)
-            m_new = torch.maximum(m, logits.amax(dim=-1))
-            scale_old = torch.exp(m - m_new)
-            p_blk = torch.exp(logits - m_new[..., None])
-            l = l * scale_old + p_blk.sum(dim=-1)
-            pv = torch.einsum("bqkgm,bmkh->bqkgh", p_blk.to(qi.dtype), vj)
-            acc = acc * scale_old[..., None] + pv
-            m = m_new
-        out[:, i * qc:(i + 1) * qc] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.to(qg.dtype)
+            m, l, acc = step(m, l, acc, qi, k[:, j * kc:(j + 1) * kc],
+                             v[:, j * kc:(j + 1) * kc],
+                             qp, kv_pos[j * kc:(j + 1) * kc], cfg,
+                             sliding_window, prefix_len, max_kv)
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.cat(outs, dim=1).to(qg.dtype)
 
 
 def attention(p, x, cfg: ModelConfig, positions, *, mask=None,

@@ -67,13 +67,14 @@ def _chunk_scan(q, k, v, ld, u, mode: str, state0, chunk: int):
                                         -CLAMP, CLAMP)).to(kc.dtype)
     S = state0.to(F32)
     y_state = []
-    for i in range(n):
-        qs_i = qs[:, :, i]
+    # the chunks unbound once: the backward stacks their gradients once,
+    # where indexing each chunk apart adds a zero tensor of the whole
+    for qs_i, tot_i, kt_i, vc_i in zip(qs.unbind(2), total.unbind(2),
+                                       k_tail.unbind(2), vc.unbind(2)):
         y_state.append(torch.einsum("bhik,bhkv->bhiv", qs_i,
                                     S.to(qs_i.dtype)))
-        S = (S * torch.exp(torch.clamp(total[:, :, i], -CLAMP, CLAMP))[..., None]
-             + torch.einsum("bhik,bhiv->bhkv", k_tail[:, :, i],
-                            vc[:, :, i]).to(F32))
+        S = (S * torch.exp(torch.clamp(tot_i, -CLAMP, CLAMP))[..., None]
+             + torch.einsum("bhik,bhiv->bhkv", kt_i, vc_i).to(F32))
     y = y_intra + torch.stack(y_state, dim=2)
     return y.reshape(B, H, L, V), S
 

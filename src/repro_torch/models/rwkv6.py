@@ -88,7 +88,7 @@ def rwkv_block(p, x, cfg: ModelConfig, state=None):
     lora = torch.tanh(_bf16(mix_x) @ _bf16(p["mix_lora_a"]))
     dyn = torch.einsum("blr,srd->sbld", lora, _bf16(p["mix_lora_b"]))
     mixes = _bf16(p["mix_base"][:, None, None, :]) + dyn
-    xr, xk, xv, xw, xg = [xa + dx * mixes[i] for i in range(5)]
+    xr, xk, xv, xw, xg = [xa + dx * m for m in mixes.unbind(0)]
 
     rq = _bf16(xr) @ _bf16(p["wr"])
     kk = _bf16(xk) @ _bf16(p["wk"])

@@ -13,19 +13,26 @@ audio   musicgen (EnCodec-stub: 4 codebooks summed in, 4 heads out)
 
 The parameters keep the reference's tree: layer stacks are stacked
 ``[L, ...]`` leaves, and a Python loop over layer slices replaces
-``lax.scan``.  ``init_model`` returns a :class:`ParamTree`, an
-``nn.Module`` whose parameter names are the tree's paths joined with dots
+``lax.scan`` (the stacks are unbound once a forward, so the backward
+stacks each leaf's layer gradients once).  ``remat`` wraps each layer
+body as the reference's ``jax.checkpoint`` does, with
+``torch.utils.checkpoint`` (``"dots"``: a selective policy that saves
+the matrix products' outputs, the reference's ``dots_saveable``).
+``init_model`` returns a :class:`ParamTree`, an ``nn.Module`` whose parameter names are the tree's paths joined with dots
 (``layers.attn.wq``, ``embed.table``).  Caches are updated in place (slice
 assignment in place of the reference's donated buffers); ``forward`` still
 returns ``(logits, aux, new_cache)``, ``new_cache`` being the cache given.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as Lyr
@@ -35,9 +42,6 @@ from repro_torch.models.config import ModelConfig
 GLOBAL_WINDOW = 1 << 30
 MESH_NOT_PORTED = ("mesh= (sharded layers, expert parallelism) comes with "
                    "the distributed-LM slice of the port (ROADMAP Queue 1)")
-REMAT_NOT_PORTED = ("remat (activation checkpointing for the backward "
-                    "pass) comes with the training slice of the port "
-                    "(ROADMAP Queue 1)")
 
 
 class ParamTree(nn.Module):
@@ -67,10 +71,14 @@ def _as_tree(params) -> dict:
     return params.tree() if isinstance(params, ParamTree) else params
 
 
-def _slice(tree, i):
-    """Layer ``i`` of a stacked ``[L, ...]`` tree."""
-    return {k: _slice(v, i) if isinstance(v, dict) else v[i]
+def _unstack(tree) -> list:
+    """The layers of a stacked ``[L, ...]`` tree, each leaf unbound once:
+    its backward is one ``stack``, where indexing each layer apart would
+    add a zero tensor of the whole stack per layer."""
+    cols = {k: _unstack(v) if isinstance(v, dict) else torch.unbind(v)
             for k, v in tree.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def _stack(trees: list) -> dict:
@@ -243,6 +251,35 @@ def _layer_windows(cfg: ModelConfig) -> list[int]:
     return [GLOBAL_WINDOW] * cfg.n_layers
 
 
+# the matrix products: what ``jax.checkpoint_policies.dots_saveable`` saves
+# (``einsum`` and ``@`` reach these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS and not Lyr.in_kv_step():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(body, remat):
+    """remat=True: full recompute; remat="dots": save GEMM outputs and
+    recompute only the cheap elementwise chain (selective checkpointing).
+    Only while autograd records: without a backward there is nothing to
+    save."""
+    if not remat or not torch.is_grad_enabled():
+        return body
+    kw = {"use_reentrant": False}
+    if remat == "dots":
+        kw["context_fn"] = _dots_contexts
+    return functools.partial(checkpoint, body, **kw)
+
+
 def _kv(cache, ki: str, vi: str, i: int):
     """Layer ``i``'s k / v cache: views of the stacked cache, so the
     attention's in-place write lands in it."""
@@ -263,8 +300,6 @@ def forward(params, tokens, cfg: ModelConfig, *,
     """
     if mesh is not None:
         raise NotImplementedError(MESH_NOT_PORTED)
-    if remat is not False:
-        raise NotImplementedError(REMAT_NOT_PORTED)
     P = _as_tree(params)
     dev = tokens.device
     if cache_index is not None:
@@ -298,36 +333,39 @@ def forward(params, tokens, cfg: ModelConfig, *,
 
     # ---- layer stacks ----
     if cfg.family in ("dense", "vlm", "audio"):
+        body = _remat(dense_block, remat)
+        layers = _unstack(P["layers"])
         for i, win in enumerate(_layer_windows(cfg)):
-            x, _ = dense_block(_slice(P["layers"], i), x, cfg, positions,
-                               win, cache=_kv(cache, "k", "v", i),
-                               cache_index=cache_index,
-                               prefix_len=prefix_len)
+            x, _ = body(layers[i], x, cfg, positions, win,
+                        cache=_kv(cache, "k", "v", i),
+                        cache_index=cache_index, prefix_len=prefix_len)
 
     elif cfg.family == "moe":
         fk = cfg.moe.first_k_dense
-        for i in range(fk):
-            x, _ = dense_block(_slice(P["dense_layers"], i), x, cfg,
-                               positions, GLOBAL_WINDOW,
+        for i, lp in enumerate(_unstack(P["dense_layers"]) if fk else []):
+            x, _ = dense_block(lp, x, cfg, positions, GLOBAL_WINDOW,
                                cache=_kv(cache, "dense_k", "dense_v", i),
                                cache_index=cache_index)
+        # every moe layer checkpoints fully when remat is set, "dots" too
+        body = _remat(moe_block, bool(remat))
         aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
         drop_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(cfg.n_layers - fk):
-            x, _, a, d = moe_block(_slice(P["layers"], i), x, cfg,
-                                   positions, cache=_kv(cache, "k", "v", i),
-                                   cache_index=cache_index)
+        n_moe = cfg.n_layers - fk
+        for i, lp in enumerate(_unstack(P["layers"])):
+            x, _, a, d = body(lp, x, cfg, positions,
+                              cache=_kv(cache, "k", "v", i),
+                              cache_index=cache_index)
             aux_sum = aux_sum + a
             drop_sum = drop_sum + d
-        n_moe = cfg.n_layers - fk
         aux["moe_aux"] = aux_sum / n_moe
         aux["moe_dropped"] = drop_sum / n_moe
 
     elif cfg.family == "rwkv":
-        for i in range(cfg.n_layers):
+        body = _remat(rwkv6.rwkv_block, remat)
+        for i, lp in enumerate(_unstack(P["layers"])):
             st = (None if cache is None else
                   {f: cache[f][i] for f in ("shift_tm", "shift_cm", "wkv")})
-            x, ns = rwkv6.rwkv_block(_slice(P["layers"], i), x, cfg, st)
+            x, ns = body(lp, x, cfg, st)
             if cache is not None:
                 for f, v in ns.items():
                     cache[f][i] = v
@@ -335,10 +373,15 @@ def forward(params, tokens, cfg: ModelConfig, *,
     elif cfg.family == "hybrid":
         k_every = cfg.attn_every
         n_main = (cfg.n_layers // k_every) * k_every
-        for li in range(cfg.n_layers):
+        # the reference checkpoints the grouped Mamba layers; the shared
+        # attention block and the layers after the last group run as they
+        # are
+        body = _remat(mamba2.mamba_block, remat)
+        for li, lp in enumerate(_unstack(P["layers"])):
             st = (None if cache is None else
                   {"conv": cache["conv"][li], "ssd": cache["ssd"][li]})
-            x, ns = mamba2.mamba_block(_slice(P["layers"], li), x, cfg, st)
+            block = body if li < n_main else mamba2.mamba_block
+            x, ns = block(lp, x, cfg, st)
             if cache is not None:
                 cache["conv"][li] = ns["conv"]
                 cache["ssd"][li] = ns["ssd"]

@@ -1832,3 +1832,110 @@ def test_serve_launcher_on_card(cuda, caplog):
     lines = [r.getMessage().split("; ", 1)[1] for r in caplog.records
              if "served" in r.getMessage()]
     assert len(lines) == 2 and lines[0] == lines[1]
+
+
+# ----------------------------- the LM training path --------------------------
+# card against the CPU with tests/test_torch_train.py's bounds (bf16
+# roundings that fall the other way: the loss within 2**-9, the grad norm
+# within 2**-6 relative, moments within 10% relative L2 per leaf above
+# 1/256 of the largest leaf norm)
+
+def _train_inputs(cfg, seed):
+    from repro_torch.data.pipeline import TokenPipeline
+    b = TokenPipeline(cfg, 2, 32, seed=seed).batch_at(0)
+    fe = b.get("frontend")
+    return (torch.from_numpy(b["tokens"]), torch.from_numpy(b["labels"]),
+            None if fe is None else torch.from_numpy(fe))
+
+
+def _rel_l2(got, want, floor):
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((g - w).norm()) / max(float(w.norm()), floor)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b",
+                                  "qwen2-moe-a2.7b", "rwkv6-1.6b",
+                                  "zamba2-1.2b", "paligemma-3b",
+                                  "musicgen-large"])
+def test_train_step_card_matches_cpu(cuda, arch):
+    """One reduced ``train_step`` (remat=True) per family on the card
+    against the CPU from the same params and ``TokenPipeline`` batch:
+    lr bitwise, loss, grad norm and moments within the stated bounds, the
+    step lowering its batch's loss, no custom kernel launched."""
+    from repro_torch.optim.adamw import adamw_init, tree_leaves
+    from repro_torch.train.step import TrainState, loss_and_grads, train_step
+    cfg, cpu, card = _lm(arch, 3, cuda)
+    tok, lab, fe = _train_inputs(cfg, 3)
+    kw = dict(peak_lr=1e-2, warmup=2, total_steps=10)
+    kernels.reset_launch_counts()
+    gs, gm = train_step(TrainState(card, adamw_init(card)), tok.to(cuda),
+                        lab.to(cuda), cfg, frontend_inputs=None if fe is None
+                        else fe.to(cuda), **kw)
+    cs, cm = train_step(TrainState(cpu, adamw_init(cpu)), tok, lab, cfg,
+                        frontend_inputs=fe, **kw)
+    assert not any(kernels.LAUNCHES.values())
+    assert gs.opt.step.is_cuda and gm["loss"].is_cuda
+    assert float(gm["lr"]) == float(cm["lr"])
+    assert abs(float(gm["loss"]) - float(cm["loss"])) <= 2.0 ** -9
+    assert abs(float(gm["grad_norm"]) / float(cm["grad_norm"]) - 1) \
+        <= 2.0 ** -6
+    for got, want in ((gs.opt.mu, cs.opt.mu), (gs.opt.nu, cs.opt.nu)):
+        g, w = tree_leaves(got), tree_leaves(want)
+        floor = max(float(x.double().norm()) for x in w) / 256
+        # MoE expert leaves may follow a choice that is not sure
+        for a, b in zip(g, w):
+            assert bool(torch.isfinite(a).all())
+            if cfg.family != "moe":
+                assert _rel_l2(a, b, floor) <= 0.1
+    after, _, _ = loss_and_grads(gs.params, tok.to(cuda), lab.to(cuda), cfg,
+                                 frontend_inputs=None if fe is None
+                                 else fe.to(cuda))
+    assert float(after) < float(gm["loss"])
+
+
+def test_remat_modes_on_card(cuda, monkeypatch):
+    """Reduced smollm-360m on the card with the online attention path
+    (threshold and chunks patched to 8 / 8 / 16 at L = 64): the loss
+    bitwise across remat False, True and "dots" (the forward does not
+    depend on remat), every gradient within 1e-5 relative L2 of
+    remat=False's (the backward's atomic adds may reorder f32 sums)."""
+    from repro_torch.models import layers as tly
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import loss_and_grads
+    monkeypatch.setattr(tly, "ATTN_CHUNK_THRESHOLD", 8)
+    monkeypatch.setattr(tly, "ATTN_Q_CHUNK", 8)
+    monkeypatch.setattr(tly, "ATTN_KV_CHUNK", 16)
+    cfg, _, card = _lm("smollm-360m", 4, cuda)
+    rng = np.random.default_rng(4)
+    t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65))
+                         .astype(np.int32)).to(cuda)
+    out = {r: loss_and_grads(card, t[:, :-1], t[:, 1:], cfg, remat=r)
+           for r in (False, True, "dots")}
+    for r in (True, "dots"):
+        assert torch.equal(out[r][0], out[False][0]), r
+        for a, b in zip(tree_leaves(out[r][2]), tree_leaves(out[False][2])):
+            assert _rel_l2(a, b, 1e-30) <= 1e-5, r
+
+
+def test_train_launcher_on_card(cuda, tmp_path, caplog):
+    """The training launcher with ``--device cuda``: 6 steps with a
+    checkpoint every 3, then ``--resume`` to 8 ('resumed from step 6');
+    the losses finite; ``--device cpu`` resumed from a copy of the same
+    step-6 checkpoint gives steps 6 and 7 within 2**-8 of the card's."""
+    import logging
+    import shutil
+    from repro_torch.launch import train as launcher
+    d, c = tmp_path / "ck", tmp_path / "ck_cpu"
+    base = ["--arch", "smollm-360m", "--ckpt-every", "3"]
+    with caplog.at_level(logging.INFO, logger="repro_torch"):
+        g = launcher.main(base + ["--steps", "6", "--ckpt-dir", str(d),
+                                  "--device", "cuda"])
+        shutil.copytree(d, c)
+        g += launcher.main(base + ["--steps", "8", "--ckpt-dir", str(d),
+                                   "--resume", "--device", "cuda"])
+        cpu = launcher.main(base + ["--steps", "8", "--ckpt-dir", str(c),
+                                    "--resume", "--device", "cpu"])
+    assert len(g) == 8 and all(np.isfinite(g))
+    assert np.abs(np.asarray(g[6:]) - np.asarray(cpu)).max() <= 2.0 ** -8
+    msgs = [r.getMessage() for r in caplog.records]
+    assert msgs.count("resumed from step 6") == 2

@@ -464,8 +464,9 @@ def test_unported_branches_raise():
     tok = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="distributed-LM"):
         ttf.forward(tp, tok, tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="training"):
-        ttf.forward(tp, tok, tcfg, remat=True)
+    # remat is ported (the training slice): it runs and changes no value
+    assert torch.equal(ttf.forward(tp, tok, tcfg, remat=True)[0],
+                       ttf.forward(tp, tok, tcfg)[0])
     with pytest.raises(NotImplementedError, match="distributed-LM"):
         tmoe.moe_ffn({}, torch.zeros((1, 1, 64)), tcfg.moe, axis_name="model")
 
