@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--json PATH] [--only-serve | --only-train |
-                                         --only-tune | --only-distributed]
+                                         --only-lm-mesh | --only-tune |
+                                         --only-distributed]
 
 Run from the root of a checkout; it needs no build step (the kernels
 build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
@@ -224,6 +225,39 @@ zeroed just before it, read just after):
 * the port's training launcher in this process, ``--arch smollm-360m
   --full --steps 20 --batch 8 --seq 512 --ckpt-every 10 --device cuda``,
   then ``--steps 30 --resume`` (logs ``resumed from step 20``).
+
+The distributed LM (``phase_lm_mesh``, after the training phase, or
+alone with ``--only-lm-mesh``): one ``spawn`` of four ranks that share
+this card over gloo; no part launches a custom kernel (counts zeroed just
+before each part, read just after; no TPU kernel lies on this path):
+
+* qwen2-moe-a2.7b at full width (d_model 2,048, 16 heads, 60 routed
+  experts top-4, d_expert 1,408, 4 shared, vocab 151,936), its depth cut
+  from 24 to 2 layers (every rank holds the global f32 parameters, 7 GB),
+  on (data, model) = (2, 2), 30 experts a rank: B = 4 prompts of 1,024
+  tokens through ``prefill_step`` and 16 greedy ``decode_step`` calls
+  with ``mesh=`` and ``dp_axes=("data",)``; every rank's logits, tokens,
+  cache and MoE outputs bitwise equal; rank 0 then holds every MoE call
+  of the run (each step, each layer) against the local ``moe_ffn`` on
+  each data shard's block of the same recorded input (y within
+  ``SERVE_ULPS`` row by row, aux and dropped bitwise), and runs each data
+  shard's requests alone without a mesh, fed the mesh run's tokens:
+  logits within ``SERVE_ULPS`` at every step, else the token under the
+  margin rule (at most ``LM_MESH_LOW_MAX`` rows at a low margin); then
+  one prefill with the int8 dispatch: layer 0's MoE output within 0.05
+  relative of the bf16 dispatch's, the dispatch's bytes half;
+* one ``train_step(mesh=, dp_axes=("data",))`` per MoE family, reduced,
+  on the card and on gloo CPU ranks (the same processes): within the
+  training phase's bounds, every rank's new state bitwise equal;
+* ``pipeline_apply`` over smollm-360m's 32 layers at full width, 4 stages
+  of 8 on (pod, data) = (4, 1), 4 microbatches of B = 8 x 512: the
+  forward bitwise rank 0's sequential composition of the same stages over
+  the same microbatches, each stage's gradient within ``PIPE_GRAD_REL``
+  of autograd through it; bubble 3/7.
+
+It prints prefill ms, decode ms a step, each collective's calls, MB sent
+and seconds a rank (``MeshComm.stats`` with ``timing`` on), each rank's
+peak and the card's used peak, beside the card's name and power limit.
 
 The plan autotuner (``phase_tune``, before the multi-device phase, or
 alone with ``--only-tune``): ``repro_torch.tune.autotune``'s sweeps on
@@ -4767,6 +4801,611 @@ def phase_train(dev, report, card: str):
     phase_train_launcher(report)
 
 
+# ---------------------------------------------------------------------------
+# The distributed LM on the card
+# ---------------------------------------------------------------------------
+
+# qwen2-moe-a2.7b at full width, its depth cut from 24 to 2 layers: every
+# rank holds the global f32 parameters (the reference's global view), 7 GB
+# at 2 layers; B = 4 requests (2 per data shard) of 1,024 prompt tokens,
+# 16 greedy decode steps
+LM_MESH_ARCH, LM_MESH_LAYERS = "qwen2-moe-a2.7b", 2
+LM_MESH_B, LM_MESH_L, LM_MESH_STEPS = 4, 1024, 16
+LM_MESH_AXES = ("data", "model")
+LM_MESH_DP = ("data",)
+# the int8 dispatch against the bf16 one: tests/test_moe_ep.py's bound
+LM_MESH_INT8_REL = 0.05
+# the (step, row) logits of the mesh run that may lie beyond SERVE_ULPS of
+# one device's at a margin too low to hold their token: at most one in 8
+# of the 68.  Past layer 0 the inputs differ by roundings (the shared
+# experts' halves sum through a psum), and a row whose k-th and (k+1)-th
+# router probabilities are that close may route otherwise; a broken
+# exchange moves every row (the EP path itself is held by
+# lm_mesh_ep_check)
+LM_MESH_LOW_MAX = 8
+# training on the mesh: each MoE family reduced (full width cannot train
+# here: four ranks each holding the global params, grads and two moments
+# need about 21 GB a rank even at one layer)
+LM_MESH_TRAIN = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
+# the pipeline: smollm-360m's 32 layers at full width, 4 stages of 8 on
+# (pod, data) = (4, 1), 4 microbatches of B = 8 x 512
+PIPE_ARCH, PIPE_STAGES, PIPE_B, PIPE_L, PIPE_MICRO = (
+    "smollm-360m", 4, 8, 512, 4)
+# each stage's gradient against autograd through the sequential
+# composition, relative L2 a leaf: the forward is bitwise; the backward
+# sums the same per-microbatch products in another order, and the output
+# cotangent passes the masked psum's transpose (divided by the 4 stages in
+# bf16, summed back in rank order: a bf16 rounding, 2**-8 relative)
+PIPE_GRAD_REL = 2.0 ** -6
+
+
+def digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order (bitwise equality across
+    ranks without sending the tensors)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name: str, seen: list):
+    """Record every call of ``module.name`` as ``(args, outputs)`` (the
+    first positional argument and the outputs, detached)."""
+    real = getattr(module, name)
+
+    def rec(*a, **kw):
+        out = real(*a, **kw)
+        seen.append((a[1].detach(), tuple(o.detach() for o in out)))
+        return out
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def lm_mesh_serve_run(comm, params, cfg, tokens, steps: int):
+    """``prefill_step`` and ``steps`` greedy ``decode_step`` calls with
+    ``mesh=`` on this rank, into a cache of ``LM_MESH_L + LM_MESH_STEPS``
+    positions (the same for every run: the attention's shapes, hence its
+    roundings, follow the cache's length): the logits of each (on the
+    card), the tokens, each call's MoE layers' (input, (y, aux, dropped))
+    (``seen[step][layer]``), the collectives' statistics of each, the
+    CUDA-event ms of each call, and the launches (zeroed just before, read
+    just after)."""
+    from repro_torch import kernels
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import decode_step, prefill_step
+    dev = tokens.device
+    B, L = tokens.shape
+    cache = tf.init_cache(cfg, B, LM_MESH_L + LM_MESH_STEPS, device=dev)
+    seen, stats, ms = [], {}, []
+    comm.timing = True
+    kernels.reset_launch_counts()
+    for i in range(steps + 1):
+        comm.reset_stats()
+        comm.phase = "prefill" if i == 0 else "decode"
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        step = []
+        with recorded_calls(moe, "moe_ffn_shard_map", step):
+            s.record()
+            if i == 0:
+                logits, cache = prefill_step(params, tokens, cache, cfg,
+                                             mesh=comm.mesh,
+                                             dp_axes=LM_MESH_DP)
+                rows, toks = [], []
+            else:
+                logits, cache = decode_step(params, toks[-1][:, None],
+                                            cache, L + i - 1, cfg,
+                                            mesh=comm.mesh,
+                                            dp_axes=LM_MESH_DP)
+            e.record()
+        seen.append(step)
+        rows.append(logits)
+        toks.append(logits.argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+        for k, v in comm.stats.items():
+            row = stats.setdefault(k, [0, 0, 0.0])
+            for j in range(3):
+                row[j] += v[j]
+    comm.timing = False
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    check(not launched, f"lm mesh serving launched {launched}")
+    return dict(rows=rows, toks=toks, seen=seen, stats=stats, ms=ms,
+                cache=cache)
+
+
+def lm_mesh_oracle(params, cfg, tokens, run, d: int, B_d: int):
+    """Data shard ``d``'s requests alone through ``prefill_step`` /
+    ``decode_step`` without a mesh (fed the mesh run's tokens).  At every
+    step each row's logits lie within ``SERVE_ULPS`` of the mesh run's, or
+    else its token follows the margin rule (the mesh run's greedy token
+    is the oracle's argmax wherever the oracle's top-1 / top-2 gap exceeds
+    twice the row's largest difference).  Per MoE layer of the prefill:
+    whether its input equals the mesh run's bitwise, and its dropped
+    slots."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import decode_step, prefill_step
+    L = tokens.shape[1]
+    sl = slice(d * B_d, (d + 1) * B_d)
+    steps = len(run["rows"]) - 1
+    cache = tf.init_cache(cfg, B_d, LM_MESH_L + LM_MESH_STEPS,
+                          device=tokens.device)
+    seen = []
+    with recorded_calls(moe, "moe_ffn", seen):
+        logits, cache = prefill_step(params, tokens[sl], cache, cfg)
+    worst, within, sure, low = 0.0, 0, 0, 0
+    for i in range(steps + 1):
+        if i:
+            logits, cache = decode_step(params, run["toks"][i - 1][sl, None],
+                                        cache, L + i - 1, cfg)
+        for b in range(B_d):
+            want = logits[b]
+            err = float((run["rows"][i][sl][b] - want).abs().max())
+            worst = max(worst, err)
+            if err <= ulps_tol(want):
+                within += 1
+            elif top_gap(want) > 2 * err:
+                check(int(want.argmax()) == int(run["toks"][i][sl][b]),
+                      f"lm mesh shard {d} step {i} row {b}: token differs "
+                      f"at a sure margin (logits {err} apart)")
+                sure += 1
+            else:
+                low += 1
+    n_slots = B_d * L * cfg.moe.top_k
+    layers = [dict(h_bitwise=torch.equal(h, mh[sl]),
+                   dropped_slots=round(float(o[2]) * n_slots))
+              for (h, o), (mh, _) in zip(seen, run["seen"][0])]
+    return dict(worst=worst, within=within, sure=sure, low=low,
+                layers=layers)
+
+
+def lm_mesh_ep_check(params, cfg, run, n_dp: int, m: int) -> dict:
+    """Every MoE call of the mesh run (each step, each layer) against the
+    port's local ``moe_ffn`` on each data shard's block of the same
+    recorded input, on this card.  The shard's routing and capacity are
+    its own, so the dropped slots and aux equal bitwise (the mesh's
+    ``pmean``: the ranks' values summed in rank order, then divided), and
+    y lies row by row within ``SERVE_ULPS`` bf16 ulps of the row's
+    largest |y|: only roundings differ (each rank's expert GEMMs run
+    [E / m, m C] rows instead of [E, C]; the shared experts' column halves
+    sum through a ``psum``).  A wrong regrouping, expert slice or combine
+    moves y by its own size.  Returns the worst row's error in those ulps,
+    the rows and calls compared, and the prefill's dropped slots (mesh,
+    local)."""
+    from repro_torch.models import moe
+    layers = params["layers"]["moe"].tree()
+    worst, n_rows, n_calls, prefill_slots = 0.0, 0, 0, []
+    for i, step in enumerate(run["seen"]):
+        for l, (x, (y, aux, drop)) in enumerate(step):
+            p = {k: v[l].detach() for k, v in layers.items()}
+            B_d, L, D = x.shape[0] // n_dp, x.shape[1], x.shape[2]
+            n_slots = B_d * L * cfg.moe.top_k
+            auxes, drops, slots = [], [], 0
+            for d in range(n_dp):
+                sl = slice(d * B_d, (d + 1) * B_d)
+                with torch.no_grad():
+                    yl, al, dl = moe.moe_ffn(p, x[sl], cfg.moe)
+                got = y[sl].float().reshape(-1, D)
+                want = yl.float().reshape(-1, D)
+                err = (got - want).abs().amax(-1)
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    want.abs().amax(-1))) - 7)
+                ratio = torch.where(err == 0, torch.zeros_like(err),
+                                    err / ulp)
+                r = float(ratio.max())
+                check(r <= SERVE_ULPS,
+                      f"lm mesh EP step {i} layer {l} shard {d}: y "
+                      f"{r:.3g} bf16 ulps off the local moe_ffn's "
+                      f"(> {SERVE_ULPS}; max |diff| {float(err.max())})")
+                worst = max(worst, r)
+                n_rows += got.shape[0]
+                auxes += [al] * m
+                drops += [dl] * m
+                slots += round(float(dl) * n_slots)
+            for what, got, vals in (("aux", aux, auxes),
+                                    ("dropped", drop, drops)):
+                acc = vals[0]
+                for v in vals[1:]:
+                    acc = acc + v
+                want = acc / len(vals)
+                check(torch.equal(got, want),
+                      f"lm mesh EP step {i} layer {l}: {what} "
+                      f"{float(got)} vs the shards' local {float(want)}")
+            n_calls += 1
+            if i == 0:
+                prefill_slots.append((round(float(drop) * n_slots * n_dp),
+                                      slots))
+    return dict(worst_ulps=worst, rows=n_rows, calls=n_calls,
+                dropped_slots=prefill_slots)
+
+
+def lm_mesh_serve(comm, dev) -> dict:
+    """qwen2-moe-a2.7b at full width on (data, model) = (2, 2): the mesh
+    run, every rank's bits, rank 0's one-device oracle per data shard,
+    then one prefill with the int8 dispatch."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch(LM_MESH_ARCH),
+                              n_layers=LM_MESH_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = comm.mesh.shape["model"]
+    params = tf.init_model(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev, ep_degree=m)
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_MESH_B, LM_MESH_L)).astype(np.int32)).to(dev)
+    # warm the card's libraries and the allocator on a short prompt and
+    # one step; untimed
+    lm_mesh_serve_run(comm, params, cfg, tokens[:, :64], 1)
+    torch.cuda.empty_cache()
+    run = lm_mesh_serve_run(comm, params, cfg, tokens, LM_MESH_STEPS)
+    out = {"params": n_params, "prefill_ms": run["ms"][0],
+           "decode_ms": run["ms"][1:], "stats": run["stats"],
+           "digest": digest(run["rows"] + run["toks"]
+                            + [v for _, v in sorted(run["cache"].items())]
+                            + [o[j] for st in run["seen"] for _, o in st
+                               for j in range(3)]),
+           "dropped": [float(o[2]) for _, o in run["seen"][0]],
+           "aux": [float(o[1]) for _, o in run["seen"][0]]}
+    for i, row in enumerate(run["rows"]):
+        check(bool(torch.isfinite(row).all()) and row.shape ==
+              (LM_MESH_B, cfg.vocab_size), f"lm mesh step {i}: logits")
+    n_dp = comm.mesh.shape["data"]
+    B_d = LM_MESH_B // n_dp
+    if comm.rank == 0:
+        out["ep"] = lm_mesh_ep_check(params, cfg, run, n_dp, m)
+        oracle = [lm_mesh_oracle(params, cfg, tokens, run, d, B_d)
+                  for d in range(n_dp)]
+        torch.cuda.empty_cache()
+        low = sum(o["low"] for o in oracle)
+        check(low <= LM_MESH_LOW_MAX,
+              f"lm mesh: {low} (step, row) logits beyond {SERVE_ULPS} ulps "
+              f"of one device's at a low margin (> {LM_MESH_LOW_MAX})")
+        out["oracle"] = oracle
+    # the int8 dispatch: one prefill
+    cfg_q = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, quantize_dispatch=True))
+    runq = lm_mesh_serve_run(comm, params, cfg_q, tokens, 0)
+    check(torch.equal(runq["seen"][0][0][0], run["seen"][0][0][0]),
+          "lm mesh int8 dispatch: layer 0's input is not the bf16 run's")
+    y, yq = (r["seen"][0][0][1][0].float() for r in (run, runq))
+    out["int8_rel"] = float((yq - y).abs().max() / y.abs().max())
+    check(out["int8_rel"] < LM_MESH_INT8_REL,
+          f"lm mesh int8 dispatch: layer 0 relative error "
+          f"{out['int8_rel']} >= {LM_MESH_INT8_REL}")
+    out["int8_logits_rel"] = float(
+        (runq["rows"][0] - run["rows"][0]).abs().max()
+        / run["rows"][0].abs().max())
+    out["int8_prefill_ms"] = runq["ms"][0]
+    out["int8_stats"] = runq["stats"]
+    out["int8_digest"] = digest(runq["rows"])
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, run, runq
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_train(dev) -> dict:
+    """One ``train_step(mesh=, dp_axes=("data",))`` per MoE family,
+    reduced, on a (2, 2) mesh of these ranks on the card and again on
+    the CPU (the same ranks, a gloo mesh on ``"cpu"``): card against CPU
+    within the CPU tests' bounds, MoE choices under the margin rule; no
+    custom kernel launched."""
+    import copy
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.configs import get_arch, reduced_config
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import TrainState, train_step
+    out = {}
+    for i, arch in enumerate(LM_MESH_TRAIN):
+        cfg = reduced_config(get_arch(arch))
+        base = tf.init_model(cfg, generator=torch.Generator().manual_seed(i),
+                             device="cpu", ep_degree=2)
+        tok, lab, _ = train_batch(cfg, 4, 32, 0, "cpu", seed=i)
+        res = {}
+        for where in ("cuda", "cpu"):
+            mesh = Mesh((2, 2), "gloo", where, LM_MESH_AXES)
+            p = copy.deepcopy(base).to(where)
+            state = TrainState(p, adamw_init(p))
+            seen = []
+            threads = torch.get_num_threads()
+            if where == "cpu":
+                torch.set_num_threads(2)
+            kernels.reset_launch_counts()
+            with recorded_calls(moe, "moe_ffn_shard_map", seen):
+                state, m = train_step(state, tok.to(where), lab.to(where),
+                                      cfg, mesh=mesh, dp_axes=LM_MESH_DP,
+                                      **TRAIN_KW)
+            torch.set_num_threads(threads)
+            launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+            check(not launched, f"{arch} mesh step launched {launched}")
+            res[where] = (state, {k: float(v) for k, v in m.items()}, seen)
+        (gs, gm, seen), (cs, cm, _) = res["cuda"], res["cpu"]
+        check(gm["lr"] == cm["lr"], f"{arch} mesh: lr")
+        check(abs(gm["loss"] - cm["loss"]) <= TRAIN_LOSS_TOL,
+              f"{arch} mesh: loss card {gm['loss']} cpu {cm['loss']}")
+        check(abs(gm["grad_norm"] / cm["grad_norm"] - 1) <= TRAIN_GNORM_REL,
+              f"{arch} mesh: grad norm card {gm['grad_norm']} cpu "
+              f"{cm['grad_norm']}")
+        n_moe = cfg.n_layers - cfg.moe.first_k_dense
+        with torch.no_grad():
+            bound, low = moe_aux_bound(cfg, base,
+                                       [h for h, _ in seen[:n_moe]])
+        check(abs(gm["moe_aux"] - cm["moe_aux"])
+              <= 1e-3 * cm["moe_aux"] + bound, f"{arch} mesh: moe_aux")
+        paths = _flatten_with_paths(cs.params.tree())[0]
+        keep = [j for j, p in enumerate(paths)
+                if not (low and p.startswith("layers/moe"))]
+        worst = {}
+        for what, g, w in (("mu", gs.opt.mu, cs.opt.mu),
+                           ("nu", gs.opt.nu, cs.opt.nu)):
+            g, w = host_leaves(g), host_leaves(w)
+            worst[what] = leaf_close([g[j] for j in keep],
+                                     [w[j] for j in keep],
+                                     [paths[j] for j in keep], TRAIN_REL,
+                                     TRAIN_COS, f"{arch} mesh {what}")
+        lr = cm["lr"]
+        for p, a, b, ma, mb in zip(paths, host_leaves(gs.params),
+                                   host_leaves(cs.params),
+                                   host_leaves(gs.opt.mu),
+                                   host_leaves(cs.opt.mu)):
+            d = np.abs(a - b)
+            ulps = 2 * np.spacing(np.abs(b))
+            sure = ((np.sign(ma) == np.sign(mb)) & (np.abs(ma) > 1e-5)
+                    & (np.abs(mb) > 1e-5))
+            check(bool((d[sure] <= lr * 1e-3 + ulps[sure]).all())
+                  and bool((d <= 2 * lr + ulps).all()),
+                  f"{arch} mesh {p}: new params card vs cpu")
+        from repro_torch.optim.adamw import tree_leaves
+        out[arch] = dict(
+            loss_card=gm["loss"], loss_cpu=cm["loss"],
+            grad_norm_card=gm["grad_norm"], grad_norm_cpu=cm["grad_norm"],
+            aux_card=gm["moe_aux"], aux_cpu=cm["moe_aux"],
+            mu_worst=worst["mu"], nu_worst=worst["nu"], rows_not_sure=low,
+            digest=digest(tree_leaves(gs.params) + tree_leaves(gs.opt.mu)
+                          + tree_leaves(gs.opt.nu)))
+    return out
+
+
+def lm_mesh_pipeline(dev) -> dict:
+    """``pipeline_apply`` over smollm-360m's 32 layers at full width, 4
+    stages of 8 on (pod, data) = (4, 1), 4 microbatches of B = 8 x 512:
+    the forward (no grad), then forward and backward of mean(y**2);
+    rank 0 holds the forward bitwise against the sequential composition
+    of the same stages over the same microbatches, and each stage's
+    gradient within ``PIPE_GRAD_REL`` of autograd through it."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.mesh import Mesh, comm_for
+    from repro_torch.distributed.pipeline import bubble_fraction, \
+        pipeline_apply
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import transformer as tf
+    cfg = get_arch(PIPE_ARCH)
+    mesh = Mesh((PIPE_STAGES, 1), "gloo", "cuda", ("pod", "data"))
+    comm = comm_for(mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_model(cfg, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    per = cfg.n_layers // PIPE_STAGES
+
+    def stages(tree):
+        return {k: stages(v) if isinstance(v, dict)
+                else v.detach().reshape(PIPE_STAGES, per, *v.shape[1:])
+                for k, v in tree.items()}
+    stage_params = stages(params.tree()["layers"])
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PIPE_B, PIPE_L)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        x = Lyr.embed(params["embed"], tokens, scale_by_sqrt_d=cfg.embed_scale)
+    positions = torch.arange(PIPE_L, dtype=torch.int32, device=dev)
+    windows = tf._layer_windows(cfg)
+
+    def stage_fn(p, xb):
+        for lp, win in zip(tf._unstack(p), windows):
+            xb, _ = tf.dense_block(lp, xb, cfg, positions, win)
+        return xb
+
+    fn = pipeline_apply(stage_fn, mesh, stage_axis="pod", n_micro=PIPE_MICRO,
+                        data_axes=("data",))
+    with torch.no_grad():               # warm: the shapes' first launches
+        fn(stage_params, x)
+    kernels.reset_launch_counts()
+    comm.reset_stats()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    with torch.no_grad():
+        y = fn(stage_params, x)
+    e.record()
+    torch.cuda.synchronize()
+    fwd_ms = s.elapsed_time(e)
+
+    def leaves(t):
+        return [v for k in sorted(t) for v in (
+            leaves(t[k]) if isinstance(t[k], dict) else [t[k]])]
+
+    def with_grad(t):
+        return {k: with_grad(v) if isinstance(v, dict)
+                else v.clone().requires_grad_() for k, v in t.items()}
+    sp = with_grad(stage_params)
+    s.record()
+    loss = (fn(sp, x).float() ** 2).mean()
+    grads = torch.autograd.grad(loss, leaves(sp))
+    e.record()
+    torch.cuda.synchronize()
+    train_ms = s.elapsed_time(e)
+    launched = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    check(not launched, f"the pipeline launched {launched}")
+    out = {"fwd_ms": fwd_ms, "fwd_bwd_ms": train_ms,
+           "bubble": bubble_fraction(PIPE_STAGES, PIPE_MICRO),
+           "stats": dict(comm.stats), "digest": digest([y, *grads])}
+    if comm.rank == 0:
+        sq = with_grad(stage_params)
+
+        def seq(p):
+            mbs = []
+            for mb in x.reshape(PIPE_MICRO, -1, *x.shape[1:]):
+                for st in range(PIPE_STAGES):
+                    mb = stage_fn(_stage_of(p, st), mb)
+                mbs.append(mb)
+            return torch.cat(mbs)
+        with torch.no_grad():
+            check(torch.equal(seq(stage_params), y),
+                  "pipeline forward: not bitwise the sequential composition")
+        want = torch.autograd.grad((seq(sq).float() ** 2).mean(), leaves(sq))
+        rel = [float((g.double() - w.double()).norm() / w.double().norm())
+               for g, w in zip(grads, want)]
+        check(max(rel) <= PIPE_GRAD_REL, f"pipeline gradients: worst leaf "
+                                         f"{max(rel)} > {PIPE_GRAD_REL}")
+        out["grad_rel"] = rel
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, stage_params, sp, grads, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stage_of(tree, st: int):
+    return {k: _stage_of(v, st) if isinstance(v, dict) else v[st]
+            for k, v in tree.items()}
+
+
+def lm_mesh_rank() -> dict:
+    """One rank of the distributed-LM phase (its parts in order)."""
+    from repro_torch.distributed.mesh import current
+    dev = torch.device("cuda")
+    comm = current()
+    t0 = time.perf_counter()
+    out = {"serve": lm_mesh_serve(comm, dev)}
+    t1 = time.perf_counter()
+    out["train"] = lm_mesh_train(dev)
+    t2 = time.perf_counter()
+    out["pipeline"] = lm_mesh_pipeline(dev)
+    out["walls_s"] = [t1 - t0, t2 - t1, time.perf_counter() - t2]
+    return out
+
+
+def phase_lm_mesh(report, card: str):
+    """The distributed LM on this card: four gloo ranks, the serving run
+    (qwen2-moe-a2.7b at full width on (data, model) = (2, 2) with its
+    one-device oracle and the int8 dispatch), the reduced mesh training
+    steps against the CPU, and the 32-layer smollm pipeline (module
+    docstring)."""
+    import threading
+    from repro_torch.distributed.mesh import Mesh, spawn
+    torch.cuda.empty_cache()
+    stop, peak = threading.Event(), [0]
+    poll = threading.Thread(target=card_used_peak, args=(stop, peak))
+    poll.start()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(lm_mesh_rank, Mesh((2, 2), "gloo", "cuda",
+                                         LM_MESH_AXES), timeout=900)
+    finally:
+        stop.set()
+        poll.join()
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        for part, key in (("serve", "digest"), ("serve", "int8_digest"),
+                          ("pipeline", "digest")):
+            check(res[part][key] == r0[part][key],
+                  f"lm mesh {part}: rank {r}'s {key} differs from rank 0's")
+        for arch in LM_MESH_TRAIN:
+            check(res["train"][arch]["digest"] == r0["train"][arch]["digest"],
+                  f"lm mesh train {arch}: rank {r}'s state differs")
+    sv = r0["serve"]
+    dec = sv["decode_ms"]
+    log(f"lm mesh ({card}; 4 gloo ranks on one card, payloads through host "
+        f"memory): phase wall {wall:.1f} s (parts on rank 0: serve "
+        f"{r0['walls_s'][0]:.1f}, train {r0['walls_s'][1]:.1f}, pipeline "
+        f"{r0['walls_s'][2]:.1f} s); card used peak "
+        f"{peak[0] / 1e9:.3f} GB (all processes); no custom kernel launched")
+    log(f"lm mesh serve ({LM_MESH_ARCH} full width, {LM_MESH_LAYERS} of 24 "
+        f"layers, {sv['params']} parameters a rank; (data, model) = (2, 2), "
+        f"30 experts a rank; B {LM_MESH_B} x {LM_MESH_L}, {LM_MESH_STEPS} "
+        f"greedy steps): prefill {sv['prefill_ms']:.1f} ms, decode mean "
+        f"{sum(dec) / len(dec):.2f} ms a step (min {min(dec):.2f}, max "
+        f"{max(dec):.2f}; CUDA events, collectives timed) on rank 0; "
+        f"dropped per layer {sv['dropped']}; every rank bitwise equal")
+    for d, o in enumerate(sv["oracle"]):
+        log(f"  data shard {d} vs its requests alone without a mesh: "
+            f"{o['within']} of {o['within'] + o['sure'] + o['low']} "
+            f"(step, row) logits within {SERVE_ULPS} ulps, {o['sure']} "
+            f"beyond with the token equal at a sure margin, {o['low']} at a "
+            f"low margin (<= {LM_MESH_LOW_MAX} in all); max |logit diff| "
+            f"{o['worst']:.6g}; per MoE layer of the prefill (input "
+            f"bitwise, dropped slots): " + ", ".join(
+                f"({x['h_bitwise']}, {x['dropped_slots']})"
+                for x in o["layers"]))
+    ep = sv["ep"]
+    log(f"  EP against the local moe_ffn on each shard's recorded input: "
+        f"{ep['calls']} MoE calls ({LM_MESH_STEPS + 1} steps x "
+        f"{LM_MESH_LAYERS} layers), {ep['rows']} rows; y worst row "
+        f"{ep['worst_ulps']:.3f} bf16 ulps of its largest |y| (<= "
+        f"{SERVE_ULPS}); aux and dropped bitwise; the prefill's dropped "
+        f"slots per layer (mesh, local) {ep['dropped_slots']}")
+    for r, res in enumerate(ranks):
+        s = res["serve"]
+        log(f"  rank {r}: peak alloc {s['peak_gb']:.3f} GB; collectives "
+            "(calls, MB sent, s): " + ", ".join(
+                f"{k}=({v[0]}, {v[1] / 1e6:.1f}, {v[2]:.3f})"
+                for k, v in sorted(s["stats"].items())))
+    bf = sum(v[1] for k, v in sv["stats"].items()
+             if k.startswith("prefill.all_to_all"))
+    q = sum(v[1] for k, v in sv["int8_stats"].items()
+            if k.startswith("prefill.all_to_all"))
+    # the return all_to_all stays bf16: the dispatch's bytes are the rest
+    ratio = (q - bf / 2) / (bf / 2)
+    check(0.45 <= ratio <= 0.55, f"lm mesh int8: dispatch bytes ratio "
+                                 f"{ratio}")
+    log(f"lm mesh int8 dispatch: prefill {sv['int8_prefill_ms']:.1f} ms; "
+        f"layer-0 MoE output within {sv['int8_rel']:.4f} relative of the "
+        f"bf16 dispatch's (< {LM_MESH_INT8_REL}), logits "
+        f"{sv['int8_logits_rel']:.4f}; all_to_all MB sent a rank "
+        f"{q / 1e6:.1f} vs {bf / 1e6:.1f} (dispatch {ratio:.3f} of bf16's)")
+    for arch, t in r0["train"].items():
+        log(f"lm mesh train ({arch} reduced, (2, 2), card vs CPU ranks): "
+            f"loss {t['loss_card']:.6f} / {t['loss_cpu']:.6f}, grad norm "
+            f"{t['grad_norm_card']:.5f} / {t['grad_norm_cpu']:.5f}, aux "
+            f"{t['aux_card']:.6f} / {t['aux_cpu']:.6f}; moments worst rel "
+            f"{max(t['mu_worst'][0], t['nu_worst'][0]):.4f}; rows not sure "
+            f"{t['rows_not_sure']}; every rank's new state bitwise equal")
+    pp = r0["pipeline"]
+    log(f"lm mesh pipeline ({PIPE_ARCH} full width, {PIPE_STAGES} stages "
+        f"of 8 layers on (pod, data) = ({PIPE_STAGES}, 1), {PIPE_MICRO} "
+        f"microbatches of B {PIPE_B} x {PIPE_L}; bubble {pp['bubble']:.4f}):"
+        f" forward {pp['fwd_ms']:.1f} ms, forward + backward "
+        f"{pp['fwd_bwd_ms']:.1f} ms on rank 0; forward bitwise the "
+        f"sequential composition; stage gradients worst rel "
+        f"{max(pp['grad_rel']):.3g} (<= {PIPE_GRAD_REL}); peak "
+        f"{pp['peak_gb']:.3f} GB; collectives " + ", ".join(
+            f"{k}=({v[0]}, {v[1] / 1e6:.1f}, {v[2]:.3f})"
+            for k, v in sorted(pp["stats"].items())))
+    report["lm_mesh"] = dict(card=card, wall_s=wall,
+                             card_used_peak_bytes=peak[0],
+                             ranks=[{k: v for k, v in res.items()}
+                                    for res in ranks])
+
+
 def kernel_name(line: str) -> str | None:
     """The kernel a ptxas ``Function properties for <mangled>`` line is
     about: the ``<length><name>`` of the mangled name that ends in
@@ -4834,6 +5473,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-train", action="store_true",
                     help="build, run the LM training phase alone and exit "
                          "(no result line)")
+    ap.add_argument("--only-lm-mesh", action="store_true",
+                    help="build, run the distributed-LM phase alone and "
+                         "exit (no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4863,7 +5505,8 @@ def main(argv=None) -> int:
     report = {"card": card, "build_s": build_s,
               "build_steps_s": kernels.build_seconds}
     only = {"tune": args.only_tune, "serve": args.only_serve,
-            "train": args.only_train, "distributed": args.only_distributed}
+            "train": args.only_train, "lm_mesh": args.only_lm_mesh,
+            "distributed": args.only_distributed}
     if any(only.values()):
         name = next(k for k, v in only.items() if v)
         if name == "tune":
@@ -4872,6 +5515,8 @@ def main(argv=None) -> int:
             phase_serve(dev, report, card)
         elif name == "train":
             phase_train(dev, report, card)
+        elif name == "lm_mesh":
+            phase_lm_mesh(report, card)
         else:
             phase_distributed(report, card)
         if args.json:
@@ -4988,6 +5633,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_train(dev, report, card)
     torch.cuda.empty_cache()
+    phase_lm_mesh(report, card)
     phase_tune(dev, report, card)
     phase_distributed(report, card)
     order = list(REPLACES)

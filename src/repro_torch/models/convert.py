@@ -27,13 +27,16 @@ def _shapes(tree, prefix=""):
     return out
 
 
-def params_from_reference(tree: dict, cfg: ModelConfig,
-                          device=None) -> ParamTree:
-    """The reference's parameter tree for ``cfg`` as a ``ParamTree`` on
-    ``device`` (the card unless it says otherwise).  Raises ``ValueError``
-    when the tree's paths or shapes are not those of ``cfg``."""
+def params_from_reference(tree: dict, cfg: ModelConfig, device=None,
+                          ep_degree: int = 1) -> ParamTree:
+    """The reference's parameter tree for ``cfg`` (experts padded to a
+    multiple of ``ep_degree``, as its ``init_model(ep_degree=)`` pads
+    them) as a ``ParamTree`` on ``device`` (the card unless it says
+    otherwise).  Raises ``ValueError`` when the tree's paths or shapes are
+    not those of ``cfg``."""
     dev = resolve_device(device)
-    want = _shapes(init_model(cfg, generator=None, device="meta").tree())
+    want = _shapes(init_model(cfg, generator=None, device="meta",
+                              ep_degree=ep_degree).tree())
     got = _shapes(tree)
     if got != want:
         diff = sorted(set(got.items()) ^ set(want.items()))

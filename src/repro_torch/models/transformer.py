@@ -22,6 +22,14 @@ the matrix products' outputs, the reference's ``dots_saveable``).
 (``layers.attn.wq``, ``embed.table``).  Caches are updated in place (slice
 assignment in place of the reference's donated buffers); ``forward`` still
 returns ``(logits, aux, new_cache)``, ``new_cache`` being the cache given.
+
+``forward(mesh=, dp_axes=)`` runs on each rank of ``mesh`` (a
+``distributed.mesh.Mesh`` whose ranks ``mesh.spawn`` started; outside one
+it raises), every rank passing the same global arguments: each MoE block
+runs its experts through ``moe.moe_ffn_shard_map`` (the batch sharded
+over ``dp_axes``, the experts over 'model'), everything else runs on the
+global arrays on every rank, and every rank returns the same global
+result.  A family without MoE blocks runs as without a mesh.
 """
 from __future__ import annotations
 
@@ -34,14 +42,13 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed import mesh as mesh_mod
 from repro_torch.kernels import resolve_device
 from repro_torch.models import layers as Lyr
 from repro_torch.models import mamba2, moe as moe_mod, rwkv6
 from repro_torch.models.config import ModelConfig
 
 GLOBAL_WINDOW = 1 << 30
-MESH_NOT_PORTED = ("mesh= (sharded layers, expert parallelism) comes with "
-                   "the distributed-LM slice of the port (ROADMAP Queue 1)")
 
 
 class ParamTree(nn.Module):
@@ -133,14 +140,17 @@ def dense_block(p, x, cfg, positions, window, cache=None, cache_index=None,
 
 def moe_block(p, x, cfg, positions, cache=None, cache_index=None,
               mesh=None, dp_axes=()):
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     h = Lyr.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, new_cache = Lyr.attention(
         p["attn"], h, cfg, positions, cache=cache, cache_index=cache_index)
     x = x + a
     h = Lyr.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    m, aux, dropped = moe_mod.moe_ffn(p["moe"], h, cfg.moe)
+    if mesh is not None:
+        m, aux, dropped = moe_mod.moe_ffn_shard_map(
+            p["moe"], h, cfg.moe, mesh, dp_axes,
+            quantize_dispatch=cfg.moe.quantize_dispatch)
+    else:
+        m, aux, dropped = moe_mod.moe_ffn(p["moe"], h, cfg.moe)
     return x + m, new_cache, aux, dropped
 
 
@@ -297,9 +307,10 @@ def forward(params, tokens, cfg: ModelConfig, *,
     frontend_inputs: [B, vision_tokens, d_vision] for the vlm family.
     cache/cache_index: decode mode (L is typically 1); ``cache_index`` is
     a Python int (or a 0-d tensor, read once on the host).
+    mesh/dp_axes: run on a rank of ``mesh`` (module docstring).
     """
     if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+        mesh_mod.require(mesh, "forward(mesh=)")
     P = _as_tree(params)
     dev = tokens.device
     if cache_index is not None:
@@ -354,7 +365,8 @@ def forward(params, tokens, cfg: ModelConfig, *,
         for i, lp in enumerate(_unstack(P["layers"])):
             x, _, a, d = body(lp, x, cfg, positions,
                               cache=_kv(cache, "k", "v", i),
-                              cache_index=cache_index)
+                              cache_index=cache_index, mesh=mesh,
+                              dp_axes=dp_axes)
             aux_sum = aux_sum + a
             drop_sum = drop_sum + d
         aux["moe_aux"] = aux_sum / n_moe

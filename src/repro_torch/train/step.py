@@ -5,8 +5,13 @@
 gradients of the reference's masked loss, and AdamW writes the new
 parameters and moments into the state's tensors in place, the stand-in
 for the reference's donated buffers.  The metrics stay tensors on the
-state's device: the step reads none of them back to the host.  ``mesh=``
-and the DP axes belong to the distributed-LM slice and raise.
+state's device: the step reads none of them back to the host.
+
+With ``mesh=`` the step runs on each rank of the mesh (``forward(mesh=)``:
+every rank passes the same global state and batch); autograd through the
+mesh's collectives gives every rank the gradient of the global loss (the
+MoE aux computed per data shard, then ``pmean``'d, as the reference's),
+so every rank ends the step with the same state.
 """
 from __future__ import annotations
 
@@ -22,6 +27,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import (AdamWState, adamw_init, adamw_update,
                                      clip_by_global_norm, tree_leaves)
 from repro_torch.optim.schedule import cosine_schedule
+
+GSPMD_NOT_PORTED = (
+    "in_shardings / out_shardings are GSPMD placements for jax.jit; only "
+    "the JAX package's dry-run (launch/dryrun.py) passes them, and the "
+    "port has no dry-run (JAX-only, ROADMAP): run the step on the ranks "
+    "of a mesh with mesh= and dp_axes= instead")
 
 
 @tree_node
@@ -40,9 +51,11 @@ def make_train_state(cfg: ModelConfig, *, generator: torch.Generator,
     return TrainState(params=params, opt=adamw_init(params))
 
 
-def _loss(params, tokens, labels, cfg, frontend_inputs, remat):
+def _loss(params, tokens, labels, cfg, frontend_inputs, remat, mesh,
+          dp_axes):
     logits, aux, _ = tf.forward(params, tokens, cfg,
-                                frontend_inputs=frontend_inputs, remat=remat)
+                                frontend_inputs=frontend_inputs, remat=remat,
+                                mesh=mesh, dp_axes=dp_axes)
     mask = (labels >= 0).to(torch.float32)
     loss = tf.lm_loss(logits, torch.clamp(labels, min=0), mask)
     if cfg.moe is not None:
@@ -51,7 +64,8 @@ def _loss(params, tokens, labels, cfg, frontend_inputs, remat):
 
 
 def loss_and_grads(params, tokens, labels, cfg: ModelConfig, *,
-                   frontend_inputs=None, remat=True):
+                   frontend_inputs=None, remat=True, mesh=None,
+                   dp_axes: tuple = ()):
     """``(loss, aux, grads)``: the masked loss and its gradient tree (the
     params' nested dict; a parameter the loss does not reach gets
     zeros, as under ``jax.grad``)."""
@@ -59,7 +73,7 @@ def loss_and_grads(params, tokens, labels, cfg: ModelConfig, *,
     leaves = tree_leaves(tree)
     with torch.enable_grad():
         loss, aux = _loss(params, tokens, labels, cfg, frontend_inputs,
-                          remat)
+                          remat, mesh, dp_axes)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
     return loss.detach(), aux, _unflatten(tree, list(grads))
@@ -72,11 +86,10 @@ def train_step(state: TrainState, tokens, labels, cfg: ModelConfig, *,
                remat=True):
     """One optimizer step; returns (new_state, metrics).  The new state
     holds the given parameter and moment tensors, updated in place."""
-    if mesh is not None or dp_axes:
-        raise NotImplementedError(tf.MESH_NOT_PORTED)
     loss, aux, grads = loss_and_grads(state.params, tokens, labels, cfg,
                                       frontend_inputs=frontend_inputs,
-                                      remat=remat)
+                                      remat=remat, mesh=mesh,
+                                      dp_axes=dp_axes)
     grads, gnorm = clip_by_global_norm(grads, grad_clip)
     lr = cosine_schedule(state.opt.step, warmup, total_steps, peak_lr)
     new_params, new_opt = adamw_update(grads, state.opt, state.params, lr=lr)
@@ -89,12 +102,12 @@ def train_step(state: TrainState, tokens, labels, cfg: ModelConfig, *,
 def make_train_step(cfg: ModelConfig, mesh=None, dp_axes: tuple = (),
                     in_shardings=None, out_shardings=None, **kw):
     """``make_jitted_train_step``'s counterpart: ``train_step`` bound to
-    ``cfg`` and ``kw`` (eager; shardings belong to the distributed-LM
-    slice and raise)."""
-    if mesh is not None or dp_axes or in_shardings is not None \
-            or out_shardings is not None:
-        raise NotImplementedError(tf.MESH_NOT_PORTED)
-    fn = functools.partial(train_step, cfg=cfg, **kw)
+    ``cfg``, ``mesh``, ``dp_axes`` and ``kw`` (eager; GSPMD shardings
+    raise)."""
+    if in_shardings is not None or out_shardings is not None:
+        raise NotImplementedError(GSPMD_NOT_PORTED)
+    fn = functools.partial(train_step, cfg=cfg, mesh=mesh, dp_axes=dp_axes,
+                           **kw)
 
     def step(state, tokens, labels, frontend_inputs=None):
         return fn(state, tokens, labels, frontend_inputs=frontend_inputs)

@@ -1939,3 +1939,122 @@ def test_train_launcher_on_card(cuda, tmp_path, caplog):
     assert np.abs(np.asarray(g[6:]) - np.asarray(cpu)).max() <= 2.0 ** -8
     msgs = [r.getMessage() for r in caplog.records]
     assert msgs.count("resumed from step 6") == 2
+
+
+# ----------------------------- the distributed LM ----------------------------
+
+def _lm_mesh_rank():
+    """The EP MoE (bf16 forward, int8 dispatch, f32-compute gradient, each
+    data shard's local ``moe_ffn``) on a (data, model) = (2, 2) mesh, then
+    the f32 pipeline on (pod, data) = (4, 1): first on the card, then on
+    the CPU (gloo meshes of the same four processes)."""
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.models import layers as tly
+    from repro_torch.models import moe
+    from repro_torch.models.config import MoEConfig
+    cfg = MoEConfig(n_experts=8, top_k=2, d_expert=16, n_shared=1,
+                    capacity_factor=1.25)
+    g = torch.Generator().manual_seed(0)
+    p = moe.init_moe(32, cfg, g, "cpu", ep_degree=2)
+    x = torch.randn((4, 16, 32), generator=g)
+    w = torch.randn((4, 16, 32), generator=g)
+    Ws = torch.randn((4, 16, 16), generator=g) * 0.5
+    xp = torch.randn((8, 16), generator=g)
+    out = {}
+    for where in ("cuda", "cpu"):
+        mesh = Mesh((2, 2), "gloo", where, ("data", "model"))
+        pw = {k: v.to(where) for k, v in p.items()}
+        xw = x.to(where)
+        y, aux, dropped = moe.moe_ffn_shard_map(pw, xw, cfg, mesh, ("data",))
+        yq = moe.moe_ffn_shard_map(pw, xw, cfg, mesh, ("data",),
+                                   quantize_dispatch=True)[0]
+        shards = [moe.moe_ffn(pw, xw[2 * d:2 * d + 2], cfg)
+                  for d in range(2)]
+        tly.COMPUTE_DTYPE = moe.COMPUTE_DTYPE = torch.float32
+        pg = {k: v.clone().requires_grad_() for k, v in pw.items()}
+        xg = xw.clone().requires_grad_()
+        yg, auxg, _ = moe.moe_ffn_shard_map(pg, xg, cfg, mesh, ("data",))
+        grads = torch.autograd.grad(
+            (yg.float() * w.to(where)).sum() + auxg, [xg, *pg.values()])
+        tly.COMPUTE_DTYPE = moe.COMPUTE_DTYPE = torch.bfloat16
+        pmesh = Mesh((4, 1), "gloo", where, ("pod", "data"))
+        fn = pipeline_apply(lambda W, xb: torch.tanh(xb @ W), pmesh,
+                            stage_axis="pod", n_micro=4, data_axes=("data",))
+        Wg = Ws.to(where).requires_grad_()
+        yp = fn(Wg, xp.to(where))
+        gp, = torch.autograd.grad((yp ** 2).sum(), Wg)
+        seq = []
+        for mb in xp.to(where).reshape(4, 2, 16):
+            for s in range(4):
+                mb = torch.tanh(mb @ Ws[s].to(where))
+            seq.append(mb)
+        out[where] = dict(
+            y=y.float().cpu(), aux=float(aux), dropped=float(dropped),
+            yq=yq.float().cpu(),
+            local_y=torch.cat([s[0] for s in shards]).float().cpu(),
+            local_aux=float((shards[0][1] + shards[1][1]) / 2),
+            local_dropped=float((shards[0][2] + shards[1][2]) / 2),
+            grads=[t.cpu() for t in grads], yp=yp.detach().cpu(),
+            gp=gp.cpu(), seq_equal=torch.equal(yp.detach(), torch.cat(seq)))
+    return out
+
+
+def _bf16_ulps(want, ulps=8):
+    top = float(want.abs().max())
+    return ulps * 2.0 ** (np.floor(np.log2(top)) - 7) if top else 0.0
+
+
+def test_lm_mesh_ep_and_pipeline_card_matches_cpu(cuda):
+    """Four gloo ranks on the card against the same four processes' gloo
+    CPU meshes: ``moe_ffn_shard_map`` (y within 8 bf16 ulps on the rows
+    whose routing is sure, aux within 1e-3 relative, dropped equal when
+    every row is sure), its int8 dispatch within 0.05 of the bf16 one,
+    the shard oracle on the card (EP equals the local ``moe_ffn`` on each
+    data shard within 8 ulps, aux to f32 rounding, dropped equal), the f32
+    gradient of sum(y w) + aux within 1e-4 relative L2; the f32 pipeline
+    within 1e-6 (forward) and 1e-5 (gradient) of the CPU's and bitwise its
+    own sequential composition; every rank's bits equal."""
+    from repro_torch.distributed.mesh import Mesh, spawn
+    from repro_torch.models import moe
+    from repro_torch.models.config import MoEConfig
+    ranks = spawn(_lm_mesh_rank, Mesh((2, 2), "gloo", "cuda",
+                                      ("data", "model")), timeout=600)
+    for r in ranks[1:]:
+        for where in ("cuda", "cpu"):
+            for k in ("y", "yq", "yp", "gp"):
+                assert torch.equal(r[where][k], ranks[0][where][k]), k
+            assert all(torch.equal(a, b) for a, b in
+                       zip(r[where]["grads"], ranks[0][where]["grads"]))
+    card, cpu = ranks[0]["cuda"], ranks[0]["cpu"]
+    # the routing margin on the CPU's router probabilities
+    cfg = MoEConfig(n_experts=8, top_k=2, d_expert=16, n_shared=1,
+                    capacity_factor=1.25)
+    g = torch.Generator().manual_seed(0)
+    p = moe.init_moe(32, cfg, g, "cpu", ep_degree=2)
+    x = torch.randn((4, 16, 32), generator=g)
+    logits = (x.reshape(-1, 32).bfloat16() @ p["router"].bfloat16()).float()
+    probs = torch.softmax(logits, -1)
+    srt = probs.sort(-1, descending=True).values
+    tol = 2.0 ** -7 * float(probs.max())
+    sure = ((srt[:, 1] - srt[:, 2] > tol) & (srt[:, 0] - srt[:, 1] > tol))
+    y, want = card["y"].reshape(-1, 32), cpu["y"].reshape(-1, 32)
+    assert float((y[sure] - want[sure]).abs().max()) <= _bf16_ulps(want)
+    low = int((~sure).sum())
+    assert abs(card["aux"] - cpu["aux"]) <= 1e-3 * cpu["aux"] + 8 / 64 * low
+    if low == 0:
+        assert card["dropped"] == cpu["dropped"]
+    rel = float((card["yq"] - card["y"]).abs().max() / card["y"].abs().max())
+    assert rel < 0.05
+    assert float((card["y"] - card["local_y"]).abs().max()) <= \
+        _bf16_ulps(card["local_y"])
+    assert abs(card["aux"] - card["local_aux"]) <= \
+        4 * np.spacing(np.float32(card["local_aux"]))
+    assert card["dropped"] == card["local_dropped"]
+    for a, b in zip(card["grads"], cpu["grads"]):
+        assert float((a.double() - b.double()).norm()) <= \
+            1e-4 * float(b.double().norm())
+    assert float((card["yp"] - cpu["yp"]).abs().max()) <= 1e-6
+    assert float((card["gp"] - cpu["gp"]).norm()) <= \
+        1e-5 * float(cpu["gp"].norm())
+    assert card["seq_equal"] and cpu["seq_equal"]

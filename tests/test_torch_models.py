@@ -460,14 +460,17 @@ def test_top_k_ties_ascending():
 
 
 def test_unported_branches_raise():
+    """``mesh=`` and ``axis_name=`` outside a rank of the mesh raise (no
+    one-process fallback); the ranks' paths are held in
+    ``tests/test_torch_lm_mesh.py`` and ``tests/test_torch_moe_ep.py``."""
     jcfg, tcfg, _, _, tp = _params("qwen2-moe-a2.7b")
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="distributed-LM"):
+    with pytest.raises(RuntimeError, match="not on a rank of this mesh"):
         ttf.forward(tp, tok, tcfg, mesh=object())
     # remat is ported (the training slice): it runs and changes no value
     assert torch.equal(ttf.forward(tp, tok, tcfg, remat=True)[0],
                        ttf.forward(tp, tok, tcfg)[0])
-    with pytest.raises(NotImplementedError, match="distributed-LM"):
+    with pytest.raises(RuntimeError, match="not on a rank of this mesh"):
         tmoe.moe_ffn({}, torch.zeros((1, 1, 64)), tcfg.moe, axis_name="model")
 
 

@@ -338,17 +338,18 @@ def test_attend_online_grad(dtype, monkeypatch):
 # ----------------------------- API edges -------------------------------------
 
 def test_unported_and_no_card(monkeypatch):
-    """``mesh=`` / DP axes / shardings raise naming the distributed-LM
-    slice; without a card the default device raises (no CPU fallback)."""
+    """``mesh=`` outside a rank of the mesh raises (no one-process
+    fallback); GSPMD shardings raise naming the JAX-only dry-run; without
+    a card the default device raises (no CPU fallback)."""
     _, tcfg = _cfgs("smollm-360m")
     st = tstep.make_train_state(tcfg, generator=torch.Generator(),
                                 device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="distributed-LM"):
+    with pytest.raises(RuntimeError, match="not on a rank of this mesh"):
         tstep.train_step(st, tok, tok, tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="distributed-LM"):
+    with pytest.raises(NotImplementedError, match="GSPMD placements"):
         tstep.make_train_step(tcfg, in_shardings=object())
-    with pytest.raises(NotImplementedError, match="distributed-LM"):
+    with pytest.raises(RuntimeError, match="not on a rank of this mesh"):
         ttf.forward(st.params, tok, tcfg, mesh=object(), remat=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
