@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--json PATH] [--only-serve | --only-train |
                                          --only-lm-mesh | --only-tune |
-                                         --only-distributed]
+                                         --only-distributed |
+                                         --only-examples]
 
 Run from the root of a checkout; it needs no build step (the kernels
 build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
@@ -123,9 +124,10 @@ seconds per save printed):
   kernel plan over the window; once, 64 dirty rows of the cube bitwise
   K1's plain twin under the rows' bbox mask; balanced books; a peak below
   60 GB (the cube is 17.2 GB);
-* kill and resume at T = 1024 (the first 1,024 vessels: a snapshot's cube
-  is 1.07 GB, not 17.2): a crash entering advance 3, a resume from the
-  snapshot, the final state bitwise an uninterrupted run's;
+* kill and resume at T = 512 (the first 512 vessels, batches of 4,096
+  fixes: a snapshot's cube is 0.27 GB, not 17.2): a crash entering
+  advance 3, a resume from the snapshot, the final state bitwise an
+  uninterrupted run's;
 * the launcher in this process at its default size: ``--stream
   --resume-dir`` (exit 0), a ``{"crash_at": "cluster"}`` fault plan (6)
   and the resume (0, labels of a plain run), ``--on-overflow raise`` (3),
@@ -213,7 +215,7 @@ zeroed just before it, read just after):
   and within 2 lr everywhere, MoE choices under the margin rule; on the
   card the step lowers its batch's loss;
 * smollm-360m at full width, B = 4 x 4,096 ``TokenPipeline`` tokens (the
-  train_4k shape's length, its global batch 256 cut to 4), 8 steps at
+  train_4k shape's length, its global batch 256 cut to 4), 4 steps at
   remat=True: losses and grad norms finite, the last two losses below
   the first two; one more step from the same state and batch at each
   remat mode: the loss bitwise remat=True's, each leaf's update within
@@ -223,8 +225,8 @@ zeroed just before it, read just after):
   attention block's first moments (its gradient summed over its 6 uses)
   finite and non-zero; step ms and peak;
 * the port's training launcher in this process, ``--arch smollm-360m
-  --full --steps 20 --batch 8 --seq 512 --ckpt-every 10 --device cuda``,
-  then ``--steps 30 --resume`` (logs ``resumed from step 20``).
+  --full --steps 10 --batch 8 --seq 512 --ckpt-every 5 --device cuda``,
+  then ``--steps 15 --resume`` (logs ``resumed from step 10``).
 
 The distributed LM (``phase_lm_mesh``, after the training phase, or
 alone with ``--only-lm-mesh``): one ``spawn`` of four ranks that share
@@ -299,15 +301,16 @@ each run and read just after:
   ``on_overflow="widen"``: every rank launches exactly K2, K4, K3, K8,
   K9 and the chunk bounds (K2 and K3 once, per widen dispatch K4 and K9
   once; the bounds once for K2 and once a dispatch); run again, bitwise
-  and with the same launches, recording its kernels' operands; the plain
-  plan on the card (from K = 4096) gives the same labels; every rank
-  assembles the same output;
+  and with the same launches, recording its kernels' operands; every
+  rank assembles the same output;
 * the fused dense kernel plan (K5, K6) there: the labels of the main run;
 * at T = 512: the materialize kernel plan (K1) with the labels of the
   fused top-K run; the ring twins (top-K, and materialize with the
   allgather strategy) bitwise their barrier twins on every label field;
   the stage chain of ``build_dsc_stage_programs`` bitwise the monolith
-  with its launches; then mesh (1, 2) against one-device ``run_dsc``;
+  with its launches; the plain plan (from K = 32 with widen) gives the
+  labels of the fused top-K kernel plan; then mesh (1, 2) against
+  one-device ``run_dsc``;
 * every kernel of these paths against its plain version at the operands
   the program gave it, on every rank (``recorded_program`` wraps the
   wrappers in the recorded rerun, the dense run and mat_512): each call's
@@ -349,6 +352,27 @@ same (2, 2) mesh, checkpoints under a fresh temporary directory:
   against its plain version at the resilient runs' own operands
   (``recorded_program`` in the resume, the materialize straight run and
   the rebalanced run).
+
+The examples (``phase_examples``, last, or alone with
+``--only-examples``): each module of ``repro_torch.examples`` through its
+``main`` on the card, against the same example under ``--device cpu``:
+
+* quickstart (``run_dsc``'s default plan, no kernel): printed lines and
+  ``member_of`` / ``is_rep`` / ``is_outlier`` bitwise the CPU run's;
+* maritime_clustering on one spawn of its (part, model) = (4, 2) mesh,
+  eight gloo ranks on the card: on every rank the lines and labels
+  bitwise the eight CPU ranks' run, and exactly the kernels of its
+  materialize plan (K1 and the chunk bounds; its clustering runs the
+  plain engine, as the reference's ``use_kernel=True`` alias sets), their
+  launches a rank printed;
+* serve_lm: requests, tokens, decode steps, prefill calls and padding
+  waste equal the CPU's (host bookkeeping);
+* train_lm, its 300 steps from the CPU's init: the loss drops, and the
+  first is within 2**-9 (the training phase's bound) of the CPU's run of
+  12 steps;
+
+with the phase's wall, each example's wall and the card's used peak (all
+processes).
 
 Prints one JSON ``kernels`` line, then the card's name and power limit,
 then ``{"ok": true, "device": {...}}`` as the last line.  Any mismatch or
@@ -1121,9 +1145,9 @@ def recorded_rounds():
     from repro_torch.kernels.cluster import ops
     real, states = ops.cluster_round_scan, []
 
-    def record(sim, rank, unresolved, is_rep, alpha):
+    def record(sim, rank, unresolved, is_rep, alpha, **knobs):
         states.append((unresolved.clone(), is_rep.clone()))
-        return real(sim, rank, unresolved, is_rep, alpha)
+        return real(sim, rank, unresolved, is_rep, alpha, **knobs)
 
     ops.cluster_round_scan = record
     try:
@@ -1142,10 +1166,10 @@ def recorded_claims():
     from repro_torch.kernels.cluster import ops
     real, calls = ops.topk_cluster_assign, []
 
-    def record(ids, sims, rank, is_rep, valid, alpha):
+    def record(ids, sims, rank, is_rep, valid, alpha, **knobs):
         calls.append((*(t.cpu() for t in (ids, sims, rank, is_rep, valid)),
                       float(alpha)))
-        return real(ids, sims, rank, is_rep, valid, alpha)
+        return real(ids, sims, rank, is_rep, valid, alpha, **knobs)
 
     ops.topk_cluster_assign = record
     try:
@@ -1411,8 +1435,8 @@ STREAM_BATCH = 32768
 STREAM_NEED = {"stjoin_best_match", "chunk_time_bounds", "topk_claim_max"}
 STREAM_KERNELS = STREAM_NEED | {"topk_round_scan"}
 # the stream kill-and-resume phase: its window and its batches
-RESUME_T_CAP = 1024
-RESUME_BATCH = 8192
+RESUME_T_CAP = 512
+RESUME_BATCH = 4096
 
 
 @contextlib.contextmanager
@@ -1781,8 +1805,8 @@ def stream_state(drv) -> dict:
 
 
 def phase_stream_resume(dev, report, alpha, k):
-    """Kill and resume at T = 1024 (the first 1,024 dsc_brest vessels; a
-    snapshot holds a 1.07 GB cube): a service with a snapshot every 3
+    """Kill and resume at T = ``RESUME_T_CAP`` (the first 512 dsc_brest
+    vessels; a snapshot holds a 0.27 GB cube): a service with a snapshot every 3
     advances crashes entering advance 3, a new one resumes from the
     snapshot and finishes; its state (cube, lists, labels, store, books)
     equals an uninterrupted run's bitwise."""
@@ -1844,7 +1868,7 @@ def phase_stream_resume(dev, report, alpha, k):
             f"{resume_s:.3f}; state bitwise the uninterrupted run's; "
             f"{len(writes)} snapshots of {max(snap_b) / 1e9:.3f} GB, s per "
             f"snapshot mean {sum(snap_s) / len(snap_s):.3f}")
-        report["stream_resume_t1024"] = dict(
+        report["stream_resume"] = dict(
             uninterrupted_s=ref_s, resume_s=resume_s, snapshots=len(writes),
             snapshot_bytes=snap_b, snapshot_s=snap_s)
     finally:
@@ -2182,19 +2206,16 @@ DIST_KERNELS = {
 RINGS = dict(halo_stream="ring", sim_exchange="ring")
 # job -> (vessels, path, plan fields beyond the path's, on_overflow, the
 # kernels whose calls the run records for the checks after it); the main
-# run at dsc_brest, then again recording its kernels' operands, the plain
-# plan there (from K = 4096, the main run's final K at one device: each
-# widen reruns the similarity phase, and the plain join is the slow part
-# of the program), the dense case there (K5, K6), and the variants at
-# T = 512 (K1 in mat_512)
+# run at dsc_brest, then again recording its kernels' operands, the dense
+# case there (K5, K6), the variants at T = 512 (K1 in mat_512) and the
+# plain plan at T = 512 (from K = 32 with widen, as topk_512; at dsc_brest
+# its plain join alone took 79 s a rank)
 DIST_JOBS = {
     "main": (4096, "fused_topk", dict(sim_topk=32), "widen", ()),
     "main_again": (4096, "fused_topk", dict(sim_topk=32), "widen",
                    ("chunk_time_bounds", "stjoin_vote_fused",
                     "jaccard_window", "stjoin_sim_fused", "topk_round_scan",
                     "topk_claim_max")),
-    "plain": (4096, "plain", dict(sim_mode="topk", sim_topk=4096), "widen",
-              ()),
     "dense": (4096, "fused", {}, "raise", ("round_scan", "claim_max")),
     "topk_512": (512, "fused_topk", dict(sim_topk=32), "widen", ()),
     "topk_512_ring": (512, "fused_topk", dict(sim_topk=32, **RINGS),
@@ -2205,6 +2226,8 @@ DIST_JOBS = {
                           dict(sim_strategy="allgather"), "raise", ()),
     "mat_512_ring": (512, "materialize",
                      dict(sim_strategy="allgather", **RINGS), "raise", ()),
+    "plain_512": (512, "plain", dict(sim_mode="topk", sim_topk=32),
+                  "widen", ()),
 }
 DIST_LABELS = ("member_of", "member_sim", "is_rep", "is_outlier")
 # the partition rows at which K2 and K4 are held against their plain
@@ -2685,7 +2708,7 @@ def phase_distributed(report, card: str):
               f"distributed main rank {r}: the recorded rerun launched "
               "otherwise")
     for a, b, fields in (
-            ("plain", "main", LABELS),
+            ("plain_512", "topk_512", LABELS),
             ("dense", "main", LABELS),
             ("mat_512", "topk_512", LABELS),
             ("mat_512_allgather", "mat_512", LABELS),
@@ -2723,8 +2746,7 @@ def phase_distributed(report, card: str):
     dispatches = r0["main"]["launches"]["topk_claim_max"]
     log(f"distributed main (fused top-K, dsc_brest T={T} Mp={Mp}, mesh "
         f"2x2; {card}): dispatches={dispatches} {dist_counts(main)}; "
-        f"bitwise on rerun; plain plan labels equal; every rank's output "
-        f"equal")
+        f"bitwise on rerun; every rank's output equal")
     rows = {}
     for name in DIST_JOBS:
         walls = [res[name]["wall"] for res in ranks]
@@ -2763,7 +2785,8 @@ def phase_distributed(report, card: str):
                 f"({card})")
     log("distributed P = 1 (mesh 1x2, T=512): labels equal one-device "
         "run_dsc's; stage chain (T=512) bitwise the monolith, same "
-        "launches; ring twins bitwise; dense T=4096 labels equal the main "
+        "launches; ring twins bitwise; plain plan T=512 labels equal the "
+        "fused top-K kernel plan's; dense T=4096 labels equal the main "
         "run's")
     report["distributed"] = dict(card=card, phase_s=phase_s,
                                  card_used_peak_bytes=peak[0], jobs=rows,
@@ -3062,6 +3085,209 @@ def phase_resilient_distributed(report, card: str, mono: dict):
         walls_512=t512,
         checks=[[c for j in ("resume", "mat", "rb") for c in res[j]["checks"]]
                 for res in ranks])
+
+
+# ---------------------------------------------------------------------------
+# The examples (repro_torch.examples) on the card, each against its CPU run
+# ---------------------------------------------------------------------------
+
+# the kernels of the maritime example's path on every rank: its
+# ``use_kernel=True`` is the reference's deprecated alias of
+# ``EnginePlan(use_kernel=True)``, the materialize join kernel alone (the
+# clustering and segmentation stay on their plain engines, TSA1)
+MARITIME_KERNELS = {"stjoin_best_match", "chunk_time_bounds"}
+EXAMPLE_MESH = (4, 2)
+# the served requests' counts, as the serving launcher logs them
+SERVE_COUNTS = re.compile(r"served (\d+) requests, (\d+) tokens in .*; "
+                          r"(\d+) decode steps, (\d+) prefill calls, "
+                          r"padding waste ([\d.]+)")
+
+
+class LogLines:
+    """The messages of one logger while the context is open."""
+
+    def __init__(self, name: str):
+        import logging
+        self.logger = logging.getLogger(name)
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.lines.append(rec.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def run_example(mod, argv) -> tuple:
+    """``(printed lines, returned value, wall s)`` of ``mod.main(argv)``
+    (the launch counts zeroed just before)."""
+    import io
+    from repro_torch import kernels
+    buf = io.StringIO()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    if "cuda" in argv:
+        torch.cuda.synchronize()
+    return buf.getvalue().splitlines(), out, time.perf_counter() - t0
+
+
+def launched() -> dict:
+    from repro_torch import kernels
+    return {k: n for k, n in kernels.LAUNCHES.items() if n}
+
+
+def maritime_rank() -> dict:
+    """The maritime example's ``main`` on this rank of its (4, 2) mesh on
+    the card: its lines, labels, launches, wall and peak allocation."""
+    from repro_torch.examples import maritime_clustering
+    torch.cuda.reset_peak_memory_stats()
+    lines, out, wall = run_example(maritime_clustering,
+                                   ["--device", "cuda"])
+    return dict(lines=lines, launches=launched(), wall=wall,
+                labels={f: getattr(out.result, f) for f in LABELS},
+                peak=torch.cuda.max_memory_allocated())
+
+
+def train_state_on_host():
+    """A stand-in for ``launch.train.make_train_state`` that seeds the
+    init on the CPU and moves it to the card: the card run starts from
+    the CPU run's weights (the card's generator draws other numbers)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import TrainState
+
+    def make(cfg, *, generator, device=None, ep_degree=1):
+        gen = torch.Generator().manual_seed(generator.initial_seed())
+        params = tf.init_model(cfg, generator=gen, device="cpu",
+                               ep_degree=ep_degree).to(device)
+        return TrainState(params, adamw_init(params))
+    return make
+
+
+def phase_examples(report, card: str):
+    """``repro_torch.examples``: each example's ``main`` on the card against
+    the same example under ``--device cpu``.  quickstart and maritime: the
+    printed lines and ``member_of`` / ``is_rep`` / ``is_outlier`` bitwise
+    (maritime on every rank of one spawn of its (4, 2) mesh, each rank
+    launching exactly ``MARITIME_KERNELS``); serve_lm: the served counts
+    equal; train_lm (its 300 steps from the CPU's init): the loss drops
+    and the first is within ``TRAIN_LOSS_TOL`` of the CPU's (12 steps)."""
+    import tempfile
+    import threading
+    from repro_torch.distributed.mesh import Mesh, spawn
+    from repro_torch.examples import (maritime_clustering, quickstart,
+                                      serve_lm, train_lm)
+    from repro_torch.launch import train as train_launcher
+    torch.cuda.empty_cache()
+    stop, peak = threading.Event(), [0]
+    poll = threading.Thread(target=card_used_peak, args=(stop, peak))
+    poll.start()
+    t0 = time.perf_counter()
+    walls, rep = {}, {}
+    try:
+        # ---- quickstart: run_dsc's default plan (no kernel) -------------
+        lines, out, walls["quickstart"] = run_example(
+            quickstart, ["--device", "cuda"])
+        check(not launched(), f"quickstart launched {launched()}")
+        clines, cout, walls["quickstart_cpu"] = run_example(
+            quickstart, ["--device", "cpu"])
+        check(lines == clines, f"quickstart: card lines {lines} differ "
+                               f"from the CPU's {clines}")
+        for f in LABELS:
+            check(torch.equal(getattr(out.result, f).cpu(),
+                              getattr(cout.result, f)),
+                  f"quickstart: {f} differs from the CPU run's")
+        rep["quickstart"] = lines
+        # ---- maritime: 8 ranks on the card, then 8 CPU ranks -----------
+        tm = time.perf_counter()
+        ranks = spawn(maritime_rank, Mesh(EXAMPLE_MESH, "gloo", "cuda"),
+                      timeout=600)
+        walls["maritime"] = time.perf_counter() - tm
+        clines, cout, walls["maritime_cpu"] = run_example(
+            maritime_clustering, ["--device", "cpu"])
+        for r, res in enumerate(ranks):
+            check(res["lines"] == clines,
+                  f"maritime rank {r}: lines {res['lines']} differ from "
+                  f"the CPU's {clines}")
+            for f in LABELS:
+                check(torch.equal(res["labels"][f], getattr(cout.result, f)),
+                      f"maritime rank {r}: {f} differs from the CPU run's")
+            check(set(res["launches"]) == MARITIME_KERNELS,
+                  f"maritime rank {r}: launched {res['launches']}, "
+                  f"expected {sorted(MARITIME_KERNELS)}")
+        rep["maritime"] = dict(
+            lines=ranks[0]["lines"],
+            launches=[res["launches"] for res in ranks],
+            rank_walls_s=[res["wall"] for res in ranks],
+            rank_peaks=[res["peak"] for res in ranks])
+        # ---- serve_lm: the served counts, card against CPU -------------
+        with LogLines("repro_torch.serve") as logged:
+            _, done, walls["serve_lm"] = run_example(
+                serve_lm, ["--device", "cuda"])
+            check(not launched(), f"serve_lm launched {launched()}")
+            _, cdone, walls["serve_lm_cpu"] = run_example(
+                serve_lm, ["--device", "cpu"])
+        counts = [SERVE_COUNTS.search(x).groups() for x in logged
+                  if SERVE_COUNTS.search(x)]
+        check(len(counts) == 2 and counts[0] == counts[1],
+              f"serve_lm: served counts card / CPU {counts}")
+        check([(r.uid, len(r.out)) for r in done]
+              == [(r.uid, len(r.out)) for r in cdone],
+              "serve_lm: requests or token counts differ from the CPU's")
+        rep["serve_lm"] = counts[0]
+        # ---- train_lm: 300 steps on the card from the CPU's init --------
+        real = train_launcher.make_train_state
+        train_launcher.make_train_state = train_state_on_host()
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_ex_") as d:
+                tlines, losses, walls["train_lm"] = run_example(
+                    train_lm, ["--device", "cuda", "--ckpt-dir", d])
+                check(not launched(), f"train_lm launched {launched()}")
+        finally:
+            train_launcher.make_train_state = real
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ex_") as d:
+            _, closses, walls["train_lm_cpu"] = run_example(
+                train_lm, ["--device", "cpu", "--steps", "12",
+                           "--ckpt-dir", d])
+        first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+        check(len(losses) == 300 and last < first,
+              f"train_lm: {len(losses)} steps, loss {first} -> {last}")
+        diff = abs(losses[0] - closses[0])
+        check(diff <= TRAIN_LOSS_TOL,
+              f"train_lm: first loss {losses[0]} vs the CPU's {closses[0]}")
+        rep["train_lm"] = dict(first=losses[0], cpu_first=closses[0],
+                               mean_first10=first, mean_last10=last)
+    finally:
+        stop.set()
+        poll.join()
+    phase_s = time.perf_counter() - t0
+    report["examples"] = dict(card=card, phase_s=phase_s, walls_s=walls,
+                              card_used_peak_bytes=peak[0], **rep)
+    log(f"examples phase ({card}): wall s={phase_s:.1f}, card used peak "
+        f"GB={peak[0] / 1e9:.3f} (all processes); walls s: " + ", ".join(
+            f"{k}={v:.2f}" for k, v in walls.items()))
+    log(f"  quickstart: lines and labels bitwise the CPU run's; "
+        f"{rep['quickstart'][0]}")
+    ln = ranks[0]["launches"]
+    log(f"  maritime_clustering (mesh 4x2, 8 gloo ranks on the card): "
+        f"lines and labels bitwise the CPU ranks' on every rank; launches "
+        f"a rank: " + ", ".join(f"{k}={v}" for k, v in sorted(ln.items()))
+        + f" (every rank the same: "
+        f"{all(r['launches'] == ln for r in ranks)}); "
+        f"{ranks[0]['lines'][1]}")
+    log(f"  serve_lm: requests, tokens, decode steps, prefill calls, padding "
+        f"waste {rep['serve_lm']}, the CPU's")
+    log(f"  train_lm: 300 steps, loss {rep['train_lm']['mean_first10']:.4f} "
+        f"-> {rep['train_lm']['mean_last10']:.4f}; first {losses[0]:.6f}, "
+        f"the CPU's {closses[0]:.6f} (|diff| {diff:.2e} <= "
+        f"{TRAIN_LOSS_TOL:.2e})")
 
 
 def phase_s2t(dev):
@@ -4374,7 +4600,7 @@ TRAIN_KW = dict(peak_lr=1e-2, warmup=2, total_steps=10)
 TRAIN_LOSS_TOL = 2.0 ** -9
 TRAIN_GNORM_REL = 2.0 ** -6
 TRAIN_REL, TRAIN_COS = 0.1, 0.995
-TRAIN_ARCH, TRAIN_B, TRAIN_L, TRAIN_STEPS = "smollm-360m", 4, 4096, 8
+TRAIN_ARCH, TRAIN_B, TRAIN_L, TRAIN_STEPS = "smollm-360m", 4, 4096, 4
 TRAIN_FULL_KW = dict(peak_lr=1e-3, warmup=2, total_steps=10_000)
 # the remat modes' new params against remat=True's: the card's atomic
 # scatter adds in the backward reorder f32 sums, and Adam divides by
@@ -4561,7 +4787,7 @@ def timed_step(step_fn, state, batch):
 def phase_train_smollm(dev, report, card: str):
     """smollm-360m at full width (32 layers, d 960, vocab 49,152), B = 4
     sequences of 4,096 ``TokenPipeline`` tokens (the train_4k shape's
-    length; its global batch 256 cut to 4), 8 steps at remat=True: every
+    length; its global batch 256 cut to 4), 4 steps at remat=True: every
     loss and grad norm finite, the last two losses below the first two;
     then one more step from the same state and batch at each remat mode:
     the loss bitwise remat=True's, the new params within
@@ -4588,7 +4814,7 @@ def phase_train_smollm(dev, report, card: str):
         metrics.append(m)
         events.append(ev)
     torch.cuda.synchronize()
-    peak8 = (torch.cuda.max_memory_allocated() - base) / 1e9
+    peak_steps = (torch.cuda.max_memory_allocated() - base) / 1e9
     ms = [s.elapsed_time(e) for s, e in events]
     losses = [float(m["loss"]) for m in metrics]
     gnorms = [float(m["grad_norm"]) for m in metrics]
@@ -4645,7 +4871,7 @@ def phase_train_smollm(dev, report, card: str):
            "grad_norms": gnorms, "step_ms": ms,
            "step_ms_mean": sum(steady) / len(steady),
            "tokens_per_s": tok / (sum(steady) / len(steady) / 1e3),
-           "peak_gb_8_steps": peak8,
+           "peak_gb_train_steps": peak_steps,
            "remat": {str(r): {k: v for k, v in d.items() if k != "loss"}
                      | {"loss": float(d["loss"])} for r, d in modes.items()},
            "remat_vs_true": {str(r): d for r, d in diffs.items()},
@@ -4658,7 +4884,7 @@ def phase_train_smollm(dev, report, card: str):
         + ", ".join(f"{x:.3f}" for x in gnorms) + "; step ms "
         + ", ".join(f"{x:.1f}" for x in ms)
         + f" (mean after the first {res['step_ms_mean']:.1f}, "
-          f"{res['tokens_per_s']:.0f} tokens/s); peak {peak8:.3f} GB "
+          f"{res['tokens_per_s']:.0f} tokens/s); peak {peak_steps:.3f} GB "
           f"({card})")
     for r, d in modes.items():
         extra = "" if r is True else (
@@ -4736,58 +4962,43 @@ def phase_train_zamba(dev, report, card: str):
 
 def phase_train_launcher(report):
     """The port's training launcher in this process, twice: ``--arch
-    smollm-360m --full --steps 20 --batch 8 --seq 512 --ckpt-every 10
+    smollm-360m --full --steps 10 --batch 8 --seq 512 --ckpt-every 5
     --device cuda`` into a fresh directory, then the same with ``--steps
-    30 --resume``: the second logs ``resumed from step 20`` and trains 10
+    15 --resume``: the second logs ``resumed from step 10`` and trains 5
     steps; every loss finite."""
-    import logging
     import math
     import tempfile
     from repro_torch import kernels
     from repro_torch.launch import train as launcher
-
-    class Lines(logging.Handler):
-        def __init__(self):
-            super().__init__()
-            self.lines = []
-
-        def emit(self, record):
-            self.lines.append(record.getMessage())
-
-    lines = Lines()
-    logger = logging.getLogger("repro_torch")
-    logger.addHandler(lines)
     walls = []
-    try:
+    with LogLines("repro_torch") as lines:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
             argv = ["--arch", TRAIN_ARCH, "--full", "--batch", "8", "--seq",
-                    "512", "--ckpt-dir", d, "--ckpt-every", "10",
+                    "512", "--ckpt-dir", d, "--ckpt-every", "5",
                     "--device", "cuda"]
             kernels.reset_launch_counts()
             runs = []
-            for extra in (["--steps", "20"], ["--steps", "30", "--resume"]):
+            for extra in (["--steps", "10"], ["--steps", "15", "--resume"]):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 runs.append(launcher.main(argv + extra))
                 walls.append(time.perf_counter() - t0)
             disk = sum(f.stat().st_size for f in Path(d).rglob("*")
                        if f.is_file()) / 1e9
-    finally:
-        logger.removeHandler(lines)
     launched = {k: c for k, c in kernels.LAUNCHES.items() if c}
     check(not launched, f"the training launcher launched {launched}")
-    check([len(r) for r in runs] == [20, 10],
-          f"launcher: {[len(r) for r in runs]} steps, want 20 then 10")
+    check([len(r) for r in runs] == [10, 5],
+          f"launcher: {[len(r) for r in runs]} steps, want 10 then 5")
     check(all(math.isfinite(x) for r in runs for x in r),
           f"launcher: losses {runs}")
-    check("resumed from step 20" in lines.lines,
-          "launcher: the second run did not log 'resumed from step 20'")
-    verdicts = [x for x in lines.lines if "->" in x]
+    check("resumed from step 10" in lines,
+          "launcher: the second run did not log 'resumed from step 10'")
+    verdicts = [x for x in lines if "->" in x]
     report["train_launcher"] = {"walls_s": walls, "losses": runs,
                                 "verdicts": verdicts, "disk_gb": disk}
     log(f"train launcher (--arch {TRAIN_ARCH} --full --batch 8 --seq 512, "
-        f"--ckpt-every 10): 20 steps in {walls[0]:.2f} s, then --steps 30 "
-        f"--resume ('resumed from step 20') in {walls[1]:.2f} s (init, "
+        f"--ckpt-every 5): 10 steps in {walls[0]:.2f} s, then --steps 15 "
+        f"--resume ('resumed from step 10') in {walls[1]:.2f} s (init, "
         f"checkpoints included; {disk:.2f} GB on disk at the end); "
         + "; ".join(verdicts))
 
@@ -5476,6 +5687,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-lm-mesh", action="store_true",
                     help="build, run the distributed-LM phase alone and "
                          "exit (no result line)")
+    ap.add_argument("--only-examples", action="store_true",
+                    help="build, run the examples phase alone and exit "
+                         "(no result line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5506,7 +5720,8 @@ def main(argv=None) -> int:
               "build_steps_s": kernels.build_seconds}
     only = {"tune": args.only_tune, "serve": args.only_serve,
             "train": args.only_train, "lm_mesh": args.only_lm_mesh,
-            "distributed": args.only_distributed}
+            "distributed": args.only_distributed,
+            "examples": args.only_examples}
     if any(only.values()):
         name = next(k for k, v in only.items() if v)
         if name == "tune":
@@ -5517,6 +5732,8 @@ def main(argv=None) -> int:
             phase_train(dev, report, card)
         elif name == "lm_mesh":
             phase_lm_mesh(report, card)
+        elif name == "examples":
+            phase_examples(report, card)
         else:
             phase_distributed(report, card)
         if args.json:
@@ -5525,10 +5742,19 @@ def main(argv=None) -> int:
         log(f"{name} phase alone: passed")
         return 0
 
+    walls, last = {}, [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        """The wall since the previous mark, under ``name``."""
+        now = time.perf_counter()
+        walls[name] = now - last[0]
+        last[0] = now
+
     phase_parity(dev)
     phase_parity_fused(dev)
     phase_parity_topk(dev)
     phase_parity_index(dev)
+    mark("parity T=512")
     brest_rounds = []
     batch, params, out, launches = phase_main(dev, report, "materialize",
                                               rounds=brest_rounds)
@@ -5555,6 +5781,7 @@ def main(argv=None) -> int:
     del lout
     phase_stages(dev, report, batch, params,
                  dict(fused=(fout, flaunches), materialize=(out, launches)))
+    mark("dsc_brest paths, launcher, stage chain")
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     phase_resilient(dev, report, batch, params, tout, tlaunches)
@@ -5565,6 +5792,7 @@ def main(argv=None) -> int:
     left = torch.cuda.memory_allocated() - held
     check(left < 64 << 20, f"the resilient and stream phases left "
                            f"{left / 1e9:.3f} GB allocated on the card")
+    mark("resilient, stream, launcher exits")
     join_ids, fplan = plan_index(batch, params, report, "dsc_brest")
     _, sub = phase_index(dev, report, batch, params, "dsc_brest",
                          outs=dict(materialize=out, fused=fout,
@@ -5591,6 +5819,7 @@ def main(argv=None) -> int:
                          rows, name, n_plain=sbatch.num_trajs)
     del sbatch, join_ids, fplan, sub
     torch.cuda.empty_cache()
+    mark("dsc_brest index and kernel checks")
     sis_rounds = []
     sbatch, sparams, sout, slaunches = phase_main(dev, report, "fused",
                                                   n_vessels=8192,
@@ -5624,18 +5853,32 @@ def main(argv=None) -> int:
     log("dsc_sis: fused top-K labels equal the dense fused labels")
     del stout
     torch.cuda.empty_cache()
+    mark("dsc_sis")
     phase_s2t(dev)
     phase_lcss(dev, report, rows)
     torch.cuda.empty_cache()
     phase_attention(dev, report, rows)
     torch.cuda.empty_cache()
+    mark("s2t, lcss, attention")
     phase_serve(dev, report, card)
     torch.cuda.empty_cache()
+    mark("serve")
     phase_train(dev, report, card)
     torch.cuda.empty_cache()
+    mark("train")
     phase_lm_mesh(report, card)
+    mark("lm_mesh")
     phase_tune(dev, report, card)
+    mark("tune")
     phase_distributed(report, card)
+    mark("distributed, resilient distributed")
+    phase_examples(report, card)
+    mark("examples")
+    total = time.perf_counter() - t0
+    report["phase_walls_s"] = dict(build=build_s, **walls, total=total)
+    log(f"smoke walls ({card}): build {build_s:.1f} s, " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; total {total:.1f} s")
     order = list(REPLACES)
     rows.sort(key=lambda r: order.index(r["name"]))
     check(len(rows) == len(REPLACES),

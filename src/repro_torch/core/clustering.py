@@ -157,6 +157,20 @@ def _check_max_rounds(max_rounds: int | None, S: int) -> None:
             "while_loop default")
 
 
+def _check_tiles(tiles) -> tuple[int, int] | None:
+    """``tiles=(bu, bs)``, the reference's Pallas tile geometry of the
+    rounds kernels (``EnginePlan.cluster_tiles``): ``None`` or a pair of
+    positive ints; anything else, which no Pallas grid could run, is
+    refused."""
+    if tiles is None:
+        return None
+    if (not isinstance(tiles, (tuple, list)) or len(tiles) != 2
+            or any(not isinstance(v, int) or v < 1 for v in tiles)):
+        raise ValueError("tiles must be None or a pair (bu, bs) of "
+                         f"positive ints, got {tiles!r}")
+    return tuple(tiles)
+
+
 def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
             max_rounds: int | None = None, seed_resolved=None,
             seed_is_rep=None, span=_no_span):
@@ -208,7 +222,8 @@ def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
 
 def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
                    *, max_rounds: int | None = None, use_kernel: bool = False,
-                   with_rounds: bool = False, moments=None, span=_no_span):
+                   with_rounds: bool = False, moments=None, tiles=None,
+                   span=_no_span):
     """Round-parallel Algorithm 4 — label-identical to the oracle.
 
     ``max_rounds=None`` loops until every slot is resolved (at least one
@@ -221,12 +236,17 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
     predicate once and reduces each round to two 0/1 vector-matrix
     products (exact: the sums are integers below 2^24).
     ``with_rounds=True`` also returns the number of rounds.  ``moments``
-    as in ``resolve_thresholds``.  ``span``
+    as in ``resolve_thresholds``.  ``tiles=(bu, bs)`` is the reference's
+    Pallas tile geometry, passed to the kernel wrappers as the reference
+    passes it: the reference's labels are bitwise the same for every
+    geometry and the CUDA kernels have their own, so it moves nothing
+    (``_check_tiles`` refuses a malformed one).  ``span``
     (a context-manager factory such as ``dsc.StageTimer.stage``) times the
     parts ``cluster.thresholds``, ``cluster.visit_order``,
     ``cluster.round_loop`` and ``cluster.claim_max``.
     """
     _check_max_rounds(max_rounds, table.num_slots)
+    bu, bs = _check_tiles(tiles) or (8, 128)
     with span("cluster.thresholds"):
         alpha, k = resolve_thresholds(params, sim, table, moments=moments)
     with span("cluster.visit_order"):
@@ -237,10 +257,12 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
                                                      cluster_round_scan)
 
         def scan(unresolved, is_rep):
-            return cluster_round_scan(sim, rank, unresolved, is_rep, alpha)
+            return cluster_round_scan(sim, rank, unresolved, is_rep, alpha,
+                                      bu=bu, bs=bs)
 
         def assign(is_rep):
-            return cluster_assign(sim, rank, is_rep, table.valid, alpha)
+            return cluster_assign(sim, rank, is_rep, table.valid, alpha,
+                                  bu=bu, bs=bs)
     else:
         predf = ((sim > 0.0) & (sim >= alpha)
                  & (rank[:, None] < rank[None, :])).to(torch.float32)
@@ -262,12 +284,14 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
 def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
                         params: DSCParams, *, max_rounds: int | None = None,
                         use_kernel: bool = False, with_rounds: bool = False,
-                        seed_resolved=None, seed_is_rep=None, span=_no_span):
+                        tiles=None, seed_resolved=None, seed_is_rep=None,
+                        span=_no_span):
     """Round-parallel Algorithm 4 over ``[S, K]`` neighbor lists: the
     recurrence, ``max_rounds`` and claim-max of ``cluster_rounds``, each
     reduction over the lists.  ``use_kernel=True`` runs them through the
     CUDA list kernels (K8, K9) on CUDA tensors; label-identical either
-    way.
+    way.  ``tiles=(bu, bs)`` as in ``cluster_rounds``; the list kernels
+    take ``bu`` as their row tile, as the reference's do.
 
     ``seed_resolved`` / ``seed_is_rep`` ([S] bool) warm-start the
     recurrence from an earlier solve: slots marked resolved enter round 0
@@ -278,6 +302,7 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
     of ``cluster_rounds``.
     """
     _check_max_rounds(max_rounds, table.num_slots)
+    row_tile = (_check_tiles(tiles) or (8,))[0]
     with span("cluster.thresholds"):
         alpha, k = _topk_thresholds(topk, table, params)
     with span("cluster.visit_order"):
@@ -286,16 +311,19 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
     if use_kernel:
         from repro_torch.kernels.cluster.ops import (
             topk_cluster_assign, topk_cluster_round_scan)
+        tile = dict(bs=row_tile)
         scan_fn, assign_fn = topk_cluster_round_scan, topk_cluster_assign
     else:
+        tile = {}
         scan_fn, assign_fn = topk_round_scan_ref, topk_claim_max_ref
 
     def scan(unresolved, is_rep):
-        return scan_fn(topk.ids, topk.sims, rank, unresolved, is_rep, alpha)
+        return scan_fn(topk.ids, topk.sims, rank, unresolved, is_rep, alpha,
+                       **tile)
 
     def assign(is_rep):
         return assign_fn(topk.ids, topk.sims, rank, is_rep, table.valid,
-                         alpha)
+                         alpha, **tile)
 
     result, rounds = _rounds(table, alpha, k, scan, assign,
                              max_rounds=max_rounds,
@@ -307,16 +335,20 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
 def cluster(sim, table: SubtrajTable, params: DSCParams,
             engine: str = "rounds", *, max_rounds: int | None = None,
             use_kernel: bool = False, with_rounds: bool = False,
-            moments=None, span=_no_span):
+            moments=None, tiles=None, span=_no_span):
     """Problem 3 entry point: ``sim`` is the dense ``[S, S]`` matrix or a
     ``TopKSim``; ``engine`` is ``"rounds"`` or the ``"sequential"``
     oracle.  ``max_rounds`` goes to the rounds engines (the sequential
     oracle ignores it).  ``moments`` overrides the dense threshold
     statistics (the multi-device program's column-block sums); a
     ``TopKSim`` carries its own.  ``with_rounds=True`` returns ``(result,
-    rounds)``; the sequential oracle reports ``rounds = None``.  ``span``
+    rounds)``; the sequential oracle reports ``rounds = None``.
+    ``tiles=(bu, bs)`` is checked here and goes to the rounds engines
+    (``cluster_rounds``; the sequential oracle ignores it, as the
+    reference's).  ``span``
     times the parts of the rounds engines (``cluster_rounds``).
     """
+    _check_tiles(tiles)
     if isinstance(sim, TopKSim):
         if engine == "sequential":
             res = cluster_sequential_topk(sim, table, params)
@@ -325,7 +357,8 @@ def cluster(sim, table: SubtrajTable, params: DSCParams,
             return cluster_rounds_topk(sim, table, params,
                                        max_rounds=max_rounds,
                                        use_kernel=use_kernel,
-                                       with_rounds=with_rounds, span=span)
+                                       with_rounds=with_rounds, tiles=tiles,
+                                       span=span)
         raise ValueError(f"unknown cluster engine {engine!r}")
     if engine == "sequential":
         res = cluster_sequential(sim, table, params, moments=moments)
@@ -334,7 +367,7 @@ def cluster(sim, table: SubtrajTable, params: DSCParams,
         return cluster_rounds(sim, table, params, max_rounds=max_rounds,
                               use_kernel=use_kernel,
                               with_rounds=with_rounds, moments=moments,
-                              span=span)
+                              tiles=tiles, span=span)
     raise ValueError(f"unknown cluster engine {engine!r}")
 
 

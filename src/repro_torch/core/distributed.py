@@ -554,14 +554,15 @@ class _DSCProgramBuilder:
         if topk is not None:
             res_l = cluster(topk, part_table, self.params,
                             engine=self.cluster_engine,
-                            use_kernel=self.cluster_use_kernel)
+                            use_kernel=self.cluster_use_kernel,
+                            tiles=self.plan.cluster_tiles)
             overflow = topk_overflow(topk, res_l.alpha_used)
             meansim = topk.row_sum.sum() / topk.degree.sum().clamp_min(1)
         else:
             res_l = cluster(sim, part_table, self.params,
                             engine=self.cluster_engine,
                             use_kernel=self.cluster_use_kernel,
-                            moments=moments)
+                            moments=moments, tiles=self.plan.cluster_tiles)
             overflow = torch.zeros((), dtype=torch.int32, device=self.dev)
             # sim >= 0, so the positive entries sum as the whole matrix
             meansim = sim.sum() / (sim > 0).sum().clamp_min(1)

@@ -181,7 +181,8 @@ def _cluster_body(simlike, table, params, plan: EnginePlan, span):
     result, rounds = cluster(simlike, table, params,
                              engine=plan.cluster_engine,
                              use_kernel=plan.cluster_use_kernel,
-                             with_rounds=True, span=span)
+                             with_rounds=True, tiles=plan.cluster_tiles,
+                             span=span)
     if isinstance(simlike, TopKSim):
         return result, rounds, similarity.topk_overflow(simlike,
                                                         result.alpha_used)

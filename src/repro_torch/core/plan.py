@@ -26,10 +26,11 @@ The single-device paths read neither of two groups of fields; they are
 accepted, validated and carried so that plan files stay interchangeable:
 
 * the TPU tile geometry (``fused_rows/bc/bm``, ``cluster_bu/bs``): the
-  reference holds it bit-neutral (any geometry gives the same outputs),
-  and the CUDA kernels take no tile geometry (the pruned ones take only
-  their own blocks, which the tile plans of ``kernels.stjoin.ops``
-  carry);
+  CUDA kernels take no tile geometry (the pruned ones take only their
+  own blocks, which the tile plans of ``kernels.stjoin.ops`` carry).
+  ``cluster_tiles`` goes to the clustering entry points (``tiles=``) as
+  in the reference, whose labels are bitwise the same for every pair,
+  and the kernel wrappers accept it and read none of it;
 * the collective schedules and payloads (``sim_strategy``, ``sim_dtype``,
   ``halo_stream``, ``sim_exchange``): only the multi-device program
   (``core/distributed.py``) reads them, as in the reference.
@@ -126,7 +127,8 @@ class EnginePlan:
 
     @property
     def cluster_tiles(self) -> tuple[int, int]:
-        """``(bu, bs)`` (as the reference; no CUDA kernel reads it)."""
+        """``(bu, bs)``, the clustering entry points' ``tiles=`` (as the
+        reference; no CUDA kernel reads it)."""
         return (self.cluster_bu, self.cluster_bs)
 
     # --------------------------------------------------------- serialization

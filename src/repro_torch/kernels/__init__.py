@@ -258,6 +258,17 @@ def launch(name: str, *args, device: torch.device) -> None:
     LAUNCHES[name] += 1
 
 
+def check_tile_knobs(name: str, **knobs) -> None:
+    """Refuse a TPU tile knob of the reference's wrappers (``bu``, ``bs``,
+    ``bp``, ``bc``, ``bm``, ``rows``) that the reference's Pallas grid
+    could not run: anything but ``None`` or a positive int.  The CUDA
+    kernels read none of them (README, "The reference's TPU knobs")."""
+    for arg, v in knobs.items():
+        if v is not None and (not isinstance(v, int) or v < 1):
+            raise ValueError(f"{name}: {arg} must be a positive int, got "
+                             f"{v!r}")
+
+
 def check_cuda_operands(name: str, **tensors) -> torch.device:
     """Every operand on one CUDA device, contiguous, of the right dtype."""
     devices = {t.device for t, _ in tensors.values()}

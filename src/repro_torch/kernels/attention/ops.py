@@ -149,10 +149,13 @@ def flash_attention_fwd(q, k, v, q_positions, kv_positions, window, prefix,
 
 
 def flash_attention(q, k, v, q_positions, kv_positions, *, window=None,
-                    prefix=None, max_kv=None, softcap=None, device=None):
+                    prefix=None, max_kv=None, softcap=None, interpret=None,
+                    device=None):
     """GQA attention forward with causal, sliding-window (``window``),
     prefix-LM (``prefix``), softcap and ``max_kv`` masks; ``None`` disables
-    each.  ``device``: where to run (``None`` = the card)."""
+    each.  ``device``: where to run (``None`` = the card).  The
+    reference's ``interpret`` (Pallas' interpret mode) is accepted and
+    ignored."""
     dev = resolve_device(device)
     q, k, v = (torch.as_tensor(a, device=dev).contiguous() for a in (q, k, v))
     qp, kp = (torch.as_tensor(a, device=dev).to(torch.int32).contiguous()

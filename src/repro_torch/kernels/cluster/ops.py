@@ -9,19 +9,38 @@ no padding; CPU tensors take the plain versions in ``ref.py``.  ``alpha``
 may be a Python float, a CPU tensor or a tensor on the operands' card:
 the kernels read a card tensor there (no host sync, so a call can be
 captured in a CUDA graph), anything else as a float32 value.
+
+The wrappers take the reference's TPU knobs with its defaults: ``bu`` /
+``bs`` (the Pallas tile geometry, ``plan_tiles``) and ``interpret``.  The
+reference's outputs are bitwise the same for every geometry (padded slots
+join no reduction) and in either mode, so the knobs are accepted and
+ignored; a tile size no Pallas grid could run is refused.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch.core.types import f32
-from repro_torch.kernels import check_cuda_operands, launch, library
+from repro_torch.kernels import (check_cuda_operands, check_tile_knobs,
+                                 launch, library)
 from repro_torch.kernels.cluster.ref import (cluster_assign_ref,
                                              round_scan_ref,
                                              topk_claim_max_ref,
                                              topk_round_scan_ref)
+
+
+def plan_tiles(S: int, target_bu: int = 8, target_bs: int = 128):
+    """(bu, bs, S_padded): the reference's Pallas row / column tile sizes
+    and its padded slot count (a copy of ``repro.kernels.cluster.ops.
+    plan_tiles``: the targets taken verbatim, ``S`` padded up to a common
+    multiple of both).  Host arithmetic only: the port's kernels take any
+    ``S`` unpadded and read none of it."""
+    bu, bs = target_bu, target_bs
+    q = math.lcm(bu, bs)
+    return bu, bs, -(-S // q) * q
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,8 +63,10 @@ def _alpha_args(alpha, dev: torch.device) -> tuple:
     return None, float(f32(alpha, "cpu"))
 
 
-def cluster_round_scan(sim, rank, unresolved, is_rep, alpha):
+def cluster_round_scan(sim, rank, unresolved, is_rep, alpha, *,
+                       bu: int = 8, bs: int = 128, interpret: bool = True):
     """(blocked [S], claimed [S]) — one fused round scan."""
+    check_tile_knobs("round_scan", bu=bu, bs=bs)
     if not sim.is_cuda:
         return round_scan_ref(sim, rank, unresolved, is_rep, alpha)
     S = sim.shape[0]
@@ -61,10 +82,12 @@ def cluster_round_scan(sim, rank, unresolved, is_rep, alpha):
     return blocked, claimed
 
 
-def cluster_assign(sim, rank, is_rep, valid, alpha):
+def cluster_assign(sim, rank, is_rep, valid, alpha, *, bu: int = 8,
+                   bs: int = 128, interpret: bool = True):
     """(best_w [S], best_slot [S]) — final claim-max over rep rows: per
     valid column the maximum weight, then the minimum rank, then the
     lowest row, for any int32 ``rank``."""
+    check_tile_knobs("claim_max", bu=bu, bs=bs)
     if not sim.is_cuda:
         return cluster_assign_ref(sim, rank, is_rep, valid, alpha)
     S = sim.shape[0]
@@ -92,8 +115,10 @@ def _check_lists(name, ids, sims, rank, **vecs):
         **{k: (v, torch.bool) for k, v in vecs.items()})
 
 
-def topk_cluster_round_scan(ids, sims, rank, unresolved, is_rep, alpha):
+def topk_cluster_round_scan(ids, sims, rank, unresolved, is_rep, alpha, *,
+                            bs: int = 8, interpret: bool = True):
     """(blocked [S], claimed [S]) — one round scan over ``[S, K]`` lists."""
+    check_tile_knobs("topk_round_scan", bs=bs)
     if not ids.is_cuda:
         return topk_round_scan_ref(ids, sims, rank, unresolved, is_rep,
                                    alpha)
@@ -109,8 +134,10 @@ def topk_cluster_round_scan(ids, sims, rank, unresolved, is_rep, alpha):
     return blocked, claimed
 
 
-def topk_cluster_assign(ids, sims, rank, is_rep, valid, alpha):
+def topk_cluster_assign(ids, sims, rank, is_rep, valid, alpha, *,
+                        bs: int = 8, interpret: bool = True):
     """(best_w [S], best_slot [S]) — claim-max over ``[S, K]`` lists."""
+    check_tile_knobs("topk_claim_max", bs=bs)
     if not ids.is_cuda:
         return topk_claim_max_ref(ids, sims, rank, is_rep, valid, alpha)
     S, K = ids.shape

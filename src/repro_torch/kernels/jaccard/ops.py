@@ -40,9 +40,11 @@ def slab_plan(M: int, W: int, limit: int) -> tuple[int, bool]:
     return J, slab_words(M, J) * 4 > limit
 
 
-def window_jaccard(masks: torch.Tensor, valid: torch.Tensor, *,
-                   w: int) -> torch.Tensor:
-    """TSA2's d[] signal from packed neighbor words ([T, M, W], [T, M])."""
+def window_jaccard(masks: torch.Tensor, valid: torch.Tensor, *, w: int,
+                   interpret: bool | None = None) -> torch.Tensor:
+    """TSA2's d[] signal from packed neighbor words ([T, M, W], [T, M]).
+    The reference's ``interpret`` (Pallas' interpret mode) is accepted and
+    ignored."""
     if not masks.is_cuda:
         from repro_torch.core.segmentation import tsa2_signal
         return tsa2_signal(torch.where(valid[..., None], masks, 0), w)

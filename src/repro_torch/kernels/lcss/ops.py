@@ -74,19 +74,23 @@ def _operands(dev, rx, ry, rt, rv, sx, sy, st, sv):
 
 
 def lcss_scores(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t, *,
-                device=None) -> torch.Tensor:
+                interpret: bool | None = None, device=None) -> torch.Tensor:
     """[B, 2] raw DP scores (weighted Eq. 2 numerator, classical count),
     clamped at zero (an all-invalid pair yields an empty DP, not a
-    negative score).  ``device``: where to run (``None`` = the card)."""
+    negative score).  ``device``: where to run (``None`` = the card).  The
+    reference's ``interpret`` (Pallas' interpret mode) is accepted and
+    ignored."""
     dev = resolve_device(device)
     ops = _operands(dev, rx, ry, rt, rv, sx, sy, st, sv)
     return lcss_wavefront(*ops, eps_sp, eps_t).clamp_min(0.0)
 
 
 def lcss_similarity(rx, ry, rt, rv, sx, sy, st, sv, eps_sp, eps_t, *,
+                    interpret: bool | None = None,
                     device=None) -> torch.Tensor:
     """Eq. 1 (channel 1) and Eq. 2 (channel 0) similarities, [B, 2]: the
-    raw DP scores normalized by ``min(|r|, |s|)`` valid points."""
+    raw DP scores normalized by ``min(|r|, |s|)`` valid points
+    (``interpret`` as in ``lcss_scores``)."""
     dev = resolve_device(device)
     ops = _operands(dev, rx, ry, rt, rv, sx, sy, st, sv)
     return normalize(lcss_scores(*ops, eps_sp, eps_t, device=dev), ops[3],

@@ -28,6 +28,16 @@ arguments, as the reference's do, and default to the port's own CUDA
 blocks (``JOIN_BP x JOIN_BC`` for the join, ``FUSED_ROWS x FUSED_BC`` for
 the fused passes); the pruned kernels accept only those, the plain
 versions any.  Numerics are set out in this package's docstring.
+
+The wrappers also take the reference's TPU knobs with its defaults (``bp``
+/ ``bc`` / ``bm`` of the dense join, ``rows`` / ``bc`` / ``bm`` of the
+fused passes, ``interpret``), decided from the reference's own outputs:
+a knob under which they are bitwise the same is accepted and ignored; the
+one that moves them, the vote passes' ``bc`` (the reference sums the
+votes in blocks of ``bc`` candidates), is taken only where the reference
+resolves it to its default; ``plan_fused_tiles`` records ``bm`` in its
+plan, as the reference's does.  A knob no Pallas grid could run is
+refused (``check_tile_knobs``).
 """
 from __future__ import annotations
 
@@ -41,7 +51,7 @@ from repro_torch.core.geometry import filter_delta_t
 from repro_torch.core.similarity import slot_ids
 from repro_torch.core.types import JoinResult, TrajectoryBatch, f32
 from repro_torch.index import grid as gridx
-from repro_torch.kernels import check_cuda_operands, launch
+from repro_torch.kernels import check_cuda_operands, check_tile_knobs, launch
 from repro_torch.kernels.stjoin.ref import (chunk_time_bounds as
                                             chunk_time_bounds_ref,
                                             panel_skip_counts_ref,
@@ -63,6 +73,34 @@ PANEL_CHUNK = 8
 PANEL_GROUP = 8
 # elements of one [groups, C, 1, chunks] skip test of ``join_skip_counts``
 _SKIP_ELEMENTS = 1 << 24
+# the reference's default candidate block of the fused passes, the one
+# block whose vote sums the port's stand for (within the stated ulps)
+REF_FUSED_BC = 16
+
+
+def _ref_fused_bc(bc: int) -> int:
+    """A fused pass's ``bc`` as the reference resolves it
+    (``_fused_geometry``): the largest divisor of 32 not above it."""
+    return max(d for d in (1, 2, 4, 8, 16, 32) if d <= max(bc, 1))
+
+
+def _fused_knobs(name: str, rows, bc, bm, *, vote: bool) -> None:
+    """The reference's TPU knobs of a fused pass.  ``rows`` and ``bm``
+    leave its outputs bitwise the same, and so does ``bc`` in the
+    similarity passes (each cell gets its additions from one tile):
+    accepted and ignored.  In the vote passes ``bc`` moves the vote sums
+    (blocks of ``bc`` candidates summed, then the blocks added,
+    ``stjoin.py:272``); the port sums one candidate at a time in
+    ascending order and reproduces no block order, so only a ``bc`` that
+    the reference resolves to its default is taken."""
+    check_tile_knobs(name, rows=rows, bm=bm)
+    if vote and _ref_fused_bc(bc) != REF_FUSED_BC:
+        raise ValueError(
+            f"{name}: bc={bc!r} moves the reference's vote sums (it sums "
+            "blocks of bc candidates, then adds the blocks); the port sums "
+            "one candidate at a time and reproduces no block order, so "
+            f"only a bc the reference resolves to {REF_FUSED_BC} (16 to "
+            "31) is taken")
 
 
 def _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid, cid):
@@ -151,8 +189,13 @@ def stjoin_best_match(ref_x, ref_y, ref_t, ref_id, ref_ok,
 
 
 def best_match_join_kernel(ref: TrajectoryBatch, cand: TrajectoryBatch,
-                           eps_sp, eps_t) -> JoinResult:
-    """Dense best-match join through K1: ``JoinResult [T, M, C]``."""
+                           eps_sp, eps_t, *, bp: int = 256, bc: int = 8,
+                           bm: int = 128,
+                           interpret: bool | None = None) -> JoinResult:
+    """Dense best-match join through K1: ``JoinResult [T, M, C]``.  The
+    reference's tile knobs ``bp`` / ``bc`` / ``bm`` and ``interpret``
+    leave its outputs bitwise the same and are ignored."""
+    check_tile_knobs("best_match_join_kernel", bp=bp, bc=bc, bm=bm)
     T, M = ref.x.shape
     C = cand.x.shape[0]
     best_w = torch.empty((T, M, C), dtype=torch.float32, device=ref.device)
@@ -366,15 +409,21 @@ def join_skip_counts(rt, rok, ct, cok, eps_t, *, tile_ids=None):
 
 def best_match_join_pruned(ref: TrajectoryBatch, cand: TrajectoryBatch,
                            eps_sp, eps_t, *, bp: int = JOIN_BP,
-                           bc: int = JOIN_BC, max_tiles: int | None = None,
+                           bc: int = JOIN_BC, bm: int = 128,
+                           max_tiles: int | None = None,
                            use_cells: bool = True,
+                           interpret: bool | None = None,
                            return_stats: bool = False):
     """Index-pruned best-match join through K10; bit-identical to the
     dense join.  Plans on the host (the grid is fitted from the data;
     ``use_cells`` as in ``plan_join_index``), compacts the surviving tiles
     to a static width K (``max_tiles`` or the widest list) and sweeps only
     those.  Raises if ``max_tiles`` is too small to keep every survivor.
-    ``return_stats=True`` also returns the ``PruneStats``."""
+    ``return_stats=True`` also returns the ``PruneStats``.  ``bp`` / ``bc``
+    are the plan's geometry (K10 takes only its own); the reference's
+    ``bm`` and ``interpret`` leave its outputs bitwise the same and are
+    ignored."""
+    check_tile_knobs("best_match_join_pruned", bm=bm)
     mask, counts, _ = plan_join_index(ref, cand, eps_sp, eps_t, bp=bp, bc=bc,
                                       use_cells=use_cells)
     tile_ids = _compact(mask, counts, max_tiles, "pruned join")
@@ -396,13 +445,15 @@ def best_match_join_pruned(ref: TrajectoryBatch, cand: TrajectoryBatch,
 
 def subtrajectory_join(ref: TrajectoryBatch, cand: TrajectoryBatch,
                        eps_sp, eps_t, delta_t=0.0, *,
-                       use_index: bool = False) -> JoinResult:
+                       use_index: bool = False, **kw) -> JoinResult:
     """Kernel-backed Problem 1 (join + delta_t refine).  ``use_index=True``
-    routes through the grid-pruned K10; the output is identical."""
+    routes through the grid-pruned K10; the output is identical.  ``kw``
+    goes to ``best_match_join_pruned`` or ``best_match_join_kernel``, as
+    in the reference."""
     if use_index:
-        j = best_match_join_pruned(ref, cand, eps_sp, eps_t)
+        j = best_match_join_pruned(ref, cand, eps_sp, eps_t, **kw)
     else:
-        j = best_match_join_kernel(ref, cand, eps_sp, eps_t)
+        j = best_match_join_kernel(ref, cand, eps_sp, eps_t, **kw)
     if float(delta_t) > 0.0:
         return filter_delta_t(j, ref.t, delta_t)
     return j
@@ -432,6 +483,7 @@ class FusedTilePlan:
     tile_ids: torch.Tensor     # [nRb, K] int32, -1 padded, ascending
     rows: int
     bc: int
+    bm: int = 128              # the reference's point chunk (not read)
 
     @functools.cached_property
     def id_range(self) -> tuple[int, int]:
@@ -452,7 +504,7 @@ class FusedTilePlan:
 
 def plan_fused_tiles(rx, ry, rt, rvalid, cx, cy, ct, cvalid, eps_sp, eps_t,
                      *, rows: int = FUSED_ROWS, bc: int = FUSED_BC,
-                     use_cells: bool = True,
+                     bm: int = 128, use_cells: bool = True,
                      max_tiles: int | None = None) -> FusedTilePlan:
     """Host-driven candidate-tile plan for the fused passes on raw
     ``[T, M]`` / ``[C, Mc]`` arrays: the two-stage pruning of
@@ -460,13 +512,16 @@ def plan_fused_tiles(rx, ry, rt, rvalid, cx, cy, ct, cvalid, eps_sp, eps_t,
     to whole blocks) and tiles of ``bc`` candidates (the candidates padded
     to a multiple of 32, as the reference pads them).  ``rows`` is clamped
     to ``[1, T]`` and ``bc`` to a divisor of 32, as the reference's
-    ``_fused_geometry`` does.  ``use_cells=False`` tests every pair of
+    ``_fused_geometry`` does.  ``bm`` (the reference's candidate point
+    chunk) does not change the tiles; the plan records ``min(bm, Mc)``, as
+    the reference's does.  ``use_cells=False`` tests every pair of
     boxes exactly, without the grid.  Raises if ``max_tiles`` would drop a
     survivor.
     """
+    check_tile_knobs("plan_fused_tiles", bm=bm)
     T, M = rx.shape
     rows = min(max(rows, 1), max(T, 1))
-    bc = max(d for d in (1, 2, 4, 8, 16, 32) if d <= max(bc, 1))
+    bc = _ref_fused_bc(bc)
     flat = lambda a, f: _pad_rows(a, rows, f).reshape(-1)
     rboxes = gridx.point_block_boxes(flat(rx, 0.0), flat(ry, 0.0),
                                      flat(rt, 0.0), flat(rvalid, False),
@@ -476,7 +531,8 @@ def plan_fused_tiles(rx, ry, rt, rvalid, cx, cy, ct, cvalid, eps_sp, eps_t,
                                     pad(ct, 0.0), pad(cvalid, False), bc)
     mask, counts, _ = _tile_mask(rboxes, cboxes, eps_sp, eps_t, use_cells)
     tile_ids = _compact(mask, counts, max_tiles, "fused pruned sweep")
-    return FusedTilePlan(tile_ids=tile_ids, rows=rows, bc=bc)
+    return FusedTilePlan(tile_ids=tile_ids, rows=rows, bc=bc,
+                         bm=min(bm, cx.shape[1]))
 
 
 def _resolve_plan(plan, name: str, cuda: bool, T: int, C: int, dev):
@@ -581,8 +637,10 @@ def fused_skip_counts(rt, rvalid, ct, cvalid, eps_t, *, tile_ids=None):
 
 def stjoin_vote_fused_arrays(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid,
                              cid, eps_sp, eps_t, delta_t=0.0, *,
-                             tile_ids=None, with_masks: bool = True,
-                             stats=None):
+                             rows: int | None = None, bc: int = 16,
+                             bm: int = 128, tile_ids=None,
+                             with_masks: bool = True,
+                             interpret: bool | None = None, stats=None):
     """Fused pass 1 on raw arrays: ``(vote [T, M], words [T, M, ceil(C/32)])``.
 
     Subsumes ``voting.point_voting`` and ``voting.neighbor_mask_packed``
@@ -592,12 +650,14 @@ def stjoin_vote_fused_arrays(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid,
     ``plan_fused_tiles`` plan) sweeps only the planned tiles (K11); the
     output is identical.  ``stats``: see ``_check_stats`` (the mirror is
     ``fused_skip_counts``).  A row too long for one block's shared memory
-    is refused by the launcher (``RuntimeError``).
+    is refused by the launcher (``RuntimeError``).  The reference's knobs:
+    ``_fused_knobs``.
     """
     T, M = rx.shape
     C, Mc = cx.shape
     name = "stjoin_vote_fused" if tile_ids is None else \
         "stjoin_vote_fused_pruned"
+    _fused_knobs(name, rows, bc, bm, vote=True)
     plan = _resolve_plan(tile_ids, name, rx.is_cuda, T, C, rx.device)
     ref_ops, cand_ops = _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct,
                                        cvalid, cid)
@@ -630,15 +690,19 @@ def stjoin_vote_fused_arrays(rx, ry, rt, rvalid, rid, cx, cy, ct, cvalid,
 def stjoin_vote_fused(ref: TrajectoryBatch, cand: TrajectoryBatch, eps_sp,
                       eps_t, delta_t=0.0, *, use_index: bool = False,
                       use_cells: bool = True, max_tiles: int | None = None,
-                      with_masks: bool = True, stats=None):
+                      rows: int | None = None, bc: int = 16, bm: int = 128,
+                      with_masks: bool = True,
+                      interpret: bool | None = None, stats=None):
     """Batch-level fused pass 1 (vote sums + packed neighbor words);
-    ``use_index=True`` plans the tiles (``plan_fused_tiles``, with
-    ``use_cells`` and ``max_tiles``) and sweeps only the survivors."""
+    ``use_index=True`` plans the tiles (``plan_fused_tiles`` at the
+    kernels' geometry, with ``use_cells``, ``max_tiles`` and ``bm``) and
+    sweeps only the survivors.  The reference's knobs: ``_fused_knobs``."""
+    _fused_knobs("stjoin_vote_fused", rows, bc, bm, vote=True)
     tile_ids = None
     if use_index:
         tile_ids = plan_fused_tiles(
             ref.x, ref.y, ref.t, ref.valid, cand.x, cand.y, cand.t,
-            cand.valid, eps_sp, eps_t, use_cells=use_cells,
+            cand.valid, eps_sp, eps_t, bm=bm, use_cells=use_cells,
             max_tiles=max_tiles)
     return stjoin_vote_fused_arrays(
         ref.x, ref.y, ref.t, ref.valid, ref.traj_id, cand.x, cand.y, cand.t,
@@ -666,8 +730,10 @@ def _check_block_slots(ref_gid, cand_gid, ms: int, n_src: int, n_dst: int,
 
 def stjoin_sim_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct,
                             cvalid, cid, cand_gid, n_src: int, n_dst: int,
-                            eps_sp, eps_t, delta_t=0.0, *, tile_ids=None,
-                            stats=None):
+                            eps_sp, eps_t, delta_t=0.0, *,
+                            rows: int | None = None, bc: int = 16,
+                            bm: int = 128, tile_ids=None,
+                            interpret: bool | None = None, stats=None):
     """Fused pass 2 on raw arrays: raw similarity scatter ``[n_src, n_dst]``.
 
     ``ref_gid [T, M]``: destination row of each ref point (``n_src`` =
@@ -680,12 +746,14 @@ def stjoin_sim_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct,
     (a ``plan_fused_tiles`` plan) sweeps only the planned tiles (K12); the
     output is identical.  ``stats``: see ``_check_stats`` (the mirror is
     ``fused_skip_counts``).  A row too long for one block's shared memory
-    is refused by the launcher (``RuntimeError``).
+    is refused by the launcher (``RuntimeError``).  The reference's knobs:
+    ``_fused_knobs``.
     """
     T, M = rx.shape
     C, Mc = cx.shape
     name = "stjoin_sim_fused" if tile_ids is None else \
         "stjoin_sim_fused_pruned"
+    _fused_knobs(name, rows, bc, bm, vote=False)
     plan = _resolve_plan(tile_ids, name, rx.is_cuda, T, C, rx.device)
     ref_ops, cand_ops = _flat_operands(rx, ry, rt, rvalid, rid, cx, cy, ct,
                                        cvalid, cid)
@@ -723,7 +791,9 @@ def stjoin_sim_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct,
 
 def stjoin_sim_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
                      ref_sub_local, cand_sub_local, max_subs: int, eps_sp,
-                     eps_t, delta_t=0.0, *, tile_ids=None, stats=None):
+                     eps_t, delta_t=0.0, *, tile_ids=None,
+                     rows: int | None = None, bc: int = 16, bm: int = 128,
+                     interpret: bool | None = None, stats=None):
     """Batch-level fused pass 2: un-normalized ``raw [S_ref, S_cand]``.
 
     Ref point (r, m) scatters into row ``r * max_subs + sub_local[r, m]``;
@@ -735,8 +805,8 @@ def stjoin_sim_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
         ref.x, ref.y, ref.t, ref.valid, ref.traj_id,
         slot_ids(ref_sub_local, max_subs, n_src), cand.x, cand.y, cand.t,
         cand.valid, cand.traj_id, slot_ids(cand_sub_local, max_subs, n_dst),
-        n_src, n_dst, eps_sp, eps_t, delta_t, tile_ids=tile_ids,
-        stats=stats)
+        n_src, n_dst, eps_sp, eps_t, delta_t, rows=rows, bc=bc, bm=bm,
+        tile_ids=tile_ids, stats=stats)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -942,11 +1012,17 @@ def sim_panel_sweep(ref: TrajectoryBatch, cand: TrajectoryBatch,
 def stjoin_sim_panel_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy,
                                   ct, cvalid, cid, cand_gid, n_src: int,
                                   n_dst: int, eps_sp, eps_t, delta_t, p0, *,
-                                  panel: int, tile_ids=None, stats=None):
+                                  panel: int, tile_ids=None,
+                                  rows: int | None = None, bc: int = 16,
+                                  bm: int = 128,
+                                  interpret: bool | None = None,
+                                  stats=None):
     """Fused pass 2 for one panel of ``panel`` slots, in both orientations
     (``prepare_sim_panel`` for this one panel, its checks included):
     ``(fwd [panel, n_dst], rev [panel, n_src])``, bit for bit the rows and
-    transposed columns of ``stjoin_sim_fused_arrays``'s ``raw``."""
+    transposed columns of ``stjoin_sim_fused_arrays``'s ``raw``.  The
+    reference's knobs: ``_fused_knobs``."""
+    _fused_knobs("stjoin_sim_panel_fused", rows, bc, bm, vote=False)
     return prepare_sim_panel(
         rx, ry, rt, rvalid, rid, ref_gid, cx, cy, ct, cvalid, cid, cand_gid,
         n_src, n_dst, eps_sp, eps_t, delta_t, tile_ids=tile_ids)(
@@ -956,10 +1032,14 @@ def stjoin_sim_panel_fused_arrays(rx, ry, rt, rvalid, rid, ref_gid, cx, cy,
 def stjoin_sim_panel_fused(ref: TrajectoryBatch, cand: TrajectoryBatch,
                            ref_sub_local, cand_sub_local, max_subs: int,
                            eps_sp, eps_t, delta_t=0.0, *, p0, panel: int,
-                           tile_ids=None, stats=None):
+                           tile_ids=None, rows: int | None = None,
+                           bc: int = 16, bm: int = 128,
+                           interpret: bool | None = None, stats=None):
     """Batch-level panel pass 2 (cf. ``stjoin_sim_fused``): the two raw
     orientations of the rows ``[p0, p0 + panel)`` that
-    ``core.similarity.topk_stream`` finalizes."""
+    ``core.similarity.topk_stream`` finalizes.  The reference's knobs:
+    ``_fused_knobs``."""
+    _fused_knobs("stjoin_sim_panel_fused", rows, bc, bm, vote=False)
     return sim_panel_sweep(ref, cand, ref_sub_local, cand_sub_local,
                            max_subs, eps_sp, eps_t, delta_t,
                            tile_ids=tile_ids)(p0, panel=panel, stats=stats)

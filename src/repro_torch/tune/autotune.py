@@ -417,7 +417,8 @@ def tune_cluster_tiles(sim, table, params, base: EnginePlan | None = None,
     def measure(plan):
         return measure_call(
             lambda s, t: cluster_rounds(s, t, params,
-                                        use_kernel=plan.cluster_use_kernel),
+                                        use_kernel=plan.cluster_use_kernel,
+                                        tiles=plan.cluster_tiles),
             (sim, table), iters=iters, device=dev)
 
     def verify(out, plan):

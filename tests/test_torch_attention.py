@@ -244,3 +244,15 @@ def test_plan_paths_and_splits():
     assert dec.nsplit * dec.tiles_per_split >= 8192 // 32
     assert (dec.nsplit - 1) * dec.tiles_per_split < 8192 // 32
     assert plan(1, 1, 1, 4, 2, 256, bf).nsplit == 1
+
+
+@pytest.mark.parametrize("interpret", [None, True, False])
+def test_interpret_is_accepted_and_ignored(interpret):
+    """The reference's ``interpret`` (Pallas' interpret mode) is taken and
+    changes nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3))
+    pos = torch.arange(32, dtype=torch.int32)
+    base = tops.flash_attention(q, k, v, pos, pos, window=8, device="cpu")
+    got = tops.flash_attention(q, k, v, pos, pos, window=8,
+                               interpret=interpret, device="cpu")
+    assert torch.equal(got, base)

@@ -258,3 +258,93 @@ def test_max_rounds_matches_reference(scenario, sim_mode):
         with pytest.raises(ValueError) as terr:
             fn(tsim, tt, tp, max_rounds=S - 1)
         assert str(terr.value) == str(jerr.value)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_inputs(scenario, sim_mode):
+    return _dsc_inputs(scenario, sim_mode)
+
+
+TILES = [None, (8, 128), (16, 256), (8, 8)]
+
+
+@pytest.mark.parametrize("tiles", TILES, ids=str)
+@pytest.mark.parametrize("sim_mode", ["dense", "topk"])
+@pytest.mark.parametrize("scenario", ["fig1", "ais"])
+def test_tiles_match_reference(scenario, sim_mode, tiles):
+    """A reference call with ``tiles=(bu, bs)`` runs unchanged on the
+    port: ``cluster``, and the engine it dispatches to, with the kernel
+    plan and with the plain one, give the labels (and ``member_sim``) of
+    the reference's Pallas engine at the same tiles, and of the port's
+    own run without ``tiles=``."""
+    (jsim, jt, jp), (tsim, tt, tp) = _cached_inputs(scenario, sim_mode)
+    jres = jcl.cluster(jsim, jt, jp, use_kernel=True, tiles=tiles)
+    base = tcl.cluster(tsim, tt, tp, use_kernel=True)
+    engine = (tcl.cluster_rounds if sim_mode == "dense"
+              else tcl.cluster_rounds_topk)
+    for tres in (tcl.cluster(tsim, tt, tp, use_kernel=True, tiles=tiles),
+                 engine(tsim, tt, tp, use_kernel=True, tiles=tiles),
+                 tcl.cluster(tsim, tt, tp, tiles=tiles)):
+        _assert_labels(jres, tres)
+        for f in LABELS + ("member_sim",):
+            assert torch.equal(getattr(tres, f), getattr(base, f)), f
+
+
+@pytest.mark.parametrize("bad", [(8,), (8, 128, 1), (0, 128), (8, -1),
+                                 (8.0, 128), "8,128", 8, (8, None)], ids=str)
+def test_malformed_tiles_are_refused(bad):
+    """What the reference's Pallas engine cannot run (anything but a pair
+    of positive ints) the port refuses, naming the argument, in every
+    entry point and engine."""
+    (jsim, jt, jp), (tsim, tt, tp) = _cached_inputs("fig1", "dense")
+    with pytest.raises(Exception):
+        jcl.cluster(jsim, jt, jp, use_kernel=True, tiles=bad)
+    (_, _, _), (ttopk, _, _) = _cached_inputs("fig1", "topk")
+    calls = [(tcl.cluster, tsim), (tcl.cluster_rounds, tsim),
+             (tcl.cluster_rounds_topk, ttopk), (tcl.cluster, ttopk)]
+    for fn, sim in calls:
+        for use_kernel in (False, True):
+            with pytest.raises(ValueError, match="tiles"):
+                fn(sim, tt, tp, use_kernel=use_kernel, tiles=bad)
+    with pytest.raises(ValueError, match="tiles"):
+        tcl.cluster(tsim, tt, tp, engine="sequential", tiles=bad)
+
+
+@pytest.mark.parametrize("S", [1, 40, 128, 200, 4097])
+def test_plan_tiles_is_the_reference(S):
+    from repro_torch.kernels.cluster.ops import plan_tiles as tplan
+    for bu, bs in ((8, 128), (16, 256), (8, 8), (3, 5), (1, 1)):
+        assert tplan(S, bu, bs) == plan_tiles(S, bu, bs)
+    assert tplan(S) == plan_tiles(S)
+
+
+def test_cluster_wrappers_take_the_reference_knobs():
+    """The four wrappers take the reference's ``bu`` / ``bs`` /
+    ``interpret`` with its defaults; the reference's outputs are bitwise
+    the same at every geometry, and so are the port's (ignored); a tile
+    no Pallas grid could run is refused."""
+    from repro_torch.kernels.cluster import ops
+    sim, _, _ = _instance(6, 40, tied=True)
+    rank, unres, rep, valid = (torch.from_numpy(a) for a in _state(6, 40))
+    sim = torch.from_numpy(sim)
+    sims, ids = torch.topk(sim, 7, dim=1, sorted=True)
+    ids = ids.to(torch.int32)
+    cases = [
+        (ops.cluster_round_scan, (sim, rank, unres, rep, 0.5), "bu"),
+        (ops.cluster_assign, (sim, rank, rep, valid, 0.5), "bu"),
+        (ops.topk_cluster_round_scan, (ids, sims, rank, unres, rep, 0.5),
+         None),
+        (ops.topk_cluster_assign, (ids, sims, rank, rep, valid, 0.5), None)]
+    for fn, args, has_bu in cases:
+        base = fn(*args)
+        knobs = [dict(bs=256, interpret=False), dict(bs=3, interpret=True)]
+        if has_bu:
+            knobs += [dict(bu=16, bs=256), dict(bu=1, bs=1)]
+        for kw in knobs:
+            got = fn(*args, **kw)
+            assert all(torch.equal(g, b) for g, b in zip(got, base)), kw
+        with pytest.raises(ValueError, match="bs must be a positive int"):
+            fn(*args, bs=0)
+        if has_bu:
+            with pytest.raises(ValueError, match="bu must be a positive"):
+                fn(*args, bu=-8)

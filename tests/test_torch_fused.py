@@ -292,3 +292,126 @@ def test_block_slot_contract():
             bad_c[3, 2] = -1
         with pytest.raises(ValueError):
             tops._check_block_slots(bad_r, bad_c, ms, *n)
+
+
+# the reference's TPU knobs of the stjoin wrappers, decided from its own
+# outputs (README, "The reference's TPU knobs")
+NEUTRAL_FUSED = [dict(rows=1), dict(rows=3), dict(bm=8), dict(bm=32),
+                 dict(interpret=True), dict(interpret=False)]
+
+
+def _slot_maps(ref, cand, max_subs=4):
+    rng = np.random.default_rng(7)
+    return (rng.integers(-1, max_subs, ref.x.shape).astype(np.int32),
+            rng.integers(-1, max_subs, cand.x.shape).astype(np.int32))
+
+
+@pytest.mark.parametrize("name", ["cross", "ais"])
+def test_vote_pass_knobs(name):
+    """Pass 1: ``rows``, ``bm`` and ``interpret`` leave the reference's
+    vote and words bitwise the same, and the port's (ignored); ``bc``
+    moves the reference's vote sums, so the port takes only a ``bc`` the
+    reference resolves to its default 16, and refuses any other, naming
+    it."""
+    ref, cand, eps_sp, eps_t = _pair(name)
+    args = (*_arrays(ref), *_arrays(cand), eps_sp, eps_t, 3.0)
+    jv, jw = jops.stjoin_vote_fused_arrays(*args)
+    for kw in (dict(rows=3, bm=8), dict(rows=1, bm=32)):
+        v, w = jops.stjoin_vote_fused_arrays(*args, **kw)
+        assert np.array_equal(np.asarray(v), np.asarray(jv)), kw
+        assert np.array_equal(np.asarray(w), np.asarray(jw)), kw
+    moved = jops.stjoin_vote_fused_arrays(*args, bc=8)[0]
+    assert not np.array_equal(np.asarray(moved), np.asarray(jv))
+    tr, tc = _port(ref), _port(cand)
+    targs = (*_arrays(tr), *_arrays(tc), eps_sp, eps_t, 3.0)
+    tv, tw = tops.stjoin_vote_fused_arrays(*targs)
+    for kw in NEUTRAL_FUSED + [dict(bc=16), dict(bc=20), dict(bc=31)]:
+        for got in (tops.stjoin_vote_fused_arrays(*targs, **kw),
+                    tops.stjoin_vote_fused(tr, tc, eps_sp, eps_t, 3.0,
+                                           **kw)):
+            assert torch.equal(got[0], tv) and torch.equal(got[1], tw), kw
+    for bc in (1, 8, 32, 0):
+        with pytest.raises(ValueError, match=f"bc={bc} moves"):
+            tops.stjoin_vote_fused_arrays(*targs, bc=bc)
+        with pytest.raises(ValueError, match=f"bc={bc} moves"):
+            tops.stjoin_vote_fused(tr, tc, eps_sp, eps_t, bc=bc)
+    for bad in (dict(rows=0), dict(bm=-1), dict(bm=2.5)):
+        with pytest.raises(ValueError, match="must be a positive int"):
+            tops.stjoin_vote_fused_arrays(*targs, **bad)
+
+
+@pytest.mark.parametrize("name", ["cross", "ais"])
+def test_sim_pass_knobs(name):
+    """Pass 2, dense and panel: ``rows``, ``bc``, ``bm`` and ``interpret``
+    leave the reference's ``raw`` bitwise the same (each cell gets its
+    additions from one tile), so the port takes and ignores them."""
+    ref, cand, eps_sp, eps_t = _pair(name)
+    rsub, csub = _slot_maps(ref, cand)
+    jargs = (ref, cand, rsub, csub, 4, eps_sp, eps_t, 3.0)
+    jraw = np.asarray(jops.stjoin_sim_fused(*jargs))
+    jfwd = np.asarray(jops.stjoin_sim_panel_fused(*jargs, p0=0,
+                                                  panel=8)[0])
+    knobs = NEUTRAL_FUSED + [dict(bc=1), dict(bc=8), dict(bc=32)]
+    for kw in (dict(rows=3, bc=8, bm=8), dict(rows=1, bc=32, bm=32)):
+        assert np.array_equal(np.asarray(jops.stjoin_sim_fused(*jargs, **kw)),
+                              jraw), kw
+        assert np.array_equal(np.asarray(jops.stjoin_sim_panel_fused(
+            *jargs, p0=0, panel=8, **kw)[0]), jfwd), kw
+    targs = (_port(ref), _port(cand), torch.from_numpy(rsub),
+             torch.from_numpy(csub), 4, eps_sp, eps_t, 3.0)
+    raw = tops.stjoin_sim_fused(*targs)
+    fwd, rev = tops.stjoin_sim_panel_fused(*targs, p0=0, panel=8)
+    for kw in knobs:
+        assert torch.equal(tops.stjoin_sim_fused(*targs, **kw), raw), kw
+        f, r = tops.stjoin_sim_panel_fused(*targs, p0=0, panel=8, **kw)
+        assert torch.equal(f, fwd) and torch.equal(r, rev), kw
+    with pytest.raises(ValueError, match="bm must be a positive int"):
+        tops.stjoin_sim_fused(*targs, bm=0)
+
+
+def test_plan_fused_tiles_records_bm():
+    """``bm`` leaves the reference's tiles as they are and is recorded in
+    its plan as ``min(bm, Mc)``; the port's plan records it the same way."""
+    ref, cand, eps_sp, eps_t = _pair("ais")
+    arrays = lambda b: _arrays(b)[:4]
+    tr, tc = _port(ref), _port(cand)
+    base = tops.plan_fused_tiles(*arrays(tr), *arrays(tc), eps_sp, eps_t)
+    for bm in (8, 32, 128, 1000):
+        jp = jops.plan_fused_tiles(*arrays(ref), *arrays(cand), eps_sp,
+                                   eps_t, bm=bm)
+        tp = tops.plan_fused_tiles(*arrays(tr), *arrays(tc), eps_sp, eps_t,
+                                   bm=bm)
+        assert tp.bm == jp.bm == min(bm, cand.x.shape[1])
+        assert torch.equal(tp.tile_ids, base.tile_ids)
+    with pytest.raises(ValueError, match="bm must be a positive int"):
+        tops.plan_fused_tiles(*arrays(tr), *arrays(tc), eps_sp, eps_t, bm=0)
+
+
+@pytest.mark.parametrize("name", ["self", "ais"])
+def test_join_knobs(name):
+    """The dense and pruned joins: the reference's ``bp`` / ``bc`` / ``bm``
+    and ``interpret`` leave its outputs bitwise the same, and the port's
+    (``bp`` / ``bc`` of the pruned join are its plan's geometry, as
+    before); ``subtrajectory_join`` passes its keywords on, as the
+    reference's ``**kw``."""
+    ref, cand, eps_sp, eps_t = _pair(name)
+    j0 = jops.best_match_join_kernel(ref, cand, eps_sp, eps_t)
+    jk = jops.best_match_join_kernel(ref, cand, eps_sp, eps_t, bp=64, bc=4,
+                                     bm=8)
+    assert np.array_equal(np.asarray(jk.best_w), np.asarray(j0.best_w))
+    tr, tc = _port(ref), _port(cand)
+    base = tops.best_match_join_kernel(tr, tc, eps_sp, eps_t)
+    outs = [tops.best_match_join_kernel(tr, tc, eps_sp, eps_t, bp=64, bc=4,
+                                        bm=8, interpret=True),
+            tops.best_match_join_pruned(tr, tc, eps_sp, eps_t, bm=8,
+                                        interpret=False),
+            tops.subtrajectory_join(tr, tc, eps_sp, eps_t, bp=128, bm=16),
+            tops.subtrajectory_join(tr, tc, eps_sp, eps_t, use_index=True,
+                                    bm=16, use_cells=False)]
+    for out in outs:
+        assert torch.equal(out.best_w, base.best_w)
+        assert torch.equal(out.best_idx, base.best_idx)
+    with pytest.raises(ValueError, match="bp must be a positive int"):
+        tops.best_match_join_kernel(tr, tc, eps_sp, eps_t, bp=0)
+    with pytest.raises(TypeError):
+        tops.subtrajectory_join(tr, tc, eps_sp, eps_t, no_such_knob=1)

@@ -2058,3 +2058,36 @@ def test_lm_mesh_ep_and_pipeline_card_matches_cpu(cuda):
     assert float((card["gp"] - cpu["gp"]).norm()) <= \
         1e-5 * float(cpu["gp"].norm())
     assert card["seq_equal"] and cpu["seq_equal"]
+
+
+@pytest.mark.parametrize("path", ["fused", "fused_topk"])
+def test_tiles_and_knobs_on_card(cuda, path):
+    """``tiles=`` through the kernel plan's clustering (K5 / K6 or K8 / K9)
+    and the wrappers' TPU knobs on card tensors: launches as without them,
+    outputs bitwise the same."""
+    tb, params = _fig1_case(cuda)
+    base = run_dsc(tb, params, plan=_path_plan(path), device=cuda)
+    for tiles in ((8, 128), (16, 256), (8, 8)):
+        before = dict(kernels.LAUNCHES)
+        out = run_dsc(tb, params, plan=_path_plan(path).replace(
+            cluster_bu=tiles[0], cluster_bs=tiles[1]), device=cuda)
+        ran = {k for k, v in kernels.LAUNCHES.items() if v > before[k]}
+        assert ran == PATH_KERNELS[path]
+        for f in ("member_of", "member_sim", "is_rep", "is_outlier"):
+            assert torch.equal(getattr(out.result, f),
+                               getattr(base.result, f)), (tiles, f)
+    sim, rank, unres, rep, valid = _k5_instance(cuda, 300, "mixed", 300)
+    sims, ids = torch.topk(sim, 9, dim=1)
+    ids = ids.to(torch.int32).contiguous()
+    for fn, args, kw in (
+            (cluster_round_scan, (sim, rank, unres, rep, 0.5),
+             dict(bu=16, bs=256, interpret=False)),
+            (cluster_assign, (sim, rank, rep, valid, 0.5),
+             dict(bu=1, bs=1, interpret=True)),
+            (topk_cluster_round_scan, (ids, sims.contiguous(), rank, unres,
+                                       rep, 0.5), dict(bs=3)),
+            (topk_cluster_assign, (ids, sims.contiguous(), rank, rep, valid,
+                                   0.5), dict(bs=128, interpret=False))):
+        want = fn(*args)
+        got = fn(*args, **kw)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

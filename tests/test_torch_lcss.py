@@ -194,3 +194,14 @@ def test_no_card_means_no_silent_cpu(monkeypatch):
     for fn in (tops.lcss_scores, tops.lcss_similarity):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(*arrays, eps_sp, eps_t)
+
+
+@pytest.mark.parametrize("interpret", [None, True, False])
+def test_interpret_is_accepted_and_ignored(interpret):
+    """The reference's ``interpret`` (Pallas' interpret mode, the same
+    kernel body either way) is taken and changes nothing."""
+    arrays, eps_sp, eps_t = CASES[sorted(CASES)[0]]
+    for fn in (tops.lcss_scores, tops.lcss_similarity):
+        base = fn(*arrays, eps_sp, eps_t, device="cpu")
+        got = fn(*arrays, eps_sp, eps_t, interpret=interpret, device="cpu")
+        assert torch.equal(got, base)

@@ -128,3 +128,13 @@ def test_tsa2_signal_impls_match_reference(case, w):
     with pytest.raises(ValueError) as terr:
         tseg.tsa2_signal(_words_i32(words), w, impl="dense")
     assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("interpret", [None, True, False])
+def test_window_jaccard_takes_interpret(interpret):
+    """The reference's ``interpret`` (Pallas' interpret mode) is taken and
+    changes nothing."""
+    _, words, valid = _masks(8, T=4, M=23, C=40)
+    tw, tv = _words_i32(words), torch.from_numpy(valid)
+    assert torch.equal(window_jaccard(tw, tv, w=5, interpret=interpret),
+                       window_jaccard(tw, tv, w=5))
