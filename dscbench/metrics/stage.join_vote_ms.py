@@ -1,0 +1,12 @@
+"""Milliseconds a job spends in ``run_dsc``'s ``join_vote`` stage (its own
+CUDA events, ``stage_times=``; summed over the top-K dispatches), the
+mean over the window."""
+KIND = "per_layer"
+UNIT = "ms"
+STAGE = "join_vote"
+
+
+def read(run):
+    v = [j.stage_ms[STAGE] for j in run.jobs
+         if j.stage_ms and STAGE in j.stage_ms]
+    return sum(v) / len(v) if v else None
