@@ -40,9 +40,10 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
    and bound, and the sums over the run.  K6 on the run's final
    representatives and on a seeded half of the rows: bitwise its plain
    twin, timed per call and as device time (a CUDA graph), with its bound
-   and the floor of one launch.  (Every main run logs its
-   clustering stage cut by its own events into thresholds, visit order,
-   round loop and claim-max: ``run_dsc``'s ``stage_parts``.)  K3 on the
+   and the floor of one launch.  (Every main run logs its stages'
+   parts by its own events: the slot table, the dense matrix's
+   normalization, the thresholds and the round loop, the dotted keys of
+   ``run_dsc``'s ``stage_times``.)  K3 on the
    raw words (the kernel never reads an invalid position's), bitwise the
    plain version on the masked words, timed with its bound.  (A
    materialize run returns its cube in ``DSCOutput.join``: checked, then
@@ -1202,13 +1203,13 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    times, parts = {}, {}
+    times = {}
     with (recorded_rounds() if rounds is not None
           else contextlib.nullcontext([])) as states:
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         out = run_dsc(batch, params, plan=kernel_plan(mode), device=dev,
-                      stage_times=times, stage_parts=parts)
+                      stage_times=times)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -1254,18 +1255,20 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
     out.join = None
     r = out.result
     members = int((~r.is_rep & (r.member_of >= 0)).sum())
+    # the stages' parts, cut by the run's own events: the slot table, the
+    # dense matrix's normalization, the thresholds (row moments over
+    # [S, S] or the lists'), the round loop (a K5 / K8 launch and a host
+    # sync a round)
+    parts = {k: v for k, v in times.items() if "." in k}
+    want_parts = {"segment.table", "cluster.thresholds",
+                  "cluster.round_loop"}
+    if "_topk" not in mode:
+        want_parts.add("similarity.finalize")
+    check(set(parts) == want_parts
+          and all(v <= times[k.split(".")[0]] for k, v in parts.items()),
+          f"{mode}: stage parts {parts} against stages {times}")
     log("stage ms (CUDA events): " + ", ".join(
         f"{k}={v:.3f}" for k, v in times.items()))
-    # the clustering stage cut by the run's own events: the thresholds
-    # (row moments over [S, S] or the lists'), the visit order, the round
-    # loop (a K5 / K8 launch and a host sync a round), the claim-max
-    check(set(parts) == {"cluster.thresholds", "cluster.visit_order",
-                         "cluster.round_loop", "cluster.claim_max"}
-          and sum(parts.values()) <= times["cluster"],
-          f"{mode}: clustering parts {parts} against {times['cluster']} ms")
-    log("clustering stage parts ms (CUDA events): " + ", ".join(
-        f"{k.split('.')[1]}={v:.3f}" for k, v in parts.items())
-        + f"; sum {sum(parts.values()):.3f} of {times['cluster']:.3f}")
     topk_k = None if out.sim_topk is None else out.sim_topk.k
     log(f"main path ({mode}, {name}) wall s={wall:.3f} rounds={out.rounds} "
         f"dispatches={out.dispatches} final_K={topk_k} "
@@ -1274,7 +1277,7 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
         f"alpha={float(r.alpha_used):.6g} k={float(r.k_used):.6g}")
     log(f"launches: {launches}")
     report[f"{name}_{mode}"] = dict(
-        stage_ms=times, stage_parts_ms=parts, wall_s=wall, rounds=out.rounds,
+        stage_ms=times, wall_s=wall, rounds=out.rounds,
         dispatches=out.dispatches, final_k=topk_k,
         peak_alloc_bytes=peak, clusters=int(r.is_rep.sum()),
         members=members, outliers=int(r.is_outlier.sum()),

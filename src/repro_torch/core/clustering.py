@@ -179,8 +179,8 @@ def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
     whether every slot is resolved), or (``max_rounds``) a fixed trip of
     ``max_rounds`` rounds with no sync inside (converged rounds change
     nothing; ``rounds`` counts those that found a slot unresolved, as the
-    default loop does).  ``span`` times the parts ``cluster.round_loop``
-    and ``cluster.claim_max``."""
+    default loop does).  ``span`` times the part ``cluster.round_loop``:
+    the rounds with their host syncs, not the claim-max after them."""
     S = table.num_slots
     potential = table.valid & (table.voting >= k)
     resolved = ~potential
@@ -208,11 +208,10 @@ def _rounds(table: SubtrajTable, alpha, k, scan, assign, *,
                 resolved, is_rep = step(resolved, is_rep)
             rounds = int(live)
 
-    with span("cluster.claim_max"):
-        member_sim, member_of = assign(is_rep)
-        slots = torch.arange(S, dtype=torch.int32, device=potential.device)
-        member_of = torch.where(is_rep, slots, member_of)
-        member_sim = torch.where(is_rep, float("inf"), member_sim)
+    member_sim, member_of = assign(is_rep)
+    slots = torch.arange(S, dtype=torch.int32, device=potential.device)
+    member_of = torch.where(is_rep, slots, member_of)
+    member_sim = torch.where(is_rep, float("inf"), member_sim)
     result = ClusteringResult(
         member_of=member_of, member_sim=member_sim, is_rep=is_rep,
         is_outlier=table.valid & (member_of < 0), alpha_used=alpha,
@@ -242,15 +241,15 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
     geometry and the CUDA kernels have their own, so it moves nothing
     (``_check_tiles`` refuses a malformed one).  ``span``
     (a context-manager factory such as ``dsc.StageTimer.stage``) times the
-    parts ``cluster.thresholds``, ``cluster.visit_order``,
-    ``cluster.round_loop`` and ``cluster.claim_max``.
+    parts ``cluster.thresholds`` (alpha and k: the row moments over the
+    matrix) and ``cluster.round_loop`` (every round's scan and host
+    sync); the visit order and the claim-max are the stage's own time.
     """
     _check_max_rounds(max_rounds, table.num_slots)
     bu, bs = _check_tiles(tiles) or (8, 128)
     with span("cluster.thresholds"):
         alpha, k = resolve_thresholds(params, sim, table, moments=moments)
-    with span("cluster.visit_order"):
-        order, rank = visit_order(table)
+    order, rank = visit_order(table)
 
     if use_kernel:
         from repro_torch.kernels.cluster.ops import (cluster_assign,
@@ -305,8 +304,7 @@ def cluster_rounds_topk(topk: TopKSim, table: SubtrajTable,
     row_tile = (_check_tiles(tiles) or (8,))[0]
     with span("cluster.thresholds"):
         alpha, k = _topk_thresholds(topk, table, params)
-    with span("cluster.visit_order"):
-        _, rank = visit_order(table)
+    _, rank = visit_order(table)
 
     if use_kernel:
         from repro_torch.kernels.cluster.ops import (

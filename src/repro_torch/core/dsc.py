@@ -52,8 +52,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import geometry, segmentation, similarity, voting
-from repro_torch.core.clustering import (cluster, rmse, rmse_from_result,
-                                         sscr, sscr_from_result)
+from repro_torch.core.clustering import (_no_span, cluster, rmse,
+                                         rmse_from_result, sscr,
+                                         sscr_from_result)
 from repro_torch.core.plan import EnginePlan, resolve_plan
 from repro_torch.core.types import (ClusteringResult, DSCParams,
                                     JoinResult, SubtrajSegmentation,
@@ -85,52 +86,56 @@ class DSCOutput:
 
 
 class StageTimer:
-    """Per-stage times in ms: CUDA events on the card, the host clock on
-    the CPU.  A name with a dot (``cluster.round_loop``) is a part of a
-    stage.  Read ``times`` and ``parts`` after the run (each synchronizes
-    once)."""
+    """The spans of one DSC run: each stage (``STAGES``) and each part of
+    one, named ``<stage>.<part>`` and nested inside its stage.  With
+    ``record`` a span is timed (CUDA events on the card, the host clock on
+    the CPU); while a ``torch.profiler`` session records (asked once, when
+    the timer is made) it also opens a ``record_function`` range of its
+    name, on the clock of the device's kernels.  With neither it records
+    nothing.  Read ``times`` after the run (it synchronizes once)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, record: bool = True):
         self.cuda = device.type == "cuda"
+        self.record = record
+        self.annotate = torch.autograd._profiler_enabled()
         self._marks: list[tuple[str, object, object]] = []
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        if self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-        else:
-            start = time.perf_counter()
-            yield
-            end = time.perf_counter()
-        self._marks.append((name, start, end))
-
-    def _sums(self, parts: bool) -> dict[str, float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-        out: dict[str, float] = {}
-        for n, s, e in self._marks:
-            if ("." in n) == parts:
-                ms = s.elapsed_time(e) if self.cuda else (e - s) * 1e3
-                out[n] = out.get(n, 0.0) + ms
-        return out
+        rng = (torch.profiler.record_function(name) if self.annotate
+               else contextlib.nullcontext())
+        with rng:
+            if not self.record:
+                yield
+                return
+            if self.cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+            else:
+                start = time.perf_counter()
+                yield
+                end = time.perf_counter()
+            self._marks.append((name, start, end))
 
     @property
     def times(self) -> dict[str, float]:
-        """ms per stage name, summed over the times a stage ran."""
-        return self._sums(False)
+        """ms per span name, summed over the times a span ran."""
+        if self.cuda and self._marks:
+            torch.cuda.synchronize()
+        out: dict[str, float] = {}
+        for n, s, e in self._marks:
+            ms = s.elapsed_time(e) if self.cuda else (e - s) * 1e3
+            out[n] = out.get(n, 0.0) + ms
+        return out
 
-    @property
-    def parts(self) -> dict[str, float]:
-        """ms per part of a stage (``stage.part``), summed likewise."""
-        return self._sums(True)
 
-
-def _segment_body(batch, params, vote, masks, plan: EnginePlan):
-    """Voting signal -> segmentation -> subtrajectory table."""
+def _segment_body(batch, params, vote, masks, plan: EnginePlan,
+                  span=_no_span):
+    """Voting signal -> segmentation -> subtrajectory table (the part
+    ``segment.table``)."""
     nvote = voting.normalized_voting(vote, batch.valid)
     if params.segmentation == "tsa1":
         seg = segmentation.tsa1(nvote, batch.valid, params.w, params.tau,
@@ -141,18 +146,19 @@ def _segment_body(batch, params, vote, masks, plan: EnginePlan):
                                 use_kernel=plan.seg_use_kernel)
     else:
         raise ValueError(f"unknown segmentation {params.segmentation!r}")
-    table = similarity.build_subtraj_table(
-        batch, seg, vote, params.max_subtrajs_per_traj)
+    with span("segment.table"):
+        table = similarity.build_subtraj_table(
+            batch, seg, vote, params.max_subtrajs_per_traj)
     return seg, table
 
 
 def _similarity_body(batch, params, join, seg, table, plan: EnginePlan,
-                     k: int, tiles=None):
+                     k: int, tiles=None, span=_no_span):
     """SP relation: ``(sim, topk)``, exactly one of them not None.  From
     the cube or (fused mode, ``join is None``) from the fused pass 2 over
     the tile plan ``tiles`` (``None``: every tile): the dense ``[S, S]``
-    matrix, or (``sim_mode="topk"``) the panel-streamed ``[S, K]``
-    lists."""
+    matrix, its Eq. 2 normalization the part ``similarity.finalize``, or
+    (``sim_mode="topk"``) the panel-streamed ``[S, K]`` lists."""
     ms = params.max_subtrajs_per_traj
     if plan.sim_mode == "topk":
         if join is not None:
@@ -170,9 +176,11 @@ def _similarity_body(batch, params, join, seg, table, plan: EnginePlan,
         raw = stjoin_ops.stjoin_sim_fused(
             batch, batch, seg.sub_local, seg.sub_local, ms, params.eps_sp,
             params.eps_t, params.delta_t, tile_ids=tiles)
+    else:
+        raw = similarity.similarity_scatter(join, seg, seg.sub_local,
+                                            table, ms)
+    with span("similarity.finalize"):
         return similarity.finalize_sim(raw, table), None
-    return similarity.similarity_matrix(join, seg, seg.sub_local, table,
-                                        ms), None
 
 
 def _cluster_body(simlike, table, params, plan: EnginePlan, span):
@@ -269,7 +277,8 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
             join, vote, masks = _join_vote_materialize_body(batch, params,
                                                             plan)
     with timer.stage("segment"):
-        seg, table = _segment_body(batch, params, vote, masks, plan)
+        seg, table = _segment_body(batch, params, vote, masks, plan,
+                                   timer.stage)
     del masks
     S = table.num_slots
     k = _topk_k(plan, S)
@@ -277,7 +286,7 @@ def _run_stages(batch, params, plan: EnginePlan, timer: StageTimer,
     while True:
         with timer.stage("similarity"):
             sim, topk = _similarity_body(batch, params, join, seg, table,
-                                         plan, k, tiles)
+                                         plan, k, tiles, timer.stage)
         with timer.stage("cluster"):
             result, rounds, overflow = _cluster_body(
                 sim if topk is None else topk, table, params, plan,
@@ -352,8 +361,8 @@ def run_stage_cluster(simlike, table: SubtrajTable, params: DSCParams,
                       plan: EnginePlan):
     """Stage 4: clustering of the dense matrix or the ``TopKSim``,
     ``(result, overflow)``; ``overflow`` is None on the dense path."""
-    result, _, overflow = _cluster_body(
-        simlike, table, params, plan, lambda _: contextlib.nullcontext())
+    result, _, overflow = _cluster_body(simlike, table, params, plan,
+                                        _no_span)
     return result, overflow
 
 
@@ -377,8 +386,8 @@ def run_dsc_lowerable(batch: TrajectoryBatch, params: DSCParams,
     batch = _on_device(batch, device)
     S = batch.num_trajs * params.max_subtrajs_per_traj
     plan = plan.replace(sim_topk=_topk_k(plan, S))
-    return _run_stages(batch, params, plan, StageTimer(batch.device),
-                       "degrade")
+    return _run_stages(batch, params, plan,
+                       StageTimer(batch.device, record=False), "degrade")
 
 
 def _on_device(batch: TrajectoryBatch, device) -> TrajectoryBatch:
@@ -401,8 +410,7 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams,
             sim_topk_retry: bool = True,
             on_overflow: str | None = None,
             plan: EnginePlan | None = None, device=None,
-            stage_times: dict | None = None,
-            stage_parts: dict | None = None) -> DSCOutput:
+            stage_times: dict | None = None) -> DSCOutput:
     """Run the full DSC pipeline on one device.
 
     ``plan`` (``None`` = the default, all-plain plan) picks each stage's
@@ -412,11 +420,14 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams,
     value raises.  ``device`` (``None`` = the card) is where the pipeline runs:
     the batch is moved there if it lies elsewhere, and asking for the card
     where there is none raises.  ``stage_times``, when given, is filled
-    with the time of each stage in ms (CUDA events on the card), summed
-    over the dispatches; ``stage_parts`` likewise with the parts that a
-    stage times: the rounds engines' ``cluster.thresholds``,
-    ``cluster.visit_order``, ``cluster.round_loop`` and
-    ``cluster.claim_max``.
+    with the time of each span in ms (CUDA events on the card), summed
+    over the dispatches: the stages by their ``STAGES`` names, and the
+    parts that the plan runs inside them: ``segment.table`` (the slot
+    table), ``similarity.finalize`` (the dense matrix's normalization)
+    and the rounds engines' ``cluster.thresholds`` and
+    ``cluster.round_loop``.  While a ``torch.profiler`` session records,
+    each span is also a ``record_function`` range of its name; with
+    neither, the spans record nothing.
 
     ``sim_mode="topk"`` keeps per-row top-K lists instead of the
     ``[S, S]`` matrix, with K = ``plan.sim_topk`` (default 32, clamped to
@@ -448,12 +459,10 @@ def run_dsc(batch: TrajectoryBatch, params: DSCParams,
     else:
         on_overflow = "widen" if sim_topk_retry else "raise"
     batch = _on_device(batch, device)
-    timer = StageTimer(batch.device)
+    timer = StageTimer(batch.device, record=stage_times is not None)
     out = _run_stages(batch, params, plan, timer, on_overflow)
     if stage_times is not None:
         stage_times.update(timer.times)
-    if stage_parts is not None:
-        stage_parts.update(timer.parts)
     return out
 
 

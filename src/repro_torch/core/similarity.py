@@ -201,17 +201,25 @@ def contribution_panel_raw(src: torch.Tensor, dst: torch.Tensor,
     return panel_raw
 
 
+def similarity_scatter(join: JoinResult, ref_seg: SubtrajSegmentation,
+                       cand_seg_sub_local: torch.Tensor, table: SubtrajTable,
+                       max_subs: int) -> torch.Tensor:
+    """The cube's raw SP scatter ``[S, C * max_subs]``, before
+    ``finalize_sim``."""
+    S = table.num_slots
+    n_dst = cand_seg_sub_local.shape[0] * max_subs
+    return scatter_raw(join.best_w, join.best_idx,
+                       slot_ids(ref_seg.sub_local, max_subs, S),
+                       slot_ids(cand_seg_sub_local, max_subs, n_dst), S,
+                       n_dst)
+
+
 def similarity_matrix(join: JoinResult, ref_seg: SubtrajSegmentation,
                       cand_seg_sub_local: torch.Tensor, table: SubtrajTable,
                       max_subs: int) -> torch.Tensor:
     """Densified SP relation: Sim[S, S] per Eq. 2, symmetrized."""
-    S = table.num_slots
-    n_dst = cand_seg_sub_local.shape[0] * max_subs
-    raw = scatter_raw(join.best_w, join.best_idx,
-                      slot_ids(ref_seg.sub_local, max_subs, S),
-                      slot_ids(cand_seg_sub_local, max_subs, n_dst), S,
-                      n_dst)
-    return finalize_sim(raw, table)
+    return finalize_sim(similarity_scatter(join, ref_seg, cand_seg_sub_local,
+                                           table, max_subs), table)
 
 
 def _row_tree_sum(x: torch.Tensor) -> torch.Tensor:

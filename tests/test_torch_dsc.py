@@ -13,6 +13,7 @@ segmentation must be equal.  Float outputs carry stated tolerances:
   another order (and the similarity scatter's per-cell sums may differ by
   an ulp): 1e-5 relative.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -175,7 +176,7 @@ def test_stage_times_and_summary(fig1):
     times = {}
     out = tdsc.run_dsc(_port(jb), DSCParams(**FIG1, segmentation="tsa2"),
                        device="cpu", stage_times=times)
-    assert list(times) == list(tdsc.STAGES)
+    assert [k for k in times if "." not in k] == list(tdsc.STAGES)
     assert all(v >= 0.0 for v in times.values())
     s = tdsc.cluster_summary(out)
     jo = jdsc.run_dsc(jb, JParams(**FIG1, segmentation="tsa2"))
@@ -183,30 +184,101 @@ def test_stage_times_and_summary(fig1):
     assert s["clusters"] == js["clusters"] and s["outliers"] == js["outliers"]
 
 
-CLUSTER_PARTS = {"cluster.thresholds", "cluster.visit_order",
-                 "cluster.round_loop", "cluster.claim_max"}
+# the parts each plan runs inside its stages (``<stage>.<part>``)
+PLAN_PARTS = {
+    "dense": ["segment.table", "similarity.finalize", "cluster.thresholds",
+              "cluster.round_loop"],
+    "topk": ["segment.table", "cluster.thresholds", "cluster.round_loop"],
+    "sequential": ["segment.table", "similarity.finalize"],
+}
+SPAN_PLANS = {"dense": EnginePlan(),
+              "topk": EnginePlan(sim_mode="topk", sim_topk=2),
+              "sequential": EnginePlan(cluster_engine="sequential")}
 
 
-@pytest.mark.parametrize("plan", [
-    EnginePlan(), EnginePlan(sim_mode="topk", sim_topk=2),
-    EnginePlan(cluster_engine="sequential")], ids=["dense", "topk",
-                                                  "sequential"])
+@pytest.mark.parametrize("plan", list(SPAN_PLANS))
 def test_stage_parts(fig1, plan):
-    """The rounds engines time the parts of the clustering stage; the
-    parts lie inside the stage and leave ``stage_times`` as it was; the
-    sequential oracle times none."""
+    """``stage_times`` holds the stages in order and, under dotted names,
+    exactly the parts that the plan runs, each inside its stage."""
     jb, _ = fig1
-    times, parts = {}, {}
+    times = {}
     tdsc.run_dsc(_port(jb), DSCParams(**FIG1, segmentation="tsa2"),
-                 plan=plan, device="cpu", stage_times=times,
-                 stage_parts=parts)
-    assert list(times) == list(tdsc.STAGES)
-    if plan.cluster_engine == "sequential":
-        assert parts == {}
-    else:
-        assert set(parts) == CLUSTER_PARTS
-        assert all(v >= 0.0 for v in parts.values())
-        assert sum(parts.values()) <= times["cluster"]
+                 plan=SPAN_PLANS[plan], device="cpu", stage_times=times)
+    assert [k for k in times if "." not in k] == list(tdsc.STAGES)
+    parts = [k for k in times if "." in k]
+    assert parts == PLAN_PARTS[plan]
+    assert all(v >= 0.0 for v in times.values())
+    for k in parts:
+        assert times[k] <= times[k.split(".")[0]], k
+
+
+def _ranges(prof):
+    """``name -> [(start_us, end_us)]`` of the profile's host events."""
+    out = {}
+    for e in prof.events():
+        out.setdefault(e.name, []).append((e.time_range.start,
+                                           e.time_range.end))
+    return out
+
+
+@pytest.mark.parametrize("times", [{}, None], ids=["timed", "untimed"])
+def test_spans_are_profiler_ranges(fig1, times):
+    """Under a recording profiler every span is a range of its name,
+    nested inside the caller's range, each part inside its stage's; the
+    profiler alone switches them on."""
+    jb, _ = fig1
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("caller"):
+            tdsc.run_dsc(_port(jb), DSCParams(**FIG1, segmentation="tsa2"),
+                         device="cpu", stage_times=times)
+    rng = _ranges(prof)
+    (c0, c1), = rng["caller"]
+    for name in list(tdsc.STAGES) + PLAN_PARTS["dense"]:
+        (s, e), = rng[name]
+        assert c0 <= s <= e <= c1, name
+        if "." in name:
+            (p0, p1), = rng[name.split(".")[0]]
+            assert p0 <= s <= e <= p1, name
+    if times is not None:
+        assert set(times) == set(tdsc.STAGES) | set(PLAN_PARTS["dense"])
+
+
+def test_spans_off_record_nothing(fig1, monkeypatch):
+    """With no dict and no profiler a run enters no range, and its timer
+    keeps no mark; a timer on the card makes no CUDA event then."""
+    jb, _ = fig1
+    entered = []
+
+    def counting(name, *a, **kw):
+        entered.append(name)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", counting)
+    timers = []
+
+    class Kept(tdsc.StageTimer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            timers.append(self)
+
+    monkeypatch.setattr(tdsc, "StageTimer", Kept)
+    tdsc.run_dsc(_port(jb), DSCParams(**FIG1, segmentation="tsa2"),
+                 device="cpu")
+    assert entered == [] and len(timers) == 1
+    timer = timers[0]
+    assert not timer.record and not timer.annotate and timer._marks == []
+
+    def no_event(*a, **kw):
+        raise AssertionError("a CUDA event was made")
+
+    monkeypatch.setattr(torch.cuda, "Event", no_event)
+    card = tdsc.StageTimer(torch.device("cuda"), record=False)
+    with card.stage("cluster"):
+        with card.stage("cluster.round_loop"):
+            pass
+    assert card._marks == [] and card.times == {} and entered == []
 
 
 def test_groundtruth_recovery(fig1):

@@ -217,7 +217,7 @@ def test_fused_stage_times():
     times = {}
     tdsc.run_dsc(_port(jb), DSCParams(**kw), device="cpu",
                  plan=EnginePlan(mode="fused"), stage_times=times)
-    assert list(times) == list(tdsc.STAGES)
+    assert [k for k in times if "." not in k] == list(tdsc.STAGES)
 
 
 @pytest.mark.parametrize("sim_mode", ["topk", "dense"])

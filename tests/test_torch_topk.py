@@ -497,7 +497,8 @@ def test_on_overflow_policies():
     to = tdsc.run_dsc(tb, p, device="cpu", plan=plan, stage_times=times)
     assert to.sim_topk.k == jo.sim_topk.k > 2
     assert to.dispatches == int(np.log2(to.sim_topk.k // 2)) + 1
-    assert int(to.sim_overflow) == 0 and list(times) == list(tdsc.STAGES)
+    assert int(to.sim_overflow) == 0
+    assert [k for k in times if "." not in k] == list(tdsc.STAGES)
     for f in LABELS:
         assert np.array_equal(np.asarray(getattr(jo.result, f)),
                               getattr(to.result, f).numpy()), f

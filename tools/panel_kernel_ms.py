@@ -66,8 +66,8 @@ and the sums.
 
 ``rounds``: three ``run_dsc`` calls each of the dense fused and the
 fused top-K paths at dsc_brest: per call the clustering stage and its
-parts (``stage_parts``: the thresholds, the visit order, the round loop
-of a K5 / K8 launch and a host sync a round, the claim-max), the rounds,
+parts (the dotted ``cluster.*`` keys of ``stage_times``: the thresholds,
+the round loop of a K5 / K8 launch and a host sync a round), the rounds,
 and a digest of ``member_of`` and ``member_sim``.
 
 "Alone" is ``chip_smoke.graph_ms`` of the panel's launch with its
@@ -302,13 +302,13 @@ def rounds_measure(cs, batch, params, reps: int = 3):
     for path in ("fused", "fused_topk"):
         calls = []
         for _ in range(reps):
-            times, parts = {}, {}
+            times = {}
             out = run_dsc(batch, params, plan=cs.kernel_plan(path),
-                          device=batch.x.device, stage_times=times,
-                          stage_parts=parts)
+                          device=batch.x.device, stage_times=times)
             calls.append(dict(
                 cluster_ms=times["cluster"], rounds=out.rounds,
-                **{k.split(".")[1] + "_ms": v for k, v in parts.items()},
+                **{k.split(".")[1] + "_ms": v for k, v in times.items()
+                   if k.startswith("cluster.")},
                 digest=[digest(out.result.member_of),
                         digest(out.result.member_sim)]))
             del out
