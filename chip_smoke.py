@@ -40,7 +40,9 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
    and bound, and the sums over the run.  K6 on the run's final
    representatives and on a seeded half of the rows: bitwise its plain
    twin, timed per call and as device time (a CUDA graph), with its bound
-   and the floor of one launch.  (Every main run logs its stages'
+   and the floor of one launch.  K16 (the row moments of alpha, which
+   replaces no TPU kernel) on the run's matrix: bitwise its plain tree,
+   timed beside the plain version and its bound.  (Every main run logs its stages'
    parts by its own events: the slot table, the dense matrix's
    normalization, the thresholds and the round loop, the dotted keys of
    ``run_dsc``'s ``stage_times``.)  K3 on the
@@ -51,8 +53,8 @@ build from ``src/repro_torch/kernels/csrc`` at first use) and one card.
 6. The fused path at ``dsc_sis`` (8192 vessels x 128 points, S = 65,536;
    the same generator and parameters): launch counts, sanity checks,
    stage times and peak memory; K5 at every round of that run (bitwise,
-   timed) and K6 on its final representatives (bitwise, timed as at
-   dsc_brest); then K2 and K4 on its inputs, timed and bitwise their plain
+   timed), K6 on its final representatives and K16 on its matrix
+   (bitwise, timed as at dsc_brest); then K2 and K4 on its inputs, timed and bitwise their plain
    versions on the first 256 rows, and K3 on K2's words, bitwise and timed
    with its bound.
 
@@ -433,8 +435,11 @@ CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"lcss_wavefront": "lcss_kernels.cu",
            "flash_attention_fwd": "attention_kernels.cu"}
 # the kernels each main path launches, and no other (every path's join
-# reads the chunk time bounds, which replace no TPU kernel)
-PATH_KERNELS = {path: {"chunk_time_bounds", *names} for path, names in {
+# reads the chunk time bounds, and every path's thresholds the row moments
+# of alpha (dense: the [S, S] matrix, top-K: each panel), which replace no
+# TPU kernel)
+PATH_KERNELS = {path: {"chunk_time_bounds", "sim_row_moments", *names}
+                for path, names in {
     "materialize": {"stjoin_best_match", "jaccard_window", "round_scan",
                     "claim_max"},
     "fused": {"stjoin_vote_fused", "jaccard_window", "stjoin_sim_fused",
@@ -1225,12 +1230,14 @@ def phase_main(dev, report, mode: str, n_vessels: int = 4096,
     if "_topk" in mode:
         from repro_torch.core.similarity import plan_panel
         S = out.table.num_slots
+        panels = out.dispatches * S // plan_panel(S)
         want = {"topk_round_scan": out.rounds,
-                "topk_claim_max": out.dispatches}
+                "topk_claim_max": out.dispatches,
+                "sim_row_moments": panels}
         for panel in ("stjoin_sim_panel_fused",
                       "stjoin_sim_panel_fused_pruned"):
             if panel in ran:
-                want[panel] = out.dispatches * S // plan_panel(S)
+                want[panel] = panels
         check(out.sim is None and peak < S * S * 4,
               f"{mode}: a [S, S] matrix was built (peak {peak} B)")
     else:
@@ -1427,9 +1434,9 @@ def phase_stages(dev, report, batch, params, runs):
 # ---------------------------------------------------------------------------
 
 # the kernels the resumed fused top-K run launches: the widen re-runs
-# similarity from the segment checkpoint
+# similarity (K7 and the row moments a panel) from the segment checkpoint
 RESUME_KERNELS = {"chunk_time_bounds", "stjoin_sim_panel_fused",
-                  "topk_round_scan", "topk_claim_max"}
+                  "sim_row_moments", "topk_round_scan", "topk_claim_max"}
 # the stream at full width: records per submission batch
 STREAM_BATCH = 32768
 # kernels an advance of the TSA1 stream launches: K1 (and the candidates'
@@ -1522,7 +1529,8 @@ def phase_resilient(dev, report, batch, params, tout, tlaunches):
             crash_launches = dict(kernels.LAUNCHES)
             crash_peak = torch.cuda.max_memory_allocated() - base
             want = {"chunk_time_bounds", "stjoin_vote_fused",
-                    "jaccard_window", "stjoin_sim_panel_fused"}
+                    "jaccard_window", "stjoin_sim_panel_fused",
+                    "sim_row_moments"}
             check({k for k, n in crash_launches.items() if n} == want,
                   f"resilient crash run launched {crash_launches}")
             n_crash_writes = len(writes)
@@ -1550,6 +1558,7 @@ def phase_resilient(dev, report, batch, params, tout, tlaunches):
               f"dispatches {tout.dispatches}")
         want = {"stjoin_sim_panel_fused":
                 res.widen_count * S // plan_panel(S),
+                "sim_row_moments": res.widen_count * S // plan_panel(S),
                 "topk_claim_max": tout.dispatches,
                 "topk_round_scan": tlaunches["topk_round_scan"],
                 "chunk_time_bounds": res.widen_count}
@@ -1949,12 +1958,12 @@ def phase_launcher_exits(dev, report):
 # before a sweep and read just after)
 TUNE_KERNELS = {
     "join": {"chunk_time_bounds", "stjoin_best_match", "stjoin_vote_fused",
-             "stjoin_sim_fused", "jaccard_window", "round_scan",
-             "claim_max"},
-    "cluster": {"round_scan", "claim_max"},
+             "stjoin_sim_fused", "jaccard_window", "sim_row_moments",
+             "round_scan", "claim_max"},
+    "cluster": {"sim_row_moments", "round_scan", "claim_max"},
     "pipeline": {"chunk_time_bounds", "stjoin_best_match",
                  "stjoin_vote_fused", "stjoin_sim_fused", "jaccard_window",
-                 "round_scan", "claim_max"},
+                 "sim_row_moments", "round_scan", "claim_max"},
     "panel": PATH_KERNELS["fused_topk"],
 }
 TUNE_ITERS = 3
@@ -2196,14 +2205,18 @@ def phase_tune(dev, report, card: str):
 # ---------------------------------------------------------------------------
 
 # the kernels each distributed path launches on every rank, and no other
+# (every kernel path's row moments of its column block, one a similarity
+# pass)
 DIST_KERNELS = {
     "fused_topk": {"chunk_time_bounds", "stjoin_vote_fused",
-                   "stjoin_sim_fused", "jaccard_window", "topk_round_scan",
-                   "topk_claim_max"},
+                   "stjoin_sim_fused", "jaccard_window", "sim_row_moments",
+                   "topk_round_scan", "topk_claim_max"},
     "fused": {"chunk_time_bounds", "stjoin_vote_fused", "stjoin_sim_fused",
-              "jaccard_window", "round_scan", "claim_max"},
+              "jaccard_window", "sim_row_moments", "round_scan",
+              "claim_max"},
     "materialize": {"chunk_time_bounds", "stjoin_best_match",
-                    "jaccard_window", "round_scan", "claim_max"},
+                    "jaccard_window", "sim_row_moments", "round_scan",
+                    "claim_max"},
     "plain": set(),
 }
 RINGS = dict(halo_stream="ring", sim_exchange="ring")
@@ -2219,7 +2232,8 @@ DIST_JOBS = {
                    ("chunk_time_bounds", "stjoin_vote_fused",
                     "jaccard_window", "stjoin_sim_fused", "topk_round_scan",
                     "topk_claim_max")),
-    "dense": (4096, "fused", {}, "raise", ("round_scan", "claim_max")),
+    "dense": (4096, "fused", {}, "raise", ("sim_row_moments", "round_scan",
+                                         "claim_max")),
     "topk_512": (512, "fused_topk", dict(sim_topk=32), "widen", ()),
     "topk_512_ring": (512, "fused_topk", dict(sim_topk=32, **RINGS),
                       "widen", ()),
@@ -2277,7 +2291,8 @@ def dist_wrappers():
             "round_scan": (cops, "cluster_round_scan"),
             "claim_max": (cops, "cluster_assign"),
             "topk_round_scan": (cops, "topk_cluster_round_scan"),
-            "topk_claim_max": (cops, "topk_cluster_assign")}
+            "topk_claim_max": (cops, "topk_cluster_assign"),
+            "sim_row_moments": (cops, "sim_row_moments")}
 
 
 @contextlib.contextmanager
@@ -2290,7 +2305,11 @@ def recorded_program(names, rows):
     its first call and, of its ``[S, S_loc]`` output, the slots of the
     partition ``rows``; K8 and K9 keep their ``[S, K]`` lists on the host,
     once a dispatch (``rec["lists"]``); K5 and K6 keep a reference to
-    ``sim`` (the run does not write it after it is built)."""
+    ``sim`` (the run does not write it after it is built); K16 keeps a
+    reference to its first call's column block (which the run does not
+    write either) and every call's outputs: each similarity pass of a run
+    builds the same block, so the first call's operands stand for every
+    call."""
     import weakref
     wrappers = dist_wrappers()
     rec = {n: [] for n in names}
@@ -2318,6 +2337,11 @@ def recorded_program(names, rows):
             rec[name].append(dict(d=dispatch(a[0], a[1]),
                                   args=[cl(v) for v in a[2:]],
                                   out=[cl(o) for o in outs]))
+            return
+        if name == "sim_row_moments":
+            rec[name].append(dict(
+                args=None if rec[name] else [a[0], *(cl(v) for v in a[1:])],
+                out=[cl(o) for o in outs]))
             return
         if name in ("round_scan", "claim_max"):
             check(not rec[name] or rec[name][0]["args"][0] is a[0],
@@ -2567,6 +2591,15 @@ def dist_checks(job, rec, rows):
             out.append(dist_check_calls(
                 name, calls, lambda c: real(name)(*c["args"]),
                 lambda c: sref.stjoin_ref(*c["args"]), job))
+        elif name == "sim_row_moments":
+            row = dist_check_calls(
+                name, calls[:1], lambda c: real(name)(*c["args"]),
+                lambda c: cref.sim_row_moments_ref(*c["args"]), job)
+            for i, c in enumerate(calls[1:], 1):
+                check(same_bits(c["out"], calls[0]["out"]),
+                      f"distributed {job}: {name} call {i}'s outputs differ "
+                      "from the first's (the same block every pass)")
+            out.append(dict(row, calls=len(calls)))
     dense = [n for n in ("round_scan", "claim_max") if n in rec]
     comm = current()
     for r in range(comm.mesh.size if dense else 0):
@@ -2700,6 +2733,14 @@ def phase_distributed(report, card: str):
                       and ln["chunk_time_bounds"] == 1 + d
                       and ln["topk_round_scan"] >= d,
                       f"distributed {name} rank {r}: launches {ln}")
+            # K16 once a similarity pass: K4's count on the fused paths,
+            # one run's single pass on the materialize path
+            if path != "plain":
+                passes = ln["stjoin_sim_fused"] if path != "materialize" else 1
+                check(ln["sim_row_moments"] == passes,
+                      f"distributed {name} rank {r}: K16 launched "
+                      f"{ln['sim_row_moments']} times for {passes} "
+                      "similarity passes")
     main = r0["main"]["out"]
     T, Mp = 4096, main.vote.shape[2]
     S = T * 8
@@ -2802,9 +2843,10 @@ def phase_distributed(report, card: str):
 # ---------------------------------------------------------------------------
 
 # kernels the main resume launches (the join and segment state is
-# restored; each widen reruns the similarity stage)
+# restored; each widen reruns the similarity stage, row moments included)
 RDIST_RESUME_KERNELS = {"chunk_time_bounds", "stjoin_sim_fused",
-                        "topk_round_scan", "topk_claim_max"}
+                        "sim_row_moments", "topk_round_scan",
+                        "topk_claim_max"}
 RDIST_MAT_RECORD = ("chunk_time_bounds", "stjoin_best_match",
                     "jaccard_window", "round_scan", "claim_max")
 RDIST_TOPK_RECORD = ("chunk_time_bounds", "stjoin_vote_fused",
@@ -2971,6 +3013,10 @@ def phase_resilient_distributed(report, card: str, mono: dict):
               f"resilient distributed resume rank {r}: "
               f"{job['launches']['topk_claim_max']} dispatches, the main "
               f"run {dispatches}")
+        check(job["launches"]["sim_row_moments"]
+              == job["launches"]["stjoin_sim_fused"],
+              f"resilient distributed resume rank {r}: K16 not once a "
+              f"similarity pass ({job['launches']})")
         rr = job["res"]
         check(rr.resumed_from == 3 and rr.widen_count == dispatches - 1,
               f"resilient distributed resume rank {r}: resumed_from="
@@ -3020,7 +3066,7 @@ def phase_resilient_distributed(report, card: str, mono: dict):
                    " vs a straight run at P = 1")
     want = {"chunk_time_bounds", "stjoin_best_match", "stjoin_vote_fused",
             "stjoin_sim_fused", "jaccard_window", "round_scan", "claim_max",
-            "topk_round_scan", "topk_claim_max"}
+            "sim_row_moments", "topk_round_scan", "topk_claim_max"}
     for r, res in enumerate(ranks):
         got = {c["name"] for j in ("resume", "mat", "rb")
                for c in res[j]["checks"]}
@@ -3383,6 +3429,31 @@ def launch_floor_ms() -> float:
     return graph_ms(lambda: torch.cuda._sleep(0))
 
 
+def k16_check(sim, valid, name: str, report) -> dict:
+    """K16 (the row moments of alpha) on one run's ``[S, S]`` matrix:
+    bitwise its plain tree, timed (CUDA events) beside the plain version
+    and its bound, one read of the valid rows (an invalid row is not
+    read)."""
+    from repro_torch.kernels.cluster.ops import sim_row_moments
+    from repro_torch.kernels.cluster.ref import sim_row_moments_ref
+    got = sim_row_moments(sim, valid, valid)
+    want = sim_row_moments_ref(sim, valid, valid)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{name}: K16 not bitwise the plain tree")
+    ms = time_ms(lambda: sim_row_moments(sim, valid, valid), reps=20)
+    plain = time_ms(lambda: sim_row_moments_ref(sim, valid, valid), reps=3)
+    rows = int(valid.sum())
+    b, by = bound_ms(rows * sim.shape[1] * sim.element_size())
+    row = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+               valid_rows=rows, positive=int(got[0].sum()))
+    log(f"  K16 ({name}, [{sim.shape[0]}, {sim.shape[1]}], {rows} valid "
+        f"rows): bitwise the plain tree; kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, bound {b:.4f} ms ({by}, {b / ms:.1%} of it); "
+        f"{row['positive']} positive entries")
+    report[f"k16 {name}"] = row
+    return row
+
+
 def k6_check(sim, rank, rep, valid, alpha, name: str, report) -> dict:
     """K6 on one instance: bit for bit its plain twin
     (``cluster_assign_ref``), timed per call through the wrapper (CUDA
@@ -3535,6 +3606,9 @@ def phase_kernels(batch, params, out, launches, rows, states, report):
     kernel_row(rows, "round_scan", launches, 0.0, per[0]["ms"], plain,
                bound_ms(k5_bytes(S, per[0]["active"])), lib)
     log(f"  K5 row: round 0, {per[0]['active']} active rows of {S}")
+
+    # ---- K16, the row moments of alpha, on the run's matrix -------------
+    k16_check(sim, table.valid, "dsc_brest materialize", report)
 
     # ---- K6 on the final representatives, then on half the rows ---------
     k6 = k6_check(sim, rank, out.result.is_rep, table.valid, alpha,
@@ -5835,6 +5909,7 @@ def main(argv=None) -> int:
     del sis_rounds
     k6_check(sout.sim, srank, sout.result.is_rep, sout.table.valid,
              sout.result.alpha_used, "dsc_sis fused, final reps", report)
+    k16_check(sout.sim, sout.table.valid, "dsc_sis fused", report)
     dense_labels = [getattr(sout.result, f).cpu() for f in LABELS]
     sub, sres = sout.seg.sub_local, sout.result
     del sout

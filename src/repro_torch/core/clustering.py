@@ -64,12 +64,16 @@ def resolve_thresholds_from_moments(params: DSCParams, moments,
 
 
 def resolve_thresholds(params: DSCParams, sim: torch.Tensor,
-                       table: SubtrajTable, moments=None):
+                       table: SubtrajTable, moments=None, *,
+                       use_kernel: bool = False):
     """Absolute (alpha, k) from a dense similarity matrix.  ``moments``
     (per-row ``(count, sum, sumsq)``) replaces the pass over the matrix:
-    the multi-device program sums them over its column blocks."""
+    the multi-device program sums them over its column blocks.
+    ``use_kernel=True`` takes the pass through the CUDA kernel
+    (``similarity.sim_row_moments``) on CUDA tensors."""
     if moments is None:
-        moments = sim_row_moments(sim, table.valid, table.valid)
+        moments = sim_row_moments(sim, table.valid, table.valid,
+                                  use_kernel=use_kernel)
     return resolve_thresholds_from_moments(params, moments, table)
 
 
@@ -230,8 +234,9 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
     trip of ``max_rounds`` rounds; ``max_rounds < S`` is refused, since
     fewer than S rounds cannot guarantee convergence.
 
-    ``use_kernel=True`` runs each round's scan and the final claim-max
-    through the CUDA kernels; the plain path builds the alpha-edge
+    ``use_kernel=True`` runs the row moments of the thresholds, each
+    round's scan and the final claim-max through the CUDA kernels; the
+    plain path builds the alpha-edge
     predicate once and reduces each round to two 0/1 vector-matrix
     products (exact: the sums are integers below 2^24).
     ``with_rounds=True`` also returns the number of rounds.  ``moments``
@@ -248,7 +253,8 @@ def cluster_rounds(sim: torch.Tensor, table: SubtrajTable, params: DSCParams,
     _check_max_rounds(max_rounds, table.num_slots)
     bu, bs = _check_tiles(tiles) or (8, 128)
     with span("cluster.thresholds"):
-        alpha, k = resolve_thresholds(params, sim, table, moments=moments)
+        alpha, k = resolve_thresholds(params, sim, table, moments=moments,
+                                      use_kernel=use_kernel)
     order, rank = visit_order(table)
 
     if use_kernel:

@@ -449,7 +449,8 @@ class _DSCProgramBuilder:
             ``model``: both representations feed the same block, so dense
             and top-K resolve the same alpha."""
             cnt, rsum, rsumsq = sim_row_moments(
-                sim_block, part_valid, part_valid[c0s:c0s + S_loc])
+                sim_block, part_valid, part_valid[c0s:c0s + S_loc],
+                use_kernel=self.cluster_use_kernel)
             return (self.psum_model(cnt), self.psum_model(rsum),
                     self.psum_model(rsumsq))
 

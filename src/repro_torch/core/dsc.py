@@ -164,14 +164,15 @@ def _similarity_body(batch, params, join, seg, table, plan: EnginePlan,
         if join is not None:
             return None, similarity.similarity_topk(
                 join, seg, seg.sub_local, table, ms, k=k,
-                panel=plan.sim_panel)
+                panel=plan.sim_panel, use_kernel=plan.cluster_use_kernel)
         Sb = similarity.plan_panel(table.num_slots, plan.sim_panel)
         # operands, slot-map check and chunk time bounds once per dispatch
         sweep = stjoin_ops.sim_panel_sweep(
             batch, batch, seg.sub_local, seg.sub_local, ms, params.eps_sp,
             params.eps_t, params.delta_t, tile_ids=tiles)
         return None, similarity.topk_stream(
-            lambda p0: sweep(p0, panel=Sb), table, k=k, panel=Sb)
+            lambda p0: sweep(p0, panel=Sb), table, k=k, panel=Sb,
+            use_kernel=plan.cluster_use_kernel)
     if join is None:
         raw = stjoin_ops.stjoin_sim_fused(
             batch, batch, seg.sub_local, seg.sub_local, ms, params.eps_sp,

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.types import (JoinResult, SubtrajSegmentation,
                                     SubtrajTable, TopKSim, TrajectoryBatch)
+from repro_torch.kernels.cluster.ref import sim_row_moments_ref
 
 # rows per chunk of the [S, S] row passes
 ROW_CHUNK = 4096
@@ -222,32 +223,18 @@ def similarity_matrix(join: JoinResult, ref_seg: SubtrajSegmentation,
                                            table, max_subs), table)
 
 
-def _row_tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over axis 1 along a fixed pairwise tree (zero-padded to a power
-    of two): the association order depends only on the row length."""
-    n = x.shape[1]
-    p = 1 << max(n - 1, 0).bit_length()
-    x = torch.nn.functional.pad(x, (0, p - n))
-    while x.shape[1] > 1:
-        x = x[:, 0::2] + x[:, 1::2]
-    return x[:, 0]
-
-
 def sim_row_moments(sim_rows: torch.Tensor, row_valid: torch.Tensor,
-                    col_valid: torch.Tensor):
+                    col_valid: torch.Tensor, *, use_kernel: bool = False):
     """Per-row (count, sum, sum-of-squares) of the positive entries: the
-    sufficient statistics of alpha.  Strictly row-wise along the fixed
-    tree, so row chunks give bit-identical per-row results."""
-    out = ([], [], [])
-    for r0 in range(0, sim_rows.shape[0], ROW_CHUNK):
-        r = slice(r0, r0 + ROW_CHUNK)
-        pos = ((sim_rows[r] > 0.0) & row_valid[r, None]
-               & col_valid[None, :])
-        x = torch.where(pos, sim_rows[r], 0.0)
-        out[0].append(_row_tree_sum(pos.to(torch.int32)))
-        out[1].append(_row_tree_sum(x))
-        out[2].append(_row_tree_sum(x * x))
-    return tuple(torch.cat(o) for o in out)
+    sufficient statistics of alpha.  Strictly row-wise along a fixed
+    pairwise tree (``kernels.cluster.ref.sim_row_moments_ref``), so row
+    panels give bit-identical per-row results.  ``use_kernel=True`` runs
+    it through the CUDA kernel (``kernels.cluster.ops.sim_row_moments``,
+    bitwise the tree) on CUDA tensors."""
+    if use_kernel:
+        from repro_torch.kernels.cluster.ops import sim_row_moments as k16
+        return k16(sim_rows, row_valid, col_valid)
+    return sim_row_moments_ref(sim_rows, row_valid, col_valid)
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +330,8 @@ def topk_reduce_rows(sim_rows: torch.Tensor, k: int):
 
 def topk_stream(panel_raw_fn, table: SubtrajTable, *, k: int,
                 panel: int | None = None,
-                active: torch.Tensor | None = None) -> TopKSim:
+                active: torch.Tensor | None = None,
+                use_kernel: bool = False) -> TopKSim:
     """Drive the panel sweep: raw orientations -> finalize -> top-K.
 
     ``panel_raw_fn(p0)`` returns the two raw orientations ``(fwd [Sb, S],
@@ -353,7 +341,8 @@ def topk_stream(panel_raw_fn, table: SubtrajTable, *, k: int,
     (``kernels.stjoin.ops.stjoin_sim_panel_fused``, K7).  A Python loop
     over the panels writes each panel's ``[Sb, K]`` reduction into the
     ``[S, K]`` lists; only one panel's slabs are live at a time.
-    ``active`` masks rows and columns as in ``finalize_sim_panel``.
+    ``active`` masks rows and columns as in ``finalize_sim_panel``;
+    ``use_kernel`` as in ``sim_row_moments``.
     """
     S = table.num_slots
     k = min(k, S)
@@ -370,7 +359,7 @@ def topk_stream(panel_raw_fn, table: SubtrajTable, *, k: int,
         sim_rows = finalize_sim_panel(*panel_raw_fn(p0), p0, table,
                                       active=active)
         degree[r], row_sum[r], row_sumsq[r] = sim_row_moments(
-            sim_rows, table.valid[r], table.valid)
+            sim_rows, table.valid[r], table.valid, use_kernel=use_kernel)
         ids[r], sims[r], spill[r] = topk_reduce_rows(sim_rows, k)
         del sim_rows
     return TopKSim(ids=ids, sims=sims, spill=spill, degree=degree,
@@ -408,16 +397,17 @@ def _cube_panel_raw(best_w: torch.Tensor, best_idx: torch.Tensor,
 def similarity_topk(join: JoinResult, ref_seg: SubtrajSegmentation,
                     cand_seg_sub_local: torch.Tensor, table: SubtrajTable,
                     max_subs: int, *, k: int,
-                    panel: int | None = None) -> TopKSim:
+                    panel: int | None = None,
+                    use_kernel: bool = False) -> TopKSim:
     """Sparse SP relation from a materialized join: the panel-streamed
     counterpart of ``similarity_matrix`` (same cells, bit for bit), with
-    no ``[S, S]`` tensor."""
+    no ``[S, S]`` tensor (``use_kernel`` as in ``topk_stream``)."""
     S = table.num_slots
     Sb = plan_panel(S, panel)
     fn = _cube_panel_raw(
         join.best_w, join.best_idx, slot_ids(ref_seg.sub_local, max_subs, S),
         slot_ids(cand_seg_sub_local, max_subs, S), S, Sb)
-    return topk_stream(fn, table, k=k, panel=Sb)
+    return topk_stream(fn, table, k=k, panel=Sb, use_kernel=use_kernel)
 
 
 def topk_from_dense(sim: torch.Tensor, table: SubtrajTable, k: int,

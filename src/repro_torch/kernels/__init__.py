@@ -8,7 +8,8 @@ Each kernel package mirrors ``repro.kernels``:
            JAX package against
 
 The kernels live in ``csrc/``: ``dsc_kernels.cu`` (the DSC pipeline,
-K1-K13, and the chunk time bounds their sweep reads),
+K1-K13, the chunk time bounds their sweep reads and the row moments of
+alpha, K16),
 ``lcss_kernels.cu`` (K14) and ``attention_kernels.cu`` (K15),
 each a translation unit with a plain C interface.  At first use each is
 compiled by its own ``nvcc`` for ``sm_90a`` (all started together) and the
@@ -52,7 +53,8 @@ LAUNCHES = {"stjoin_best_match": 0, "stjoin_vote_fused": 0,
             "stjoin_best_match_pruned": 0, "stjoin_vote_fused_pruned": 0,
             "stjoin_sim_fused_pruned": 0,
             "stjoin_sim_panel_fused_pruned": 0, "lcss_wavefront": 0,
-            "flash_attention_fwd": 0, "chunk_time_bounds": 0}
+            "flash_attention_fwd": 0, "chunk_time_bounds": 0,
+            "sim_row_moments": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,6 +86,10 @@ _SIGNATURES = {
                                 + [_P, _P, _P],
     # t, ok; R, N, chunk; lo, hi; stream
     "chunk_time_bounds": [_P, _P, ctypes.c_longlong, _I, _I, _P, _P, _P],
+    # sim, its row stride; row_valid, col_valid; R, N; count, sum, sumsq;
+    # stream
+    "sim_row_moments": [_P, ctypes.c_longlong, _P, _P, _I, _I, _P, _P, _P,
+                        _P],
     # the K2 operands up to W; tile_ids, K; stream
     "stjoin_vote_fused_pruned": [_P] * 10 + [_I] * 4
                                 + [ctypes.c_float] * 3 + [_P] * 3

@@ -2,10 +2,12 @@
 of ``repro.kernels.cluster.ops``).
 
 Callers pass natural ``[S]``, ``[S, S]`` or ``[S, K]`` operands.  CUDA
-tensors launch ``round_scan`` / ``claim_max`` (dense matrix) and
-``topk_round_scan`` / ``topk_claim_max`` (neighbor lists) from
-``csrc/dsc_kernels.cu``, which take any ``S`` and ``K`` with no tiles and
-no padding; CPU tensors take the plain versions in ``ref.py``.  ``alpha``
+tensors launch ``round_scan`` / ``claim_max`` (dense matrix),
+``topk_round_scan`` / ``topk_claim_max`` (neighbor lists) and
+``sim_row_moments`` (the row moments of alpha, on a matrix or a block of
+its rows or columns) from ``csrc/dsc_kernels.cu``, which take any ``S``
+and ``K`` with no tiles and no padding; CPU tensors take the plain
+versions in ``ref.py``.  ``alpha``
 may be a Python float, a CPU tensor or a tensor on the operands' card:
 the kernels read a card tensor there (no host sync, so a call can be
 captured in a CUDA graph), anything else as a float32 value.
@@ -28,6 +30,7 @@ from repro_torch.kernels import (check_cuda_operands, check_tile_knobs,
                                  launch, library)
 from repro_torch.kernels.cluster.ref import (cluster_assign_ref,
                                              round_scan_ref,
+                                             sim_row_moments_ref,
                                              topk_claim_max_ref,
                                              topk_round_scan_ref)
 
@@ -102,6 +105,36 @@ def cluster_assign(sim, rank, is_rep, valid, alpha, *, bu: int = 8,
            *_alpha_args(alpha, dev), S, scratch.data_ptr(), n,
            best_w.data_ptr(), best_slot.data_ptr(), device=dev)
     return best_w, best_slot
+
+
+def sim_row_moments(sim_rows, row_valid, col_valid):
+    """(count [R], sum [R], sum of squares [R]) — the row moments of alpha
+    (``sim_row_moments_ref``), bitwise its tree: K16, one launch over all
+    rows, which replaces no Pallas kernel (the reference's moments are
+    plain jnp).  ``sim_rows`` may be a strided view whose columns are
+    adjacent (a column block of a wider matrix)."""
+    if not sim_rows.is_cuda:
+        return sim_row_moments_ref(sim_rows, row_valid, col_valid)
+    R, N = sim_rows.shape
+    dev = check_cuda_operands("sim_row_moments",
+                              row_valid=(row_valid, torch.bool),
+                              col_valid=(col_valid, torch.bool))
+    if (sim_rows.device != dev or sim_rows.dtype != torch.float32
+            or (N > 1 and sim_rows.stride(1) != 1)
+            or row_valid.shape != (R,) or col_valid.shape != (N,)):
+        raise ValueError(
+            f"sim_row_moments: sim_rows {sim_rows.dtype} "
+            f"{tuple(sim_rows.shape)} strides {sim_rows.stride()} on "
+            f"{sim_rows.device} must be float32 [R, N] with adjacent "
+            f"columns on {dev}, row_valid [R], col_valid [N]; got "
+            f"{tuple(row_valid.shape)}, {tuple(col_valid.shape)}")
+    cnt = torch.empty((R,), dtype=torch.int32, device=dev)
+    rsum = torch.empty((R,), dtype=torch.float32, device=dev)
+    rsumsq = torch.empty((R,), dtype=torch.float32, device=dev)
+    launch("sim_row_moments", sim_rows.data_ptr(), sim_rows.stride(0),
+           row_valid.data_ptr(), col_valid.data_ptr(), R, N, cnt.data_ptr(),
+           rsum.data_ptr(), rsumsq.data_ptr(), device=dev)
+    return cnt, rsum, rsumsq
 
 
 def _check_lists(name, ids, sims, rank, **vecs):

@@ -163,6 +163,40 @@ def claim_splits(R: int, n_split: int) -> int:
     return max(1, min(n_split, -(-R // CLAIM_SPLIT_ROWS)))
 
 
+# rows a chunk of the plain moments (bounds their temporaries; the tree is
+# strictly row-wise, so any chunking gives the same bits)
+MOMENT_ROWS = 4096
+
+
+def _row_tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 1 along a fixed pairwise tree (zero-padded to a power
+    of two): the association order depends only on the row length."""
+    n = x.shape[1]
+    p = 1 << max(n - 1, 0).bit_length()
+    x = torch.nn.functional.pad(x, (0, p - n))
+    while x.shape[1] > 1:
+        x = x[:, 0::2] + x[:, 1::2]
+    return x[:, 0]
+
+
+def sim_row_moments_ref(sim_rows, row_valid, col_valid):
+    """Per-row (count, sum, sum-of-squares) of the entries that are
+    positive in a valid row and a valid column: the sufficient statistics
+    of alpha, each summed along ``_row_tree_sum``'s tree (the plain
+    version of K16; the reference computes the same in plain jnp,
+    ``repro.core.similarity.sim_row_moments``)."""
+    out = ([], [], [])
+    for r0 in range(0, sim_rows.shape[0], MOMENT_ROWS):
+        r = slice(r0, r0 + MOMENT_ROWS)
+        pos = ((sim_rows[r] > 0.0) & row_valid[r, None]
+               & col_valid[None, :])
+        x = torch.where(pos, sim_rows[r], 0.0)
+        out[0].append(_row_tree_sum(pos.to(torch.int32)))
+        out[1].append(_row_tree_sum(x))
+        out[2].append(_row_tree_sum(x * x))
+    return tuple(torch.cat(o) for o in out)
+
+
 # Neighbor-list (top-K) variants: row ``s`` of ``ids`` / ``sims`` holds
 # ``s``'s retained edges.  The matrix is max-symmetrized, so ``sim[u, s] ==
 # sim[s, u]`` and ``s``'s own list carries every edge the dense column scan

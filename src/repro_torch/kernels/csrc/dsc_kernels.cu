@@ -26,9 +26,10 @@
 // (C launchers; stjoin_best_match and its pruned twin launch one kernel,
 // as do stjoin_vote_fused and its pruned twin; stjoin_sim_fused the
 // forward blocks of stjoin_sim_panel_fused's kernel, stjoin_sim_fused_pruned
-// those of its pruned twin's.  chunk_time_bounds, which replaces no TPU
-// kernel, builds the chunk time bounds that every join kernel's sweep
-// reads.)
+// those of its pruned twin's.  Two replace no TPU kernel:
+// chunk_time_bounds builds the chunk time bounds that every join kernel's
+// sweep reads, and sim_row_moments the row moments of alpha, which the
+// reference computes in plain jnp.)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
 // (never --use_fast_math).  The arithmetic below also spells out the
@@ -1620,6 +1621,156 @@ topk_claim_max_kernel(const int* __restrict__ ids,
   }
 }
 
+// ---------------------------------------------------------------------------
+// sim_row_moments: per-row (count, sum, sum of squares) of the positive
+// entries of a [R, N] float32 matrix, the sufficient statistics of alpha.
+//
+// It replaces no Pallas kernel: the reference's core/similarity.py::
+// sim_row_moments is plain jnp, as is the port's plain version
+// (kernels/cluster/ref.py::sim_row_moments_ref).  For each row i and column
+// j < N:
+//   pos = sim[i, j] > 0 && row_valid[i] && col_valid[j]
+//   x   = pos ? sim[i, j] : 0
+// count[i] is the number of pos; sum[i] and sumsq[i] sum x and x * x, each
+// along the plain version's fixed pairwise tree: the row zero-padded to a
+// power of two, then adjacent pairs added level by level.
+//
+// Bound: bytes, one read of the valid rows (at most R * N * 4: 4.29 GB at
+// dsc_brest, 1.28 ms at 3.35 TB/s); col_valid (N bytes) is read again by
+// every row, from L1 / L2.
+//
+// How the design keeps the tree.  The tree is a complete binary tree over
+// aligned power-of-two column blocks, so a schedule keeps its order where
+// every partial it forms is the sum of one aligned block and it only adds
+// the sums of two sibling blocks (IEEE addition is commutative: which
+// sibling comes first does not matter, their grouping does).  Every x is
+// +0 or positive, so a block of padding sums to +0 and adding it changes
+// nothing: columns at or past N read as 0, blocks wholly past N are never
+// formed.  x * x is rounded before it is added (the build's -fmad=false
+// keeps the multiply and the add apart; __fmul_rn / __fadd_rn spell it
+// out).  The count is an integer, summed in any order.  So:
+// * one warp a row, one row a block: a row whose row_valid is false
+//   writes zeros, loads nothing and frees its block at once (a quarter of
+//   the rows are valid at dsc_brest and dsc_sis; there blocks of 8 rows
+//   reached 68% of the bound, blocks of one 82%, PERF.md).  A sweep
+//   covers MOM_SWEEP aligned columns: lane l loads the 4
+//   columns at 128 u + 4 l for u < MOM_UNROLL (16-byte loads, neighbouring
+//   lanes on neighbouring addresses, MOM_UNROLL loads in flight a lane; a
+//   row stride or pointer that is not 16-byte aligned, and the row's last
+//   group, load by scalars) and sums each group as (a + b) + (c + d);
+// * shuffles at lane offsets 1, 2, 4, 8, 16 add sibling blocks of 4, 8,
+//   ..., 64 columns (a butterfly: every lane ends with its 128-column
+//   block's sum), then (b0 + b1) + (b2 + b3) is the sweep's block;
+// * successive sweeps are blocks of one size, joined by a binary counter:
+//   lane L holds the pending left block of 2^L sweeps, sweep k is added
+//   to the pending blocks of k's trailing one bits, lowest first, and
+//   waits at the level of k's lowest zero bit; after the last sweep the
+//   pending blocks are joined from the lowest level up, each the left
+//   sibling of everything after it (whose right part is padding).
+// No atomics and no order that depends on scheduling: the order follows
+// N alone (tests/test_torch_cluster_scan.py mirrors it on the CPU).
+// ---------------------------------------------------------------------------
+constexpr int MOM_UNROLL = 4;                 // 128-column groups a sweep
+constexpr int MOM_SWEEP = 128 * MOM_UNROLL;
+static_assert(MOM_UNROLL == 4, "a sweep's groups join as (0 + 1) + (2 + 3)");
+
+// Columns c0 .. c0 + 3 of one row and their col_valid bytes; a column at
+// or past N reads as 0.
+template <bool VEC>
+__device__ __forceinline__ void mom_load(const float* __restrict__ row,
+                                         const uint8_t* __restrict__ cv,
+                                         int c0, int N, float4& v,
+                                         uchar4& m) {
+  if (VEC && c0 + 4 <= N) {
+    v = __ldg(reinterpret_cast<const float4*>(row + c0));
+    m = __ldg(reinterpret_cast<const uchar4*>(cv + c0));
+    return;
+  }
+  v = make_float4(0.f, 0.f, 0.f, 0.f);
+  m = make_uchar4(0, 0, 0, 0);
+  if (c0 < N) { v.x = __ldg(row + c0); m.x = __ldg(cv + c0); }
+  if (c0 + 1 < N) { v.y = __ldg(row + c0 + 1); m.y = __ldg(cv + c0 + 1); }
+  if (c0 + 2 < N) { v.z = __ldg(row + c0 + 2); m.z = __ldg(cv + c0 + 2); }
+  if (c0 + 3 < N) { v.w = __ldg(row + c0 + 3); m.w = __ldg(cv + c0 + 3); }
+}
+
+// One group of 4 aligned columns: adds its positive count to cnt and
+// returns the group's (sum, sum of squares) in tree order.
+__device__ __forceinline__ float2 mom_group(float4 v, uchar4 m, int& cnt) {
+  const float a[4] = {v.x, v.y, v.z, v.w};
+  const bool ok[4] = {m.x != 0, m.y != 0, m.z != 0, m.w != 0};
+  float x[4], xx[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const bool pos = a[q] > 0.f && ok[q];
+    x[q] = pos ? a[q] : 0.f;
+    xx[q] = __fmul_rn(x[q], x[q]);
+    cnt += pos;
+  }
+  return make_float2(__fadd_rn(__fadd_rn(x[0], x[1]), __fadd_rn(x[2], x[3])),
+                     __fadd_rn(__fadd_rn(xx[0], xx[1]),
+                               __fadd_rn(xx[2], xx[3])));
+}
+
+// Left + right for both sums (the pair is (sum, sum of squares)).
+__device__ __forceinline__ float2 mom_add(float2 l, float2 r) {
+  return make_float2(__fadd_rn(l.x, r.x), __fadd_rn(l.y, r.y));
+}
+
+__device__ __forceinline__ float2 mom_shfl(float2 v, int lane) {
+  return make_float2(__shfl_sync(0xffffffffu, v.x, lane),
+                     __shfl_sync(0xffffffffu, v.y, lane));
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(32)
+sim_row_moments_kernel(const float* __restrict__ sim, long long ld,
+                       const uint8_t* __restrict__ row_valid,
+                       const uint8_t* __restrict__ col_valid, int N,
+                       int* __restrict__ count, float* __restrict__ sum,
+                       float* __restrict__ sumsq) {
+  const int lane = threadIdx.x;
+  const int r = blockIdx.x;
+  int cnt = 0;
+  float2 total = make_float2(0.f, 0.f);
+  if (row_valid[r]) {
+    const float* row = sim + (size_t)r * ld;
+    const int n_sweeps = (N + MOM_SWEEP - 1) / MOM_SWEEP;
+    float2 pending = make_float2(0.f, 0.f);    // lane L: level L's block
+    for (int k = 0; k < n_sweeps; ++k) {
+      const int c0 = k * MOM_SWEEP + 4 * lane;
+      float4 v[MOM_UNROLL];
+      uchar4 m[MOM_UNROLL];
+#pragma unroll
+      for (int u = 0; u < MOM_UNROLL; ++u)
+        mom_load<VEC>(row, col_valid, c0 + 128 * u, N, v[u], m[u]);
+      float2 b[MOM_UNROLL];
+#pragma unroll
+      for (int u = 0; u < MOM_UNROLL; ++u) {
+        b[u] = mom_group(v[u], m[u], cnt);
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1)
+          b[u] = mom_add(b[u], make_float2(
+              __shfl_xor_sync(0xffffffffu, b[u].x, off),
+              __shfl_xor_sync(0xffffffffu, b[u].y, off)));
+      }
+      float2 block = mom_add(mom_add(b[0], b[1]), mom_add(b[2], b[3]));
+      const int t = __ffs(~k) - 1;               // k's trailing one bits
+      for (int L = 0; L < t; ++L)
+        block = mom_add(mom_shfl(pending, L), block);
+      if (lane == t) pending = block;
+    }
+    for (int L = 0; L < 31; ++L)
+      if ((n_sweeps >> L) & 1) total = mom_add(mom_shfl(pending, L), total);
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+  }
+  if (lane == 0) {
+    count[r] = cnt;
+    sum[r] = total.x;
+    sumsq[r] = total.y;
+  }
+}
+
 int rows_per_split(int S, int n_split) {
   return (S + n_split - 1) / n_split;
 }
@@ -2117,6 +2268,26 @@ int topk_round_scan(const int* ids, const float* sims, const int* rank,
     topk_round_scan_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
         ids, sims, rank, unresolved, is_rep, alpha_p, alpha_v, S, K, blocked,
         claimed);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The row stride ld is in floats (any ld >= N: a column block of a wider
+// matrix needs no copy); 16-byte loads where ld, sim and col_valid allow.
+int sim_row_moments(const float* sim, long long ld, const uint8_t* row_valid,
+                    const uint8_t* col_valid, int R, int N, int* count,
+                    float* sum, float* sumsq, cudaStream_t stream) {
+  if (R > 0) {
+    const bool vec = ld % 4 == 0
+                     && (reinterpret_cast<uintptr_t>(sim) & 15) == 0
+                     && (reinterpret_cast<uintptr_t>(col_valid) & 3) == 0;
+    if (vec) {
+      sim_row_moments_kernel<true><<<(unsigned)R, 32, 0, stream>>>(
+          sim, ld, row_valid, col_valid, N, count, sum, sumsq);
+    } else {
+      sim_row_moments_kernel<false><<<(unsigned)R, 32, 0, stream>>>(
+          sim, ld, row_valid, col_valid, N, count, sum, sumsq);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -485,7 +485,8 @@ def tune_sim_panel(src, dst, w, table, params,
         def fn(src, dst, w):
             return topk_stream(
                 contribution_panel_raw(src, dst, w, S, plan.sim_panel),
-                table, k=K, panel=plan.sim_panel)
+                table, k=K, panel=plan.sim_panel,
+                use_kernel=plan.cluster_use_kernel)
         return measure_call(fn, (src, dst, w), iters=iters, device=dev)
 
     def verify(topk, plan):

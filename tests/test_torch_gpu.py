@@ -14,6 +14,7 @@ from repro_torch import kernels
 from repro_torch.core import segmentation as tseg
 from repro_torch.core.dsc import run_dsc
 from repro_torch.core.plan import EnginePlan
+from repro_torch.core.clustering import cluster_rounds, cluster_rounds_topk
 from repro_torch.core.similarity import (plan_panel, slot_ids,
                                          topk_from_dense, topk_reduce_rows)
 from repro_torch.core.types import DSCParams, TrajectoryBatch
@@ -21,12 +22,14 @@ from repro_torch.data.synthetic import (ais_like, default_dsc_params_for,
                                         figure1_scenario)
 from repro_torch.kernels.cluster.ops import (cluster_assign,
                                              cluster_round_scan,
+                                             sim_row_moments,
                                              topk_cluster_assign,
                                              topk_cluster_round_scan)
 from repro_torch.kernels.cluster.ref import (claim_max_schedule_ref,
                                              claim_splits,
                                              cluster_assign_ref,
                                              round_scan_ref,
+                                             sim_row_moments_ref,
                                              topk_claim_max_schedule_ref)
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import (flash_attention_ref,
@@ -47,8 +50,9 @@ from repro_torch.kernels.stjoin.ref import (stjoin_pruned_ref, stjoin_ref,
 pytestmark = pytest.mark.gpu
 
 # the kernels each path of the kernel plan launches, and no other (every
-# path's join reads the chunk time bounds)
-PATH_KERNELS = {path: {"chunk_time_bounds", *names} for path, names in {
+# path's join reads the chunk time bounds, its thresholds the row moments)
+PATH_KERNELS = {path: {"chunk_time_bounds", "sim_row_moments", *names}
+                for path, names in {
     "materialize": {"stjoin_best_match", "jaccard_window", "round_scan",
                     "claim_max"},
     "fused": {"stjoin_vote_fused", "jaccard_window", "stjoin_sim_fused",
@@ -879,6 +883,7 @@ def test_run_dsc_topk_kernel_plan(cuda):
     assert {k for k, v in n.items() if v > 0} == PATH_KERNELS["fused_topk"]
     S = out.table.num_slots
     assert n["stjoin_sim_panel_fused"] == out.dispatches * S // plan_panel(S)
+    assert n["sim_row_moments"] == n["stjoin_sim_panel_fused"]
     assert n["topk_round_scan"] == out.rounds
     assert n["topk_claim_max"] == out.dispatches
     assert n["stjoin_vote_fused"] == n["jaccard_window"] == 1
@@ -888,6 +893,116 @@ def test_run_dsc_topk_kernel_plan(cuda):
     want = topk_from_dense(dense.sim, dense.table, out.sim_topk.k)
     for f in ("ids", "sims", "spill", "degree", "row_sum", "row_sumsq"):
         assert torch.equal(getattr(out.sim_topk, f), getattr(want, f)), f
+
+
+# ---------------------------------------------------------------------------
+# The row moments of alpha (K16, sim_row_moments): bitwise the plain tree.
+# ---------------------------------------------------------------------------
+
+
+def _moments_case(cuda, R, N, seed, wide=False):
+    """A sparse ``[R, N]`` float32 matrix on the card (about 30% positive
+    entries, exact zeros, 2% negative ones) and row / column masks with
+    about 10% false; ``wide`` spreads the positive values over 1e-15 ..
+    1e15, so that any other grouping of the additions rounds otherwise."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g, device=cuda)
+    vals = u(R, N)
+    if wide:
+        vals = (vals + 0.5) * 10.0 ** torch.randint(
+            -15, 16, (R, N), generator=g, device=cuda).float()
+    sim = torch.where(u(R, N) < 0.3, vals, 0.0)
+    sim = torch.where(u(R, N) < 0.02, -0.5, sim)
+    return sim, u(R) < 0.9, u(N) < 0.9
+
+
+def _moments_bitwise(got, sim, row_valid, col_valid):
+    """``got`` equal to the plain tree's moments on the card and on the
+    CPU, bit for bit."""
+    for d in (sim.device, "cpu"):
+        want = sim_row_moments_ref(sim.to(d), row_valid.to(d),
+                                   col_valid.to(d))
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("N", [1, 7, 128, 4096, 4097, 32768])
+def test_row_moments_match_plain(cuda, N, wide):
+    """K16, one launch a call, bitwise the plain tree at row lengths from 1
+    to dsc_brest's S: on contiguous rows; on the same rows at a row stride
+    that is a multiple of 4 (16-byte loads, the row's last group by
+    scalars where N % 4 != 0); with the column mask one byte off its
+    alignment (scalar loads)."""
+    R = 64 if N <= 4097 else 40
+    sim, rv, cv = _moments_case(cuda, R, N, N + wide, wide)
+    before = kernels.LAUNCHES["sim_row_moments"]
+    got = sim_row_moments(sim, rv, cv)
+    assert kernels.LAUNCHES["sim_row_moments"] == before + 1
+    _moments_bitwise(got, sim, rv, cv)
+    assert int(got[0].sum()) > 0 or not bool(cv.any())
+    assert not bool(got[0][~rv].any())
+    ld = 4 * (N // 4 + 1)
+    buf = torch.full((R, ld), 7.0, device=cuda)
+    buf[:, :N] = sim
+    mask = torch.zeros(N + 1, dtype=torch.bool, device=cuda)
+    mask[1:] = cv
+    for args in ((buf[:, :N], rv, cv), (sim, rv, mask[1:])):
+        again = sim_row_moments(*args)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert kernels.LAUNCHES["sim_row_moments"] == before + 3
+
+
+def test_row_moments_panel_and_column_block(cuda):
+    """The shapes of K16's other callers: a ``[128, S]`` row panel (the
+    top-K sweep) gives the dense call's rows bit for bit; a ``[S, S_loc]``
+    column block of the matrix (the multi-device program's, a strided view
+    with its slice of ``col_valid``) is bitwise the plain tree of its copy,
+    at an aligned and at an odd column offset."""
+    S, Sb = 4096, 128
+    sim, valid, _ = _moments_case(cuda, S, S, 3, wide=True)
+    sim = torch.maximum(sim, sim.T)
+    dense = sim_row_moments(sim, valid, valid)
+    _moments_bitwise(dense, sim, valid, valid)
+    for p0 in (0, 1920, S - Sb):
+        panel = sim_row_moments(sim[p0:p0 + Sb], valid[p0:p0 + Sb], valid)
+        assert all(torch.equal(a, b[p0:p0 + Sb])
+                   for a, b in zip(panel, dense))
+    for c0, S_loc in ((S // 2, S // 2), (1, 1023)):
+        block = sim[:, c0:c0 + S_loc]
+        assert block.stride() == (S, 1)
+        got = sim_row_moments(block, valid, valid[c0:c0 + S_loc])
+        _moments_bitwise(got, block.contiguous(), valid,
+                         valid[c0:c0 + S_loc])
+
+
+def test_rounds_and_topk_rounds_same_alpha(cuda):
+    """``cluster_rounds`` on the dense matrix (K16 over ``[S, S]``) and
+    ``cluster_rounds_topk`` on the panel sweep's lists (K16 a panel)
+    resolve bit-equal alpha on one batch, from bit-equal moments; the
+    plain engine on the card (the plain tree, no launch) resolves the
+    same alpha."""
+    tb, _ = ais_like(n_vessels=48, max_points=64, n_lanes=8, seed=0,
+                     device=cuda)
+    p = DSCParams(eps_sp=15.0, eps_t=120.0, w=8, tau=0.4, alpha_sigma=-1.0,
+                  k_sigma=-1.0, segmentation="tsa2")
+    dense = run_dsc(tb, p, plan=_path_plan("fused"), device=cuda)
+    topk = run_dsc(tb, p, plan=_path_plan("fused_topk"), device=cuda)
+    moments = sim_row_moments(dense.sim, dense.table.valid,
+                              dense.table.valid)
+    for m, f in zip(moments, ("degree", "row_sum", "row_sumsq")):
+        assert torch.equal(m, getattr(topk.sim_topk, f)), f
+    a = cluster_rounds(dense.sim, dense.table, p, use_kernel=True)
+    b = cluster_rounds_topk(topk.sim_topk, topk.table, p, use_kernel=True)
+    assert torch.equal(a.alpha_used.view(torch.int32),
+                       b.alpha_used.view(torch.int32))
+    kernels.reset_launch_counts()
+    c = cluster_rounds(dense.sim, dense.table, p)
+    assert not any(kernels.LAUNCHES.values())
+    assert torch.equal(c.alpha_used.view(torch.int32),
+                       a.alpha_used.view(torch.int32))
+    assert torch.equal(a.alpha_used, dense.result.alpha_used)
+    assert int(moments[0].sum()) > 0
 
 
 # ---------------------------------------------------------------------------
@@ -1458,12 +1573,13 @@ def test_resilient_crash_resume_on_card(cuda, path, tmp_path):
     assert torch.equal(res.output.sscr, want.sscr)
     if path == "fused_topk":
         assert ran == {"chunk_time_bounds", "stjoin_sim_panel_fused",
-                       "topk_round_scan", "topk_claim_max"}
+                       "sim_row_moments", "topk_round_scan",
+                       "topk_claim_max"}
         for f in ("ids", "sims", "spill"):
             assert torch.equal(getattr(res.output.sim_topk, f),
                                getattr(want.sim_topk, f)), f
     else:
-        assert ran == {"round_scan", "claim_max"}
+        assert ran == {"sim_row_moments", "round_scan", "claim_max"}
 
 
 def _stream_case(n=24, M=24, batch_size=96, segmentation="tsa1"):
@@ -1583,10 +1699,11 @@ def test_checkpoint_of_card_tensors(cuda, tmp_path):
 # the kernels each distributed path launches on every rank
 DIST_KERNELS = {
     "fused_topk": {"chunk_time_bounds", "stjoin_vote_fused",
-                   "stjoin_sim_fused", "jaccard_window", "topk_round_scan",
-                   "topk_claim_max"},
+                   "stjoin_sim_fused", "jaccard_window", "sim_row_moments",
+                   "topk_round_scan", "topk_claim_max"},
     "materialize": {"chunk_time_bounds", "stjoin_best_match",
-                    "jaccard_window", "round_scan", "claim_max"},
+                    "jaccard_window", "sim_row_moments", "round_scan",
+                    "claim_max"},
 }
 DIST_LABELS = ("member_of", "member_sim", "is_rep", "is_outlier")
 

@@ -366,8 +366,8 @@ def test_tune_sim_panel_fig1_verifies_and_rejects_one_ulp(fig1_both,
 
     real = ttune.topk_stream
 
-    def planted(panel_raw_fn, table, *, k, panel=None, active=None):
-        out = real(panel_raw_fn, table, k=k, panel=panel, active=active)
+    def planted(panel_raw_fn, table, *, k, panel=None, **kw):
+        out = real(panel_raw_fn, table, k=k, panel=panel, **kw)
         if panel == 64:
             out.sims[0, 0] = torch.nextafter(out.sims[0, 0],
                                              torch.tensor(2.0))
