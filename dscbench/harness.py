@@ -9,7 +9,10 @@ metric is a file of its own, found by name:
 * ``configs/<config>.json``: the deployment (data generator, sizes, the
   parameter rule);
 * ``workloads/<traffic>.json``: the traffic mix (the engine plan, the loop,
-  the slices rotated, warm-up, how many jobs the trace covers);
+  the slices rotated, warm-up, how many jobs the trace covers; optionally
+  ``slice_seeds``, a fixed set of slices that the run's seed does not
+  change: the seed's own slice is then run once after the window and
+  checked);
 * ``plans/<plan>.json``: an ``EnginePlan`` of the program;
 * ``metrics/<metric>.py``: a reader with ``KIND``, ``UNIT`` and
   ``read(run)``, which returns ``None`` where it finds nothing to read.
@@ -24,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import math
 import sys
 import time
 import traceback
@@ -60,10 +64,33 @@ class Cell:
         return int(self.spec.get("chips", 1))
 
 
+def check_traffic(traffic: dict, name: str) -> dict:
+    """A traffic mix with its optional ``slice_seeds`` checked: one int a
+    slice."""
+    n = int(traffic["slices"])
+    seeds = traffic.get("slice_seeds")
+    if seeds is not None and (
+            not isinstance(seeds, list) or len(seeds) != n
+            or not all(type(s) is int for s in seeds)):
+        raise ValueError(f"traffic {name!r}: slice_seeds must be a list of "
+                         f"slices = {n} ints, got {seeds!r}")
+    return traffic
+
+
+def slice_seeds(traffic: dict, seed: int) -> list[int]:
+    """The seed of each slice: the traffic's ``slice_seeds`` where it has
+    them (the run's seed then changes no data), else ``seed + i``."""
+    fixed = traffic.get("slice_seeds")
+    if fixed is not None:
+        return list(fixed)
+    return [seed + i for i in range(int(traffic["slices"]))]
+
+
 def load_cell(name: str, base: Path = HERE) -> Cell:
     """A cell and every file it names (under ``base``)."""
     spec = _load("cells", name, base)
-    traffic = _load("workloads", spec["traffic"], base)
+    traffic = check_traffic(_load("workloads", spec["traffic"], base),
+                            spec["traffic"])
     return Cell(name=name, spec=spec,
                 config=_load("configs", spec["config"], base),
                 traffic=traffic, plan=_load("plans", traffic["plan"], base))
@@ -244,15 +271,46 @@ def power_limit_w() -> float | None:
         return None
 
 
+def _worse(a: dict, b: dict) -> dict:
+    """Each reading's worse of two; NaN where either is NaN or lacks it."""
+    out = {}
+    for k in a.keys() | b.keys():
+        x, y = a.get(k, math.nan), b.get(k, math.nan)
+        out[k] = math.nan if math.isnan(x) or math.isnan(y) else max(x, y)
+    return out
+
+
+def check_seed_slice(cell: Cell, prog: Program, seed: int,
+                     device: torch.device) -> tuple[dict, int | None]:
+    """Under fixed slices, the run's own slice (``make_slice(config,
+    seed)``): one job after the window through the timed path, untimed,
+    its outputs layer by layer and its labels against its reference.
+    Returns ``(readings, the reference's final K)``; a job that fails
+    reads NaN."""
+    sim_mode = cell.plan.get("sim_mode", "dense")
+    k0 = int(cell.plan.get("sim_topk") or 32)
+    sl = generator.make_slice(cell.config, seed)
+    try:
+        labels, out, _ = prog.job(*prog.host(sl), timed=False)
+    except Exception:
+        traceback.print_exc()
+        return {"labels": math.nan}, None
+    ref = pipeline.run(tensors(sl, device), sl.params)
+    values = compare.readings(out, ref, sim_mode, k0)
+    del out
+    values["labels"] = float(compare.label_gaps(labels, ref))
+    return values, (ref.topk_k(k0) if sim_mode != "dense" else None)
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device: torch.device, t0: float, program: Program | None = None
              ) -> tuple[dict, list[str]]:
     """One run of a cell: ``(result, check_lines)``."""
     traffic = cell.traffic
     n_slices = int(traffic["slices"])
+    seeds = slice_seeds(traffic, seed)
     marks = [time.perf_counter()]
-    slices = [generator.make_slice(cell.config, seed + i)
-              for i in range(n_slices)]
+    slices = [generator.make_slice(cell.config, s) for s in seeds]
     marks.append(time.perf_counter())
     prog = program or Program(cell, device)
     hosts = [prog.host(sl) for sl in slices]
@@ -311,8 +369,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     # the check: every slice that a job of the window ran, against its
     # reference; the last job's outputs layer by layer, and every job's
     # labels.  The last job's slice goes first, so that its outputs are
-    # freed before the other references run.
-    values, work = {}, {}
+    # freed before the other references run.  Under fixed slices the
+    # seed's own slice is checked too, so that each seed checks new data.
+    values, work, lists_k, check_k = {}, {}, {}, None
+    sim_mode = cell.plan.get("sim_mode", "dense")
+    k0 = int(cell.plan.get("sim_topk") or 32)
     t1 = time.perf_counter()
     if last_out is not None:
         ck = jobs[-1].slice
@@ -322,15 +383,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                 continue
             ref = pipeline.run(tensors(slices[i], device), slices[i].params)
             if i == ck:
-                values = compare.readings(
-                    last_out, ref, cell.plan.get("sim_mode", "dense"),
-                    int(cell.plan.get("sim_topk") or 32))
+                values = compare.readings(last_out, ref, sim_mode, k0)
                 last_out = None
             gaps += [compare.label_gaps(lab, ref)
                      for lab in labels_by_slice[i]]
             work[i] = (ref.n_pairs, ref.n_best)
+            if sim_mode != "dense":
+                lists_k[i] = ref.topk_k(k0)
             del ref
         values["labels"] = float(max(gaps))
+        if "slice_seeds" in traffic:
+            seen, check_k = check_seed_slice(cell, prog, seed, device)
+            values = _worse(values, seen)
     correct, checks = compare.verdict(values, cell.spec["checks"])
     correct = correct and failed == 0
     ref_s = time.perf_counter() - t1
@@ -367,6 +431,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              f"window {window_s:.3f} s, {len(jobs)} jobs, trace reading "
              f"{trace_s:.3f} s, reference {ref_s:.3f} s ({len(work)} slices,"
              f" layer by layer on slice {jobs[-1].slice if jobs else None})"]
+    for i, sd in enumerate(seeds):
+        walls = [j.wall_ms for j in jobs if j.slice == i]
+        lines.append(
+            f"slice {i}: seed {sd}, {len(walls)} jobs, mean wall "
+            f"{sum(walls) / len(walls) if walls else float('nan'):.3f} ms"
+            + (f", final K {lists_k[i]}" if i in lists_k else ""))
+    if "slice_seeds" in traffic and jobs:
+        lines.append(f"the seed's slice: seed {seed}, checked after the "
+                     "window" + (f", final K {check_k}" if check_k else ""))
     lines += [f"check {n}: {c['value']!r} limit {c['limit']!r}"
               for n, c in checks.items()]
     return result, lines

@@ -50,6 +50,16 @@ def sim_fused(T: int, M: int, S: int, n_pairs: int, n_best: int) -> float:
     return seconds(nbytes, OPS_PER_PAIR * n_pairs + OPS_PER_BEST_SIM * n_best)
 
 
+def sim_panel_topk(T: int, M: int, n_pairs: int, n_best: int) -> float:
+    """K7's least work in one exact similarity pass of a top-K job (every
+    panel of every widen pass): points, trajectory ids and the
+    point-to-slot map in once, and the arithmetic of ``sim_fused``.  Not
+    the ``[S, K]`` lists, which the panel's tail writes after K7, and not
+    the widen passes, which a schedule that needs fewer would not run."""
+    nbytes = T * M * (POINT_BYTES + 4) + T * 4
+    return seconds(nbytes, OPS_PER_PAIR * n_pairs + OPS_PER_BEST_SIM * n_best)
+
+
 def share(run, kernel: str, bound) -> float | None:
     """A kernel's share of its roofline over the traced jobs, in %: the
     bounds of the jobs it ran in over its device time.  ``bound(slice
@@ -60,5 +70,18 @@ def share(run, kernel: str, bound) -> float | None:
         return None
     secs = run.trace.kernel_seconds(kernel)
     if not secs or len(secs) != len(run.traced):
+        return None
+    return 100.0 * sum(bound(j.slice) for j in run.traced) / sum(secs)
+
+
+def share_summed(run, kernel: str, bound) -> float | None:
+    """A kernel that a job launches many times against its roofline over
+    the traced jobs, in %: the sum of the traced jobs' bounds (``bound(slice
+    index)``, one job's) over the device time of every launch in the
+    trace.  ``None`` without a trace or without launches."""
+    if run.trace is None or not run.traced:
+        return None
+    secs = run.trace.kernel_seconds(kernel)
+    if not secs:
         return None
     return 100.0 * sum(bound(j.slice) for j in run.traced) / sum(secs)

@@ -26,25 +26,7 @@ def tiny(cell, n_trajs=96, max_points=64, w=6):
     return cell
 
 
-# the top-K comparison (no top-K cell yet: PERF.md, Open questions): the
-# dense cell's files under the top-K plan from K = 32, and these checks
-TOPK_CHECKS = {"vote": 1e-05, "tsa2_d": 1e-06, "segments": 0, "topk_k": 0,
-               "topk_lists": 0, "thresholds": 1e-05, "labels": 0}
-
-
-def load(name):
-    """A cell by name; ``brest.topk`` is ``brest.dense`` under the fused
-    top-K plan."""
-    from dscbench import harness
-    if name != "brest.topk":
-        return harness.load_cell(name)
-    cell = harness.load_cell("brest.dense")
-    cell.spec = dict(cell.spec, checks=TOPK_CHECKS,
-                     end_to_end=["job_ms", "peak_gb", "setup_s"])
-    cell.plan = dict(cell.plan, sim_mode="topk", sim_topk=32)
-    return cell
-
-
 @pytest.fixture
 def tiny_cell():
-    return lambda name: tiny(load(name))
+    from dscbench import harness
+    return lambda name: tiny(harness.load_cell(name))

@@ -35,6 +35,8 @@ def test_control_fails(tiny_cell, name):
     ok, _ = compare.verdict(vals, cell.spec["checks"])
     assert not ok
     assert vals["labels"] > 0 and vals["vote"] > 1e-3
+    if cell.plan["sim_mode"] == "topk":
+        assert vals["topk_lists"] > 0
 
 
 class Unchanged(harness.Program):
@@ -117,6 +119,35 @@ def test_faults_come_out_not_correct(tiny_cell, fault):
     assert res["correct"] is (fault is None), res["checks"]
     assert [ln.split(":")[0] for ln in lines[-len(cell.spec["checks"]):]] == \
         [f"check {n}" for n in cell.spec["checks"]]
+
+
+class NaNList(harness.Program):
+    """A NaN in a padding slot's top-K list, where the value is 0: no
+    threshold, cut or label moves."""
+
+    def run(self, batch, params, stage_times):
+        out = super().run(batch, params, stage_times)
+        lists = out.sim_topk
+        row = torch.nonzero(lists.ids[:, -1] < 0)[0, 0]
+        lists.sims[row, -1] = float("nan")
+        return out
+
+
+@pytest.mark.parametrize("fault", [None, Unchanged, HalfBatch, Altered,
+                                   NaNList, NaNScore])
+def test_topk_faults_come_out_not_correct(tiny_cell, fault):
+    """The same on the top-K cell: two fixed slices, two jobs in the
+    window, and the seed's own slice after it."""
+    cell = tiny_cell("brest.topk")
+    cell.traffic = dict(cell.traffic, slices=2, slice_seeds=[0, 1],
+                        loop="open", rate_per_s=4.0)
+    dev = torch.device("cpu")
+    prog = (fault or harness.Program)(cell, dev)
+    res, _ = harness.run_cell(cell, SEED, 0.5, False, dev,
+                              time.perf_counter(), program=prog)
+    assert res["correct"] is (fault is None), res["checks"]
+    assert res["attempted"] == 2
+    assert set(res["checks"]) >= {"topk_k", "topk_lists"}
 
 
 class AlteredOnce(Altered):

@@ -69,6 +69,24 @@ def test_cells_resolve_their_files_by_name():
     assert sorted(w["name"] for w in m["workloads"]) == harness.cell_names()
 
 
+TRAFFIC_KEYS = {"plan", "loop", "rate_per_s", "slices", "slice_seeds",
+                "warmup_jobs_per_slice", "trace_jobs", "why"}
+
+
+def test_traffic_files_and_their_keys():
+    """Every traffic file loads through the check and holds only known
+    keys; fixed slices are one seed a slice."""
+    for path in sorted((ROOT / "dscbench" / "workloads").glob("*.json")):
+        traffic = harness.check_traffic(json.loads(path.read_text()),
+                                        path.stem)
+        assert set(traffic) <= TRAFFIC_KEYS, path
+        if "slice_seeds" in traffic:
+            assert len(traffic["slice_seeds"]) == traffic["slices"]
+    for w in manifest()["workloads"]:
+        traffic = harness.load_cell(w["name"]).traffic
+        assert set(traffic) <= TRAFFIC_KEYS, w["name"]
+
+
 def test_metrics_have_readers_and_cells_report_them():
     m = manifest()
     readers = harness.metric_readers()
@@ -78,11 +96,14 @@ def test_metrics_have_readers_and_cells_report_them():
     for x in m["per_layer"]:
         assert readers[x["name"]].KIND == "per_layer"
         assert readers[x["name"]].UNIT == x["unit"]
+    cells = {w["name"] for w in m["workloads"]}
     for w in m["workloads"]:
         cell = harness.load_cell(w["name"])
         for x in m["end_to_end"]:
             if w["name"] in x.get("workloads", [w["name"]]):
                 assert x["name"] in cell.spec["end_to_end"]
+    for x in m["end_to_end"] + m["per_layer"]:
+        assert set(x.get("workloads", [])) <= cells, x["name"]
 
 
 def test_a_dropped_in_cell_is_found_and_runs(tmp_path):

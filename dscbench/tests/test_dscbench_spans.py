@@ -1,11 +1,12 @@
 """The metrics of the spans inside a stage: a traced run reports each, at
 most its stage's; a program without the spans reports none and still runs."""
+import json
 import time
 
 import pytest
 import torch
 
-from conftest import SEED, tiny
+from conftest import ROOT, SEED, tiny
 
 from dscbench import harness
 
@@ -30,6 +31,8 @@ class Unparted(harness.Program):
 def _traced(name, program=None):
     cell = tiny(harness.load_cell(name))
     cell.traffic = dict(cell.traffic, slices=2)
+    if "slice_seeds" in cell.traffic:
+        cell.traffic["slice_seeds"] = cell.traffic["slice_seeds"][:2]
     dev = torch.device("cpu")
     prog = program(cell, dev) if program else None
     res, _ = harness.run_cell(cell, SEED, 0.5, True, dev,
@@ -55,3 +58,21 @@ def test_program_without_spans_reports_no_part():
     assert res["correct"]
     assert not set(PARTS) & set(res["metrics"])
     assert set(PARTS.values()) <= set(res["metrics"])
+
+
+def test_top_k_cell_lists_what_its_traced_run_reads():
+    """The program's spans and counters that a traced top-K run reports
+    are those whose ``workloads`` in BENCHMARK.json list ``brest.topk``
+    (the device readings need the card)."""
+    res = _traced("brest.topk")
+    assert res["correct"]
+    m = json.loads((ROOT / "BENCHMARK.json").read_text())
+    own = {x["name"]: "brest.topk" in x["workloads"] for x in m["per_layer"]
+           if x["source"] in ("program_span", "program_counter")
+           and x["name"] != "job.transfer_ms"}
+    assert {n for n, listed in own.items() if listed} == \
+        {n for n in own if n in res["metrics"]}
+    parts = [p for p in PARTS if p in res["metrics"]]
+    for part in parts:
+        assert 0.0 <= res["metrics"][part]["value"] <= \
+            res["metrics"][PARTS[part]]["value"], part
